@@ -1,0 +1,100 @@
+"""The port's boundary: it imports neither JAX nor the JAX package, its entry
+points run on the card unless the caller asks for the CPU, and chip_smoke.py
+rehearses its path on the CPU without ever claiming a card run."""
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import jax  # noqa: F401  (the test process has both packages, the subprocesses not)
+import numpy as np
+import pytest
+import torch
+
+REPO = Path(__file__).resolve().parents[1]
+PKG = REPO / "src" / "repro_torch"
+
+
+def _env():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(REPO / "src")
+    return env
+
+
+def test_port_imports_neither_jax_nor_repro():
+    modules = sorted(
+        ".".join(p.relative_to(REPO / "src").with_suffix("").parts).removesuffix(".__init__")
+        for p in PKG.rglob("*.py")
+    )
+    assert "repro_torch.kernels.apnc_embed" in modules
+    code = (
+        "import importlib, sys\n"
+        f"for name in {modules!r}:\n"
+        "    importlib.import_module(name)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'repro' or m.startswith('repro.'))\n"
+        "assert not bad, bad\n"
+        "print('clean', len(sys.modules))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], env=_env(), capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("clean")
+
+
+@pytest.mark.parametrize("entry", ["fit", "predict", "resolve"])
+def test_entry_points_default_to_the_card(entry):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid here")
+    from repro_torch.api import KernelKMeans
+    from repro_torch.device import resolve_device
+
+    X = np.random.default_rng(0).standard_normal((200, 4)).astype(np.float32)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        if entry == "fit":
+            KernelKMeans(3, l=16, m=8).fit(X)
+        elif entry == "predict":
+            model = KernelKMeans(3, l=16, m=8, device="cpu").fit(X).model_
+            model.predict(X[:5])
+        else:
+            resolve_device(None)
+
+
+def test_policy_rejects_what_this_slice_has_not_ported():
+    from repro_torch.policy import ComputePolicy
+
+    with pytest.raises(NotImplementedError, match="bf16"):
+        ComputePolicy(precision="bf16")
+    with pytest.raises(NotImplementedError, match="int8"):
+        ComputePolicy(cache_dtype="int8")
+    with pytest.raises(ValueError):
+        ComputePolicy(precision="f16")
+    with pytest.raises(ValueError):
+        ComputePolicy(sstep=0)
+
+
+def test_chip_smoke_cpu_rehearsal():
+    out = subprocess.run([sys.executable, str(REPO / "chip_smoke.py"), "--cpu-rehearsal"],
+                         cwd=REPO, env=_env(), capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    lines = [json.loads(line) for line in out.stdout.splitlines() if line.startswith("{")]
+    phases = [line.get("phase") for line in lines]
+    assert phases == ["device", "data", "parity", "main", "agreement", "timing", "done"]
+    assert not any(line.get("ok") for line in lines)
+    main = lines[phases.index("main")]
+    assert main["nmi"] > 0.9 and main["launches"] == {"apnc_embed": 0, "apnc_assign": 0}
+
+
+def test_chip_smoke_fails_without_a_card_or_the_repo(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    out = subprocess.run([sys.executable, str(REPO / "chip_smoke.py")], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0 and '"ok"' not in out.stdout
+    alone = tmp_path / "chip_smoke.py"
+    alone.write_text((REPO / "chip_smoke.py").read_text())
+    bare = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, str(alone), "--cpu-rehearsal"], cwd=tmp_path,
+                         env=bare, capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0 and '"ok"' not in out.stdout
