@@ -4,11 +4,14 @@
     python3 chip_smoke.py --cpu-rehearsal    # the same path, tiny, plain versions, CPU
 
 It builds the hand-written kernels from ``src/repro_torch/kernels/csrc``,
-holds each against its plain PyTorch version, drives the main path
-(``KernelKMeans(164, kernel="rbf", method="nystrom", l=500, m=256).fit(X)``
-then ``predict``) at the paper's ImageNet shape (n = 1,262,102, d = 900,
-k = 164) on blobs made from ``--seed``, and times each kernel beside its
-bound, its plain version and a PyTorch library call chain. Every phase prints
+holds each against its plain PyTorch version, and drives the port's paths at
+the paper's ImageNet shape (n = 1,262,102, d = 900, k = 164) on blobs made
+from ``--seed``: the local backend (``KernelKMeans(164, kernel="rbf",
+method="nystrom", l=500, m=256).fit(X)`` then ``predict``), the stream
+backend over a pinned host copy of X in 4,096-row blocks (the same fit
+through the fused Lloyd-step kernel, O(block) on the card), and the rff
+member on both backends. It times each kernel beside its bound, its plain
+version and a PyTorch library call chain. Every phase prints
 one JSON line. The last lines are the kernel table, the card's name and power
 limit, and ``{"ok": true, ...}``; any failure exits non-zero before them.
 Without a card the script exits non-zero, unless ``--cpu-rehearsal`` is given,
@@ -35,8 +38,18 @@ PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 
 # The paper's ImageNet configuration (src/repro/configs/paper_datasets.py).
-IMAGENET = dict(n=1_262_102, d=900, k=164, separation=1.5, l=500, m=256, iters=20)
-REHEARSAL = dict(n=4_000, d=32, k=8, separation=3.0, l=64, m=16, iters=20)
+# parity_assign: (n, k, m) of the assign parity cases; parity_blobs: (n, d,
+# l, m, k) of the fused-step parity cases on blob data.
+IMAGENET = dict(n=1_262_102, d=900, k=164, separation=1.5, l=500, m=256, iters=20,
+                block_rows=4096, rff_m=128,
+                parity_assign=((5003, 67, 70), (20_011, 164, 256)),
+                parity_blobs=((4096, 77, 150, 100, 67), (1003, 130, 70, 64, 9)))
+REHEARSAL = dict(n=4_000, d=32, k=8, separation=3.0, l=64, m=16, iters=20,
+                 block_rows=512, rff_m=16,
+                 parity_assign=((503, 7, 19), (2003, 13, 32)),
+                 parity_blobs=((515, 13, 40, 24, 7), (203, 9, 24, 12, 5)))
+#: Device-memory rise allowed over a stream fit (the data is 4.54 GB).
+STREAM_RISE_LIMIT = 512 << 20
 
 
 def emit(obj) -> None:
@@ -83,8 +96,30 @@ def check_close(what, got, want, rtol, atol) -> float:
 # ----------------------------------------------------------------- phases
 
 
+# Template arguments of the port's kernels, as the Itanium ABI mangles them.
+_TEMPLATE_ARGS = {"ILb0E": "<false>", "ILb1E": "<true>", "IfE": "<float>",
+                  "I13__nv_bfloat16E": "<bf16>"}
+
+
+def entry_name(mangled: str) -> str:
+    """The unqualified name of a mangled kernel entry: the last
+    <length><identifier> of its (nested) name, with its template argument."""
+    i = 3 if mangled.startswith("_ZN") else 2
+    name = mangled
+    while i < len(mangled) and mangled[i].isdigit():
+        j = i
+        while mangled[j].isdigit():
+            j += 1
+        size = int(mangled[i:j])
+        name, i = mangled[j:j + size], j + size
+    for code, text in _TEMPLATE_ARGS.items():
+        if mangled.startswith(code, i):
+            return name + text
+    return name
+
+
 def phase_build() -> dict:
-    from repro_torch.kernels import apnc_assign, apnc_embed, build
+    from repro_torch.kernels import apnc_assign, apnc_embed, build, lloyd_step
 
     t0 = time.perf_counter()
     build.build_all()
@@ -94,8 +129,7 @@ def phase_build() -> dict:
         for line in build.ptxas_report(name).splitlines():
             m = re.search(r"Compiling entry function '(\S+)'", line)
             if m:
-                short = re.search(r"(embed_kernel|assign_kernel|reduce_kernel)\w*?E", m.group(1))
-                fn = dict(source=name, kernel=short.group(0) if short else m.group(1))
+                fn = dict(source=name, kernel=entry_name(m.group(1)))
                 entries.append(fn)
             elif fn is not None:
                 for key, pat in (("registers", r"Used (\d+) registers"),
@@ -112,10 +146,118 @@ def phase_build() -> dict:
                 spilling_kernels=len(spills),
                 dynamic_smem_bytes_main_shape=dict(
                     apnc_embed=apnc_embed.smem_bytes(cfg["m"]),
-                    apnc_assign=apnc_assign.smem_bytes(cfg["m"], cfg["k"])))
+                    apnc_assign=apnc_assign.smem_bytes(cfg["m"], cfg["k"]),
+                    fused_apnc_step=lloyd_step.smem_bytes("apnc", cfg["m"]),
+                    fused_rff_step=lloyd_step.smem_bytes("rff", 2 * cfg["rff_m"])))
 
 
-def phase_parity(X, device) -> dict:
+def blob_block(n, d, k, seed, device):
+    """Separated blobs at unit scale and their classes: with the embedded
+    class means as centroids every row's nearest centroid wins by a wide
+    margin, so a kernel and its plain version must agree on every label."""
+    g = torch.Generator().manual_seed(seed)
+    centers = torch.randn((k, d), generator=g) * 4.0
+    lab = torch.randint(0, k, (n,), generator=g)
+    X = (centers[lab] + torch.randn((n, d), generator=g)) * d ** -0.5
+    return X.to(device), lab.to(device)
+
+
+def class_means(Y, lab, k):
+    lab = lab.long()
+    C = torch.zeros((k, Y.shape[1]), device=Y.device).index_add_(0, lab, Y)
+    return (C / torch.bincount(lab, minlength=k).clamp(min=1).float()[:, None]).contiguous()
+
+
+def check_step(what, run, plain) -> dict:
+    """A fused Lloyd step against its plain version: labels and g equal, Z
+    within rtol 1e-4 and atol 1e-4 * max|Z|, cost within rtol 1e-5, and two
+    runs bitwise equal."""
+    (Z, g, lab, cost), again = run(), run()
+    Zr, gr, lr, cr = plain()
+    if not (torch.equal(lab, lr) and torch.equal(g, gr)):
+        raise AssertionError(f"{what}: labels or g differ ({int((lab != lr).sum())} labels)")
+    if not all(torch.equal(a, b) for a, b in zip((Z, g, lab, cost), again)):
+        raise AssertionError(f"{what}: two runs differ")
+    z_err = check_close(f"{what} Z", Z, Zr, 1e-4, 1e-4 * float(Zr.abs().max()))
+    cost_err = check_close(f"{what} cost", cost, cr, 1e-5, 0.0)
+    return dict(labels_equal=True, g_equal=True, deterministic=True, z_max_abs_err=z_err,
+                z_abs_max=float(Zr.abs().max()), cost_abs_err=cost_err,
+                cost_rel_err=cost_err / abs(float(cr)))
+
+
+def rff_tolerance(X, W, scale) -> float:
+    """The projection X W is a sum of d products taken in another order than
+    the plain GEMM's: its error is a few ulp of sum |x_i w_i|, and cos / sin
+    pass it on with slope <= 1, times the scale."""
+    return 8 * 2.0 ** -24 * X.shape[1] * float((X.abs() @ W.abs()).max()) * scale
+
+
+def parity_fused(X, truth, device, cfg) -> dict:
+    """The three fused / RFF kernels against their plain versions: blob
+    blocks over every kernel function, both APNC members and ragged shapes,
+    then a 4,096-row block and the ragged last block of the main data at the
+    main path's shapes, with the class means of its truth as centroids."""
+    from repro_torch.core.kernels_fn import Kernel, self_tuned_rbf
+    from repro_torch.embed.apnc import fit_nystrom, fit_sd
+    from repro_torch.kernels import lloyd_step, ref, rff_embed
+
+    out = dict(fused_apnc=[], rff_embed=[], fused_rff=[])
+    kernels = (Kernel("rbf", gamma=0.05), Kernel("poly", degree=3, coef0=1.0),
+               Kernel("tanh", scale=0.01, coef0=0.1), Kernel("linear"))
+    for n, d, l, m, k in cfg["parity_blobs"]:
+        Xb, lab = blob_block(n, d, k, 11, device)
+        for kern in kernels:
+            for fit in (fit_nystrom, fit_sd):
+                p = fit(4, Xb, kern, l=l, m=m)
+                L, R = p.landmarks[0].contiguous(), p.R[0].contiguous()
+                C = class_means(ref.apnc_embed_ref(Xb, p.landmarks, p.R, kern), lab, k)
+                res = check_step(
+                    f"fused_apnc_step {kern.name} {p.discrepancy} n={n}",
+                    lambda: lloyd_step.fused_apnc_step(Xb, L, R, C, kern, p.discrepancy),
+                    lambda: ref.fused_apnc_step_ref(Xb, L, R, C, kern, p.discrepancy))
+                out["fused_apnc"].append(dict(kernel=kern.name, disc=p.discrepancy, n=n, d=d,
+                                              l=l, m=m, k=k, **res))
+    # The main path's shapes: a full block and the ragged last block.
+    bn, k = cfg["block_rows"], cfg["k"]
+    rows = torch.cat([X[:bn], X[-(X.shape[0] % bn or bn):]])
+    truth_rows = torch.as_tensor(np.concatenate([truth[:bn], truth[-(X.shape[0] % bn or bn):]]),
+                                 device=device)
+    kern = self_tuned_rbf(rows[:bn])
+    p = fit_nystrom(2, rows[:bn], kern, l=cfg["l"], m=cfg["m"])
+    L, R = p.landmarks[0].contiguous(), p.R[0].contiguous()
+    C = class_means(ref.apnc_embed_ref(rows, p.landmarks, p.R, kern), truth_rows, k)
+    for what, blk in (("block", rows[:bn]), ("last block", rows[bn:])):
+        res = check_step(f"fused_apnc_step main shape, {what}",
+                         lambda: lloyd_step.fused_apnc_step(blk, L, R, C, kern, "l2"),
+                         lambda: ref.fused_apnc_step_ref(blk, L, R, C, kern, "l2"))
+        out["fused_apnc"].append(dict(kernel="rbf", disc="l2", n=blk.shape[0], d=blk.shape[1],
+                                      l=cfg["l"], m=cfg["m"], k=k, main_shape=True, **res))
+
+    # RFF: W ~ N(0, 2 gamma) with the self-tuned gamma, as the member draws it.
+    n, d, _, m, k = cfg["parity_blobs"][1]
+    cases = [(blob_block(n, d, k, 12, device), m + 1, 0.125),
+             ((rows, truth_rows), cfg["rff_m"], kern.gamma)]
+    for (Xb, lab), mh, gamma in cases:
+        g = torch.Generator().manual_seed(13)
+        W = (torch.randn((Xb.shape[1], mh), generator=g) * (2.0 * gamma) ** 0.5).to(device)
+        scale = mh ** -0.5
+        Y, Yr = rff_embed.rff_embed_block(Xb, W, scale), ref.rff_embed_ref(Xb, W, scale)
+        tol = rff_tolerance(Xb, W, scale)
+        err = check_close(f"rff_embed n={Xb.shape[0]}", Y, Yr, 0.0, tol)
+        out["rff_embed"].append(dict(n=Xb.shape[0], d=Xb.shape[1], m_half=mh, max_abs_err=err,
+                                     atol=tol))
+        C = class_means(Yr, lab, int(lab.max()) + 1)
+        blocks = (("block", Xb[:bn]), ("last block", Xb[bn:])) if Xb is rows else (("", Xb),)
+        for what, blk in blocks:
+            res = check_step(f"fused_rff_step n={blk.shape[0]} {what}",
+                             lambda: lloyd_step.fused_rff_step(blk, W, C, scale, "l2"),
+                             lambda: ref.fused_rff_step_ref(blk, W, C, scale, "l2"))
+            out["fused_rff"].append(dict(n=blk.shape[0], d=blk.shape[1], m_half=mh,
+                                         k=C.shape[0], **res))
+    return out
+
+
+def phase_parity(X, truth, device, cfg) -> dict:
     """Each kernel against its plain version on the same inputs."""
     from repro_torch.core.kernels_fn import Kernel, self_tuned_rbf
     from repro_torch.embed.apnc import fit_nystrom
@@ -139,7 +281,6 @@ def phase_parity(X, device) -> dict:
                                      max_abs_err=err, rtol=tol))
     # The main path's shape on a row slice: rbf, l = 500, m = 256, d = 900.
     rows = X[: min(65_536, X.shape[0])]
-    cfg = REHEARSAL if device.type == "cpu" else IMAGENET
     kern = self_tuned_rbf(rows[:4096])
     params = fit_nystrom(2, rows[:4096], kern, l=cfg["l"], m=cfg["m"])
     got, want = ops.apnc_embed(rows, params), ref.apnc_embed_ref(
@@ -147,7 +288,7 @@ def phase_parity(X, device) -> dict:
     err = check_close("embed main shape", got, want, 2e-5, 2e-5 * float(want.abs().max()))
     out["embed"].append(dict(kernel="rbf", q=1, n=rows.shape[0], d=rows.shape[1],
                              l=cfg["l"], m=cfg["m"], max_abs_err=err, rtol=2e-5))
-    for n, k, m in ((5003, 67, 70), (20_011, 164, 256)):
+    for n, k, m in cfg["parity_assign"]:
         Y = torch.randn((n, m), generator=g).to(device)
         C = (torch.randn((k, m), generator=g) * 2).to(device)
         for disc in ("l2", "l1"):
@@ -162,6 +303,7 @@ def phase_parity(X, device) -> dict:
             err = check_close(f"assign Z {disc}", Z, Zr, 1e-4, 1e-4)
             out["assign"].append(dict(disc=disc, n=n, k=k, m=m, labels_equal=True,
                                       g_equal=True, deterministic=True, z_max_abs_err=err))
+    out.update(parity_fused(X, truth, device, cfg))
     sync(device)
     return out
 
@@ -179,8 +321,8 @@ def phase_main(X, truth, Xq, cfg, device, seed) -> tuple[dict, object]:
     apnc_assign.launches = 0
     t0 = time.perf_counter()
     est = KernelKMeans(cfg["k"], kernel="rbf", method="nystrom", l=cfg["l"], m=cfg["m"],
-                       iters=cfg["iters"], backend="local", random_state=seed,
-                       device=device)
+                       iters=cfg["iters"], backend="local", block_rows=cfg["block_rows"],
+                       random_state=seed, device=device)
     est.fit(X)
     t_fit = time.perf_counter() - t0
     t1 = time.perf_counter()
@@ -190,14 +332,10 @@ def phase_main(X, truth, Xq, cfg, device, seed) -> tuple[dict, object]:
     launches = dict(apnc_embed=apnc_embed.launches, apnc_assign=apnc_assign.launches)
     if device.type == "cuda" and not all(launches.values()):
         raise AssertionError(f"the main path skipped a kernel: {launches}")
-    labels = est.labels_
-    if labels.shape != (X.shape[0],) or labels.min() < 0 or labels.max() >= cfg["k"]:
-        raise AssertionError("fit labels out of range")
+    check_labels(est, cfg["k"], X.shape[0])
     if pred.shape != (Xq.shape[0],) or pred.min() < 0 or pred.max() >= cfg["k"]:
         raise AssertionError("predict labels out of range")
-    if not np.isfinite(est.inertia_) or not bool(torch.isfinite(est.model_.centroids).all()):
-        raise AssertionError("non-finite inertia or centroids")
-    score = nmi(labels, truth)
+    score = nmi(est.labels_, truth)
     if score < 0.5:
         raise AssertionError(f"NMI against the truth is {score}")
     return dict(
@@ -273,6 +411,163 @@ def phase_agreement(X, truth, est, cfg, device, rows=200_000) -> dict:
                 step_agreement=step, truth_init=truth_run, kmeanspp_init=pp_run)
 
 
+def pinned_store(X, block_rows):
+    """A BlockStore over a host copy of X: pinned on a card, so every block's
+    copy to the card runs straight from it on the engine's copy stream. (The
+    numpy view keeps the pinned tensor alive.)"""
+    from repro_torch.stream.blockstore import BlockStore
+
+    host = torch.empty(X.shape, dtype=X.dtype, pin_memory=X.device.type == "cuda")
+    host.copy_(X)
+    return BlockStore.from_array(host.numpy(), block_rows)
+
+
+def fit_measured(est, data, device) -> tuple[object, dict]:
+    """Fit with the launch counters and the engine telemetry zeroed just
+    before and read just after; also the device-memory rise over the fit."""
+    from repro_torch.kernels import apnc_assign, apnc_embed, lloyd_step, rff_embed
+    from repro_torch.stream import engine
+
+    sync(device)
+    start = torch.cuda.memory_allocated(device) if device.type == "cuda" else 0
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    apnc_embed.launches = apnc_assign.launches = rff_embed.launches = 0
+    for name in lloyd_step.launches:
+        lloyd_step.launches[name] = 0
+    engine.reset_counters()
+    t0 = time.perf_counter()
+    est.fit(data)
+    sync(device)
+    wall = time.perf_counter() - t0
+    launches = dict(apnc_embed=apnc_embed.launches, apnc_assign=apnc_assign.launches,
+                    rff_embed_block=rff_embed.launches, **lloyd_step.launches)
+    rise = (torch.cuda.max_memory_allocated(device) - start) if device.type == "cuda" else None
+    return est, dict(fit_s=wall, phases_s=est.phases_, launches=launches,
+                     engine=dict(engine.COUNTERS), engine_passes=dict(engine.PASS_COUNTS),
+                     device_memory_rise_bytes=rise)
+
+
+def check_labels(est, k, n) -> None:
+    lab = est.labels_
+    if lab.shape != (n,) or lab.min() < 0 or lab.max() >= k:
+        raise AssertionError("fit labels out of range")
+    if not np.isfinite(est.inertia_) or not bool(torch.isfinite(est.model_.centroids).all()):
+        raise AssertionError("non-finite inertia or centroids")
+
+
+def agreement(a, b) -> dict:
+    return dict(label_agreement=float((a.labels_ == b.labels_).mean()),
+                inertia_rel_diff=abs(a.inertia_ - b.inertia_) / abs(b.inertia_))
+
+
+def phase_stream(X, truth, Xq, store, local_est, cfg, device, seed) -> tuple[dict, object]:
+    """The stream backend at full width: the ImageNet fit over the pinned
+    host store, fused_apnc_step once per block per pass. Gated: launches,
+    device-memory rise, agreement with the local fit (same phase 1, params
+    and init), and at equal centroids one fused pass against the un-fused
+    apnc_embed -> apnc_assign chain on the full data."""
+    from repro_torch.api import KernelKMeans
+    from repro_torch.core.metrics import nmi
+    from repro_torch.kernels import ops
+    from repro_torch.stream import engine
+
+    est = KernelKMeans(cfg["k"], kernel="rbf", method="nystrom", l=cfg["l"], m=cfg["m"],
+                       iters=cfg["iters"], backend="stream", block_rows=cfg["block_rows"],
+                       random_state=seed, device=device)
+    est, info = fit_measured(est, store, device)
+    check_labels(est, cfg["k"], X.shape[0])
+    passes = est.n_iter_ + 1
+    t1 = time.perf_counter()
+    pred = est.predict(Xq)
+    sync(device)
+    t_predict = time.perf_counter() - t1
+    if pred.shape != (Xq.shape[0],) or pred.min() < 0 or pred.max() >= cfg["k"]:
+        raise AssertionError("stream predict labels out of range")
+    vs_local = agreement(est, local_est)
+    same_params = bool(torch.equal(est.model_.params.landmarks, local_est.model_.params.landmarks)
+                       and torch.equal(est.model_.params.R, local_est.model_.params.R))
+
+    # One pass with nothing to compute: the host -> device copy alone.
+    engine.reset_counters()
+    t2 = time.perf_counter()
+    engine.map_reduce(store, lambda b: b[:1, :1], lambda acc, _: acc, None, device=device,
+                      label="copy_only")
+    sync(device)
+    copy_pass_s = time.perf_counter() - t2
+
+    # Equal centroids: the fused pass against the un-fused kernel chain.
+    C = est.model_.centroids.contiguous()
+    params = est.model_.params
+    bn = cfg["block_rows"]
+    lab_f = torch.cat([ops.fused_lloyd_step(X[i:i + bn], params, C)[2]
+                       for i in range(0, X.shape[0], bn)])
+    Y = ops.apnc_embed(X, params)
+    _, _, lab_c = ops.apnc_assign(Y, C, "l2")
+    rows, gap = check_near_ties("fused pass vs apnc_embed -> apnc_assign", Y, C, lab_f, lab_c,
+                                1e-5, 1e-4)
+    del Y
+    pass_profile = profile_stream_pass(store, est, device) if device.type == "cuda" else None
+
+    launches = info["launches"]
+    if device.type == "cuda":
+        need = passes * store.num_blocks
+        if launches["fused_apnc_step"] < need:
+            raise AssertionError(f"fused_apnc_step ran {launches['fused_apnc_step']} times, "
+                                 f"want >= {need}")
+        if info["device_memory_rise_bytes"] >= STREAM_RISE_LIMIT:
+            raise AssertionError(f"the stream fit raised device memory by "
+                                 f"{info['device_memory_rise_bytes']} bytes")
+        if vs_local["label_agreement"] < 0.995 or vs_local["inertia_rel_diff"] > 1e-4:
+            raise AssertionError(f"stream vs local fit: {vs_local}")
+    lloyd_s = est.phases_["lloyd"]
+    return dict(
+        phase="stream", n=X.shape[0], d=X.shape[1], k=cfg["k"], l=cfg["l"], m=cfg["m"],
+        block_rows=bn, num_blocks=store.num_blocks, lloyd_iters=est.n_iter_, passes=passes,
+        inertia=est.inertia_, nmi=nmi(est.labels_, truth), predict_s=t_predict,
+        predict_rows=Xq.shape[0], per_pass_s=lloyd_s / passes,
+        prefetch_stall_s=info["engine"]["prefetch_stall_s"],
+        prefetch_stall_per_pass_s=info["engine"]["prefetch_stall_s"] / passes,
+        bytes_h2d=info["engine"]["bytes_h2d"], copy_only_pass_s=copy_pass_s,
+        copy_only_gb_per_s=X.numel() * 4 / copy_pass_s / 1e9,
+        same_params_as_local=same_params, vs_local=vs_local,
+        fused_vs_chain=dict(label_mismatches=int(rows.numel()), max_rel_gap=gap),
+        pass_profile=pass_profile, data_bytes=X.numel() * 4, **info,
+    ), est
+
+
+def phase_rff(X, truth, store, cfg, device, seed) -> tuple[dict, object]:
+    """The rff member (m = 128 cosine features, 256 columns) at the same n, d
+    and k on the stream backend (fused_rff_step) and the local backend
+    (rff_embed_block + apnc_assign), from the same seed. Gated: both kernels
+    launched, labels in range, stream vs local labels >= 0.995 with inertia
+    within rtol 1e-4. NMI is printed, not gated: the member approximates the
+    kernel."""
+    from repro_torch.api import KernelKMeans
+    from repro_torch.core.metrics import nmi
+
+    kw = dict(kernel="rbf", method="rff", m=cfg["rff_m"], iters=cfg["iters"],
+              block_rows=cfg["block_rows"], random_state=seed, device=device)
+    stream, s_info = fit_measured(KernelKMeans(cfg["k"], backend="stream", **kw), store, device)
+    local, l_info = fit_measured(KernelKMeans(cfg["k"], backend="local", **kw), X, device)
+    for est in (stream, local):
+        check_labels(est, cfg["k"], X.shape[0])
+    vs_local = agreement(stream, local)
+    launches = dict(fused_rff_step=s_info["launches"]["fused_rff_step"],
+                    rff_embed_block=s_info["launches"]["rff_embed_block"]
+                    + l_info["launches"]["rff_embed_block"])
+    if device.type == "cuda":
+        if not all(launches.values()):
+            raise AssertionError(f"the rff path skipped a kernel: {launches}")
+        if vs_local["label_agreement"] < 0.995 or vs_local["inertia_rel_diff"] > 1e-4:
+            raise AssertionError(f"rff stream vs local fit: {vs_local}")
+    return dict(phase="rff", m_half=cfg["rff_m"], m=2 * cfg["rff_m"], launches=launches,
+                vs_local=vs_local, nmi_stream=nmi(stream.labels_, truth),
+                nmi_local=nmi(local.labels_, truth), iters=[stream.n_iter_, local.n_iter_],
+                inertia=[stream.inertia_, local.inertia_],
+                stream=s_info, local=l_info), stream
+
+
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     for _ in range(warmup):
         fn()
@@ -292,37 +587,95 @@ def bound(flops: float, nbytes: float) -> tuple[float, str]:
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def profile_lloyd(Y, k, iters=20) -> dict:
-    """Device busy share of a Lloyd run over the resident Y, from a
-    torch.profiler trace: kernel time on the card over the run's wall time."""
+def device_profile(run) -> dict:
+    """Wall time of ``run()`` (ending in a synchronize) under torch.profiler,
+    the card's kernel time in it (busy share = kernel ms over wall ms), the
+    host -> device copy time on the copy engine, and the top kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.core.lloyd import kmeanspp_init, lloyd
-
-    init = kmeanspp_init(torch.Generator().manual_seed(3), Y[:1024], k, "l2")
-    lloyd(Y, k, discrepancy="l2", iters=2, init=init)  # warm-up
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        res = lloyd(Y, k, discrepancy="l2", iters=iters, init=init)
+        out = run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    per_kernel = {}
+    per_kernel, h2d_ms = {}, 0.0
     for ev in prof.key_averages():
         if ev.device_type != DeviceType.CUDA:  # kernels only: ops would count twice
             continue
         us = getattr(ev, "self_device_time_total", None)
         if us is None:
             us = getattr(ev, "self_cuda_time_total", 0)
-        if us > 0:
+        if "Memcpy HtoD" in ev.key:
+            h2d_ms += us / 1e3
+        elif us > 0 and not ev.key.startswith("Memcpy"):
             per_kernel[ev.key[:60]] = us / 1e3
     busy_ms = sum(per_kernel.values())
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:6]
-    return dict(iters=res.iters, wall_ms=wall * 1e3,
-                device_busy_ms=busy_ms if busy_ms else "not measured",
-                device_busy_share=busy_ms / (wall * 1e3) if busy_ms else "not measured",
-                top_device_ms=dict(top))
+    return out, dict(wall_ms=wall * 1e3,
+                     device_busy_ms=busy_ms if busy_ms else "not measured",
+                     device_busy_share=busy_ms / (wall * 1e3) if busy_ms else "not measured",
+                     h2d_copy_ms=h2d_ms if h2d_ms else "not measured",
+                     top_device_ms=dict(top))
+
+
+def profile_lloyd(Y, k, iters=20) -> dict:
+    """Device busy share of a Lloyd run over the resident Y."""
+    from repro_torch.core.lloyd import kmeanspp_init, lloyd
+
+    init = kmeanspp_init(torch.Generator().manual_seed(3), Y[:1024], k, "l2")
+    lloyd(Y, k, discrepancy="l2", iters=2, init=init)  # warm-up
+    res, prof = device_profile(lambda: lloyd(Y, k, discrepancy="l2", iters=iters, init=init))
+    return dict(iters=res.iters, **prof)
+
+
+def profile_stream_pass(store, est, device) -> dict:
+    """One Lloyd pass of the stream fit (every block through the fused step,
+    the (Z, g, cost) combine and the label copy-out), traced: where a pass's
+    wall time goes between the card's kernels, the copy engine and the host."""
+    from repro_torch.kernels import ops
+    from repro_torch.stream import engine, lloyd
+
+    cell = [est.model_.centroids]
+    step = ops.lloyd_step_plan(params=est.model_.params).block_map(cell)
+    labels = lloyd._HostLabels(store.n, device)
+    k, m = cell[0].shape
+    zero = (torch.zeros((k, m), device=device), torch.zeros((k,), device=device),
+            torch.zeros((), device=device))
+
+    def one_pass():
+        return engine.map_reduce(
+            store, step, lambda acc, out: (acc[0] + out[0], acc[1] + out[1], acc[2] + out[3]),
+            zero, emit=lambda i, out: labels.put(store.row_offset(i), out[2]), device=device)
+
+    one_pass()  # warm-up
+    engine.reset_counters()
+    _, prof = device_profile(one_pass)
+    return dict(prefetch_stall_ms=engine.COUNTERS["prefetch_stall_s"] * 1e3, **prof)
+
+
+def check_near_ties(what, Y, C, lab_a, lab_b, mismatch_share, tie_rtol):
+    """Rows where two label vectors under the same centroids differ: at most
+    ``mismatch_share`` of the rows, and each a near tie, its two centroids'
+    f64 squared distances within ``tie_rtol`` * (|y|^2 + max |c|^2) of each
+    other (the scale of the f32 roundoff in yy - 2 y.c + cc). Returns the
+    rows and the largest relative gap."""
+    n = Y.shape[0]
+    rows = torch.nonzero(lab_a != lab_b).flatten()
+    if rows.numel() > mismatch_share * n:
+        raise AssertionError(f"{what}: {rows.numel()} of {n} labels differ")
+    gap_rel = 0.0
+    if rows.numel():
+        y = Y[rows].double()
+        C64 = C.double()
+        d_a = (y - C64[lab_a[rows].long()]).square().sum(1)
+        d_b = (y - C64[lab_b[rows].long()]).square().sum(1)
+        scale = y.square().sum(1) + C64.square().sum(1).max()
+        gap_rel = float(((d_a - d_b).abs() / scale).max())
+        if gap_rel > tie_rtol:
+            raise AssertionError(f"{what}: a label differs by more than a near tie ({gap_rel})")
+    return rows, gap_rel
 
 
 def check_assign_main_shape(Y, C, mismatch_share=1e-5, tie_rtol=1e-4) -> dict:
@@ -350,30 +703,34 @@ def check_assign_main_shape(Y, C, mismatch_share=1e-5, tie_rtol=1e-4) -> dict:
     Z64.index_add_(0, lab_l, Y.double())
     z_err = check_close("assign Z at the main shape", Z.double(), Z64, 1e-4,
                         1e-4 * float(Z64.abs().max()))
-    rows = torch.nonzero(lab != lr).flatten()
-    if rows.numel() > mismatch_share * n:
-        raise AssertionError(f"assign at the main shape: {rows.numel()} of {n} labels "
-                             f"differ from the plain version")
-    gap_rel = 0.0
-    if rows.numel():
-        y = Y[rows].double()
-        C64 = C.double()
-        d_kernel = (y - C64[lab_l[rows]]).square().sum(1)
-        d_plain = (y - C64[lr[rows].long()]).square().sum(1)
-        scale = y.square().sum(1) + C64.square().sum(1).max()
-        gap_rel = float(((d_kernel - d_plain).abs() / scale).max())
-        if gap_rel > tie_rtol:
-            raise AssertionError(f"assign at the main shape: a label differs from the "
-                                 f"plain version by more than a near tie ({gap_rel})")
+    rows, gap_rel = check_near_ties("assign at the main shape", Y, C, lab, lr,
+                                    mismatch_share, tie_rtol)
     return dict(n=n, k=k, m=Y.shape[1], g_equal_bincount=True, z_max_abs_err=z_err,
                 z_abs_max=float(Z64.abs().max()), label_mismatches_vs_plain=int(rows.numel()),
                 mismatch_max_rel_gap=gap_rel)
 
 
-def phase_timing(X, est, launches) -> tuple[dict, list]:
+def per_block(fn, X, bn):
+    """A pass over the resident X in row blocks of bn, one call per block."""
+    return lambda: [fn(X[i:i + bn]) for i in range(0, X.shape[0], bn)]
+
+
+def library_step(Yb, C):
+    """The assign half of a Lloyd step in PyTorch calls: cdist -> argmin ->
+    index_add_ + bincount + min-sum."""
+    D = torch.cdist(Yb, C)
+    lab = D.argmin(dim=1)
+    Z = torch.zeros_like(C).index_add_(0, lab, Yb)
+    return Z, torch.bincount(lab, minlength=C.shape[0]), lab, D.min(dim=1).values.sum()
+
+
+def phase_timing(X, est, launches, stream_est, stream_launches, rff_est, rff_launches,
+                 cfg) -> tuple[dict, list]:
     """Each kernel at the main path's shapes: kernel, plain version, library
-    call chain, and the bound computed from this run's shapes."""
-    from repro_torch.kernels import apnc_assign, apnc_embed, ref
+    call chain, and the bound computed from this run's shapes. The Lloyd-step
+    and RFF kernels are timed per pass over the resident X in the stream
+    path's row blocks."""
+    from repro_torch.kernels import apnc_assign, apnc_embed, lloyd_step, ref, rff_embed
 
     params = est.model_.params
     L, R, kern = params.landmarks[0].contiguous(), params.R[0].contiguous(), params.kernel
@@ -381,6 +738,7 @@ def phase_timing(X, est, launches) -> tuple[dict, list]:
     l, m = L.shape[0], R.shape[0]
     C = est.model_.centroids.contiguous()
     k = C.shape[0]
+    bn = cfg["block_rows"]
 
     Y = apnc_embed.apnc_embed_block(X, L, R, kern)
     Y_plain = ref.apnc_embed_ref(X, L[None], R[None], kern)
@@ -408,40 +766,110 @@ def phase_timing(X, est, launches) -> tuple[dict, list]:
     t_assign_plain = cuda_ms(lambda: ref.apnc_assign_ref(Y, C, "l2"), 20)
     t_assign_lib = cuda_ms(assign_library, 20)
     b_assign, by_assign = bound(2.0 * n * k * m, 4.0 * (n * m + 2 * k * m + k + n))
+    lloyd_profile = profile_lloyd(Y, k)
+    y_abs_max = float(Y.abs().max())
+    del Y
+
+    # fused_apnc_step: the stream fit's params and final centroids.
+    sp = stream_est.model_.params
+    Ls, Rs, ks = sp.landmarks[0].contiguous(), sp.R[0].contiguous(), sp.kernel
+    Cs = stream_est.model_.centroids.contiguous()
+    fused_check = check_step(
+        "fused_apnc_step on a main-path block",
+        lambda: lloyd_step.fused_apnc_step(X[:bn], Ls, Rs, Cs, ks, "l2"),
+        lambda: ref.fused_apnc_step_ref(X[:bn], Ls, Rs, Cs, ks, "l2"))
+
+    def fused_library(xb):
+        Yb = torch.exp(-ks.gamma * torch.cdist(xb, Ls).square()) @ Rs.T
+        return library_step(Yb, Cs)
+
+    t_fused = cuda_ms(per_block(lambda xb: lloyd_step.fused_apnc_step(xb, Ls, Rs, Cs, ks, "l2"),
+                                X, bn), 2, warmup=1)
+    t_fused_plain = cuda_ms(per_block(
+        lambda xb: ref.fused_apnc_step_ref(xb, Ls, Rs, Cs, ks, "l2"), X, bn), 2, warmup=1)
+    t_fused_lib = cuda_ms(per_block(fused_library, X, bn), 2, warmup=1)
+    b_fused, by_fused = bound(2.0 * n * l * (d + m) + 2.0 * n * k * m,
+                              4.0 * (n * d + l * d + m * l + 2 * k * m + k + n + 1))
+
+    # rff_embed_block and fused_rff_step: the rff stream fit's W and centroids.
+    W = rff_est.model_.params.W.contiguous()
+    mh, scale = W.shape[1], rff_est.model_.params.scale
+    Cr = rff_est.model_.centroids.contiguous()
+    rff_err = float((rff_embed.rff_embed_block(X[:bn], W, scale)
+                     - ref.rff_embed_ref(X[:bn], W, scale)).abs().max())
+    rff_tol = rff_tolerance(X[:bn], W, scale)
+    if rff_err > rff_tol:
+        raise AssertionError(f"rff_embed_block on a main-path block: {rff_err} > {rff_tol}")
+    t_rff = cuda_ms(per_block(lambda xb: rff_embed.rff_embed_block(xb, W, scale), X, bn),
+                    3, warmup=1)
+    t_rff_plain = cuda_ms(per_block(lambda xb: ref.rff_embed_ref(xb, W, scale), X, bn),
+                          3, warmup=1)
+
+    def rff_library(xb):
+        proj = xb @ W
+        return torch.cos(proj) * scale, torch.sin(proj) * scale
+
+    t_rff_lib = cuda_ms(per_block(rff_library, X, bn), 3, warmup=1)
+    b_rff, by_rff = bound(2.0 * n * d * mh, 4.0 * (n * d + d * mh + n * 2 * mh))
+
+    rff_check = check_step(
+        "fused_rff_step on a main-path block",
+        lambda: lloyd_step.fused_rff_step(X[:bn], W, Cr, scale, "l2"),
+        lambda: ref.fused_rff_step_ref(X[:bn], W, Cr, scale, "l2"))
+
+    def fused_rff_library(xb):
+        proj = xb @ W
+        return library_step(torch.cat([torch.cos(proj), torch.sin(proj)], dim=1) * scale, Cr)
+
+    t_frff = cuda_ms(per_block(lambda xb: lloyd_step.fused_rff_step(xb, W, Cr, scale, "l2"),
+                               X, bn), 3, warmup=1)
+    t_frff_plain = cuda_ms(per_block(
+        lambda xb: ref.fused_rff_step_ref(xb, W, Cr, scale, "l2"), X, bn), 3, warmup=1)
+    t_frff_lib = cuda_ms(per_block(fused_rff_library, X, bn), 3, warmup=1)
+    b_frff, by_frff = bound(2.0 * n * d * mh + 2.0 * n * k * 2 * mh,
+                            4.0 * (n * d + d * mh + 2 * k * 2 * mh + k + n + 1))
+
+    def row(name, source, replaces, launched, err, ms, plain_ms, bound_ms, bound_by, lib_ms):
+        return dict(name=name, route="cuda", source=f"src/repro_torch/kernels/csrc/{source}",
+                    replaces=replaces, launches=launched, max_abs_err=err, ms=ms,
+                    plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                    library_ms=lib_ms)
 
     rows = [
-        dict(name="apnc_embed", route="cuda",
-             source="src/repro_torch/kernels/csrc/apnc_embed.cu",
-             replaces="src/repro/kernels/apnc_embed.py:88",
-             launches=launches["apnc_embed"], max_abs_err=embed_err, ms=t_embed,
-             plain_ms=t_embed_plain, bound_ms=b_embed, bound_by=by_embed,
-             library_ms=t_embed_lib),
-        dict(name="apnc_assign", route="cuda",
-             source="src/repro_torch/kernels/csrc/apnc_assign.cu",
-             replaces="src/repro/kernels/apnc_assign.py:91",
-             launches=launches["apnc_assign"], max_abs_err=assign_err, ms=t_assign,
-             plain_ms=t_assign_plain, bound_ms=b_assign, bound_by=by_assign,
-             library_ms=t_assign_lib),
+        row("apnc_embed", "apnc_embed.cu", "src/repro/kernels/apnc_embed.py:88",
+            launches["apnc_embed"], embed_err, t_embed, t_embed_plain, b_embed, by_embed,
+            t_embed_lib),
+        row("apnc_assign", "apnc_assign.cu", "src/repro/kernels/apnc_assign.py:91",
+            launches["apnc_assign"], assign_err, t_assign, t_assign_plain, b_assign,
+            by_assign, t_assign_lib),
+        row("fused_apnc_step", "lloyd_step.cu", "src/repro/kernels/lloyd_step.py:114",
+            stream_launches["fused_apnc_step"], fused_check["z_max_abs_err"], t_fused,
+            t_fused_plain, b_fused, by_fused, t_fused_lib),
+        row("rff_embed_block", "rff_embed.cu", "src/repro/kernels/rff_embed.py:60",
+            rff_launches["rff_embed_block"], rff_err, t_rff, t_rff_plain, b_rff, by_rff,
+            t_rff_lib),
+        row("fused_rff_step", "lloyd_step.cu", "src/repro/kernels/lloyd_step.py:268",
+            rff_launches["fused_rff_step"], rff_check["z_max_abs_err"], t_frff,
+            t_frff_plain, b_frff, by_frff, t_frff_lib),
     ]
-    # The TPU kernels still to port, bounded at the same shapes (RFF splits m
-    # as 2 x m/2; flash attention has no clustering shape, so an example).
-    mh, bh, s_len, dh = m // 2, 32, 4096, 64
+    # The TPU kernels still to port, bounded at the same shapes (flash
+    # attention has no clustering shape, so an example).
+    bh, s_len, dh = 32, 4096, 64
     pending = {
-        "fused_apnc_step": bound(2.0 * n * l * (d + m) + 2.0 * n * k * m,
-                                 4.0 * (n * d + l * d + m * l + 2 * k * m + k + n + 1)),
         "fused_dequant_step": bound(2.0 * n * k * m,
                                     1.0 * n * m + 4.0 * (m + 2 * k * m + k + n + 1)),
-        "fused_rff_step": bound(2.0 * n * d * mh + 2.0 * n * k * m,
-                                4.0 * (n * d + d * mh + 2 * k * m + k + n + 1)),
-        "rff_embed_block": bound(2.0 * n * d * mh, 4.0 * (n * d + d * mh + n * m)),
         "flash_attention_bhsd(BH=32,S=4096,Dh=64,causal)": bound(
             2.0 * bh * s_len * s_len * dh, 4.0 * 4 * bh * s_len * dh),
     }
-    info = dict(phase="timing", shapes=dict(n=n, d=d, l=l, m=m, k=k),
+    info = dict(phase="timing", shapes=dict(n=n, d=d, l=l, m=m, k=k, block_rows=bn,
+                                            rff_m_half=mh),
+                timed_per="launch over the resident X (apnc_embed, apnc_assign); pass over "
+                          f"the resident X in {bn}-row blocks (the other three)",
                 pending_kernel_bounds_ms={name: b for name, (b, _) in pending.items()},
-                lloyd_profile=profile_lloyd(Y, k),
-                assign_main_shape=assign_check,
-                embed_max_rel_err=embed_err / float(Y.abs().max()),
+                lloyd_profile=lloyd_profile,
+                assign_main_shape=assign_check, fused_apnc_block=fused_check,
+                fused_rff_block=rff_check, rff_embed_atol=rff_tol,
+                embed_max_rel_err=embed_err / y_abs_max,
                 **{f"{r['name']}_roofline_share": r["bound_ms"] / r["ms"] for r in rows})
     return info, rows
 
@@ -465,6 +893,8 @@ def main(argv=None) -> int:
               "rehearse on the CPU)", file=sys.stderr)
         return 2
     device = torch.device("cpu" if rehearsal else "cuda")
+    if rehearsal:  # a smoke of the path, not a measurement: stay light beside other work
+        torch.set_num_threads(1)
     cfg = dict(REHEARSAL if rehearsal else IMAGENET)
     if args.n:
         cfg["n"] = args.n
@@ -488,16 +918,26 @@ def main(argv=None) -> int:
               separation=cfg["separation"], seed=args.seed,
               seconds=time.perf_counter() - t0))
 
-    emit(phase_parity(X, device))
+    emit(phase_parity(X, truth, device, cfg))
     main_info, est = phase_main(X, truth, Xq, cfg, device, args.seed)
     emit(main_info)
     emit(phase_agreement(X, truth, est, cfg, device,
                          rows=200_000 if not rehearsal else 2_000))
 
+    t0 = time.perf_counter()
+    store = pinned_store(X, cfg["block_rows"])
+    emit(dict(phase="host_copy", bytes=X.numel() * 4, seconds=time.perf_counter() - t0,
+              pinned=device.type == "cuda"))
+    stream_info, stream_est = phase_stream(X, truth, Xq, store, est, cfg, device, args.seed)
+    emit(stream_info)
+    rff_info, rff_est = phase_rff(X, truth, store, cfg, device, args.seed)
+    emit(rff_info)
+
     if rehearsal:
         emit(dict(phase="timing", skipped="cpu rehearsal: no device times"))
     else:
-        info, rows = phase_timing(X, est, main_info["launches"])
+        info, rows = phase_timing(X, est, main_info["launches"], stream_est,
+                                  stream_info["launches"], rff_est, rff_info["launches"], cfg)
         emit(info)
 
     leaked = sorted(m for m in sys.modules

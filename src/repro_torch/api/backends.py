@@ -1,9 +1,17 @@
 """Execution backends behind `KernelKMeans`.
 
 Each backend receives the same prepared inputs (a FitContext) and returns the
-same result shape (a BackendFit). This slice registers the ``local`` backend:
-embed everything, then Lloyd per restart over the resident Y. The stream
-backends arrive in a later slice.
+same result shape (a BackendFit):
+
+  local      embed everything, then Lloyd per restart over the resident Y
+  stream     exact out-of-core Lloyd over row blocks (stream.ooc_lloyd): the
+             same fixed point as local from the same init, device memory
+             O(block)
+  minibatch  single-pass streaming Lloyd with decayed (Z, g)
+             (stream.minibatch_lloyd)
+
+Because every backend clusters from the same embedding params and the same
+init centroids, local and stream reach identical labels.
 """
 from __future__ import annotations
 
@@ -17,6 +25,7 @@ from repro_torch.core.lloyd import lloyd
 from repro_torch.embed.base import EmbeddingParams
 from repro_torch.policy import ComputePolicy
 from repro_torch.stream.blockstore import BlockStore
+from repro_torch.stream.lloyd import minibatch_lloyd, ooc_lloyd, stream_embed
 
 
 @dataclasses.dataclass
@@ -24,12 +33,22 @@ class FitContext:
     """Everything a clustering backend needs, prepared once by the estimator."""
 
     store: BlockStore  # blocked host view of the data (always present)
-    array: torch.Tensor  # the resident array on the fit's device
+    array: torch.Tensor | None  # the resident array on the fit's device, local backend only
     params: EmbeddingParams  # fitted params of the registered embedding member
     k: int
     inits: list[torch.Tensor]  # k-means++ init centroids, one per restart
     iters: int
     policy: ComputePolicy
+    device: torch.device | None = None  # where blocks are mapped; None: the params' device
+    decay: float = 0.9  # minibatch: sufficient-stat decay
+    epochs: int = 1  # minibatch: passes over the stream
+    # Embed-once cache: when set, backends cluster over the staged Y blocks
+    # instead of embedding X again on every pass.
+    y_store: BlockStore | None = None
+
+    def __post_init__(self):
+        if self.device is None:
+            self.device = self.params.device
 
 
 @dataclasses.dataclass
@@ -41,25 +60,53 @@ class BackendFit:
     inertia: float
     iters: int
     rows_seen: int
+    # The winner's trajectory: per-iteration inertia (last entry == inertia,
+    # the final pass's cost under the final centroids) and centroid shifts.
+    trajectory: list = dataclasses.field(default_factory=list)
+    shifts: list = dataclasses.field(default_factory=list)
+
+
+def ensure_embedding_cache(ctx: FitContext) -> FitContext:
+    """Fill the context's embed-once cache if it is empty (one embedding pass
+    over the blocks, staged to host memory); idempotent. Returns ``ctx``."""
+    if ctx.y_store is None:
+        ctx.y_store = stream_embed(ctx.store, ctx.params, policy=ctx.policy, device=ctx.device)
+    return ctx
 
 
 def _run_restarts(ctx: FitContext, run_one) -> BackendFit:
     """Run every init, keep the lowest-inertia fit (the first on a tie),
     total rows_seen over all restarts."""
-    fits = [run_one(init, r) for r, init in enumerate(ctx.inits)]
+    fits = [run_one(init) for init in ctx.inits]
     best = min(fits, key=lambda f: f.inertia)
     return dataclasses.replace(best, rows_seen=sum(f.rows_seen for f in fits))
 
 
+def _from_stream(res) -> BackendFit:
+    """StreamLloydResult -> BackendFit (shared by stream and minibatch)."""
+    return BackendFit(
+        labels=res.labels, centroids=res.centroids, inertia=res.inertia,
+        iters=res.iters, rows_seen=res.rows_seen,
+        trajectory=list(res.trajectory), shifts=list(res.shifts),
+    )
+
+
 @register_backend("local")
 def fit_local(ctx: FitContext) -> BackendFit:
-    """Single-program path: embed everything, Lloyd per restart."""
+    """Single-program path: embed everything (or read the staged Y), Lloyd
+    per restart."""
     from repro_torch import embed
 
-    Y = embed.transform(ctx.params, ctx.array, ctx.policy)
+    if ctx.y_store is not None:
+        Y = torch.from_numpy(ctx.y_store.materialize()).to(ctx.device)
+    elif ctx.array is not None:
+        Y = embed.transform(ctx.params, ctx.array, ctx.policy)
+    else:
+        X = torch.from_numpy(np.ascontiguousarray(ctx.store.materialize(), np.float32))
+        Y = embed.transform(ctx.params, X.to(ctx.device), ctx.policy)
     n = int(Y.shape[0])
 
-    def _run_one(init, r):
+    def _run_one(init):
         res = lloyd(
             Y, ctx.k, discrepancy=ctx.params.discrepancy, iters=ctx.iters,
             init=init,
@@ -70,6 +117,36 @@ def fit_local(ctx: FitContext) -> BackendFit:
             inertia=float(res.inertia),
             iters=res.iters,
             rows_seen=(res.iters + 1) * n,
+            trajectory=res.costs.tolist() + [float(res.inertia)],
+            shifts=res.shifts.tolist(),
         )
 
     return _run_restarts(ctx, _run_one)
+
+
+def _stream_source(ctx: FitContext) -> dict:
+    """The stream drivers' data keywords: raw X blocks (embedding fused into
+    the per-block step), or the staged Y cache when the context carries one."""
+    if ctx.y_store is not None:
+        return dict(store=ctx.y_store, discrepancy=ctx.params.discrepancy)
+    return dict(store=ctx.store, coeffs=ctx.params)
+
+
+@register_backend("stream")
+def fit_stream(ctx: FitContext) -> BackendFit:
+    """Exact out-of-core Lloyd: the fixed point of ``local``, O(block) on the
+    device."""
+    return _run_restarts(ctx, lambda init: _from_stream(ooc_lloyd(
+        k=ctx.k, iters=ctx.iters, init=init, policy=ctx.policy, device=ctx.device,
+        **_stream_source(ctx),
+    )))
+
+
+@register_backend("minibatch")
+def fit_minibatch(ctx: FitContext) -> BackendFit:
+    """Single-pass streaming Lloyd with decayed (Z, g) sufficient stats
+    (``decay`` and ``epochs`` apply)."""
+    return _run_restarts(ctx, lambda init: _from_stream(minibatch_lloyd(
+        k=ctx.k, decay=ctx.decay, epochs=ctx.epochs, init=init, policy=ctx.policy,
+        device=ctx.device, **_stream_source(ctx),
+    )))

@@ -1,10 +1,13 @@
-"""`KernelKMeans`: the estimator of the port, on the ``local`` backend.
+"""`KernelKMeans`: the estimator of the port, on the ``local``, ``stream``
+and ``minibatch`` backends.
 
-Phase 1 runs here: a reservoir sample over the blocked host view of the data
-selects landmarks, the embedding member fits its params on the sample, the
-seeding pool is embedded, and k-means++ seeds one init per restart. Phase 2
-(Lloyd) runs in the backend. Everything runs on the card unless the caller
-passes ``device="cpu"``.
+Phase 1 runs here, identically for every backend: a reservoir sample over the
+blocked host view of the data selects landmarks, the embedding member fits
+its params on the sample, the seeding pool is embedded, and k-means++ seeds
+one init per restart. Phase 2 (Lloyd) runs in the backend, so ``local`` and
+``stream`` reach the same fixed point from the same init. Everything runs on
+the card unless the caller passes ``device="cpu"``; the streaming backends
+keep O(block) of the data on it.
 """
 from __future__ import annotations
 
@@ -24,6 +27,11 @@ from repro_torch.kernels import ops
 from repro_torch.policy import ComputePolicy
 from repro_torch.stream.blockstore import BlockStore
 from repro_torch.stream.reservoir import reservoir_sample
+
+#: backend="auto": in-memory arrays of at least this many rows are clustered
+#: out-of-core (through a BlockStore) instead of being embedded whole on the
+#: device.
+AUTO_STREAM_ROWS = 2_000_000
 
 
 def phase1_seeds(seed: int) -> tuple[int, int, int]:
@@ -53,12 +61,17 @@ class KernelKMeans:
     k:               number of clusters.
     kernel:          registered kernel name or a `Kernel`. With kernel="rbf" and
                      no kernel_params, gamma is self-tuned on the landmark sample.
-    method:          registered embedding member: "nystrom" (l2) or "sd" (l1).
-    backend:         "local" (the one backend of this slice) or "auto".
+    method:          registered embedding member: "nystrom" (l2), "sd" (l1) or
+                     "rff" (random Fourier features, rbf kernels).
+    backend:         "local" | "stream" | "minibatch" | "auto". auto ->
+                     "stream" for a BlockStore input or an array of at least
+                     AUTO_STREAM_ROWS rows, else "local".
     l, m, t, q:      landmark count, embedding dim per block, SD subset size,
-                     ensemble blocks, as in the paper.
+                     ensemble blocks, as in the paper. rff reads only m (its
+                     output has 2m features).
     iters, n_init:   Lloyd cap and k-means++ restarts (best inertia wins).
-    block_rows:      blocking of the host view the reservoir reads.
+    decay, epochs:   minibatch backend: sufficient-stat decay and stream passes.
+    block_rows:      blocking used when wrapping an in-memory array.
     landmark_sample: reservoir size for the embedding fit.
     seed_sample:     rows of the landmark sample used for k-means++ seeding.
     policy:          `ComputePolicy`.
@@ -83,6 +96,8 @@ class KernelKMeans:
         q: int = 1,
         iters: int = 20,
         n_init: int = 1,
+        decay: float = 0.9,
+        epochs: int = 1,
         block_rows: int = 4096,
         landmark_sample: int = 4096,
         seed_sample: int = 1024,
@@ -97,6 +112,7 @@ class KernelKMeans:
         self.backend = backend
         self.l, self.m, self.t, self.q = l, m, t, q
         self.iters, self.n_init = iters, n_init
+        self.decay, self.epochs = decay, epochs
         self.block_rows = block_rows
         self.landmark_sample = landmark_sample
         self.seed_sample = seed_sample
@@ -114,8 +130,12 @@ class KernelKMeans:
 
     # ------------------------------------------------------------- dispatch
 
-    def _choose_backend(self) -> str:
-        return "local" if self.backend == "auto" else self.backend
+    def _choose_backend(self, X) -> str:
+        if self.backend != "auto":
+            return self.backend
+        if isinstance(X, BlockStore) or len(X) >= AUTO_STREAM_ROWS:
+            return "stream"
+        return "local"
 
     def _resolve_kernel(self, sample: torch.Tensor) -> Kernel:
         if not isinstance(self.kernel, Kernel) and self.kernel == "rbf" \
@@ -138,22 +158,25 @@ class KernelKMeans:
 
     # ------------------------------------------------------------ lifecycle
 
-    def _prepare(self, X, seed: int, dev: torch.device) -> FitContext:
+    def _prepare(self, X, seed: int, dev: torch.device, backend_name: str = "local") -> FitContext:
         """Phase 1: blocked host view, reservoir sample, embedding fit,
-        seeding pool, k-means++ inits."""
+        seeding pool, k-means++ inits. Only the local backend gets the whole
+        array on the device; the streaming ones stay O(block) there."""
         self.phases_ = {}
+        array = None
         with self._phase("host_view", dev):
             if isinstance(X, BlockStore):
+                self._reject_sharded(X, "fit")
                 store = X
-                array = torch.from_numpy(np.ascontiguousarray(X.materialize(), np.float32))
             else:
-                array = _as_tensor(X)
+                X = _as_tensor(X)
                 # The host copy is deliberate: sampling through the same
                 # blocking on every backend keeps phase 1 identical across them.
                 store = BlockStore.from_array(
-                    array.detach().to("cpu", torch.float32).numpy(), self.block_rows
+                    X.detach().to("cpu", torch.float32).numpy(), self.block_rows
                 )
-            array = array.to(dev, torch.float32)
+                if backend_name == "local":
+                    array = X.to(dev, torch.float32)
         s_sample, s_fit, s_seed = phase1_seeds(seed)
         with self._phase("reservoir", dev):
             sample = torch.from_numpy(
@@ -172,7 +195,8 @@ class KernelKMeans:
             ]
         return FitContext(
             store=store, array=array, params=params, k=self.k, inits=inits,
-            iters=self.iters, policy=self.policy,
+            iters=self.iters, policy=self.policy, device=dev, decay=self.decay,
+            epochs=self.epochs,
         )
 
     def fit(self, X, y=None, *, seed: int | None = None) -> "KernelKMeans":
@@ -187,10 +211,10 @@ class KernelKMeans:
             self, fitted.
         """
         dev = resolve_device(self.device)
-        name = self._choose_backend()
+        name = self._choose_backend(X)
         backend = get_backend(name)
         get_embedding(self.method)
-        ctx = self._prepare(X, self.random_state if seed is None else seed, dev)
+        ctx = self._prepare(X, self.random_state if seed is None else seed, dev, name)
         with self._phase("lloyd", dev):
             out = backend(ctx)
         meta = self._fit_meta(
@@ -216,7 +240,7 @@ class KernelKMeans:
             k=self.k, method=self.method,
             kernel_name=getattr(self.kernel_, "name", ""),
             l=self.l, m=self.m, t=self.t, q=self.q, iters_cap=self.iters,
-            landmark_sample=self.landmark_sample, seed_sample=self.seed_sample,
+            decay=self.decay, epochs=self.epochs, landmark_sample=self.landmark_sample, seed_sample=self.seed_sample,
             block_rows=self.block_rows, random_state=self.random_state, **kw,
         )
 
@@ -227,21 +251,70 @@ class KernelKMeans:
             raise RuntimeError("estimator is not fitted; call fit()")
         return self.model_
 
+    @staticmethod
+    def _reject_sharded(store: BlockStore, op: str) -> None:
+        """A shard() of a store covers only a subset of global rows; a dense
+        (n,)-shaped answer would silently hold -1 for every unvisited row."""
+        covered = sum(store.rows_of(i) for i in range(store.num_blocks))
+        if covered != store.n:
+            raise ValueError(
+                f"{op} got a sharded BlockStore covering {covered} of {store.n} "
+                f"rows; run {op} per shard or pass the unsharded store"
+            )
+
     def predict(self, X) -> np.ndarray:
-        """Nearest-centroid labels of unseen rows, (n,) int32 on the host."""
-        labels = self._require_model().predict(X, policy=self.policy, device=self.device)
+        """Nearest-centroid labels of unseen rows, (n,) int32 on the host. A
+        BlockStore streams through the engine block by block."""
+        model = self._require_model()
+        if isinstance(X, BlockStore):
+            from repro_torch.stream.engine import map_reduce
+
+            self._reject_sharded(X, "predict")
+            dev = resolve_device(self.device)
+            model = model.to(dev)
+            labels = np.full(X.n, -1, dtype=np.int32)
+
+            def _emit(i, out):
+                lo = X.row_offset(i)
+                labels[lo:lo + out.shape[0]] = out.cpu().numpy()
+
+            map_reduce(
+                X, lambda blk: ops.predict_block(blk, model.params, model.centroids),
+                lambda acc, _: acc, None, prefetch=self.policy.prefetch, emit=_emit,
+                device=dev, label="predict",
+            )
+            return labels
+        labels = model.predict(X, policy=self.policy, device=self.device)
         return labels.cpu().numpy().astype(np.int32)
 
-    def transform(self, X) -> torch.Tensor:
-        """The fitted embedding Y = f(X), (n, m) f32 on the fit's device."""
+    def transform(self, X):
+        """The fitted embedding Y = f(X): an (n, m) f32 tensor on the fit's
+        device for an array, a host-staged BlockStore of embedded blocks for a
+        BlockStore (still O(block) on the device)."""
         from repro_torch import embed
 
         dev = resolve_device(self.device)
         model = self._require_model().to(dev)
+        if isinstance(X, BlockStore):
+            from repro_torch.stream.lloyd import stream_embed
+
+            return stream_embed(X, model.params, policy=self.policy, device=dev)
         return embed.transform(model.params, _as_tensor(X).to(dev, torch.float32), self.policy)
 
     def score(self, X) -> float:
         """Negative inertia of X under the fitted centroids (higher is better)."""
-        model = self._require_model().to(resolve_device(self.device))
+        dev = resolve_device(self.device)
+        model = self._require_model().to(dev)
+        if isinstance(X, BlockStore):
+            from repro_torch.stream.engine import map_reduce
+
+            self._reject_sharded(X, "score")
+            total = map_reduce(
+                X, lambda blk: block_cost(ops.embed_block_map(blk, model.params),
+                                          model.centroids, model.discrepancy),
+                lambda acc, c: acc + c, torch.zeros((), device=dev),
+                prefetch=self.policy.prefetch, device=dev, label="score",
+            )
+            return -float(total)
         Y = self.transform(X)
         return -float(block_cost(Y, model.centroids, model.discrepancy))

@@ -34,6 +34,8 @@ class FitMeta:
     t: int | None = None
     q: int = 1
     iters_cap: int = 0
+    decay: float = 0.9
+    epochs: int = 1
     landmark_sample: int = 0
     seed_sample: int = 0
     block_rows: int = 0

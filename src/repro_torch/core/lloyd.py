@@ -27,6 +27,7 @@ class LloydResult(NamedTuple):
     inertia: torch.Tensor  # () sum of e(y_i, c_{pi(i)})
     iters: int  # iterations actually run
     costs: torch.Tensor | None = None  # (iters,) inertia of iteration i's assignment
+    shifts: torch.Tensor | None = None  # (iters,) ||c_{i+1} - c_i||_F of each update
 
 
 def centroid_update(Z: torch.Tensor, g: torch.Tensor, prev: torch.Tensor) -> torch.Tensor:
@@ -91,20 +92,22 @@ def lloyd(
 
     from repro_torch.kernels import ops
 
-    plan = ops.lloyd_step_plan(discrepancy)
+    plan = ops.lloyd_step_plan(discrepancy=discrepancy)
     centroids = init
     labels = torch.full((Y.shape[0],), -1, dtype=torch.int32, device=Y.device)
-    costs = []
+    costs, shifts = [], []
     it = 0
     changed = True
     while it < iters and changed:
         Z, g, new_labels, cost = plan.step(Y, centroids)
         new_centroids = centroid_update(Z, g, centroids)
         costs.append(cost)
+        shifts.append(torch.linalg.norm(new_centroids - centroids))
         changed = bool(torch.any(new_labels != labels))  # the one host sync
         centroids, labels = new_centroids, new_labels
         it += 1
     labels, inertia = plan.assign(Y, centroids)
-    costs = (torch.stack(costs) if costs
-             else torch.zeros((0,), dtype=torch.float32, device=Y.device))
-    return LloydResult(labels, centroids, inertia, it, costs)
+    empty = torch.zeros((0,), dtype=torch.float32, device=Y.device)
+    costs = torch.stack(costs) if costs else empty
+    shifts = torch.stack(shifts) if shifts else empty
+    return LloydResult(labels, centroids, inertia, it, costs, shifts)

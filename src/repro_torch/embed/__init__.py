@@ -1,4 +1,5 @@
-"""The embedding family: registry, routed ``transform``, and the APNC members."""
+"""The embedding family: registry, routed ``transform``, and the members
+(nystrom, sd, rff)."""
 from repro_torch.embed.base import (  # noqa: F401
     EMBEDDINGS,
     Embedding,
@@ -10,3 +11,4 @@ from repro_torch.embed.base import (  # noqa: F401
     transform,
 )
 from repro_torch.embed import apnc  # noqa: F401,E402  (registers nystrom and sd)
+from repro_torch.embed import rff  # noqa: F401,E402  (registers rff)

@@ -7,8 +7,9 @@ interface:
          -Xcompiler -fPIC -Xptxas -v -o build/repro_torch/<name>-<hash>.so
 
 at first use, under ``build/repro_torch/`` in the checkout. The file name
-carries a hash of the source and the flags, so an edited source rebuilds and
-an unchanged one loads from the cache. ``build_all()`` starts one nvcc per
+carries a hash of the source, of every ``csrc/*.cuh`` header it includes and
+of the flags, so an edited source or header rebuilds and an unchanged one
+loads from the cache. ``build_all()`` starts one nvcc per
 source, all at once. A failed build raises with nvcc's output: nothing falls
 back to the plain PyTorch versions. Nothing here runs at import time.
 """
@@ -17,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -24,7 +26,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("apnc_embed", "apnc_assign")
+SOURCES = ("apnc_embed", "apnc_assign", "lloyd_step", "rff_embed")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -48,10 +50,28 @@ def _nvcc() -> str:
     )
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+\.cuh)"', re.M)
+
+
+def _headers(path: Path, seen: set[Path]) -> list[Path]:
+    """The csrc headers ``path`` includes, directly or through another header,
+    each once, in the order they are first met."""
+    found = []
+    for name in _INCLUDE.findall(path.read_bytes()):
+        header = (path.parent / name.decode()).resolve()
+        if header not in seen:
+            seen.add(header)
+            found += [header, *_headers(header, seen)]
+    return found
+
+
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    source = CSRC / f"{name}.cu"
+    h = hashlib.sha256(source.read_bytes())
+    for header in _headers(source, set()):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def ptxas_report(name: str) -> str:

@@ -30,6 +30,8 @@
 #include <math.h>
 #include <stddef.h>
 
+#include "tile_math.cuh"
+
 namespace {
 
 constexpr int BN = 64;        // rows per tile
@@ -38,19 +40,6 @@ constexpr int MK = 32;        // embedding columns per centroid sub-chunk
 constexpr int PAD = 68;       // pitch of the transposed tiles, in floats
 constexpr int THREADS = 256;  // 16 x 16 threads, 4 rows x 4 centroids each
 constexpr int REDUCE_THREADS = 256;
-
-template <bool L1>
-__device__ __forceinline__ void step_4x4(float (&acc)[4][4], const float4 a, const float4 b) {
-  const float av[4] = {a.x, a.y, a.z, a.w};
-  const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      if (L1) acc[i][j] += fabsf(av[i] - bv[j]);
-      else acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-}
 
 template <bool L1>
 __global__ void __launch_bounds__(THREADS)
@@ -115,8 +104,8 @@ assign_kernel(const float* __restrict__ Y, const float* __restrict__ C, float* _
         }
 #pragma unroll 8
         for (int c = 0; c < MK; ++c) {
-          step_4x4<L1>(acc, *reinterpret_cast<const float4*>(ys + (c0 + c) * PAD + ty * 4),
-                       *reinterpret_cast<const float4*>(cs + c * PAD + tx * 4));
+          tilemath::dist_4x4<L1>(acc, *reinterpret_cast<const float4*>(ys + (c0 + c) * PAD + ty * 4),
+                                 *reinterpret_cast<const float4*>(cs + c * PAD + tx * 4));
         }
       }
       if (!L1 && t < KC) cc_s[t] = cn;

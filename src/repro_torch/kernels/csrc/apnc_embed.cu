@@ -31,7 +31,14 @@
 
 #include <stddef.h>
 
+#include "tile_math.cuh"
+
 namespace {
+
+using tilemath::fma_4x4;
+using tilemath::KParams;
+using tilemath::nonlin;
+using tilemath::RBF;
 
 constexpr int BN = 64;        // rows of Y per CTA
 constexpr int BL = 64;        // landmarks per tile
@@ -41,47 +48,8 @@ constexpr int PAD = 68;       // pitch of the transposed tiles, in floats (keeps
 constexpr int THREADS = 256;  // 16 x 16 threads, 4 x 4 outputs each
 static_assert(2 * BD == BL, "the R chunk aliases the X and L chunks");
 
-enum Kind { RBF = 0, POLY = 1, TANH = 2, LINEAR = 3 };
-
-struct KParams {
-  int kind;
-  float gamma;
-  float coef0;
-  float scale;
-  int degree;
-};
-
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-__device__ __forceinline__ float nonlin(float s, float xx, float ll, const KParams& kp) {
-  switch (kp.kind) {
-    case RBF: {
-      const float d2 = fmaxf(xx - 2.0f * s + ll, 0.0f);
-      return expf(-kp.gamma * d2);
-    }
-    case POLY: {
-      const float b = s + kp.coef0;
-      if (kp.degree < 0) return powf(b, (float)kp.degree);
-      float r = 1.0f;
-      for (int i = 0; i < kp.degree; ++i) r *= b;
-      return r;
-    }
-    case TANH:
-      return tanhf(kp.scale * s + kp.coef0);
-    default:
-      return s;
-  }
-}
-
-__device__ __forceinline__ void fma_4x4(float (&acc)[4][4], const float4 a, const float4 b) {
-  const float av[4] = {a.x, a.y, a.z, a.w};
-  const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-}
 
 template <typename TX>
 __global__ void __launch_bounds__(THREADS)

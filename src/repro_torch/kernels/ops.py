@@ -1,17 +1,21 @@
-"""Public wrappers over the hand-written kernels, and the Y-mode Lloyd step plan.
+"""Public wrappers over the hand-written kernels, the block maps of the stream
+engine, and the Lloyd step plan.
 
 The CUDA kernels mask ragged edges themselves, so nothing here pads: there
-are no lane-multiple copies of X and no sentinel centroid rows. Routing
-follows the tensor: CUDA tensors reach the kernels, CPU tensors their plain
-PyTorch versions.
+are no lane-multiple copies of X, no sentinel centroid rows and no padded
+[cos | 0 | sin | 0] relayout of RFF centroids. Routing follows the tensor:
+CUDA tensors reach the kernels, CPU tensors their plain PyTorch versions.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core.apnc import APNCCoefficients
+from repro_torch.embed.rff import RFFParams
 from repro_torch.kernels import apnc_assign as _assign
 from repro_torch.kernels import apnc_embed as _embed
+from repro_torch.kernels import lloyd_step as _lloyd_step
+from repro_torch.kernels import rff_embed as _rff
 from repro_torch.policy import ComputePolicy, as_policy
 
 
@@ -42,12 +46,89 @@ def apnc_assign(
     )
 
 
+def rff_embed(X: torch.Tensor, params) -> torch.Tensor:
+    """The rff member's map through its kernel: X (n, d) -> Y (n, 2 m_half) f32
+    in the [cos, sin] layout."""
+    return _rff.rff_embed_block(
+        X.to(torch.float32).contiguous(), params.W.to(torch.float32).contiguous(),
+        params.scale,
+    )
+
+
 def embed_block_map(x: torch.Tensor, params, *, policy: ComputePolicy | None = None):
     """Block-shaped embedding entry: one routed transform of a (rows, d) block
     for any registered embedding's params."""
     from repro_torch import embed  # the one routing point for every member
 
     return embed.transform(params, x, as_policy(policy))
+
+
+def embed_assign_block(x: torch.Tensor, params, centroids: torch.Tensor, *,
+                       policy: ComputePolicy | None = None):
+    """Embed a raw (rows, d) block (any registered member) and reduce it to
+    (Z, g, labels) against ``centroids``: the un-fused kernel chain."""
+    from repro_torch.core.lloyd import assign_stats
+
+    y = embed_block_map(x, params, policy=policy)
+    return assign_stats(y, centroids, centroids.shape[0], params.discrepancy)
+
+
+def embed_assign_block_cost(x: torch.Tensor, params, centroids: torch.Tensor, *,
+                            policy: ComputePolicy | None = None):
+    """``embed_assign_block`` plus the block's inertia contribution under the
+    same centroids: (Z, g, labels, cost)."""
+    y = embed_block_map(x, params, policy=policy)
+    return _assign_stats_cost_y(y, centroids, params.discrepancy)
+
+
+def predict_block(x: torch.Tensor, params, centroids: torch.Tensor, *,
+                  policy: ComputePolicy | None = None) -> torch.Tensor:
+    """Labels only, for serving: embed + nearest centroid, without the (Z, g)
+    sufficient statistics the training maps build."""
+    from repro_torch.core.apnc import assign
+
+    return assign(embed_block_map(x, params, policy=policy), centroids, params.discrepancy)
+
+
+# ---------------------------------------------------------------------------
+# Fused Lloyd step
+# ---------------------------------------------------------------------------
+
+
+def fused_member(params) -> str | None:
+    """Which fused Lloyd-step kernel serves these params, if any.
+
+    "apnc" for q = 1 Nystrom/SD and "rff" for the rff member, each while the
+    embedding width m (rff: 2 * m_half) is at most ``lloyd_step.MAX_M``
+    (512): the kernel holds a (64 x m) Y tile in shared memory. Anything else
+    (q > 1 APNC, wider m, members without a fused kernel) returns None, and
+    the plan runs the un-fused kernels (the member's embedding, then
+    ``apnc_assign``).
+    """
+    if isinstance(params, APNCCoefficients):
+        return "apnc" if params.q == 1 and params.m <= _lloyd_step.MAX_M else None
+    if isinstance(params, RFFParams):
+        return "rff" if params.m <= _lloyd_step.MAX_M else None
+    return None
+
+
+def fused_lloyd_step(x: torch.Tensor, params, centroids: torch.Tensor):
+    """One launch for a whole Lloyd block step: embed the raw block, assign,
+    and reduce to (Z, g, labels, cost) without Y in device memory. Only valid
+    when ``fused_member(params)`` is not None."""
+    member = fused_member(params)
+    x = x.to(torch.float32).contiguous()
+    C = centroids.to(torch.float32).contiguous()
+    if member == "apnc":
+        return _lloyd_step.fused_apnc_step(
+            x, params.landmarks[0].contiguous(), params.R[0].contiguous(), C,
+            params.kernel, params.discrepancy,
+        )
+    if member == "rff":
+        return _lloyd_step.fused_rff_step(
+            x, params.W.contiguous(), C, params.scale, params.discrepancy,
+        )
+    raise ValueError(f"no fused Lloyd step for params of type {type(params).__name__}")
 
 
 def _assign_stats_cost_y(y: torch.Tensor, centroids: torch.Tensor, discrepancy: str):
@@ -63,26 +144,62 @@ class LloydStepPlan:
         step(block, centroids)   -> (Z, g, labels, cost)   # stats convention
         assign(block, centroids) -> (labels, cost)          # final-pass form
 
-    This slice ports the Y-mode plan: ``block`` is an already-embedded
-    (rows, m) block, as on the local backend. Z, g and labels come from the
-    assign kernel (or its plain version on the CPU) and the cost from
-    ``block_cost``. The X-mode plan and the fused Lloyd-step kernels arrive
-    with the stream backend.
+    ``block`` is a raw (rows, d) block when the plan carries embedding params
+    (X-mode: the stream backends), or an already-embedded (rows, m) block when
+    built with ``params=None, discrepancy=...`` (Y-mode: the local backend and
+    staged embeddings). Routing, decided once from the params:
+
+      * X-mode, ``fused_member(params)`` not None: the fused kernel
+        (``fused_apnc_step`` or ``fused_rff_step``), one launch a block;
+      * X-mode otherwise: the member's embedding, then ``apnc_assign`` and
+        ``block_cost``;
+      * Y-mode: ``apnc_assign`` and ``block_cost``.
+
+    Each kernel runs on CUDA blocks and its plain version on CPU blocks.
+    ``block_map(cell)`` / ``assign_map(cell)`` close over a 1-element
+    centroids cell for the stream engine, so drivers swap centroids between
+    blocks or iterations.
     """
 
-    def __init__(self, *, discrepancy: str):
+    def __init__(self, *, params, discrepancy: str, member: str | None):
+        self.params = params
         self.discrepancy = discrepancy
+        self.fused_member = member
+
+    @property
+    def fused(self) -> bool:
+        return self.fused_member is not None
 
     def step(self, block: torch.Tensor, centroids: torch.Tensor):
-        """(Z, g, labels, cost) for one embedded block under ``centroids``."""
-        return _assign_stats_cost_y(block, centroids, self.discrepancy)
+        """(Z, g, labels, cost) for one block under ``centroids``."""
+        if self.params is None:
+            return _assign_stats_cost_y(block, centroids, self.discrepancy)
+        if self.fused:
+            return fused_lloyd_step(block, self.params, centroids)
+        return embed_assign_block_cost(block, self.params, centroids)
 
     def assign(self, block: torch.Tensor, centroids: torch.Tensor):
-        """(labels, cost) for one embedded block: the final / scoring pass."""
-        _, _, labels, cost = _assign_stats_cost_y(block, centroids, self.discrepancy)
+        """(labels, cost) for one block: the final / scoring pass."""
+        _, _, labels, cost = self.step(block, centroids)
         return labels, cost
 
+    def block_map(self, centroids_cell: list):
+        """Per-block stats map for the stream engine (labels at index 2,
+        cost at 3)."""
+        return lambda block: self.step(block, centroids_cell[0])
 
-def lloyd_step_plan(discrepancy: str) -> LloydStepPlan:
-    """Build the Y-mode plan for embedded blocks under ``discrepancy``."""
-    return LloydStepPlan(discrepancy=discrepancy)
+    def assign_map(self, centroids_cell: list):
+        """Per-block final-pass map: (labels, cost), labels at index 0."""
+        return lambda block: self.assign(block, centroids_cell[0])
+
+
+def lloyd_step_plan(params=None, discrepancy: str | None = None) -> LloydStepPlan:
+    """Build the plan. Pass embedding ``params`` for X-mode (raw blocks), or
+    ``params=None`` with an explicit ``discrepancy`` for Y-mode (embedded
+    blocks)."""
+    if params is None:
+        if discrepancy is None:
+            raise ValueError("Y-mode plan (params=None) needs discrepancy=")
+        return LloydStepPlan(params=None, discrepancy=discrepancy, member=None)
+    return LloydStepPlan(params=params, discrepancy=params.discrepancy,
+                         member=fused_member(params))

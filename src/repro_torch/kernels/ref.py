@@ -1,7 +1,8 @@
-"""Plain PyTorch versions of the two hand-written kernels.
+"""Plain PyTorch versions of the hand-written kernels.
 
-They compute the same functions as ``apnc_embed`` and ``apnc_assign``, with the
-same contracts as the JAX package's oracles. The wrappers use them for CPU
+They compute the same functions as ``apnc_embed``, ``apnc_assign``,
+``rff_embed_block``, ``fused_apnc_step`` and ``fused_rff_step``, with the same
+contracts as the JAX package's oracles. The wrappers use them for CPU
 tensors; on the card they are only the yardstick the kernels are held against.
 """
 from __future__ import annotations
@@ -10,6 +11,7 @@ import torch
 
 from repro_torch.core.apnc import Discrepancy, pairwise_discrepancy
 from repro_torch.core.kernels_fn import Kernel
+from repro_torch.core.lloyd import block_cost
 
 
 def apnc_embed_ref(
@@ -39,3 +41,32 @@ def apnc_assign_ref(
     labels = torch.argmin(pairwise_discrepancy(Yf, Cf, discrepancy), dim=-1)
     onehot = torch.nn.functional.one_hot(labels, C.shape[0]).to(torch.float32)
     return onehot.T @ Yf, torch.sum(onehot, dim=0), labels.to(torch.int32)
+
+
+def rff_embed_ref(X: torch.Tensor, W: torch.Tensor, scale: float) -> torch.Tensor:
+    """Y = scale [cos(X W), sin(X W)]: X (n, d), W (d, m_half) -> (n, 2 m_half) f32."""
+    proj = X.to(torch.float32) @ W.to(torch.float32)
+    return scale * torch.cat([torch.cos(proj), torch.sin(proj)], dim=-1)
+
+
+def _step_ref(Y, C, discrepancy):
+    Z, g, labels = apnc_assign_ref(Y, C, discrepancy)
+    return Z, g, labels, block_cost(Y, C.to(torch.float32), discrepancy)
+
+
+def fused_apnc_step_ref(
+    X: torch.Tensor, landmarks: torch.Tensor, R: torch.Tensor, C: torch.Tensor,
+    kernel: Kernel, discrepancy: Discrepancy,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One Lloyd block step of a q = 1 APNC member, un-fused: embed, assign,
+    stats and cost. X (n, d), landmarks (l, d), R (m, l), C (k, m) ->
+    Z (k, m) f32, g (k,) f32, labels (n,) int32, cost () f32."""
+    return _step_ref(apnc_embed_ref(X, landmarks[None], R[None], kernel), C, discrepancy)
+
+
+def fused_rff_step_ref(
+    X: torch.Tensor, W: torch.Tensor, C: torch.Tensor, scale: float, discrepancy: Discrepancy,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One Lloyd block step of the rff member, un-fused. X (n, d), W (d, m_half),
+    C (k, 2 m_half) in the [cos | sin] layout -> as ``fused_apnc_step_ref``."""
+    return _step_ref(rff_embed_ref(X, W, scale), C, discrepancy)

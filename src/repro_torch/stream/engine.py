@@ -1,0 +1,299 @@
+"""MapReduce-style block executor with a pipelined host->device transfer.
+
+`map_reduce(store, map_fn, combine_fn, init)` is the program shape of the
+whole paper: an embarrassingly parallel map over row blocks and a small
+associative combine. Embedding (Algorithm 1) and assignment (Algorithm 2's
+map + in-mapper combiner) are its two map_fns.
+
+Pipelining: a background producer thread pulls block i+1 from the store (the
+host cost: generation, memmap page-in) and starts its copy to the card while
+the card works on block i. On a card the copy runs on a dedicated
+`torch.cuda.Stream`, from pinned host memory, so it overlaps compute:
+
+  * a block that already lies in pinned memory (a store over a pinned array)
+    is copied straight from it; any other block is first copied into a ring
+    of `prefetch + 1` pinned staging buffers, and a buffer is reused only
+    after the event of the copy that last read it has completed;
+  * each device block carries the event recorded after its copy; the
+    consumer's stream waits on that event before the map runs, and the block
+    is marked as used by that stream (`record_stream`), so its memory is not
+    handed out again before the map's kernels are done with it;
+  * the producer thread runs under the consumer's device.
+
+`prefetch=0` is the synchronous baseline: every block is fetched,
+transferred, computed and waited on before the next block is touched.
+
+Telemetry is plain module-level numbers (`COUNTERS`, `PASS_COUNTS`):
+passes by label, blocks read, bytes handed to the device, seconds the
+consumer waited on an empty prefetch queue, and map dispatches.
+"""
+from __future__ import annotations
+
+import collections
+import contextlib
+import queue
+import threading
+import time
+from typing import Any, Callable
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.stream.blockstore import BlockStore, WritableBlockStore
+
+_STOP = object()
+
+#: Engine passes recorded per label since the last ``reset_counters()``.
+PASS_COUNTS: "collections.Counter[str]" = collections.Counter()
+#: blocks_read, bytes_h2d, prefetch_stall_s (consumer wait on an empty
+#: queue: the producer, not the device, was the bottleneck), map_dispatches.
+COUNTERS: dict[str, float] = dict(
+    blocks_read=0, bytes_h2d=0, prefetch_stall_s=0.0, map_dispatches=0,
+)
+_LOCK = threading.Lock()
+
+
+def _count(name: str, value: float = 1) -> None:
+    with _LOCK:
+        COUNTERS[name] += value
+
+
+def reset_counters() -> None:
+    """Zero the engine telemetry (measurement scoping)."""
+    with _LOCK:
+        PASS_COUNTS.clear()
+        for name in COUNTERS:
+            COUNTERS[name] = 0.0 if name == "prefetch_stall_s" else 0
+
+
+def fetch_block(store: BlockStore, i: int) -> np.ndarray:
+    """The engine's one block-read seam (the synchronous path and the
+    producer thread both read through here)."""
+    return store.get(i)
+
+
+class _Uploader:
+    """Moves host blocks onto one device: on a card through its own copy
+    stream and pinned memory, with a completion event per block; on the CPU
+    as a zero-copy tensor."""
+
+    def __init__(self, device: torch.device, ring: int):
+        self.device = device
+        if device.type == "cuda":
+            self.stream = torch.cuda.Stream(device)
+            self.staging: list[torch.Tensor | None] = [None] * ring
+            self.freed: list[torch.cuda.Event | None] = [None] * ring
+            self.slot = 0
+
+    def put(self, blk: np.ndarray):
+        """(device tensor, event recorded after its copy, or None on the CPU)."""
+        host = torch.from_numpy(np.ascontiguousarray(blk))
+        if self.device.type != "cuda":
+            return host.to(self.device), None
+        slot = None
+        if not host.is_pinned():
+            slot, self.slot = self.slot, (self.slot + 1) % len(self.staging)
+            if self.freed[slot] is not None:
+                self.freed[slot].synchronize()  # the copy that last read it is done
+            buf = self.staging[slot]
+            if buf is None or buf.dtype != host.dtype or buf.numel() < host.numel():
+                buf = torch.empty(host.numel(), dtype=host.dtype, pin_memory=True)
+                self.staging[slot] = buf
+            host = buf[: host.numel()].view(host.shape).copy_(host)
+        with torch.cuda.stream(self.stream):
+            dev = torch.empty(host.shape, dtype=host.dtype, device=self.device)
+            dev.copy_(host, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record(self.stream)
+        if slot is not None:
+            self.freed[slot] = event
+        return dev, event
+
+
+def _adopt(dev: torch.Tensor, event) -> torch.Tensor:
+    """Order the current stream after a block's copy and mark the block as
+    used by it."""
+    if event is not None:
+        stream = torch.cuda.current_stream(dev.device)
+        stream.wait_event(event)
+        dev.record_stream(stream)
+    return dev
+
+
+def _on_device(device: torch.device):
+    return torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
+
+
+def _offer(q: "queue.Queue", item, stop: threading.Event) -> bool:
+    """Bounded-queue put that gives up once ``stop`` is set. Every
+    producer-side put goes through here: an unconditional put on a full queue
+    after ``close()`` has drained it once would block forever and deadlock the
+    ``join()`` in ``close()``."""
+    while not stop.is_set():
+        try:
+            q.put(item, timeout=0.05)
+            return True
+        except queue.Full:
+            continue
+    return False
+
+
+def _producer(store: BlockStore, q: "queue.Queue", stop: threading.Event,
+              device: torch.device, ring: int) -> None:
+    try:
+        with _on_device(device):
+            up = _Uploader(device, ring)
+            for i in range(store.num_blocks):
+                if stop.is_set():
+                    return
+                blk = fetch_block(store, i)
+                dev, event = up.put(blk)
+                _count("blocks_read")
+                _count("bytes_h2d", blk.nbytes)
+                if not _offer(q, (i, dev, event, None), stop):
+                    return
+        _offer(q, _STOP, stop)
+    except BaseException as e:  # noqa: BLE001 - re-raised on the consumer side
+        _offer(q, (None, None, None, e), stop)
+
+
+class BlockPrefetcher:
+    """Iterator of (local_i, device_block) over a store, in block order, with
+    a background producer keeping a bounded queue of blocks whose copies to
+    ``device`` are already under way.
+
+    Always ``close()`` (or exhaust) the iterator: a dropped prefetcher would
+    leave its producer thread blocked on the queue.
+    """
+
+    def __init__(self, store: BlockStore, *, prefetch: int = 2, device=None):
+        self.device = resolve_device(device)
+        depth = max(1, prefetch)
+        self._q: "queue.Queue" = queue.Queue(maxsize=depth)
+        self._stop = threading.Event()
+        self._done = False
+        self._t = threading.Thread(
+            target=_producer, name=f"block-producer:{self.device}",
+            args=(store, self._q, self._stop, self.device, depth + 1), daemon=True,
+        )
+        self._t.start()
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        if self._done:
+            raise StopIteration
+        t0 = time.perf_counter()
+        item = self._q.get()
+        _count("prefetch_stall_s", time.perf_counter() - t0)
+        if item is _STOP:
+            self._done = True
+            raise StopIteration
+        i, dev, event, err = item
+        if err is not None:
+            self._done = True
+            raise err
+        return i, _adopt(dev, event)
+
+    def close(self) -> None:
+        """Stop and join the producer; safe to call more than once.
+
+        Drain and join interleave in a loop: a producer that was blocked
+        mid-put can enqueue one more item after a drain and refill the queue
+        before the join. Its puts give up once the stop flag is set, so this
+        converges.
+        """
+        self._stop.set()
+        while self._t.is_alive():
+            try:
+                self._q.get_nowait()
+            except queue.Empty:
+                pass
+            self._t.join(timeout=0.05)
+        while True:  # release queued device blocks promptly
+            try:
+                self._q.get_nowait()
+            except queue.Empty:
+                break
+        self._done = True
+
+
+def map_reduce(
+    store: BlockStore,
+    map_fn: Callable[[torch.Tensor], Any],
+    combine_fn: Callable[[Any, Any], Any],
+    init: Any,
+    *,
+    prefetch: int = 2,
+    emit: Callable[[int, Any], None] | None = None,
+    device=None,
+    label: str = "map_reduce",
+) -> Any:
+    """Fold ``combine_fn(acc, map_fn(block))`` over every block of ``store``.
+
+    map_fn runs on ``device`` (default: the card; ``"cpu"`` for the plain
+    path); combine_fn must be associative enough that per-block accumulation
+    matches the monolithic computation (sums, counts, min/max: the paper's
+    (Z, g) case). ``emit(i, out)``, when given, receives each block's map
+    output before the combine, on the consumer thread in block order.
+
+    prefetch: depth of the producer queue; 0 is the synchronous baseline.
+    label: each call adds one pass to ``PASS_COUNTS[label]``.
+    """
+    dev = resolve_device(device)
+    with _LOCK:
+        PASS_COUNTS[label] += 1
+    acc = init
+    if prefetch <= 0:
+        with _on_device(dev):
+            up = _Uploader(dev, 1)
+            for i in range(store.num_blocks):
+                blk = fetch_block(store, i)
+                _count("blocks_read")
+                _count("bytes_h2d", blk.nbytes)
+                out = map_fn(_adopt(*up.put(blk)))
+                _count("map_dispatches")
+                if emit is not None:
+                    emit(i, out)
+                acc = combine_fn(acc, out)
+                if dev.type == "cuda":
+                    torch.cuda.synchronize(dev)
+        return acc
+
+    pf = BlockPrefetcher(store, prefetch=prefetch, device=dev)
+    try:
+        for i, blk in pf:
+            out = map_fn(blk)
+            _count("map_dispatches")
+            if emit is not None:
+                emit(i, out)
+            acc = combine_fn(acc, out)
+    finally:
+        pf.close()
+    return acc
+
+
+def cache_embedding(
+    store: BlockStore,
+    map_fn: Callable[[torch.Tensor], torch.Tensor],
+    *,
+    d_out: int,
+    prefetch: int = 2,
+    device=None,
+    label: str = "cache_embedding",
+) -> WritableBlockStore:
+    """Materialize ``map_fn`` over every block of ``store`` into a staged host
+    store, through the same pipelined prefetcher as any other pass. Blocks
+    are written by global block id, so a shard's local block i lands at its
+    global offset. The returned ``WritableBlockStore`` raises on any read of
+    a block this pass never produced."""
+    out = BlockStore.empty(n=store.n, d=d_out, block_rows=store.block_rows)
+
+    def emit(i, y):
+        out.put(store.block_id(i), y.cpu().numpy())
+
+    map_reduce(store, map_fn, lambda acc, _: acc, None, prefetch=prefetch, emit=emit,
+               device=device, label=label)
+    return out

@@ -43,20 +43,35 @@ def test_port_imports_neither_jax_nor_repro():
     assert out.stdout.startswith("clean")
 
 
-@pytest.mark.parametrize("entry", ["fit", "predict", "resolve"])
+@pytest.mark.parametrize("entry", ["fit", "predict", "resolve", "stream_fit", "ooc_lloyd",
+                                   "map_reduce", "stream_predict"])
 def test_entry_points_default_to_the_card(entry):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is valid here")
     from repro_torch.api import KernelKMeans
     from repro_torch.device import resolve_device
+    from repro_torch.stream.blockstore import BlockStore
+    from repro_torch.stream.engine import map_reduce
+    from repro_torch.stream.lloyd import ooc_lloyd
 
     X = np.random.default_rng(0).standard_normal((200, 4)).astype(np.float32)
+    store = BlockStore.from_array(X, 64)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         if entry == "fit":
             KernelKMeans(3, l=16, m=8).fit(X)
         elif entry == "predict":
             model = KernelKMeans(3, l=16, m=8, device="cpu").fit(X).model_
             model.predict(X[:5])
+        elif entry == "stream_fit":
+            KernelKMeans(3, l=16, m=8, method="rff").fit(store)
+        elif entry == "ooc_lloyd":
+            ooc_lloyd(store, 3, discrepancy="l2", init=torch.zeros((3, 4)))
+        elif entry == "map_reduce":
+            map_reduce(store, lambda b: b, lambda a, b: a, None)
+        elif entry == "stream_predict":
+            est = KernelKMeans(3, l=16, m=8, backend="stream", device="cpu").fit(store)
+            est.device = None
+            est.predict(store)
         else:
             resolve_device(None)
 
@@ -80,10 +95,17 @@ def test_chip_smoke_cpu_rehearsal():
     assert out.returncode == 0, out.stderr[-2000:]
     lines = [json.loads(line) for line in out.stdout.splitlines() if line.startswith("{")]
     phases = [line.get("phase") for line in lines]
-    assert phases == ["device", "data", "parity", "main", "agreement", "timing", "done"]
+    assert phases == ["device", "data", "parity", "main", "agreement", "host_copy", "stream",
+                      "rff", "timing", "done"]
     assert not any(line.get("ok") for line in lines)
     main = lines[phases.index("main")]
     assert main["nmi"] > 0.9 and main["launches"] == {"apnc_embed": 0, "apnc_assign": 0}
+    stream = lines[phases.index("stream")]
+    assert stream["nmi"] > 0.9 and stream["vs_local"]["label_agreement"] == 1.0
+    assert stream["same_params_as_local"] and not any(stream["launches"].values())
+    assert stream["engine"]["blocks_read"] == stream["passes"] * stream["num_blocks"]
+    rff = lines[phases.index("rff")]
+    assert rff["vs_local"]["label_agreement"] >= 0.995 and not any(rff["launches"].values())
 
 
 def test_chip_smoke_fails_without_a_card_or_the_repo(tmp_path):
@@ -98,3 +120,23 @@ def test_chip_smoke_fails_without_a_card_or_the_repo(tmp_path):
     out = subprocess.run([sys.executable, str(alone), "--cpu-rehearsal"], cwd=tmp_path,
                          env=bare, capture_output=True, text=True, timeout=120)
     assert out.returncode != 0 and '"ok"' not in out.stdout
+
+
+def test_library_hash_covers_included_headers(tmp_path, monkeypatch):
+    """An edited csrc/*.cuh header rebuilds every library whose source
+    includes it, directly or through another header, and no other."""
+    import shutil
+
+    from repro_torch.kernels import build
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(build.CSRC, csrc)
+    monkeypatch.setattr(build, "CSRC", csrc)
+    before = {name: build._target(name) for name in build.SOURCES}
+    epilogue = csrc / "lloyd_epilogue.cuh"
+    epilogue.write_text(epilogue.read_text() + "\n")
+    after = {name: build._target(name) for name in build.SOURCES}
+    assert [n for n in build.SOURCES if after[n] != before[n]] == ["lloyd_step"]
+    shared = csrc / "tile_math.cuh"
+    shared.write_text(shared.read_text() + "\n")
+    assert all(build._target(name) != after[name] for name in build.SOURCES)

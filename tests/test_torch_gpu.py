@@ -1,5 +1,5 @@
 """The port's hand-written CUDA kernels against their plain PyTorch versions,
-on the card. Every test here carries the `gpu` marker and skips inside its
+on the card, and the stream backend on the card against the CPU. Every test here carries the `gpu` marker and skips inside its
 fixture when no card is present; the file imports no JAX, so it runs as it is
 on a machine with a card:
 
@@ -113,3 +113,103 @@ def test_sd_fit_embeds_through_l1_kernels(cuda):
     Z, g, labels = ops.apnc_assign(Y, C, "l1")
     Zr, gr, lr = ref.apnc_assign_ref(Y, C, "l1")
     assert torch.equal(labels, lr) and torch.equal(g, gr)
+
+
+def _blob_block(n, d, k, seed, scale=1.0):
+    """Well-separated blobs and their per-class means: with C the embedded
+    means, every row's nearest centroid wins by a wide margin, so the kernel
+    and the plain version must agree on every label."""
+    rng = np.random.default_rng(seed)
+    centers = rng.standard_normal((k, d)).astype(np.float32) * 4.0
+    lab = rng.integers(0, k, n)
+    X = (centers[lab] + rng.standard_normal((n, d)).astype(np.float32)) * np.float32(scale)
+    return torch.from_numpy(X), torch.from_numpy(lab)
+
+
+def _class_means(Y, lab, k):
+    lab = lab.to(Y.device)
+    C = torch.zeros((k, Y.shape[1]), device=Y.device).index_add_(0, lab, Y)
+    return (C / torch.bincount(lab, minlength=k).clamp(min=1)[:, None]).contiguous()
+
+
+def _check_step(got, want, got2):
+    Z, g, labels, cost = got
+    Zr, gr, lr, cr = want
+    assert torch.equal(labels, lr) and torch.equal(g, gr)
+    assert all(torch.equal(a, b) for a, b in zip(got, got2))  # bitwise run to run
+    torch.testing.assert_close(Z, Zr, rtol=1e-4, atol=1e-4 * float(Zr.abs().max()))
+    torch.testing.assert_close(cost, cr, rtol=1e-5, atol=0.0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kern", KERNELS, ids=lambda k: k.name)
+@pytest.mark.parametrize("method", ["nystrom", "sd"])
+@pytest.mark.parametrize("nd", [(4096, 77, 150, 100, 67), (1003, 130, 70, 64, 9)])
+def test_fused_apnc_step_matches_plain(cuda, kern, method, nd):
+    from repro_torch.kernels import lloyd_step
+
+    n, d, l, m, k = nd
+    X, lab = _blob_block(n, d, k, seed=1, scale=d ** -0.5)
+    fit = fit_nystrom if method == "nystrom" else fit_sd
+    params = fit(4, X, kern, l=l, m=m).to(cuda)
+    Xc = X.to(cuda)
+    C = _class_means(ref.apnc_embed_ref(Xc, params.landmarks, params.R, kern), lab, k)
+    L, R = params.landmarks[0].contiguous(), params.R[0].contiguous()
+    before = lloyd_step.launches["fused_apnc_step"]
+    got = lloyd_step.fused_apnc_step(Xc, L, R, C, kern, params.discrepancy)
+    got2 = lloyd_step.fused_apnc_step(Xc, L, R, C, kern, params.discrepancy)
+    torch.cuda.synchronize()
+    assert lloyd_step.launches["fused_apnc_step"] == before + 2
+    _check_step(got, ref.fused_apnc_step_ref(Xc, L, R, C, kern, params.discrepancy), got2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nd", [(4096, 900, 128, 164), (1003, 77, 65, 9)])
+def test_rff_kernels_match_plain(cuda, nd):
+    from repro_torch.embed.rff import RFFParams
+    from repro_torch.kernels import lloyd_step, rff_embed
+
+    n, d, mh, k = nd
+    X, lab = _blob_block(n, d, k, seed=2, scale=d ** -0.5)
+    Xc = X.to(cuda)
+    W = (torch.randn((d, mh), generator=torch.Generator().manual_seed(3)) * 0.5).to(cuda)
+    scale = mh ** -0.5
+    before = rff_embed.launches
+    Y = rff_embed.rff_embed_block(Xc, W, scale)
+    Yr = ref.rff_embed_ref(Xc, W, scale)
+    torch.cuda.synchronize()
+    assert rff_embed.launches == before + 1
+    # The projection is a sum of d products in another order than the GEMM:
+    # its error is a few ulp of sum |x_i w_i|, and cos / sin pass it on with
+    # slope <= 1, times the scale.
+    tol = 8 * 2.0 ** -24 * d * float((Xc.abs() @ W.abs()).max()) * scale
+    torch.testing.assert_close(Y, Yr, rtol=0.0, atol=tol)
+    C = _class_means(Yr, lab, k)
+    params = RFFParams(W=W, kernel=Kernel("rbf", gamma=0.125))
+    got = ops.fused_lloyd_step(Xc, params, C)
+    got2 = ops.fused_lloyd_step(Xc, params, C)
+    torch.cuda.synchronize()
+    assert lloyd_step.launches["fused_rff_step"] >= 2
+    _check_step(got, ref.fused_rff_step_ref(Xc, W, C, scale, "l2"), got2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("method", ["nystrom", "rff"])
+def test_stream_fit_on_card_matches_cpu(cuda, method):
+    from repro_torch.api import KernelKMeans
+    from repro_torch.data.synthetic import gaussian_blobs_blocks
+    from repro_torch.kernels import lloyd_step
+    from repro_torch.stream.blockstore import BlockStore
+
+    X, _ = gaussian_blobs_blocks(0, 5000, 16, 6, block_rows=1024, separation=4.0)
+    kw = dict(method=method, l=128, m=64, kernel_params=dict(gamma=0.01), block_rows=1000)
+    name = "fused_apnc_step" if method == "nystrom" else "fused_rff_step"
+    before = lloyd_step.launches[name]
+    gpu = KernelKMeans(6, backend="stream", **kw).fit(BlockStore.from_array(X, 1000))
+    assert lloyd_step.launches[name] - before >= (gpu.n_iter_ + 1) * 5
+    cpu = KernelKMeans(6, backend="stream", device="cpu", **kw).fit(
+        BlockStore.from_array(X, 1000))
+    local = KernelKMeans(6, backend="local", **kw).fit(X)
+    assert (gpu.labels_ == cpu.labels_).mean() >= 0.999
+    assert (gpu.labels_ == local.labels_).mean() >= 0.999
+    np.testing.assert_allclose(gpu.inertia_, cpu.inertia_, rtol=1e-3)
