@@ -9,8 +9,11 @@ the paper's ImageNet shape (n = 1,262,102, d = 900, k = 164) on blobs made
 from ``--seed``: the local backend (``KernelKMeans(164, kernel="rbf",
 method="nystrom", l=500, m=256).fit(X)`` then ``predict``), the stream
 backend over a pinned host copy of X in 4,096-row blocks (the same fit
-through the fused Lloyd-step kernel, O(block) on the card), and the rff
-member on both backends. It times each kernel beside its bound, its plain
+through the fused Lloyd-step kernel, O(block) on the card), the rff member on
+both backends, and the embed-once sweep over that store under the int8, f32
+and bf16 caches (``KernelKMeans(...).sweep(store, k_grid=[82, 164],
+restarts=2)``, every block's Lloyd step over a compressed cache in
+``fused_dequant_step``). It times each kernel beside its bound, its plain
 version and a PyTorch library call chain. Every phase prints
 one JSON line. The last lines are the kernel table, the card's name and power
 limit, and ``{"ok": true, ...}``; any failure exits non-zero before them.
@@ -40,14 +43,19 @@ PEAK_BYTES_PER_S = 3.35e12
 # The paper's ImageNet configuration (src/repro/configs/paper_datasets.py).
 # parity_assign: (n, k, m) of the assign parity cases; parity_blobs: (n, d,
 # l, m, k) of the fused-step parity cases on blob data.
+# parity_dequant: (n, k, m) of the fused_dequant_step cases; the last m is
+# above the kernel's limit and takes the decode route.
 IMAGENET = dict(n=1_262_102, d=900, k=164, separation=1.5, l=500, m=256, iters=20,
-                block_rows=4096, rff_m=128,
+                block_rows=4096, rff_m=128, sweep_k_grid=(82, 164), sweep_restarts=2,
                 parity_assign=((5003, 67, 70), (20_011, 164, 256)),
-                parity_blobs=((4096, 77, 150, 100, 67), (1003, 130, 70, 64, 9)))
+                parity_blobs=((4096, 77, 150, 100, 67), (1003, 130, 70, 64, 9)),
+                parity_dequant=((4096, 67, 24), (1003, 9, 256), (4096, 164, 256),
+                                (1003, 67, 800), (1003, 9, 900)))
 REHEARSAL = dict(n=4_000, d=32, k=8, separation=3.0, l=64, m=16, iters=20,
-                 block_rows=512, rff_m=16,
+                 block_rows=512, rff_m=16, sweep_k_grid=(4, 8), sweep_restarts=2,
                  parity_assign=((503, 7, 19), (2003, 13, 32)),
-                 parity_blobs=((515, 13, 40, 24, 7), (203, 9, 24, 12, 5)))
+                 parity_blobs=((515, 13, 40, 24, 7), (203, 9, 24, 12, 5)),
+                 parity_dequant=((515, 7, 24), (203, 5, 40)))
 #: Device-memory rise allowed over a stream fit (the data is 4.54 GB).
 STREAM_RISE_LIMIT = 512 << 20
 
@@ -98,7 +106,9 @@ def check_close(what, got, want, rtol, atol) -> float:
 
 # Template arguments of the port's kernels, as the Itanium ABI mangles them.
 _TEMPLATE_ARGS = {"ILb0E": "<false>", "ILb1E": "<true>", "IfE": "<float>",
-                  "I13__nv_bfloat16E": "<bf16>"}
+                  "I13__nv_bfloat16E": "<bf16>", "IaLb0EE": "<int8, false>",
+                  "IaLb1EE": "<int8, true>", "ItLb0EE": "<bf16, false>",
+                  "ItLb1EE": "<bf16, true>", "IaE": "<int8>", "ItE": "<bf16>"}
 
 
 def entry_name(mangled: str) -> str:
@@ -148,7 +158,11 @@ def phase_build() -> dict:
                     apnc_embed=apnc_embed.smem_bytes(cfg["m"]),
                     apnc_assign=apnc_assign.smem_bytes(cfg["m"], cfg["k"]),
                     fused_apnc_step=lloyd_step.smem_bytes("apnc", cfg["m"]),
-                    fused_rff_step=lloyd_step.smem_bytes("rff", 2 * cfg["rff_m"])))
+                    fused_rff_step=lloyd_step.smem_bytes("rff", 2 * cfg["rff_m"]),
+                    fused_dequant_step=lloyd_step.smem_bytes("dequant", cfg["m"])),
+                dequant_max_m=lloyd_step.DEQUANT_MAX_M,
+                dynamic_smem_bytes_dequant_max_m=lloyd_step.smem_bytes(
+                    "dequant", lloyd_step.DEQUANT_MAX_M))
 
 
 def blob_block(n, d, k, seed, device):
@@ -168,10 +182,10 @@ def class_means(Y, lab, k):
     return (C / torch.bincount(lab, minlength=k).clamp(min=1).float()[:, None]).contiguous()
 
 
-def check_step(what, run, plain) -> dict:
+def check_step(what, run, plain, cost_rtol=1e-5) -> dict:
     """A fused Lloyd step against its plain version: labels and g equal, Z
-    within rtol 1e-4 and atol 1e-4 * max|Z|, cost within rtol 1e-5, and two
-    runs bitwise equal."""
+    within rtol 1e-4 and atol 1e-4 * max|Z|, cost within ``cost_rtol`` (1e-5;
+    1e-4 for the dequant step), and two runs bitwise equal."""
     (Z, g, lab, cost), again = run(), run()
     Zr, gr, lr, cr = plain()
     if not (torch.equal(lab, lr) and torch.equal(g, gr)):
@@ -179,7 +193,7 @@ def check_step(what, run, plain) -> dict:
     if not all(torch.equal(a, b) for a, b in zip((Z, g, lab, cost), again)):
         raise AssertionError(f"{what}: two runs differ")
     z_err = check_close(f"{what} Z", Z, Zr, 1e-4, 1e-4 * float(Zr.abs().max()))
-    cost_err = check_close(f"{what} cost", cost, cr, 1e-5, 0.0)
+    cost_err = check_close(f"{what} cost", cost, cr, cost_rtol, 0.0)
     return dict(labels_equal=True, g_equal=True, deterministic=True, z_max_abs_err=z_err,
                 z_abs_max=float(Zr.abs().max()), cost_abs_err=cost_err,
                 cost_rel_err=cost_err / abs(float(cr)))
@@ -257,6 +271,53 @@ def parity_fused(X, truth, device, cfg) -> dict:
     return out
 
 
+def encoded_blob(n, m, k, codec, seed, device):
+    """A blob block staged under ``codec`` by the port's host encoder: its
+    wire form on ``device`` and the class means of the decoded rows."""
+    from repro_torch.kernels import ref
+    from repro_torch.stream.blockstore import EncodedBlock, get_codec
+
+    Y, lab = blob_block(n, m, k, seed, "cpu")
+    enc = to_device(EncodedBlock(*get_codec(codec).encode(Y.numpy())), device)
+    return enc, class_means(ref.dequant_ref(*enc), lab.to(device), k)
+
+
+def to_device(enc, device):
+    """A host EncodedBlock (numpy payload and scale) as tensors on ``device``."""
+    from repro_torch.stream.blockstore import EncodedBlock
+    from repro_torch.stream.engine import host_tensor
+
+    return EncodedBlock(host_tensor(enc.payload).to(device),
+                        host_tensor(np.asarray(enc.scale, np.float32)).to(device))
+
+
+def parity_dequant(device, cfg) -> list:
+    """fused_dequant_step against its plain version on blob data: int8 and
+    bf16, l2 and l1, ragged n, k = 67 and 9, m from 24 to the kernel's limit,
+    and one m above it through the plan's decode route (the decode kernel,
+    then apnc_assign). Gated as check_step, with the cost within rtol 1e-4."""
+    from repro_torch.kernels import lloyd_step, ops, ref
+
+    out = []
+    for n, k, m in cfg["parity_dequant"]:
+        for codec in ("int8", "bf16"):
+            for disc in ("l2", "l1"):
+                enc, C = encoded_blob(n, m, k, codec, 21, device)
+                route = "fused" if m <= lloyd_step.DEQUANT_MAX_M else "decode"
+                res = check_step(
+                    f"fused_dequant_step {codec} {disc} n={n} k={k} m={m} ({route})",
+                    lambda: ops.dequant_step(enc, C, disc),
+                    lambda: ref.fused_dequant_step_ref(enc.payload, enc.scale, C, disc),
+                    cost_rtol=1e-4)
+                decode_equal = bool(torch.equal(lloyd_step.dequant_decode(*enc),
+                                                ref.dequant_ref(*enc)))
+                if not decode_equal:
+                    raise AssertionError(f"dequant_decode {codec} m={m} differs from plain")
+                out.append(dict(codec=codec, disc=disc, n=n, k=k, m=m, route=route,
+                                decode_equal=decode_equal, **res))
+    return out
+
+
 def phase_parity(X, truth, device, cfg) -> dict:
     """Each kernel against its plain version on the same inputs."""
     from repro_torch.core.kernels_fn import Kernel, self_tuned_rbf
@@ -304,6 +365,7 @@ def phase_parity(X, truth, device, cfg) -> dict:
             out["assign"].append(dict(disc=disc, n=n, k=k, m=m, labels_equal=True,
                                       g_equal=True, deterministic=True, z_max_abs_err=err))
     out.update(parity_fused(X, truth, device, cfg))
+    out["fused_dequant"] = parity_dequant(device, cfg)
     sync(device)
     return out
 
@@ -568,6 +630,198 @@ def phase_rff(X, truth, store, cfg, device, seed) -> tuple[dict, object]:
                 stream=s_info, local=l_info), stream
 
 
+def sweep_measured(est, data, k_grid, restarts, device, seed) -> tuple[object, dict]:
+    """est.sweep with the launch counters and the engine telemetry zeroed just
+    before and read just after; also the device-memory rise over the sweep."""
+    from repro_torch.kernels import apnc_assign, apnc_embed, lloyd_step, rff_embed
+    from repro_torch.stream import engine
+
+    sync(device)
+    start = torch.cuda.memory_allocated(device) if device.type == "cuda" else 0
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    apnc_embed.launches = apnc_assign.launches = rff_embed.launches = 0
+    for name in lloyd_step.launches:
+        lloyd_step.launches[name] = 0
+    engine.reset_counters()
+    t0 = time.perf_counter()
+    res = est.sweep(data, k_grid=list(k_grid), restarts=restarts, seed=seed)
+    sync(device)
+    wall = time.perf_counter() - t0
+    launches = dict(apnc_embed=apnc_embed.launches, apnc_assign=apnc_assign.launches,
+                    rff_embed_block=rff_embed.launches, **lloyd_step.launches)
+    rise = (torch.cuda.max_memory_allocated(device) - start) if device.type == "cuda" else None
+    return res, dict(sweep_s=wall, phases_s=dict(est.phases_), launches=launches,
+                     engine=dict(engine.COUNTERS), engine_passes=dict(engine.PASS_COUNTS),
+                     device_memory_rise_bytes=rise)
+
+
+def staged_blocks(store, params, codec, device):
+    """The sweep's staged cache of ``store`` under ``codec`` (the embed pass
+    is deterministic, so these are the bytes the sweep streamed)."""
+    from repro_torch.policy import ComputePolicy
+    from repro_torch.stream.lloyd import stream_embed
+
+    return stream_embed(store, params, policy=ComputePolicy(cache_dtype=codec), device=device)
+
+
+def check_cache_pass(store, params, C, device) -> tuple[dict, object, object]:
+    """At equal centroids C (the f32 sweep's final ones), over every block of
+    the int8 cache:
+
+    * exactness of the epilogue: fused_dequant_step and the chain
+      dequant_decode -> apnc_assign give the same labels on every row (the
+      epilogue repeats apnc_assign.cu), 0 mismatches;
+    * the codec bound: every row whose int8 label differs from its label
+      over the f32 cache has a gap between its two nearest (sqrt'd l2)
+      distances of at most 2 ||b_row|| (b_j = max|col_j| / 254 of its block,
+      CacheCodec.error_bound), plus 1e-5 of the distances for the f32
+      roundoff of the kernel's own distances.
+    """
+    from repro_torch.kernels import lloyd_step, ops
+    from repro_torch.stream.blockstore import get_codec
+
+    q8 = staged_blocks(store, params, "int8", device)
+    f32 = staged_blocks(store, params, "f32", device)
+    codec = get_codec("int8")
+    chain_mismatch = codec_diff = 0
+    worst = 0.0
+    for i in range(q8.num_blocks):
+        enc = to_device(q8.get_encoded(i), device)
+        lab_q = lloyd_step.fused_dequant_step(enc.payload, enc.scale, C, "l2")[2]
+        _, _, lab_chain = ops.apnc_assign(lloyd_step.dequant_decode(*enc), C, "l2")
+        chain_mismatch += int((lab_q != lab_chain).sum())
+        y_host = f32.get(i)
+        Y = torch.from_numpy(y_host).to(device)
+        _, _, lab_f = ops.apnc_assign(Y, C, "l2")
+        rows = torch.nonzero(lab_q != lab_f).flatten()
+        if rows.numel():
+            codec_diff += int(rows.numel())
+            b = torch.from_numpy(np.ascontiguousarray(codec.error_bound(y_host)[0])).to(device)
+            d = torch.cdist(Y[rows].double(), C.double())
+            top2 = torch.topk(d, 2, dim=1, largest=False).values
+            gap = top2[:, 1] - top2[:, 0]
+            limit = 2.0 * float(torch.linalg.norm(b.double())) + 1e-5 * top2[:, 1]
+            worst = max(worst, float((gap / limit).max()))
+    if chain_mismatch:
+        raise AssertionError(f"fused_dequant_step vs dequant_decode -> apnc_assign: "
+                             f"{chain_mismatch} labels differ")
+    if worst > 1.0:
+        raise AssertionError(f"an int8 label differs from f32 beyond the codec bound "
+                             f"(gap / limit = {worst})")
+    return dict(rows=q8.n, chain_label_mismatches=chain_mismatch,
+                int8_vs_f32_label_diffs=codec_diff, max_gap_over_codec_limit=worst), q8, f32
+
+
+def profile_sweep_pass(caches, res, device) -> dict:
+    """Where a sweep pass's wall time goes: a copy-only pass over each staged
+    cache (the wire bytes alone, through the unpinned store and the pinned
+    staging ring), then one Lloyd pass plus the final assign of (a)'s four
+    candidates over the int8 cache from their final centroids, traced."""
+    from repro_torch.stream import engine
+    from repro_torch.sweep.engine import sweep_lloyd
+
+    out = {}
+    for codec, cache in caches.items():
+        sync(device)
+        t0 = time.perf_counter()
+        engine.map_reduce(cache, lambda b: None, lambda acc, _: acc, None, device=device,
+                          label="copy_only")
+        sync(device)
+        out[f"copy_only_pass_s_{codec}"] = time.perf_counter() - t0
+    inits = [torch.stack([m.centroids for m in row]) for row in res.models]
+    run = lambda: sweep_lloyd(caches["int8"], inits, "l2", iters=1, device=device)  # noqa: E731
+    run()  # warm-up
+    engine.reset_counters()
+    _, prof = device_profile(run)
+    return dict(passes_traced=2, candidates=sum(len(r) for r in res.models),
+                prefetch_stall_ms=engine.COUNTERS["prefetch_stall_s"] * 1e3, **out, **prof)
+
+
+def phase_sweep(X, truth, store, stream_est, cfg, device, seed) -> tuple[dict, dict]:
+    """The embed-once sweep over the pinned store at full n: (a) int8 cache,
+    k_grid = cfg's, 2 restarts; (b) the f32 cache at k = 164, 1 restart; (c)
+    the same over bf16. Gated: fused_dequant_step launched over every
+    compressed cache and not over f32; the wire bytes of every pass exactly
+    the payload plus scale bytes (n*m + blocks*m*4 for int8, 2*n*m +
+    blocks*4 for bf16, 4*n*m for f32); the device-memory rise; at equal
+    centroids, 0 label mismatches between fused_dequant_step and the decode
+    -> apnc_assign chain and every int8-vs-f32 label difference inside the
+    codec bound; (b) against the stream fit from the same seed >= 0.995; the
+    NMI of (a)'s k = 164 winner within 0.01 of (b)'s."""
+    from repro_torch.api import ComputePolicy, KernelKMeans
+    from repro_torch.core.metrics import nmi
+
+    n, m, bn, k = X.shape[0], cfg["m"], cfg["block_rows"], cfg["k"]
+    nb = store.num_blocks
+    wire = {"int8": n * m + nb * m * 4, "bf16": 2 * n * m + nb * 4, "f32": 4 * n * m}
+    runs, out = {}, dict(phase="sweep", n=n, m=m, k_grid=list(cfg["sweep_k_grid"]),
+                         num_blocks=nb, wire_bytes_per_pass=wire)
+    plan = (("a_int8", "int8", cfg["sweep_k_grid"], cfg["sweep_restarts"]),
+            ("b_f32", "f32", (k,), 1), ("c_bf16", "bf16", (k,), 1))
+    for name, codec, grid, restarts in plan:
+        est = KernelKMeans(k, kernel="rbf", method="nystrom", l=cfg["l"], m=m,
+                           iters=cfg["iters"], backend="stream", block_rows=bn,
+                           random_state=seed, device=device,
+                           policy=ComputePolicy(cache_dtype=codec))
+        res, info = sweep_measured(est, store, grid, restarts, device, seed)
+        passes = info["engine_passes"].get("sweep_lloyd", 0)
+        pass_bytes = info["engine"]["bytes_h2d"] - X.numel() * 4  # minus the embed pass
+        ki = res.k_grid.index(k)
+        r_best = int(np.argmin(res.inertia[ki]))
+        launched = info["launches"]["fused_dequant_step"]
+        runs[name] = (est, res)
+        out[name] = dict(
+            codec=codec, k_grid=list(grid), restarts=restarts, passes_with_final=passes,
+            candidate_iters=_iters(res).tolist(),
+            fused_dequant_step_launches=launched,
+            bytes_h2d_per_pass=pass_bytes / max(passes, 1),
+            bytes_staged=info["engine"]["bytes_staged"],
+            compression_ratio=info["engine"]["compression_ratio"],
+            nmi_at_k=nmi(res.labels[ki][r_best], truth), best_k=res.best_k,
+            inertia_table={str(kk): v for kk, v in res.inertia_table().items()},
+            lloyd_s_per_pass=info["phases_s"]["lloyd"] / max(passes, 1), **info)
+        if device.type == "cuda":
+            if (launched > 0) != (codec != "f32"):
+                raise AssertionError(f"sweep {name}: fused_dequant_step ran {launched} times")
+            if codec != "f32" and launched < passes * nb:
+                raise AssertionError(f"sweep {name}: {launched} launches for {passes} passes")
+            if info["device_memory_rise_bytes"] >= STREAM_RISE_LIMIT:
+                raise AssertionError(f"sweep {name} raised device memory by "
+                                     f"{info['device_memory_rise_bytes']} bytes")
+        if pass_bytes != passes * wire[codec]:
+            raise AssertionError(f"sweep {name}: {pass_bytes} bytes crossed in {passes} passes, "
+                                 f"want {passes} x {wire[codec]}")
+    est_b, res_b = runs["b_f32"]
+    vs_fit = dict(label_agreement=float((res_b.best_labels == stream_est.labels_).mean()),
+                  bitwise_identical=bool(np.array_equal(res_b.best_labels, stream_est.labels_)),
+                  inertia_rel_diff=abs(res_b.best_inertia - stream_est.inertia_)
+                  / abs(stream_est.inertia_))
+    out["b_f32_vs_stream_fit"] = vs_fit
+    nmi_gap = abs(out["a_int8"]["nmi_at_k"] - out["b_f32"]["nmi_at_k"])
+    out["nmi_gap_int8_vs_f32"] = nmi_gap
+    C = est_b.model_.centroids.contiguous()
+    cache_check, q8, f32 = check_cache_pass(store, est_b.model_.params, C, device)
+    out["equal_centroids"] = cache_check
+    if device.type == "cuda":
+        out["pass_profile"] = profile_sweep_pass(dict(int8=q8, f32=f32), runs["a_int8"][1],
+                                                 device)
+    del f32
+    if device.type == "cuda":
+        if vs_fit["label_agreement"] < 0.995:
+            raise AssertionError(f"sweep (b) vs the stream fit: {vs_fit}")
+        if nmi_gap > 0.01:
+            raise AssertionError(f"NMI of the int8 winner is {nmi_gap} from the f32 one")
+    return out, dict(q8=q8, C=C, launches=out["a_int8"]["fused_dequant_step_launches"],
+                     lloyd_s=out["a_int8"]["phases_s"]["lloyd"],
+                     candidate_passes=int(np.sum(_iters(runs["a_int8"][1]))))
+
+
+def _iters(res) -> np.ndarray:
+    """Lloyd iterations per candidate, (len(k_grid), restarts)."""
+    return np.asarray([[m.meta.iters for m in row] for row in res.models])
+
+
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     for _ in range(warmup):
         fn()
@@ -725,11 +979,12 @@ def library_step(Yb, C):
 
 
 def phase_timing(X, est, launches, stream_est, stream_launches, rff_est, rff_launches,
-                 cfg) -> tuple[dict, list]:
+                 sweep_data, cfg) -> tuple[dict, list]:
     """Each kernel at the main path's shapes: kernel, plain version, library
     call chain, and the bound computed from this run's shapes. The Lloyd-step
     and RFF kernels are timed per pass over the resident X in the stream
-    path's row blocks."""
+    path's row blocks; fused_dequant_step per pass over the sweep's int8
+    cache, its blocks resident on the card, at k = 164."""
     from repro_torch.kernels import apnc_assign, apnc_embed, lloyd_step, ref, rff_embed
 
     params = est.model_.params
@@ -829,6 +1084,39 @@ def phase_timing(X, est, launches, stream_est, stream_launches, rff_est, rff_lau
     b_frff, by_frff = bound(2.0 * n * d * mh + 2.0 * n * k * 2 * mh,
                             4.0 * (n * d + d * mh + 2 * k * 2 * mh + k + n + 1))
 
+    # fused_dequant_step: the int8 cache's blocks, the f32 sweep's centroids.
+    Cq = sweep_data["C"]
+    encs = [to_device(sweep_data["q8"].get_encoded(i), X.device)
+            for i in range(sweep_data["q8"].num_blocks)]
+    dq_check = check_step(
+        "fused_dequant_step on a main-path block",
+        lambda: lloyd_step.fused_dequant_step(encs[0].payload, encs[0].scale, Cq, "l2"),
+        lambda: ref.fused_dequant_step_ref(encs[0].payload, encs[0].scale, Cq, "l2"),
+        cost_rtol=1e-4)
+    t_dq = cuda_ms(lambda: [lloyd_step.fused_dequant_step(e.payload, e.scale, Cq, "l2")
+                            for e in encs], 3, warmup=1)
+    t_dq_plain = cuda_ms(lambda: [ref.fused_dequant_step_ref(e.payload, e.scale, Cq, "l2")
+                                  for e in encs], 3, warmup=1)
+    t_dq_lib = cuda_ms(lambda: [library_step(e.payload.float() * e.scale, Cq) for e in encs],
+                       3, warmup=1)
+    nb = len(encs)
+
+    def dequant_bound(kk):
+        return bound(2.0 * n * kk * m, 1.0 * n * m + 4.0 * (nb * m + 2 * kk * m + kk + n + 1))
+
+    b_dq, by_dq = dequant_bound(k)
+    del encs
+
+    # flash_attention_bhsd is still to port: its bound and PyTorch's fused
+    # attention at the example shape (BH = 32, S = 4,096, Dh = 64, f32, causal).
+    bh, s_len, dh = 32, 4096, 64
+    gq = torch.Generator(device=X.device).manual_seed(5)
+    q, kk_, v = (torch.randn((bh, s_len, dh), generator=gq, device=X.device) for _ in range(3))
+    t_sdpa = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        q, kk_, v, is_causal=True), 10)
+    b_flash, by_flash = bound(2.0 * bh * s_len * s_len * dh, 4.0 * 4 * bh * s_len * dh)
+    del q, kk_, v
+
     def row(name, source, replaces, launched, err, ms, plain_ms, bound_ms, bound_by, lib_ms):
         return dict(name=name, route="cuda", source=f"src/repro_torch/kernels/csrc/{source}",
                     replaces=replaces, launches=launched, max_abs_err=err, ms=ms,
@@ -851,24 +1139,27 @@ def phase_timing(X, est, launches, stream_est, stream_launches, rff_est, rff_lau
         row("fused_rff_step", "lloyd_step.cu", "src/repro/kernels/lloyd_step.py:268",
             rff_launches["fused_rff_step"], rff_check["z_max_abs_err"], t_frff,
             t_frff_plain, b_frff, by_frff, t_frff_lib),
+        row("fused_dequant_step", "dequant_step.cu", "src/repro/kernels/lloyd_step.py:189",
+            sweep_data["launches"], dq_check["z_max_abs_err"], t_dq, t_dq_plain, b_dq, by_dq,
+            t_dq_lib),
     ]
-    # The TPU kernels still to port, bounded at the same shapes (flash
-    # attention has no clustering shape, so an example).
-    bh, s_len, dh = 32, 4096, 64
-    pending = {
-        "fused_dequant_step": bound(2.0 * n * k * m,
-                                    1.0 * n * m + 4.0 * (m + 2 * k * m + k + n + 1)),
-        "flash_attention_bhsd(BH=32,S=4096,Dh=64,causal)": bound(
-            2.0 * bh * s_len * s_len * dh, 4.0 * 4 * bh * s_len * dh),
-    }
     info = dict(phase="timing", shapes=dict(n=n, d=d, l=l, m=m, k=k, block_rows=bn,
                                             rff_m_half=mh),
                 timed_per="launch over the resident X (apnc_embed, apnc_assign); pass over "
-                          f"the resident X in {bn}-row blocks (the other three)",
-                pending_kernel_bounds_ms={name: b for name, (b, _) in pending.items()},
+                          f"the resident X in {bn}-row blocks (the fused and RFF kernels); "
+                          "pass over the int8 cache resident on the card at k = 164, one "
+                          "candidate (fused_dequant_step)",
+                fused_dequant_bound_ms={str(kk): dequant_bound(kk)[0]
+                                        for kk in cfg["sweep_k_grid"]},
+                fused_dequant_sweep_s_per_candidate_pass=sweep_data["lloyd_s"]
+                / max(sweep_data["candidate_passes"], 1),
+                pending_kernels={"flash_attention_bhsd(BH=32,S=4096,Dh=64,f32,causal)": dict(
+                    bound_ms=b_flash, bound_by=by_flash,
+                    library_ms=t_sdpa, library="scaled_dot_product_attention(is_causal=True)")},
                 lloyd_profile=lloyd_profile,
                 assign_main_shape=assign_check, fused_apnc_block=fused_check,
-                fused_rff_block=rff_check, rff_embed_atol=rff_tol,
+                fused_rff_block=rff_check, fused_dequant_block=dq_check,
+                rff_embed_atol=rff_tol,
                 embed_max_rel_err=embed_err / y_abs_max,
                 **{f"{r['name']}_roofline_share": r["bound_ms"] / r["ms"] for r in rows})
     return info, rows
@@ -932,12 +1223,15 @@ def main(argv=None) -> int:
     emit(stream_info)
     rff_info, rff_est = phase_rff(X, truth, store, cfg, device, args.seed)
     emit(rff_info)
+    sweep_info, sweep_data = phase_sweep(X, truth, store, stream_est, cfg, device, args.seed)
+    emit(sweep_info)
 
     if rehearsal:
         emit(dict(phase="timing", skipped="cpu rehearsal: no device times"))
     else:
         info, rows = phase_timing(X, est, main_info["launches"], stream_est,
-                                  stream_info["launches"], rff_est, rff_info["launches"], cfg)
+                                  stream_info["launches"], rff_est, rff_info["launches"],
+                                  sweep_data, cfg)
         emit(info)
 
     leaked = sorted(m for m in sys.modules

@@ -42,9 +42,10 @@ class FitContext:
     device: torch.device | None = None  # where blocks are mapped; None: the params' device
     decay: float = 0.9  # minibatch: sufficient-stat decay
     epochs: int = 1  # minibatch: passes over the stream
-    # Embed-once cache: when set, backends cluster over the staged Y blocks
+    # Embed-once cache: when set, backends cluster over the embedded data
     # instead of embedding X again on every pass.
-    y_store: BlockStore | None = None
+    y_store: BlockStore | None = None  # host-staged Y blocks (blocked input)
+    y_array: torch.Tensor | None = None  # resident f32 Y (resident input)
 
     def __post_init__(self):
         if self.device is None:
@@ -67,9 +68,18 @@ class BackendFit:
 
 
 def ensure_embedding_cache(ctx: FitContext) -> FitContext:
-    """Fill the context's embed-once cache if it is empty (one embedding pass
-    over the blocks, staged to host memory); idempotent. Returns ``ctx``."""
-    if ctx.y_store is None:
+    """Fill the context's embed-once cache if it is empty; idempotent.
+
+    Resident input (``ctx.array``) is embedded whole into the resident f32
+    ``y_array``; blocked input takes one embedding pass over its blocks,
+    staged to host memory as ``y_store`` under the policy's ``cache_dtype``.
+    Returns ``ctx``."""
+    from repro_torch import embed
+
+    if ctx.array is not None:
+        if ctx.y_array is None:
+            ctx.y_array = embed.transform(ctx.params, ctx.array, ctx.policy)
+    elif ctx.y_store is None:
         ctx.y_store = stream_embed(ctx.store, ctx.params, policy=ctx.policy, device=ctx.device)
     return ctx
 
@@ -93,11 +103,13 @@ def _from_stream(res) -> BackendFit:
 
 @register_backend("local")
 def fit_local(ctx: FitContext) -> BackendFit:
-    """Single-program path: embed everything (or read the staged Y), Lloyd
+    """Single-program path: embed everything (or take the cached Y), Lloyd
     per restart."""
     from repro_torch import embed
 
-    if ctx.y_store is not None:
+    if ctx.y_array is not None:
+        Y = ctx.y_array
+    elif ctx.y_store is not None:
         Y = torch.from_numpy(ctx.y_store.materialize()).to(ctx.device)
     elif ctx.array is not None:
         Y = embed.transform(ctx.params, ctx.array, ctx.policy)

@@ -1,5 +1,5 @@
 """`KernelKMeans`: the estimator of the port, on the ``local``, ``stream``
-and ``minibatch`` backends.
+and ``minibatch`` backends, and its embed-once ``sweep``.
 
 Phase 1 runs here, identically for every backend: a reservoir sample over the
 blocked host view of the data selects landmarks, the embedding member fits
@@ -158,10 +158,13 @@ class KernelKMeans:
 
     # ------------------------------------------------------------ lifecycle
 
-    def _prepare(self, X, seed: int, dev: torch.device, backend_name: str = "local") -> FitContext:
-        """Phase 1: blocked host view, reservoir sample, embedding fit,
-        seeding pool, k-means++ inits. Only the local backend gets the whole
-        array on the device; the streaming ones stay O(block) there."""
+    def _phase1(self, X, seed: int, dev: torch.device, backend_name: str = "local"):
+        """The backend-independent front of every fit and sweep: blocked host
+        view, reservoir sample, embedding fit, seeding pool. Returns
+        (store, array, params, pool, s_seed); k-means++ draws come off
+        ``s_seed`` per restart, identically for fit() and sweep(). Only the
+        local backend gets the whole array on the device; the streaming ones
+        stay O(block) there."""
         self.phases_ = {}
         array = None
         with self._phase("host_view", dev):
@@ -188,11 +191,22 @@ class KernelKMeans:
                 s_fit, sample, self.kernel_, l=self.l, m=self.m, t=self.t, q=self.q
             )
             pool = ops.embed_block_map(sample[: self.seed_sample], params, policy=self.policy)
+        return store, array, params, pool, s_seed
+
+    @staticmethod
+    def _seed_inits(pool: torch.Tensor, s_seed: int, k: int, discrepancy: str,
+                    restarts: int) -> list[torch.Tensor]:
+        """k-means++ inits of restarts 0..restarts-1, restart r drawn from
+        ``restart_generator(s_seed, r)``."""
+        return [kmeanspp_init(restart_generator(s_seed, r), pool, k, discrepancy)
+                for r in range(restarts)]
+
+    def _prepare(self, X, seed: int, dev: torch.device, backend_name: str = "local") -> FitContext:
+        """Phase 1 and the k-means++ seeding of every restart."""
+        store, array, params, pool, s_seed = self._phase1(X, seed, dev, backend_name)
         with self._phase("seed", dev):
-            inits = [
-                kmeanspp_init(restart_generator(s_seed, r), pool, self.k, params.discrepancy)
-                for r in range(max(1, self.n_init))
-            ]
+            inits = self._seed_inits(pool, s_seed, self.k, params.discrepancy,
+                                     max(1, self.n_init))
         return FitContext(
             store=store, array=array, params=params, k=self.k, inits=inits,
             iters=self.iters, policy=self.policy, device=dev, decay=self.decay,
@@ -234,6 +248,35 @@ class KernelKMeans:
     def fit_predict(self, X, *, seed: int | None = None) -> np.ndarray:
         """``fit(X, seed=seed).labels_``."""
         return self.fit(X, seed=seed).labels_
+
+    def sweep(self, X, k_grid, *, restarts: int | None = None, seed: int | None = None,
+              checkpoint_dir=None):
+        """Embed-once model selection: embed the data once, then run
+        ``restarts`` k-means++ restarts for every k in ``k_grid`` over the
+        cached embedding, one engine pass feeding every candidate per Lloyd
+        iteration. Backends "local" and "stream" (per ``backend=`` or the auto
+        dispatch); the stream backend stages Y under the policy's
+        ``cache_dtype`` and decodes each block inside ``fused_dequant_step``.
+
+        ``sweep(k_grid=[k], restarts=1)`` gives the labels of ``fit`` at k from
+        the same seed. The estimator adopts the best candidate (``model_``,
+        ``labels_``, ``inertia_``, ``n_iter_``, ``backend_``); ``phases_``
+        gains ``embed_cache``.
+
+        Args:
+            X: (n, d) array (numpy or torch) or a BlockStore.
+            k_grid: candidate cluster counts.
+            restarts: k-means++ restarts per k; ``None`` uses ``n_init``.
+            seed: root seed; ``None`` uses ``random_state``.
+            checkpoint_dir: not ported yet (raises ``NotImplementedError``).
+
+        Returns:
+            A ``SweepResult``.
+        """
+        from repro_torch.sweep import sweep_estimator
+
+        return sweep_estimator(self, X, k_grid, restarts=restarts, seed=seed,
+                               checkpoint_dir=checkpoint_dir)
 
     def _fit_meta(self, **kw) -> FitMeta:
         return FitMeta(

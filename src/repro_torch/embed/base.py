@@ -9,6 +9,7 @@ CUDA tensor, its plain PyTorch version for a CPU tensor.
 from __future__ import annotations
 
 import abc
+import dataclasses
 from typing import Any
 
 import torch
@@ -93,15 +94,29 @@ def embedding_for(params: EmbeddingParams) -> Embedding:
 # ------------------------------------------------------------ routed dispatch
 
 
+def _cast_float_fields(params: EmbeddingParams, dtype: torch.dtype) -> EmbeddingParams:
+    """The same params with every floating tensor field cast to ``dtype``."""
+    return dataclasses.replace(params, **{
+        f.name: getattr(params, f.name).to(dtype)
+        for f in dataclasses.fields(params)
+        if isinstance(getattr(params, f.name), torch.Tensor)
+        and getattr(params, f.name).is_floating_point()
+    })
+
+
 def transform(
     params: EmbeddingParams, X: torch.Tensor, policy: ComputePolicy | None = None,
 ) -> torch.Tensor:
     """THE embedding dispatch point: Y = f(X) for any registered member.
 
     A CUDA tensor goes through the member's hand-written kernel (a member
-    without one raises); a CPU tensor through the plain version."""
+    without one raises); the kernels compute in f32 whatever the policy's
+    ``precision``, as the JAX package's Pallas route does on a TPU. A CPU
+    tensor goes through the plain version: in f32, or under
+    ``precision="bf16"`` with the params' float fields and X cast to bf16,
+    the result returned as f32."""
     emb = embedding_for(params)
-    as_policy(policy)  # validates; f32 is the only precision of this slice
+    pol = as_policy(policy)
     if X.device.type == "cuda":
         y = emb.kernel_transform(params, X)
         if y is None:
@@ -109,4 +124,7 @@ def transform(
                 f"embedding {emb.name!r} has no CUDA kernel in this port yet"
             )
         return y
+    if pol.precision == "bf16":
+        p16 = _cast_float_fields(params, torch.bfloat16)
+        return emb.transform(p16, X.to(torch.bfloat16)).to(torch.float32)
     return emb.transform(params, X.to(torch.float32))

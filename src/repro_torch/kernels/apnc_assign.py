@@ -3,8 +3,9 @@
 Replaces ``src/repro/kernels/apnc_assign.py::apnc_assign_padded``, the Pallas
 TPU kernel. The source is ``csrc/apnc_assign.cu``; its header holds the bound
 on an H100 and what the design does about it (operation-bound: 2*n*k*m f32
-operations; each Y tile is read once; (Z, g) are reduced through per-CTA
-partials summed in a fixed order, so they are bitwise deterministic).
+operations; each Y tile is read once, up to m = 768, and streamed through
+shared memory above; (Z, g) are reduced through per-CTA partials summed in a
+fixed order, so they are bitwise deterministic).
 
 ``apnc_assign`` launches the kernel for CUDA tensors and raises if it cannot;
 for CPU tensors it computes the same function with the plain PyTorch version.
@@ -87,11 +88,6 @@ def apnc_assign(
     if n == 0:
         return Z.zero_(), g.zero_(), labels
     lib = _lib()
-    if m > lib.apnc_assign_max_m():
-        raise NotImplementedError(
-            f"apnc_assign holds a Y tile whole in shared memory and takes "
-            f"m <= {lib.apnc_assign_max_m()}, got m={m}"
-        )
     n_tiles = -(-n // lib.apnc_assign_tile_rows())
     tiles_per_cta = -(-n_tiles // min(n_tiles, MAX_CTAS))
     num_ctas = -(-n_tiles // tiles_per_cta)

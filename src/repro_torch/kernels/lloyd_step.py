@@ -1,13 +1,14 @@
-"""Fused Lloyd steps, embed + assign + (Z, g, cost) in one launch: hand-written CUDA kernels.
+"""Fused Lloyd steps, embed or decode + assign + (Z, g, cost) in one launch: hand-written CUDA kernels.
 
-Replaces ``src/repro/kernels/lloyd_step.py::fused_apnc_step`` and
-``::fused_rff_step``, the Pallas TPU kernels. The source is
-``csrc/lloyd_step.cu`` with its epilogue in ``csrc/lloyd_epilogue.cuh``; its
-header holds the bound on an H100 and what the design does about it
-(operation-bound; one CTA embeds 64 rows into a shared-memory tile that the
-assign epilogue reads in place, so Y never reaches device memory; (Z, g, cost)
-go through per-CTA partials summed in a fixed order, so they are bitwise
-deterministic).
+Replaces ``src/repro/kernels/lloyd_step.py::fused_apnc_step``,
+``::fused_rff_step`` and ``::fused_dequant_step``, the Pallas TPU kernels. The
+sources are ``csrc/lloyd_step.cu`` (the two embedding steps) and
+``csrc/dequant_step.cu`` (the step over a quantized cache block), both ending
+in the epilogue of ``csrc/lloyd_epilogue.cuh``; their headers hold the bound
+on an H100 and what the design does about it (operation-bound; one CTA embeds
+or decodes 64 rows into a shared-memory tile that the assign epilogue reads
+in place, so Y never reaches device memory; (Z, g, cost) go through per-CTA
+partials summed in a fixed order, so they are bitwise deterministic).
 
 Each wrapper launches its kernel for CUDA tensors and raises if it cannot;
 for CPU tensors it computes the same function with the plain PyTorch version.
@@ -21,24 +22,57 @@ import torch
 
 from repro_torch.core.kernels_fn import Kernel
 from repro_torch.kernels import build
-from repro_torch.kernels.ref import fused_apnc_step_ref, fused_rff_step_ref
+from repro_torch.kernels.ref import (
+    dequant_ref,
+    fused_apnc_step_ref,
+    fused_dequant_step_ref,
+    fused_rff_step_ref,
+)
 
-#: Kernel launches so far, per kernel (CUDA tensors only).
-launches = {"fused_apnc_step": 0, "fused_rff_step": 0}
+#: Kernel launches so far, per kernel (CUDA tensors only). ``dequant_decode``
+#: is the decode kernel of the route above ``DEQUANT_MAX_M``.
+launches = {"fused_apnc_step": 0, "fused_rff_step": 0, "fused_dequant_step": 0,
+            "dequant_decode": 0}
 
 #: Largest embedding width (rff: 2 * m_half) one launch takes: the (64 x m)
 #: Y tile lives in shared memory. ``csrc/lloyd_step.cu`` holds the same bound.
 MAX_M = 512
+
+#: Largest m one ``fused_dequant_step`` launch takes: its decoded (64 x m) Y
+#: tile, the epilogue's C sub-chunk and row scratch are 272 * m_pad + 9,728
+#: bytes (m_pad = m rounded up to 32), and a CTA may have 232,448.
+#: ``csrc/dequant_step.cu`` holds the same bound.
+DEQUANT_MAX_M = 800
 
 #: Upper bound on the CTAs of one launch, and so on the (k, m) partials held
 #: in scratch. It depends on nothing but itself, so the order of the final
 #: sums, and with them every bit of (Z, g, cost), is the same on every run.
 MAX_CTAS = 264
 
+#: Rows per CTA tile of every fused step (``lloyd::BN``).
+TILE_ROWS = 64
+
 _KINDS = {"rbf": 0, "poly": 1, "tanh": 2, "linear": 3}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+
+
+def _dequant_lib() -> ctypes.CDLL:
+    lib = build.load("dequant_step")
+    lib.fused_dequant_step.argtypes = [_P, _I] + [_P] * 9 + [_I] * 6 + [_P]
+    lib.dequant_decode.argtypes = [_P, _I, _P, _P, ctypes.c_longlong, _I, _P]
+    for fn in (lib.fused_dequant_step, lib.dequant_decode, lib.dequant_step_max_m,
+               lib.dequant_step_tile_rows):
+        fn.restype = ctypes.c_int
+    for fn in (lib.dequant_step_max_m, lib.dequant_step_tile_rows):
+        fn.argtypes = []
+    lib.fused_dequant_smem_bytes.argtypes = [_I]
+    lib.fused_dequant_smem_bytes.restype = ctypes.c_longlong
+    if lib.dequant_step_max_m() != DEQUANT_MAX_M or lib.dequant_step_tile_rows() != TILE_ROWS:
+        raise RuntimeError(
+            "dequant_step.cu and lloyd_step.py disagree on DEQUANT_MAX_M or TILE_ROWS")
+    return lib
 
 
 def _lib() -> ctypes.CDLL:
@@ -53,44 +87,46 @@ def _lib() -> ctypes.CDLL:
     for fn in (lib.fused_apnc_smem_bytes, lib.fused_rff_smem_bytes):
         fn.argtypes = [_I]
         fn.restype = ctypes.c_longlong
-    if lib.lloyd_step_max_m() != MAX_M:
-        raise RuntimeError("lloyd_step.cu and lloyd_step.py disagree on MAX_M")
+    if lib.lloyd_step_max_m() != MAX_M or lib.lloyd_step_tile_rows() != TILE_ROWS:
+        raise RuntimeError("lloyd_step.cu and lloyd_step.py disagree on MAX_M or TILE_ROWS")
     return lib
 
 
 def smem_bytes(member: str, m: int) -> int:
     """Dynamic shared memory of one CTA of the fused launch for ``member``
-    ("apnc" | "rff") at embedding width m."""
+    ("apnc" | "rff" | "dequant") at embedding width m."""
+    if member == "dequant":
+        return int(_dequant_lib().fused_dequant_smem_bytes(m))
     lib = _lib()
     fn = lib.fused_apnc_smem_bytes if member == "apnc" else lib.fused_rff_smem_bytes
     return int(fn(m))
 
 
-def _check(named: dict, discrepancy: str) -> None:
+def _check(named: dict, discrepancy: str, device: torch.device | None = None) -> None:
     if discrepancy not in ("l2", "l1"):
         raise ValueError(f"unknown discrepancy {discrepancy!r}")
-    dev = named["X"].device
+    dev = device if device is not None else named["X"].device
     for name, t in named.items():
         if t.ndim != 2:
             raise ValueError(f"{name} must be 2-D, got {tuple(t.shape)}")
         if t.dtype != torch.float32:
             raise TypeError(f"{name} must be float32, got {t.dtype}")
         if t.device != dev:
-            raise ValueError(f"{name} is on {t.device}, X on {dev}")
+            raise ValueError(f"{name} is on {t.device}, not {dev}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     if named["C"].shape[0] == 0:
         raise ValueError("a Lloyd step needs at least one centroid")
 
 
-def _outputs(n: int, k: int, m: int, dev: torch.device):
+def _outputs(n: int, k: int, m: int, dev: torch.device, max_m: int = MAX_M):
     """The outputs (Z, g, labels, cost) of one launch, the pointers the C entry
     takes for them and for the per-CTA scratch, and the launch's CTA count and
     tiles per CTA."""
-    if m > MAX_M:
+    if m > max_m:
         raise NotImplementedError(
             f"the fused Lloyd step holds a (64 x m) Y tile in shared memory and "
-            f"takes m <= {MAX_M}, got m={m}; ops.fused_member routes wider params "
+            f"takes m <= {max_m}, got m={m}; the ops layer routes wider blocks "
             f"to the un-fused kernels"
         )
     out = (torch.empty((k, m), dtype=torch.float32, device=dev),
@@ -100,7 +136,7 @@ def _outputs(n: int, k: int, m: int, dev: torch.device):
     if n == 0:  # no launch: the sums over no rows
         for t in (out[0], out[1], out[3]):
             t.zero_()
-    n_tiles = -(-n // _lib().lloyd_step_tile_rows())
+    n_tiles = -(-n // TILE_ROWS)
     tiles_per_cta = -(-n_tiles // max(1, min(n_tiles, MAX_CTAS)))
     num_ctas = -(-n_tiles // max(1, tiles_per_cta))
     Zp = torch.empty((num_ctas, k, m), dtype=torch.float32, device=dev)
@@ -176,3 +212,83 @@ def fused_rff_step(
     build.check(err, "fused_rff_step launch")
     launches["fused_rff_step"] += 1
     return out
+
+
+def _check_encoded(Yq: torch.Tensor, scale: torch.Tensor) -> None:
+    if Yq.ndim != 2:
+        raise ValueError(f"Yq must be 2-D, got {tuple(Yq.shape)}")
+    if Yq.dtype not in (torch.int8, torch.bfloat16):
+        raise TypeError(f"Yq must be int8 or bfloat16, got {Yq.dtype}")
+    if not Yq.is_contiguous():
+        raise ValueError("Yq must be contiguous")
+    if scale.dtype != torch.float32 or scale.device != Yq.device:
+        raise TypeError(f"scale must be float32 on {Yq.device}, got {scale.dtype} on "
+                        f"{scale.device}")
+    want = 1 if Yq.dtype == torch.bfloat16 else Yq.shape[1]
+    if scale.numel() != want:
+        raise ValueError(f"scale of a {Yq.dtype} block must hold {want} values "
+                         f"(int8: one per column; bf16: the codec's 1.0), got "
+                         f"{tuple(scale.shape)}")
+
+
+def _scale_row(Yq: torch.Tensor, scale: torch.Tensor) -> torch.Tensor | None:
+    """The (m,) scale row the kernels read for int8; None for bf16, whose
+    codec scale is identically 1.0 and is not read."""
+    return None if Yq.dtype == torch.bfloat16 else scale.reshape(-1).contiguous()
+
+
+def fused_dequant_step(
+    Yq: torch.Tensor, scale: torch.Tensor, C: torch.Tensor, discrepancy: str,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One Lloyd step over a quantized cache block in one launch: Yq (n, m)
+    int8 or bfloat16, scale (1, m) f32 for int8 or the codec's scalar 1.0 for
+    bf16, C (k, m) f32 -> Z (k, m) f32, g (k,) f32, labels (n,) int32,
+    cost () f32 (sum of min e, sqrt'd for l2), with Y = Yq * scale decoded in
+    shared memory. Takes m <= ``DEQUANT_MAX_M`` on a card."""
+    _check_encoded(Yq, scale)
+    _check(dict(C=C), discrepancy, Yq.device)
+    n, m = Yq.shape
+    k = C.shape[0]
+    if C.shape[1] != m:
+        raise ValueError(f"shape mismatch: Yq {tuple(Yq.shape)}, C {tuple(C.shape)}")
+    if Yq.device.type == "cpu":
+        return fused_dequant_step_ref(Yq, scale, C, discrepancy)
+    if Yq.device.type != "cuda":
+        raise ValueError(f"fused_dequant_step runs on cuda or cpu, not {Yq.device}")
+    out, ptrs, num_ctas, tiles_per_cta = _outputs(n, k, m, Yq.device, DEQUANT_MAX_M)
+    if n == 0:
+        return out
+    row = _scale_row(Yq, scale)
+    err = _dequant_lib().fused_dequant_step(
+        Yq.data_ptr(), int(row is None), None if row is None else row.data_ptr(),
+        C.data_ptr(), *ptrs,
+        n, m, k, int(discrepancy == "l1"), num_ctas, tiles_per_cta,
+        torch.cuda.current_stream(Yq.device).cuda_stream,
+    )
+    build.check(err, "fused_dequant_step launch")
+    launches["fused_dequant_step"] += 1
+    return out
+
+
+def dequant_decode(Yq: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """Decode a quantized cache block into device memory, Y = Yq * scale
+    (n, m) f32, with the same arithmetic as ``fused_dequant_step``: the
+    first half of the route for blocks wider than ``DEQUANT_MAX_M``."""
+    _check_encoded(Yq, scale)
+    if Yq.device.type == "cpu":
+        return dequant_ref(Yq, scale)
+    if Yq.device.type != "cuda":
+        raise ValueError(f"dequant_decode runs on cuda or cpu, not {Yq.device}")
+    n, m = Yq.shape
+    Y = torch.empty((n, m), dtype=torch.float32, device=Yq.device)
+    if Y.numel() == 0:
+        return Y
+    row = _scale_row(Yq, scale)
+    err = _dequant_lib().dequant_decode(
+        Yq.data_ptr(), int(row is None), None if row is None else row.data_ptr(),
+        Y.data_ptr(), Y.numel(), m,
+        torch.cuda.current_stream(Yq.device).cuda_stream,
+    )
+    build.check(err, "dequant_decode launch")
+    launches["dequant_decode"] += 1
+    return Y

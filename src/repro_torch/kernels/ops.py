@@ -17,6 +17,7 @@ from repro_torch.kernels import apnc_embed as _embed
 from repro_torch.kernels import lloyd_step as _lloyd_step
 from repro_torch.kernels import rff_embed as _rff
 from repro_torch.policy import ComputePolicy, as_policy
+from repro_torch.stream.blockstore import EncodedBlock
 
 
 def apnc_embed(X: torch.Tensor, coeffs: APNCCoefficients) -> torch.Tensor:
@@ -138,6 +139,20 @@ def _assign_stats_cost_y(y: torch.Tensor, centroids: torch.Tensor, discrepancy: 
     return Z, g, labels, block_cost(y, centroids, discrepancy)
 
 
+def dequant_step(block: EncodedBlock, centroids: torch.Tensor, discrepancy: str):
+    """(Z, g, labels, cost) of one quantized cache block (int8 or bf16 payload
+    and its scale). The route follows the shapes: on a card,
+    ``fused_dequant_step`` for m <= ``lloyd_step.DEQUANT_MAX_M`` (800: the
+    decoded (64 x m) tile lives in shared memory), wider blocks through the
+    ``dequant_decode`` kernel into device memory and then ``apnc_assign``; on
+    the CPU the plain version, which decodes the same way."""
+    payload, scale = block
+    C = centroids.to(torch.float32).contiguous()
+    if payload.device.type == "cuda" and payload.shape[1] > _lloyd_step.DEQUANT_MAX_M:
+        return _assign_stats_cost_y(_lloyd_step.dequant_decode(payload, scale), C, discrepancy)
+    return _lloyd_step.fused_dequant_step(payload, scale, C, discrepancy)
+
+
 class LloydStepPlan:
     """One Lloyd block step, resolved once and shared by the drivers.
 
@@ -147,13 +162,17 @@ class LloydStepPlan:
     ``block`` is a raw (rows, d) block when the plan carries embedding params
     (X-mode: the stream backends), or an already-embedded (rows, m) block when
     built with ``params=None, discrepancy=...`` (Y-mode: the local backend and
-    staged embeddings). Routing, decided once from the params:
+    staged embeddings), where it may also be an ``EncodedBlock``, the wire
+    form of a quantized cache block. Routing, decided from the params and,
+    for an encoded block, its shape:
 
       * X-mode, ``fused_member(params)`` not None: the fused kernel
         (``fused_apnc_step`` or ``fused_rff_step``), one launch a block;
       * X-mode otherwise: the member's embedding, then ``apnc_assign`` and
         ``block_cost``;
-      * Y-mode: ``apnc_assign`` and ``block_cost``.
+      * Y-mode: ``apnc_assign`` and ``block_cost``;
+      * Y-mode over an ``EncodedBlock``: ``dequant_step`` (the fused
+        ``fused_dequant_step`` kernel up to m = 800).
 
     Each kernel runs on CUDA blocks and its plain version on CPU blocks.
     ``block_map(cell)`` / ``assign_map(cell)`` close over a 1-element
@@ -173,6 +192,8 @@ class LloydStepPlan:
     def step(self, block: torch.Tensor, centroids: torch.Tensor):
         """(Z, g, labels, cost) for one block under ``centroids``."""
         if self.params is None:
+            if isinstance(block, EncodedBlock):
+                return dequant_step(block, centroids, self.discrepancy)
             return _assign_stats_cost_y(block, centroids, self.discrepancy)
         if self.fused:
             return fused_lloyd_step(block, self.params, centroids)

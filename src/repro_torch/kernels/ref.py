@@ -1,7 +1,8 @@
 """Plain PyTorch versions of the hand-written kernels.
 
 They compute the same functions as ``apnc_embed``, ``apnc_assign``,
-``rff_embed_block``, ``fused_apnc_step`` and ``fused_rff_step``, with the same
+``rff_embed_block``, ``fused_apnc_step``, ``fused_rff_step`` and
+``fused_dequant_step`` (and its decode), with the same
 contracts as the JAX package's oracles. The wrappers use them for CPU
 tensors; on the card they are only the yardstick the kernels are held against.
 """
@@ -70,3 +71,19 @@ def fused_rff_step_ref(
     """One Lloyd block step of the rff member, un-fused. X (n, d), W (d, m_half),
     C (k, 2 m_half) in the [cos | sin] layout -> as ``fused_apnc_step_ref``."""
     return _step_ref(rff_embed_ref(X, W, scale), C, discrepancy)
+
+
+def dequant_ref(Yq: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """Decode a cache block: Yq (n, m) int8 or bf16 times its scale, (1, m)
+    or a scalar, one rounded f32 multiply per element -> (n, m) f32."""
+    return Yq.to(torch.float32) * scale.to(torch.float32)
+
+
+def fused_dequant_step_ref(
+    Yq: torch.Tensor, scale: torch.Tensor, C: torch.Tensor, discrepancy: Discrepancy,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One Lloyd step over a quantized cache block, un-fused: decode, assign,
+    stats and cost. Yq (n, m) int8 or bf16, scale (1, m) f32 (int8) or the
+    scalar 1.0 (bf16), C (k, m) -> Z (k, m) f32, g (k,) f32, labels (n,)
+    int32, cost () f32 in ``block_cost``'s units (sqrt'd for l2)."""
+    return _step_ref(dequant_ref(Yq, scale), C, discrepancy)

@@ -19,12 +19,18 @@ class ComputePolicy:
     """Execution policy shared by every driver.
 
     Args:
-        precision: Compute precision of the embedding path. Only ``"f32"``
-            runs in this slice; ``"bf16"`` raises ``NotImplementedError``.
+        precision: Compute precision of the plain embedding path (``"f32"``
+            | ``"bf16"``); outputs are always f32. On a card the hand-written
+            kernels serve the transform in f32 whatever this says, as the
+            JAX package's Pallas route does on a TPU.
         prefetch: Block prefetch depth of the stream engine (0 = synchronous).
         sstep: s-step factor of the sharded stream scheduler (1 = exact).
-        cache_dtype: Codec of the staged embedding cache. Only ``"f32"``
-            runs in this slice.
+        cache_dtype: Codec of the staged embedding cache (the host-resident
+            Y blocks of ``stream_embed`` and the sweep): ``"f32"``
+            passthrough, ``"bf16"`` or per-column-scaled symmetric
+            ``"int8"``. Compressed blocks cross to the card in their wire
+            form and are decoded inside the Lloyd step's kernel. The
+            resident local path (``y_array``) stays f32.
     """
 
     precision: Precision = "f32"
@@ -33,8 +39,7 @@ class ComputePolicy:
     cache_dtype: CacheDtype = "f32"
 
     def __post_init__(self):
-        """Validate field values (ValueError on unknown settings,
-        NotImplementedError on settings a later slice of the port adds)."""
+        """Validate field values (ValueError on unknown settings)."""
         if self.precision not in ("f32", "bf16"):
             raise ValueError(f"unknown precision {self.precision!r}")
         if self.prefetch < 0:
@@ -45,17 +50,6 @@ class ComputePolicy:
             raise ValueError(
                 f"unknown cache_dtype {self.cache_dtype!r}: "
                 "expected 'f32', 'bf16' or 'int8'"
-            )
-        if self.precision != "f32":
-            raise NotImplementedError(
-                "precision='bf16' is not ported yet; it arrives with the "
-                "quantized-cache slice (see ROADMAP.md)"
-            )
-        if self.cache_dtype != "f32":
-            raise NotImplementedError(
-                f"cache_dtype={self.cache_dtype!r} is not ported yet; it "
-                "arrives with the sweep and quantized-cache slice "
-                "(see ROADMAP.md)"
             )
 
 

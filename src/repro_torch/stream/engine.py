@@ -23,9 +23,14 @@ the card works on block i. On a card the copy runs on a dedicated
 `prefetch=0` is the synchronous baseline: every block is fetched,
 transferred, computed and waited on before the next block is touched.
 
+A store staged under a compressed codec streams in its wire form
+(`fetch_block` returns the `EncodedBlock`): payload and scale cross to the
+card together, under one event, and the Lloyd step decodes them there.
+
 Telemetry is plain module-level numbers (`COUNTERS`, `PASS_COUNTS`):
-passes by label, blocks read, bytes handed to the device, seconds the
-consumer waited on an empty prefetch queue, and map dispatches.
+passes by label, blocks read, bytes handed to the device (wire bytes for a
+compressed store), seconds the consumer waited on an empty prefetch queue,
+map dispatches, and the bytes and compression ratio of the last staged cache.
 """
 from __future__ import annotations
 
@@ -40,17 +45,21 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.stream.blockstore import BlockStore, WritableBlockStore
+from repro_torch.stream.blockstore import BlockStore, EncodedBlock, WritableBlockStore
 
 _STOP = object()
 
 #: Engine passes recorded per label since the last ``reset_counters()``.
 PASS_COUNTS: "collections.Counter[str]" = collections.Counter()
 #: blocks_read, bytes_h2d, prefetch_stall_s (consumer wait on an empty
-#: queue: the producer, not the device, was the bottleneck), map_dispatches.
+#: queue: the producer, not the device, was the bottleneck), map_dispatches,
+#: bytes_staged (wire bytes `cache_embedding` put into its store) and
+#: compression_ratio (f32 bytes over staged bytes of the last cache).
 COUNTERS: dict[str, float] = dict(
     blocks_read=0, bytes_h2d=0, prefetch_stall_s=0.0, map_dispatches=0,
+    bytes_staged=0, compression_ratio=0.0,
 )
+_FLOAT_COUNTERS = ("prefetch_stall_s", "compression_ratio")
 _LOCK = threading.Lock()
 
 
@@ -64,60 +73,98 @@ def reset_counters() -> None:
     with _LOCK:
         PASS_COUNTS.clear()
         for name in COUNTERS:
-            COUNTERS[name] = 0.0 if name == "prefetch_stall_s" else 0
+            COUNTERS[name] = 0.0 if name in _FLOAT_COUNTERS else 0
 
 
-def fetch_block(store: BlockStore, i: int) -> np.ndarray:
+def fetch_block(store: BlockStore, i: int) -> "np.ndarray | EncodedBlock":
     """The engine's one block-read seam (the synchronous path and the
-    producer thread both read through here)."""
+    producer thread both read through here): the codec wire form for a store
+    staged compressed, so the cheap bytes cross the link, else the block."""
+    if store.codec != "f32":
+        enc = store.get_encoded(i)
+        if enc is not None:
+            return enc
     return store.get(i)
 
 
+def block_nbytes(blk) -> int:
+    """Host -> device bytes of one fetched block (payload plus scale bytes for
+    an `EncodedBlock`)."""
+    if isinstance(blk, EncodedBlock):
+        return int(blk.payload.nbytes + np.asarray(blk.scale).nbytes)
+    return int(blk.nbytes)
+
+
+def host_tensor(a: np.ndarray) -> torch.Tensor:
+    """A host array as a tensor, zero-copy; uint16 holds bf16 bits, which
+    become a ``torch.bfloat16`` view."""
+    a = np.ascontiguousarray(a)
+    if a.dtype == np.uint16:
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
 class _Uploader:
-    """Moves host blocks onto one device: on a card through its own copy
-    stream and pinned memory, with a completion event per block; on the CPU
-    as a zero-copy tensor."""
+    """Moves host blocks (arrays or `EncodedBlock`s) onto one device: on a
+    card through its own copy stream and pinned memory, with one completion
+    event per block; on the CPU as zero-copy tensors.
+
+    The pinned staging ring holds raw bytes: each slot has one buffer per
+    part of a block (the payload, and the scale of an encoded block), each
+    grown only when a block needs more bytes, so blocks whose parts differ
+    in type never reallocate pinned memory."""
 
     def __init__(self, device: torch.device, ring: int):
         self.device = device
         if device.type == "cuda":
             self.stream = torch.cuda.Stream(device)
-            self.staging: list[torch.Tensor | None] = [None] * ring
+            self.staging: list[list[torch.Tensor | None]] = [[None, None] for _ in range(ring)]
             self.freed: list[torch.cuda.Event | None] = [None] * ring
             self.slot = 0
 
-    def put(self, blk: np.ndarray):
-        """(device tensor, event recorded after its copy, or None on the CPU)."""
-        host = torch.from_numpy(np.ascontiguousarray(blk))
+    def _stage(self, slot: int, part: int, host: torch.Tensor) -> torch.Tensor:
+        nbytes = host.numel() * host.element_size()
+        buf = self.staging[slot][part]
+        if buf is None or buf.numel() < nbytes:
+            buf = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+            self.staging[slot][part] = buf
+        return buf[:nbytes].view(host.dtype).view(host.shape).copy_(host)
+
+    def put(self, blk):
+        """(device block, event recorded after its copies, or None on the
+        CPU); the device block is a tensor, or an `EncodedBlock` of tensors."""
+        encoded = isinstance(blk, EncodedBlock)
+        parts = [host_tensor(blk.payload), host_tensor(np.asarray(blk.scale))] if encoded \
+            else [host_tensor(blk)]
         if self.device.type != "cuda":
-            return host.to(self.device), None
-        slot = None
-        if not host.is_pinned():
-            slot, self.slot = self.slot, (self.slot + 1) % len(self.staging)
-            if self.freed[slot] is not None:
-                self.freed[slot].synchronize()  # the copy that last read it is done
-            buf = self.staging[slot]
-            if buf is None or buf.dtype != host.dtype or buf.numel() < host.numel():
-                buf = torch.empty(host.numel(), dtype=host.dtype, pin_memory=True)
-                self.staging[slot] = buf
-            host = buf[: host.numel()].view(host.shape).copy_(host)
-        with torch.cuda.stream(self.stream):
-            dev = torch.empty(host.shape, dtype=host.dtype, device=self.device)
-            dev.copy_(host, non_blocking=True)
-            event = torch.cuda.Event()
-            event.record(self.stream)
-        if slot is not None:
-            self.freed[slot] = event
-        return dev, event
+            devs, event = [p.to(self.device) for p in parts], None
+        else:
+            slot = None
+            if not all(p.is_pinned() for p in parts):
+                slot, self.slot = self.slot, (self.slot + 1) % len(self.staging)
+                if self.freed[slot] is not None:
+                    self.freed[slot].synchronize()  # the copies that last read it are done
+                parts = [p if p.is_pinned() else self._stage(slot, j, p)
+                         for j, p in enumerate(parts)]
+            with torch.cuda.stream(self.stream):
+                devs = [torch.empty(p.shape, dtype=p.dtype, device=self.device)
+                        .copy_(p, non_blocking=True) for p in parts]
+                event = torch.cuda.Event()
+                event.record(self.stream)
+            if slot is not None:
+                self.freed[slot] = event
+        return (EncodedBlock(*devs) if encoded else devs[0]), event
 
 
-def _adopt(dev: torch.Tensor, event) -> torch.Tensor:
-    """Order the current stream after a block's copy and mark the block as
-    used by it."""
+def _adopt(dev, event):
+    """Order the current stream after a block's copies and mark the block's
+    tensors as used by it."""
     if event is not None:
-        stream = torch.cuda.current_stream(dev.device)
+        tensors = dev if isinstance(dev, EncodedBlock) else (dev,)
+        stream = torch.cuda.current_stream(tensors[0].device)
         stream.wait_event(event)
-        dev.record_stream(stream)
+        for t in tensors:
+            t.record_stream(stream)
     return dev
 
 
@@ -150,7 +197,7 @@ def _producer(store: BlockStore, q: "queue.Queue", stop: threading.Event,
                 blk = fetch_block(store, i)
                 dev, event = up.put(blk)
                 _count("blocks_read")
-                _count("bytes_h2d", blk.nbytes)
+                _count("bytes_h2d", block_nbytes(blk))
                 if not _offer(q, (i, dev, event, None), stop):
                     return
         _offer(q, _STOP, stop)
@@ -252,7 +299,7 @@ def map_reduce(
             for i in range(store.num_blocks):
                 blk = fetch_block(store, i)
                 _count("blocks_read")
-                _count("bytes_h2d", blk.nbytes)
+                _count("bytes_h2d", block_nbytes(blk))
                 out = map_fn(_adopt(*up.put(blk)))
                 _count("map_dispatches")
                 if emit is not None:
@@ -280,20 +327,29 @@ def cache_embedding(
     map_fn: Callable[[torch.Tensor], torch.Tensor],
     *,
     d_out: int,
+    codec: str = "f32",
     prefetch: int = 2,
     device=None,
     label: str = "cache_embedding",
 ) -> WritableBlockStore:
     """Materialize ``map_fn`` over every block of ``store`` into a staged host
-    store, through the same pipelined prefetcher as any other pass. Blocks
-    are written by global block id, so a shard's local block i lands at its
-    global offset. The returned ``WritableBlockStore`` raises on any read of
-    a block this pass never produced."""
-    out = BlockStore.empty(n=store.n, d=d_out, block_rows=store.block_rows)
+    store, through the same pipelined prefetcher as any other pass: the
+    embed-once pass of the sweep. Blocks are written by global block id, so
+    a shard's local block i lands at its global offset, and staged under
+    ``codec`` ("f32" | "bf16" | "int8", the policy's ``cache_dtype``).
+    ``COUNTERS["bytes_staged"]`` grows by each block's wire size and
+    ``COUNTERS["compression_ratio"]`` is set to f32 bytes over staged bytes.
+    The returned ``WritableBlockStore`` raises on any read of a block this
+    pass never produced."""
+    out = BlockStore.empty(n=store.n, d=d_out, block_rows=store.block_rows, codec=codec)
 
     def emit(i, y):
-        out.put(store.block_id(i), y.cpu().numpy())
+        gid = store.block_id(i)
+        out.put(gid, y.cpu().numpy())
+        _count("bytes_staged", out.staged_nbytes(gid))
 
     map_reduce(store, map_fn, lambda acc, _: acc, None, prefetch=prefetch, emit=emit,
                device=device, label=label)
+    with _LOCK:
+        COUNTERS["compression_ratio"] = out.n * out.d * 4 / max(out.nbytes_staged, 1)
     return out

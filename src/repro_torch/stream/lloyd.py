@@ -14,7 +14,9 @@ of `core.lloyd` (`centroid_update`):
 Blocks hold raw inputs X (pass `coeffs=`, the fitted params of any registered
 member: each block is embedded and assigned in one fused kernel where the
 member has one) or embedded rows Y (pass `discrepancy=`; `stream_embed`
-stages Y blocks to host memory once).
+stages Y blocks to host memory once, under the policy's `cache_dtype`; a
+compressed store streams in its wire form and each block's step decodes it
+inside `fused_dequant_step`).
 
 Labels live on the host, (n,) int32: on a card each block's labels are
 copied into pinned memory without a sync, and the pass synchronizes once.
@@ -97,12 +99,14 @@ def stream_embed(
     device=None,
 ) -> WritableBlockStore:
     """Algorithm 1 over a block stream: X blocks in, Y blocks staged to host
-    memory (O(n*m) host, O(block) device). Use when host memory holds Y and
-    several Lloyd iterations will reuse it."""
+    memory under the policy's ``cache_dtype`` codec (O(n*m) host, O(block)
+    device). Use when host memory holds Y and several Lloyd iterations will
+    reuse it."""
     pol = as_policy(policy)
     return cache_embedding(
         store, lambda x: ops.embed_block_map(x, coeffs, policy=pol), d_out=coeffs.m,
-        prefetch=pol.prefetch if prefetch is None else prefetch, device=device,
+        codec=pol.cache_dtype, prefetch=pol.prefetch if prefetch is None else prefetch,
+        device=device,
     )
 
 

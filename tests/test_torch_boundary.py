@@ -1,4 +1,5 @@
-"""The port's boundary: it imports neither JAX nor the JAX package, its entry
+"""The port's boundary: it imports neither JAX, nor the JAX package, nor
+ml_dtypes (which ships with JAX), its entry
 points run on the card unless the caller asks for the CPU, and chip_smoke.py
 rehearses its path on the CPU without ever claiming a card run."""
 import json
@@ -32,8 +33,8 @@ def test_port_imports_neither_jax_nor_repro():
         "import importlib, sys\n"
         f"for name in {modules!r}:\n"
         "    importlib.import_module(name)\n"
-        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
-        " or m == 'repro' or m.startswith('repro.'))\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in"
+        " ('jax', 'repro', 'ml_dtypes'))\n"
         "assert not bad, bad\n"
         "print('clean', len(sys.modules))\n"
     )
@@ -44,7 +45,7 @@ def test_port_imports_neither_jax_nor_repro():
 
 
 @pytest.mark.parametrize("entry", ["fit", "predict", "resolve", "stream_fit", "ooc_lloyd",
-                                   "map_reduce", "stream_predict"])
+                                   "map_reduce", "stream_predict", "sweep"])
 def test_entry_points_default_to_the_card(entry):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is valid here")
@@ -68,6 +69,8 @@ def test_entry_points_default_to_the_card(entry):
             ooc_lloyd(store, 3, discrepancy="l2", init=torch.zeros((3, 4)))
         elif entry == "map_reduce":
             map_reduce(store, lambda b: b, lambda a, b: a, None)
+        elif entry == "sweep":
+            KernelKMeans(3, l=16, m=8, backend="stream").sweep(store, k_grid=[2, 3])
         elif entry == "stream_predict":
             est = KernelKMeans(3, l=16, m=8, backend="stream", device="cpu").fit(store)
             est.device = None
@@ -77,12 +80,15 @@ def test_entry_points_default_to_the_card(entry):
 
 
 def test_policy_rejects_what_this_slice_has_not_ported():
+    """Every setting the JAX package accepts, the port accepts; what the JAX
+    package rejects, the port rejects too."""
     from repro_torch.policy import ComputePolicy
 
-    with pytest.raises(NotImplementedError, match="bf16"):
-        ComputePolicy(precision="bf16")
-    with pytest.raises(NotImplementedError, match="int8"):
-        ComputePolicy(cache_dtype="int8")
+    assert ComputePolicy(precision="bf16").precision == "bf16"
+    for codec in ("f32", "bf16", "int8"):
+        assert ComputePolicy(cache_dtype=codec).cache_dtype == codec
+    with pytest.raises(ValueError, match="unknown cache_dtype"):
+        ComputePolicy(cache_dtype="fp4")
     with pytest.raises(ValueError):
         ComputePolicy(precision="f16")
     with pytest.raises(ValueError):
@@ -96,7 +102,7 @@ def test_chip_smoke_cpu_rehearsal():
     lines = [json.loads(line) for line in out.stdout.splitlines() if line.startswith("{")]
     phases = [line.get("phase") for line in lines]
     assert phases == ["device", "data", "parity", "main", "agreement", "host_copy", "stream",
-                      "rff", "timing", "done"]
+                      "rff", "sweep", "timing", "done"]
     assert not any(line.get("ok") for line in lines)
     main = lines[phases.index("main")]
     assert main["nmi"] > 0.9 and main["launches"] == {"apnc_embed": 0, "apnc_assign": 0}
@@ -106,6 +112,11 @@ def test_chip_smoke_cpu_rehearsal():
     assert stream["engine"]["blocks_read"] == stream["passes"] * stream["num_blocks"]
     rff = lines[phases.index("rff")]
     assert rff["vs_local"]["label_agreement"] >= 0.995 and not any(rff["launches"].values())
+    sweep = lines[phases.index("sweep")]
+    assert sweep["b_f32_vs_stream_fit"]["bitwise_identical"]
+    assert sweep["equal_centroids"]["chain_label_mismatches"] == 0
+    assert sweep["a_int8"]["compression_ratio"] > 3.9 and sweep["c_bf16"]["compression_ratio"] == 2
+    assert {d["route"] for d in lines[phases.index("parity")]["fused_dequant"]} == {"fused"}
 
 
 def test_chip_smoke_fails_without_a_card_or_the_repo(tmp_path):
@@ -136,7 +147,7 @@ def test_library_hash_covers_included_headers(tmp_path, monkeypatch):
     epilogue = csrc / "lloyd_epilogue.cuh"
     epilogue.write_text(epilogue.read_text() + "\n")
     after = {name: build._target(name) for name in build.SOURCES}
-    assert [n for n in build.SOURCES if after[n] != before[n]] == ["lloyd_step"]
+    assert [n for n in build.SOURCES if after[n] != before[n]] == ["lloyd_step", "dequant_step"]
     shared = csrc / "tile_math.cuh"
     shared.write_text(shared.read_text() + "\n")
     assert all(build._target(name) != after[name] for name in build.SOURCES)

@@ -132,13 +132,13 @@ def _class_means(Y, lab, k):
     return (C / torch.bincount(lab, minlength=k).clamp(min=1)[:, None]).contiguous()
 
 
-def _check_step(got, want, got2):
+def _check_step(got, want, got2, cost_rtol=1e-5):
     Z, g, labels, cost = got
     Zr, gr, lr, cr = want
     assert torch.equal(labels, lr) and torch.equal(g, gr)
     assert all(torch.equal(a, b) for a, b in zip(got, got2))  # bitwise run to run
     torch.testing.assert_close(Z, Zr, rtol=1e-4, atol=1e-4 * float(Zr.abs().max()))
-    torch.testing.assert_close(cost, cr, rtol=1e-5, atol=0.0)
+    torch.testing.assert_close(cost, cr, rtol=cost_rtol, atol=0.0)
 
 
 @pytest.mark.gpu
@@ -213,3 +213,93 @@ def test_stream_fit_on_card_matches_cpu(cuda, method):
     assert (gpu.labels_ == cpu.labels_).mean() >= 0.999
     assert (gpu.labels_ == local.labels_).mean() >= 0.999
     np.testing.assert_allclose(gpu.inertia_, cpu.inertia_, rtol=1e-3)
+
+
+def _encoded_blob(n, m, k, codec, seed, device):
+    """A blob block staged under ``codec`` (the port's host encoder), its
+    wire form on ``device`` and the class means of the decoded rows."""
+    from repro_torch.stream.blockstore import get_codec
+    from repro_torch.stream.engine import host_tensor
+
+    Y, lab = _blob_block(n, m, k, seed=seed, scale=m ** -0.5)
+    payload, scale = get_codec(codec).encode(Y.numpy())
+    Yq = host_tensor(payload).to(device)
+    sc = torch.as_tensor(np.asarray(scale, np.float32)).to(device)
+    C = _class_means(ref.dequant_ref(Yq, sc), lab, k)
+    return Yq, sc, C
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("codec", ["int8", "bf16"])
+@pytest.mark.parametrize("disc", ["l2", "l1"])
+@pytest.mark.parametrize("nkm", [(4096, 67, 24), (1003, 9, 256), (517, 13, 800)])
+def test_fused_dequant_step_matches_plain(cuda, codec, disc, nkm):
+    from repro_torch.kernels import lloyd_step
+
+    n, k, m = nkm
+    Yq, sc, C = _encoded_blob(n, m, k, codec, 4, cuda)
+    before = lloyd_step.launches["fused_dequant_step"]
+    got = lloyd_step.fused_dequant_step(Yq, sc, C, disc)
+    got2 = lloyd_step.fused_dequant_step(Yq, sc, C, disc)
+    torch.cuda.synchronize()
+    assert lloyd_step.launches["fused_dequant_step"] == before + 2
+    _check_step(got, ref.fused_dequant_step_ref(Yq, sc, C, disc), got2, cost_rtol=1e-4)
+    assert torch.equal(lloyd_step.dequant_decode(Yq, sc), ref.dequant_ref(Yq, sc))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("codec", ["int8", "bf16"])
+def test_wide_encoded_block_takes_the_decode_route(cuda, codec):
+    """Above DEQUANT_MAX_M the plan decodes with the decode kernel and
+    assigns with apnc_assign (its streamed wide-m kernel beyond m = 768)."""
+    from repro_torch.kernels import lloyd_step
+    from repro_torch.stream.blockstore import EncodedBlock
+
+    n, k, m = 700, 11, lloyd_step.DEQUANT_MAX_M + 100
+    Yq, sc, C = _encoded_blob(n, m, k, codec, 5, cuda)
+    before = (lloyd_step.launches["dequant_decode"], lloyd_step.launches["fused_dequant_step"],
+              t_assign.launches)
+    got = ops.lloyd_step_plan(discrepancy="l2").step(EncodedBlock(Yq, sc), C)
+    got2 = ops.lloyd_step_plan(discrepancy="l2").step(EncodedBlock(Yq, sc), C)
+    torch.cuda.synchronize()
+    assert lloyd_step.launches["dequant_decode"] == before[0] + 2
+    assert lloyd_step.launches["fused_dequant_step"] == before[1]
+    assert t_assign.launches == before[2] + 2
+    _check_step(got, ref.fused_dequant_step_ref(Yq, sc, C, "l2"), got2, cost_rtol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("disc", ["l2", "l1"])
+def test_assign_kernel_wide_m_matches_plain(cuda, disc):
+    rng = np.random.default_rng(8)
+    Y = torch.from_numpy(rng.standard_normal((1500, 1000)).astype(np.float32)).to(cuda)
+    C = torch.from_numpy((rng.standard_normal((70, 1000)) * 2).astype(np.float32)).to(cuda)
+    Z, g, labels = ops.apnc_assign(Y, C, disc)
+    Z2, g2, labels2 = ops.apnc_assign(Y, C, disc)
+    Zr, gr, lr = ref.apnc_assign_ref(Y, C, disc)
+    assert torch.equal(labels, lr) and torch.equal(g, gr)
+    assert torch.equal(Z, Z2) and torch.equal(labels, labels2)
+    torch.testing.assert_close(Z, Zr, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("codec", ["f32", "bf16", "int8"])
+def test_stream_sweep_on_card_matches_cpu(cuda, codec):
+    from repro_torch.api import ComputePolicy, KernelKMeans
+    from repro_torch.data.synthetic import gaussian_blobs_blocks
+    from repro_torch.kernels import lloyd_step
+    from repro_torch.stream.blockstore import BlockStore
+
+    X, _ = gaussian_blobs_blocks(0, 5000, 16, 6, block_rows=1024, separation=4.0)
+    kw = dict(l=128, m=64, kernel_params=dict(gamma=0.01), block_rows=1000, backend="stream",
+              policy=ComputePolicy(cache_dtype=codec))
+    before = lloyd_step.launches["fused_dequant_step"]
+    gpu = KernelKMeans(6, **kw).sweep(BlockStore.from_array(X, 1000), k_grid=[5, 6], restarts=2)
+    launched = lloyd_step.launches["fused_dequant_step"] - before
+    assert (launched > 0) == (codec != "f32")
+    cpu = KernelKMeans(6, device="cpu", **kw).sweep(BlockStore.from_array(X, 1000),
+                                                     k_grid=[5, 6], restarts=2)
+    for i in range(2):
+        for r in range(2):
+            assert (gpu.labels[i][r] == cpu.labels[i][r]).mean() >= 0.999
+    np.testing.assert_allclose(gpu.inertia, cpu.inertia, rtol=1e-3)
