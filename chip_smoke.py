@@ -13,8 +13,13 @@ through the fused Lloyd-step kernel, O(block) on the card), the rff member on
 both backends, and the embed-once sweep over that store under the int8, f32
 and bf16 caches (``KernelKMeans(...).sweep(store, k_grid=[82, 164],
 restarts=2)``, every block's Lloyd step over a compressed cache in
-``fused_dequant_step``). It times each kernel beside its bound, its plain
-version and a PyTorch library call chain. Every phase prints
+``fused_dequant_step``). It then serves qwen1.5-0.5b at full width and
+depth from a seeded random init (``repro_torch.launch.serve.generate``: a
+4 x 4,096-token prefill, every layer's attention in ``flash_attention_bhsd``,
+then 32 greedy decode steps over a bf16 KV cache), held against the plain
+attention, against a decode of the prompt's last token and against an int8
+cache. It times each kernel beside its bound, its plain
+version and a PyTorch library call (chain). Every phase prints
 one JSON line. The last lines are the kernel table, the card's name and power
 limit, and ``{"ok": true, ...}``; any failure exits non-zero before them.
 Without a card the script exits non-zero, unless ``--cpu-rehearsal`` is given,
@@ -23,6 +28,7 @@ which never prints the ok line. It imports neither JAX nor the JAX package.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import re
 import subprocess
@@ -50,12 +56,22 @@ IMAGENET = dict(n=1_262_102, d=900, k=164, separation=1.5, l=500, m=256, iters=2
                 parity_assign=((5003, 67, 70), (20_011, 164, 256)),
                 parity_blobs=((4096, 77, 150, 100, 67), (1003, 130, 70, 64, 9)),
                 parity_dequant=((4096, 67, 24), (1003, 9, 256), (4096, 164, 256),
-                                (1003, 67, 800), (1003, 9, 900)))
+                                (1003, 67, 800), (1003, 9, 900)),
+                parity_flash=((4, 32, 16, 64), (1, 1000, 8, 128), (2, 257, 3, 40),
+                              (1, 4096, 16, 64), (1, 2048, 32, 128)),
+                lm_arch="qwen1.5-0.5b", lm_reduced=False, lm_batch=4, lm_prompt=4096,
+                lm_gen=32)
 REHEARSAL = dict(n=4_000, d=32, k=8, separation=3.0, l=64, m=16, iters=20,
                  block_rows=512, rff_m=16, sweep_k_grid=(4, 8), sweep_restarts=2,
                  parity_assign=((503, 7, 19), (2003, 13, 32)),
                  parity_blobs=((515, 13, 40, 24, 7), (203, 9, 24, 12, 5)),
-                 parity_dequant=((515, 7, 24), (203, 5, 40)))
+                 parity_dequant=((515, 7, 24), (203, 5, 40)),
+                 parity_flash=((2, 32, 2, 16), (1, 77, 2, 40)),
+                 lm_arch="qwen1.5-0.5b", lm_reduced=True, lm_batch=4, lm_prompt=64, lm_gen=8)
+#: Sliding windows of the attention parity cases (4,096: mixtral's).
+FLASH_WINDOWS = (0, 50, 4096)
+#: The reference's tolerances for flash attention (tests/test_kernels_pallas.py).
+FLASH_TOL = {torch.float32: (2e-4, 2e-5), torch.bfloat16: (5e-2, 5e-2)}
 #: Device-memory rise allowed over a stream fit (the data is 4.54 GB).
 STREAM_RISE_LIMIT = 512 << 20
 
@@ -108,7 +124,9 @@ def check_close(what, got, want, rtol, atol) -> float:
 _TEMPLATE_ARGS = {"ILb0E": "<false>", "ILb1E": "<true>", "IfE": "<float>",
                   "I13__nv_bfloat16E": "<bf16>", "IaLb0EE": "<int8, false>",
                   "IaLb1EE": "<int8, true>", "ItLb0EE": "<bf16, false>",
-                  "ItLb1EE": "<bf16, true>", "IaE": "<int8>", "ItE": "<bf16>"}
+                  "ItLb1EE": "<bf16, true>", "IaE": "<int8>", "ItE": "<bf16>",
+                  **{f"I{c}Li{dp}EE": f"<{t}, {dp}>" for c, t in (("f", "float"), ("t", "bf16"))
+                     for dp in (64, 128, 256)}}
 
 
 def entry_name(mangled: str) -> str:
@@ -129,7 +147,7 @@ def entry_name(mangled: str) -> str:
 
 
 def phase_build() -> dict:
-    from repro_torch.kernels import apnc_assign, apnc_embed, build, lloyd_step
+    from repro_torch.kernels import apnc_assign, apnc_embed, build, flash_attention, lloyd_step
 
     t0 = time.perf_counter()
     build.build_all()
@@ -159,7 +177,10 @@ def phase_build() -> dict:
                     apnc_assign=apnc_assign.smem_bytes(cfg["m"], cfg["k"]),
                     fused_apnc_step=lloyd_step.smem_bytes("apnc", cfg["m"]),
                     fused_rff_step=lloyd_step.smem_bytes("rff", 2 * cfg["rff_m"]),
-                    fused_dequant_step=lloyd_step.smem_bytes("dequant", cfg["m"])),
+                    fused_dequant_step=lloyd_step.smem_bytes("dequant", cfg["m"]),
+                    flash_attention_bhsd=flash_attention.smem_bytes(64)),
+                flash_attention_smem_bytes_by_head_dim={
+                    dh: flash_attention.smem_bytes(dh) for dh in (40, 128, 256)},
                 dequant_max_m=lloyd_step.DEQUANT_MAX_M,
                 dynamic_smem_bytes_dequant_max_m=lloyd_step.smem_bytes(
                     "dequant", lloyd_step.DEQUANT_MAX_M))
@@ -366,7 +387,41 @@ def phase_parity(X, truth, device, cfg) -> dict:
                                       g_equal=True, deterministic=True, z_max_abs_err=err))
     out.update(parity_fused(X, truth, device, cfg))
     out["fused_dequant"] = parity_dequant(device, cfg)
+    out["flash_attention"] = parity_flash(device, cfg)
     sync(device)
+    return out
+
+
+def check_flash(what, q, k, v, window) -> float:
+    """flash_attention_bhsd against flash_attention_ref on the same inputs:
+    within the reference's tolerance for the dtype, two runs bitwise equal.
+    Returns max |kernel - plain|."""
+    from repro_torch.kernels import flash_attention, ref
+
+    got = flash_attention.flash_attention_bhsd(q, k, v, window=window)
+    again = flash_attention.flash_attention_bhsd(q, k, v, window=window)
+    if not torch.equal(got, again):
+        raise AssertionError(f"{what}: two runs differ")
+    want = ref.flash_attention_ref(q, k, v, window)
+    rtol, atol = FLASH_TOL[q.dtype]
+    return check_close(what, got.float(), want.float(), rtol, atol)
+
+
+def parity_flash(device, cfg) -> list:
+    """flash_attention_bhsd against its plain version: (B, S, H, Dh) from the
+    launcher's default prompt to 4,096 tokens, ragged S, Dh 40 to 128, every
+    window of FLASH_WINDOWS, f32 and bf16."""
+    out = []
+    g = torch.Generator().manual_seed(23)
+    for shape in cfg["parity_flash"]:
+        q32, k32, v32 = (torch.randn(shape, generator=g).to(device) for _ in range(3))
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = (t.to(dtype) for t in (q32, k32, v32))
+            for window in FLASH_WINDOWS:
+                err = check_flash(f"flash_attention {shape} w={window} {dtype}", q, k, v, window)
+                out.append(dict(shape=list(shape), window=window, dtype=str(dtype)[6:],
+                                max_abs_err=err, rtol=FLASH_TOL[dtype][0],
+                                atol=FLASH_TOL[dtype][1], deterministic=True))
     return out
 
 
@@ -817,6 +872,208 @@ def phase_sweep(X, truth, store, stream_est, cfg, device, seed) -> tuple[dict, d
                      candidate_passes=int(np.sum(_iters(runs["a_int8"][1]))))
 
 
+@contextlib.contextmanager
+def patched(module, name, value):
+    """``module.name`` set to ``value`` inside the block, restored after."""
+    kept = getattr(module, name)
+    setattr(module, name, value)
+    try:
+        yield
+    finally:
+        setattr(module, name, kept)
+
+
+def plain_attention():
+    """Every layer's prefill attention through ``flash_attention_ref``
+    instead of the kernel, inside the block."""
+    from repro_torch.kernels import ref
+    from repro_torch.models import attention
+
+    return patched(attention, "_flash_attention",
+                   lambda q, k, v, window: ref.flash_attention_ref(q, k, v, window))
+
+
+def f32_cache():
+    """Prefill keeps its k, v in f32 for the cache (the reference and the port
+    store bf16) inside the block."""
+    from repro_torch.models import attention, transformer
+
+    bf16_prefill = transformer._attn_prefill
+
+    def prefill(p, cfg, policy, h, positions):
+        _, k, v = attention._project_qkv(p, cfg, policy, h, positions)
+        y, _ = bf16_prefill(p, cfg, policy, h, positions)
+        return y, {"k": k, "v": v}
+
+    return patched(transformer, "_attn_prefill", prefill)
+
+
+def teacher_forced(model, cfg, policy, prompt, tokens, kv_int8=False):
+    """Logits (gen + 1, B, V) of a prefill over ``prompt`` and one decode step
+    per column of ``tokens`` (B, gen), fed those tokens whatever the logits
+    say."""
+    from repro_torch.launch import serve
+    from repro_torch.models import model as lm
+
+    with torch.inference_mode():
+        S, gen = prompt.shape[1], tokens.shape[1]
+        logits, cache = serve.prefill(model, cfg, policy, {"tokens": prompt}, S + gen,
+                                      kv_int8=kv_int8)
+        steps = [logits]
+        for i in range(gen):
+            logits, cache = lm.forward_decode(model, cfg, policy, {"tokens": tokens[:, i:i + 1]},
+                                              cache, S + i)
+            steps.append(logits)
+    return torch.stack(steps)
+
+
+def decode_vs_prefill(model, cfg, policy, prompt, full_last) -> float:
+    """max |decode of the prompt's last token over a prefill of the rest -
+    the full prefill's last logits|."""
+    from repro_torch.launch import serve
+    from repro_torch.models import model as lm
+
+    S = prompt.shape[1]
+    with torch.inference_mode():
+        _, cache = serve.prefill(model, cfg, policy, {"tokens": prompt[:, :-1]}, S)
+        step, _ = lm.forward_decode(model, cfg, policy, {"tokens": prompt[:, -1:]}, cache, S - 1)
+    return float((step - full_last).abs().max())
+
+
+def phase_lm_serve(cfg, device, seed) -> dict:
+    """The LM serving path: qwen1.5-0.5b (full width and depth on the card;
+    reduced in the rehearsal) from a seeded random init, f32 params and
+    math, a synthetic 4 x 4,096-token prompt, 32 greedy decode steps through
+    ``serve.generate`` over a bf16 KV cache, the kernel launch count zeroed
+    just before and read just after. Gated on a card:
+
+    * every prefill layer launched ``flash_attention_bhsd``, once (no other
+      route of the prefill attention);
+    * the same model and tokens with the plain attention in every layer
+      (``flash_attention_ref``), both teacher-forced on the kernel run's
+      tokens: prefill and every decode step's logits within
+      1e-4 * max|logits| (greedy agreement is reported, not gated: on a
+      random init the top-2 gap can be below that);
+    * decode == prefill: a prefill over the prompt's first S - 1 tokens and
+      one decode step of the last, against the full prefill's last logits.
+      The reference's bound, 2e-3 (tests/test_models_smoke.py), is held
+      where the reference holds it, on the reduced model (2 x 16 tokens, on
+      the card), and at full width with the cache in f32, which isolates
+      the decode path. At full width with the bf16 cache the rounding of
+      the cached k, v alone moves the logits by ~2.6e-3 (an H100 read
+      2.59e-3 against 7.8e-6 with the f32 cache), so that reading is gated
+      at 2e-2, the reference's bound for the coarser int8 cache;
+    * the same decode over an int8 KV cache within 2e-2 of the bf16 cache's
+      logits (the reference's bound);
+    * finite logits, tokens inside the vocabulary, TF32 off.
+    """
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.data.tokens import synthetic_batch
+    from repro_torch.kernels import flash_attention
+    from repro_torch.launch import serve
+    from repro_torch.models import model as lm
+    from repro_torch.models.common import TEST_POLICY
+
+    if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
+        raise AssertionError("TF32 is on: the projections must be f32 as in the reference")
+    arch = get_arch(cfg["lm_arch"])
+    mcfg = reduced(arch) if cfg["lm_reduced"] else arch
+    B, S, gen = cfg["lm_batch"], cfg["lm_prompt"], cfg["lm_gen"]
+    policy = TEST_POLICY
+    t0 = time.perf_counter()
+    model = lm.init(torch.Generator(device=device).manual_seed(seed), mcfg, policy, device)
+    prompt = torch.as_tensor(synthetic_batch(mcfg, 0, B, S)["tokens"], device=device)
+    sync(device)
+    init_s = time.perf_counter() - t0
+    n_params = lm.param_count(model)
+
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    flash_attention.launches = 0
+    res = serve.generate(model, mcfg, policy, {"tokens": prompt}, gen)
+    launches = flash_attention.launches
+    peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else None
+    logits = res.logits
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError("non-finite logits")
+    if res.tokens.shape != (B, gen) or int(res.tokens.min()) < 0 \
+            or int(res.tokens.max()) >= mcfg.vocab_size:
+        raise AssertionError("generated tokens out of range")
+
+    t1 = time.perf_counter()
+    with plain_attention():
+        plain = teacher_forced(model, mcfg, policy, prompt, res.tokens)
+    sync(device)
+    plain_s = time.perf_counter() - t1
+    scale = float(logits.abs().max())
+    vs_plain = float((logits - plain).abs().max())
+    plain_tokens = plain[:-1].argmax(dim=-1).T
+    dvp = dict(bf16_cache=decode_vs_prefill(model, mcfg, policy, prompt, logits[0]))
+    with f32_cache():
+        dvp["f32_cache"] = decode_vs_prefill(model, mcfg, policy, prompt, logits[0])
+    small = reduced(arch)
+    small_model = lm.init(torch.Generator(device=device).manual_seed(seed), small, policy, device)
+    small_prompt = torch.as_tensor(synthetic_batch(small, 0, 2, 16)["tokens"], device=device)
+    with torch.inference_mode():
+        small_full, _ = lm.forward_prefill(small_model, small, policy, {"tokens": small_prompt})
+    dvp["reduced_bf16_cache"] = decode_vs_prefill(small_model, small, policy, small_prompt,
+                                                  small_full)
+    dvp_limits = dict(bf16_cache=2e-2, f32_cache=2e-3, reduced_bf16_cache=2e-3)
+    int8 = teacher_forced(model, mcfg, policy, prompt, res.tokens, kv_int8=True)
+    int8_vs_bf16 = float((int8 - logits).abs().max())
+    profile = profile_serve(model, mcfg, policy, prompt, res.tokens) \
+        if device.type == "cuda" else None
+    kv_bytes = 2 * mcfg.num_layers * B * (S + gen) * mcfg.num_kv_heads \
+        * mcfg.resolved_head_dim * 2
+    if device.type == "cuda":
+        if launches != mcfg.num_layers:
+            raise AssertionError(f"flash_attention_bhsd ran {launches} times in one prefill of "
+                                 f"{mcfg.num_layers} layers")
+    if vs_plain > 1e-4 * scale:
+        raise AssertionError(f"kernel vs plain logits differ by {vs_plain} (max |logit| {scale})")
+    if any(dvp[key] > limit for key, limit in dvp_limits.items()):
+        raise AssertionError(f"decode vs prefill: {dvp} (limits {dvp_limits})")
+    if int8_vs_bf16 > 2e-2:
+        raise AssertionError(f"int8 vs bf16 KV cache: {int8_vs_bf16}")
+    return dict(
+        phase="lm_serve", arch=mcfg.name, layers=mcfg.num_layers, d_model=mcfg.d_model,
+        heads=mcfg.num_heads, kv_heads=mcfg.num_kv_heads, head_dim=mcfg.resolved_head_dim,
+        d_ff=mcfg.d_ff, vocab=mcfg.vocab_size, batch=B, prompt=S, gen=gen, seed=seed,
+        params=n_params, param_bytes=sum(p.numel() * p.element_size() for p in model.parameters()),
+        init_s=init_s, prefill_s=res.prefill_s, decode_s=res.decode_s,
+        decode_ms_per_step=res.decode_s / gen * 1e3,
+        decode_tokens_per_s=B * gen / res.decode_s,
+        flash_attention_launches=launches, peak_device_bytes=peak, kv_cache_bytes=kv_bytes,
+        first_tokens=res.tokens[:, :8].tolist(), logits_abs_max=scale,
+        plain_prefill_and_decode_s=plain_s,
+        vs_plain=dict(max_abs_diff=vs_plain, limit=1e-4 * scale,
+                      greedy_agreement=float((plain_tokens == res.tokens).float().mean())),
+        decode_vs_prefill=dict(max_abs_diff=dvp, limit=dvp_limits),
+        int8_vs_bf16=dict(max_abs_diff=int8_vs_bf16, limit=2e-2),
+        profile=profile,
+    )
+
+
+def profile_serve(model, cfg, policy, prompt, tokens, steps=4) -> dict:
+    """Where serving time goes: one prefill (with the cache set-up) and
+    ``steps`` decode steps after it, each traced (device busy share, the
+    top kernels)."""
+    from repro_torch.launch import serve
+    from repro_torch.models import model as lm
+
+    S = prompt.shape[1]
+    with torch.inference_mode():
+        (_, cache), prefill = device_profile(
+            lambda: serve.prefill(model, cfg, policy, {"tokens": prompt}, S + steps))
+
+        def decode():
+            for i in range(steps):
+                lm.forward_decode(model, cfg, policy, {"tokens": tokens[:, i:i + 1]}, cache, S + i)
+
+        _, dec = device_profile(decode)
+    return dict(prefill=prefill, decode_steps=steps, decode=dec)
+
+
 def _iters(res) -> np.ndarray:
     """Lloyd iterations per candidate, (len(k_grid), restarts)."""
     return np.asarray([[m.meta.iters for m in row] for row in res.models])
@@ -978,8 +1235,54 @@ def library_step(Yb, C):
     return Z, torch.bincount(lab, minlength=C.shape[0]), lab, D.min(dim=1).values.sum()
 
 
+def sdpa_backend(q, k, v) -> str:
+    """The backend scaled_dot_product_attention picks for these inputs
+    (causal), from PyTorch's own dispatcher, or "not determined"."""
+    choose = getattr(torch, "_fused_sdp_choice", None)
+    if choose is None:
+        return "not determined"
+    from torch.nn.attention import SDPBackend
+
+    names = {int(v): k for k, v in SDPBackend.__members__.items()}
+    return names.get(int(choose(q, k, v, is_causal=True)), "not determined")
+
+
+def time_flash(device, cfg) -> tuple[dict, list]:
+    """flash_attention_bhsd at the serving path's prefill shape (B = 4,
+    H = 16, S = 4,096, Dh = 64, f32, causal: B*H = 64) and at llama3-8b's head
+    shape (B*H = 32, Dh = 128): the kernel, its plain version and
+    scaled_dot_product_attention on the same tensors in its (B, H, S, Dh)
+    layout (contiguous copies made before timing), each against the bound.
+    The bound counts 4 * Dh * S(S+1)/2 operations per head (q k^T and p v
+    over the causal pairs; the exp left out) and q, k, v, o once each."""
+    from repro_torch.kernels import flash_attention, ref
+
+    rows = []
+    for label, (B, S, H, Dh) in (("serve prefill (qwen1.5-0.5b)", (cfg["lm_batch"],
+                                                                    cfg["lm_prompt"], 16, 64)),
+                                 ("llama3-8b heads", (1, cfg["lm_prompt"], 32, 128))):
+        g = torch.Generator(device=device).manual_seed(5)
+        q, k, v = (torch.randn((B, S, H, Dh), generator=g, device=device) for _ in range(3))
+        err = check_flash(f"flash_attention timing shape {label}", q, k, v, 0)
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        t_kernel = cuda_ms(lambda: flash_attention.flash_attention_bhsd(q, k, v), 10)
+        t_plain = cuda_ms(lambda: ref.flash_attention_ref(q, k, v, 0), 3, warmup=1)
+        t_sdpa = cuda_ms(lambda: sdpa(qt, kt, vt, is_causal=True), 10)
+        flops = 4.0 * Dh * (S * (S + 1) / 2) * B * H
+        b_ms, b_by = bound(flops, 4.0 * 4 * B * S * H * Dh)
+        rows.append(dict(shape=dict(B=B, S=S, H=H, Dh=Dh, BH=B * H), label=label, dtype="f32",
+                         causal=True, max_abs_err=err, ms=t_kernel, plain_ms=t_plain,
+                         library_ms=t_sdpa, library="scaled_dot_product_attention(is_causal=True)",
+                         library_backend=sdpa_backend(qt, kt, vt), bound_ms=b_ms, bound_by=b_by,
+                         flops=flops, kernel_tflops=flops / t_kernel / 1e9,
+                         roofline_share=b_ms / t_kernel))
+        del q, k, v, qt, kt, vt
+    return rows[0], rows
+
+
 def phase_timing(X, est, launches, stream_est, stream_launches, rff_est, rff_launches,
-                 sweep_data, cfg) -> tuple[dict, list]:
+                 sweep_data, lm_launches, cfg) -> tuple[dict, list]:
     """Each kernel at the main path's shapes: kernel, plain version, library
     call chain, and the bound computed from this run's shapes. The Lloyd-step
     and RFF kernels are timed per pass over the resident X in the stream
@@ -1107,15 +1410,7 @@ def phase_timing(X, est, launches, stream_est, stream_launches, rff_est, rff_lau
     b_dq, by_dq = dequant_bound(k)
     del encs
 
-    # flash_attention_bhsd is still to port: its bound and PyTorch's fused
-    # attention at the example shape (BH = 32, S = 4,096, Dh = 64, f32, causal).
-    bh, s_len, dh = 32, 4096, 64
-    gq = torch.Generator(device=X.device).manual_seed(5)
-    q, kk_, v = (torch.randn((bh, s_len, dh), generator=gq, device=X.device) for _ in range(3))
-    t_sdpa = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        q, kk_, v, is_causal=True), 10)
-    b_flash, by_flash = bound(2.0 * bh * s_len * s_len * dh, 4.0 * 4 * bh * s_len * dh)
-    del q, kk_, v
+    flash, flash_rows = time_flash(X.device, cfg)
 
     def row(name, source, replaces, launched, err, ms, plain_ms, bound_ms, bound_by, lib_ms):
         return dict(name=name, route="cuda", source=f"src/repro_torch/kernels/csrc/{source}",
@@ -1142,6 +1437,9 @@ def phase_timing(X, est, launches, stream_est, stream_launches, rff_est, rff_lau
         row("fused_dequant_step", "dequant_step.cu", "src/repro/kernels/lloyd_step.py:189",
             sweep_data["launches"], dq_check["z_max_abs_err"], t_dq, t_dq_plain, b_dq, by_dq,
             t_dq_lib),
+        row("flash_attention_bhsd", "flash_attention.cu", "src/repro/kernels/flash_attention.py:85",
+            lm_launches, flash["max_abs_err"], flash["ms"], flash["plain_ms"], flash["bound_ms"],
+            flash["bound_by"], flash["library_ms"]),
     ]
     info = dict(phase="timing", shapes=dict(n=n, d=d, l=l, m=m, k=k, block_rows=bn,
                                             rff_m_half=mh),
@@ -1153,9 +1451,7 @@ def phase_timing(X, est, launches, stream_est, stream_launches, rff_est, rff_lau
                                         for kk in cfg["sweep_k_grid"]},
                 fused_dequant_sweep_s_per_candidate_pass=sweep_data["lloyd_s"]
                 / max(sweep_data["candidate_passes"], 1),
-                pending_kernels={"flash_attention_bhsd(BH=32,S=4096,Dh=64,f32,causal)": dict(
-                    bound_ms=b_flash, bound_by=by_flash,
-                    library_ms=t_sdpa, library="scaled_dot_product_attention(is_causal=True)")},
+                flash_attention=flash_rows,
                 lloyd_profile=lloyd_profile,
                 assign_main_shape=assign_check, fused_apnc_block=fused_check,
                 fused_rff_block=rff_check, fused_dequant_block=dq_check,
@@ -1225,13 +1521,15 @@ def main(argv=None) -> int:
     emit(rff_info)
     sweep_info, sweep_data = phase_sweep(X, truth, store, stream_est, cfg, device, args.seed)
     emit(sweep_info)
+    lm_info = phase_lm_serve(cfg, device, args.seed)
+    emit(lm_info)
 
     if rehearsal:
         emit(dict(phase="timing", skipped="cpu rehearsal: no device times"))
     else:
         info, rows = phase_timing(X, est, main_info["launches"], stream_est,
                                   stream_info["launches"], rff_est, rff_info["launches"],
-                                  sweep_data, cfg)
+                                  sweep_data, lm_info["flash_attention_launches"], cfg)
         emit(info)
 
     leaked = sorted(m for m in sys.modules

@@ -26,7 +26,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("apnc_embed", "apnc_assign", "lloyd_step", "rff_embed", "dequant_step")
+SOURCES = ("apnc_embed", "apnc_assign", "lloyd_step", "rff_embed", "dequant_step",
+           "flash_attention")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -1,5 +1,5 @@
 """Public wrappers over the hand-written kernels, the block maps of the stream
-engine, and the Lloyd step plan.
+engine, the Lloyd step plan, and the LM's attention.
 
 The CUDA kernels mask ragged edges themselves, so nothing here pads: there
 are no lane-multiple copies of X, no sentinel centroid rows and no padded
@@ -14,6 +14,7 @@ from repro_torch.core.apnc import APNCCoefficients
 from repro_torch.embed.rff import RFFParams
 from repro_torch.kernels import apnc_assign as _assign
 from repro_torch.kernels import apnc_embed as _embed
+from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import lloyd_step as _lloyd_step
 from repro_torch.kernels import rff_embed as _rff
 from repro_torch.policy import ComputePolicy, as_policy
@@ -54,6 +55,19 @@ def rff_embed(X: torch.Tensor, params) -> torch.Tensor:
         X.to(torch.float32).contiguous(), params.W.to(torch.float32).contiguous(),
         params.scale,
     )
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    window: int = 0) -> torch.Tensor:
+    """Causal (+ sliding window) attention over flat heads: q, k, v (B, S, H, Dh)
+    with equal head counts (the GQA repeat stays upstream) -> (B, S, H, Dh).
+
+    On a CUDA tensor the hand-written ``flash_attention_bhsd`` kernel, on a
+    CPU tensor its plain version ``ref.flash_attention_ref``. Limits, on
+    both: all float32 or all bfloat16, 1 <= Dh <= 256, the head dim
+    contiguous; outside them it raises. Positions are the row indices.
+    """
+    return _flash.flash_attention_bhsd(q, k, v, window=window)
 
 
 def embed_block_map(x: torch.Tensor, params, *, policy: ComputePolicy | None = None):

@@ -2,7 +2,7 @@
 
 They compute the same functions as ``apnc_embed``, ``apnc_assign``,
 ``rff_embed_block``, ``fused_apnc_step``, ``fused_rff_step`` and
-``fused_dequant_step`` (and its decode), with the same
+``fused_dequant_step`` (and its decode) and ``flash_attention_bhsd``, with the same
 contracts as the JAX package's oracles. The wrappers use them for CPU
 tensors; on the card they are only the yardstick the kernels are held against.
 """
@@ -87,3 +87,21 @@ def fused_dequant_step_ref(
     scalar 1.0 (bf16), C (k, m) -> Z (k, m) f32, g (k,) f32, labels (n,)
     int32, cost () f32 in ``block_cost``'s units (sqrt'd for l2)."""
     return _step_ref(dequant_ref(Yq, scale), C, discrepancy)
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        window: int = 0) -> torch.Tensor:
+    """Direct masked softmax attention over flat heads, in f32: q, k, v
+    (B, S, H, Dh) -> (B, S, H, Dh) in q's dtype. Causal on the row indices,
+    and with ``window`` > 0 only keys with i - j < window."""
+    Dh = q.shape[-1]
+    s = torch.einsum("bqhd,bthd->bhqt", q.to(torch.float32),
+                     k.to(torch.float32)) * (Dh ** -0.5)
+    pos = torch.arange(q.shape[1], device=q.device)
+    mask = pos[:, None] >= pos[None, :]
+    if window:
+        mask = mask & (pos[:, None] - pos[None, :] < window)
+    s = torch.where(mask[None, None], s, -torch.inf)
+    w = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhqt,bthd->bqhd", w, v.to(torch.float32))
+    return out.to(q.dtype)

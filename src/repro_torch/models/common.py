@@ -1,0 +1,59 @@
+"""Shared model substrate: dtype policy, norms, initializers, positional encodings.
+
+The port's layers are ``nn.Module``s whose parameters carry the JAX
+package's names and layouts; the functions that apply them take the module
+where the reference takes a params dict. Every random draw comes from an
+explicit ``torch.Generator``. The reference's ``constrain_batch`` is a
+sharding hint for a device mesh and has no meaning on one card, so it is
+not ported.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class Policy:
+    """Mixed-precision policy: params stored in param_dtype, math in compute_dtype,
+    norms/softmax/losses accumulated in f32."""
+
+    param_dtype: torch.dtype = torch.float32
+    compute_dtype: torch.dtype = torch.float32
+
+    def cast(self, x: torch.Tensor) -> torch.Tensor:
+        return x.to(self.compute_dtype)
+
+
+TEST_POLICY = Policy()
+
+
+def normal_init(generator: torch.Generator, shape, dtype, scale: float = 0.02) -> torch.Tensor:
+    """scale * N(0, 1) drawn in f32 on the generator's device, cast to dtype."""
+    draw = torch.randn(tuple(shape), generator=generator, device=generator.device)
+    return (scale * draw).to(dtype)
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
+    """RMSNorm in f32, output cast back to the input dtype."""
+    xf = x.to(torch.float32)
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * scale.to(torch.float32)).to(x.dtype)
+
+
+def sinusoidal_positions(positions: torch.Tensor, dim: int,
+                         max_scale: float = 10_000.0) -> torch.Tensor:
+    """Classic transformer sin/cos table evaluated at `positions` (any int shape).
+    Returns (..., dim) f32 (musicgen-style additive embedding)."""
+    half = dim // 2
+    log_scale = torch.log(torch.tensor(max_scale, dtype=torch.float32))
+    steps = torch.arange(half, dtype=torch.float32, device=positions.device)
+    freq = torch.exp(-log_scale.to(positions.device) * steps / half)
+    ang = positions.to(torch.float32)[..., None] * freq  # (..., half)
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    return x * torch.sigmoid(x)

@@ -29,6 +29,8 @@ def test_port_imports_neither_jax_nor_repro():
         for p in PKG.rglob("*.py")
     )
     assert "repro_torch.kernels.apnc_embed" in modules
+    assert "repro_torch.kernels.flash_attention" in modules
+    assert "repro_torch.launch.serve" in modules
     code = (
         "import importlib, sys\n"
         f"for name in {modules!r}:\n"
@@ -45,7 +47,7 @@ def test_port_imports_neither_jax_nor_repro():
 
 
 @pytest.mark.parametrize("entry", ["fit", "predict", "resolve", "stream_fit", "ooc_lloyd",
-                                   "map_reduce", "stream_predict", "sweep"])
+                                   "map_reduce", "stream_predict", "sweep", "serve", "lm_init"])
 def test_entry_points_default_to_the_card(entry):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is valid here")
@@ -71,6 +73,17 @@ def test_entry_points_default_to_the_card(entry):
             map_reduce(store, lambda b: b, lambda a, b: a, None)
         elif entry == "sweep":
             KernelKMeans(3, l=16, m=8, backend="stream").sweep(store, k_grid=[2, 3])
+        elif entry == "serve":
+            from repro_torch.launch import serve
+
+            serve.main(["--gen", "2"])
+        elif entry == "lm_init":
+            from repro_torch.configs import get_arch, reduced
+            from repro_torch.models import model as lm
+            from repro_torch.models.common import TEST_POLICY
+
+            lm.init(torch.Generator().manual_seed(0), reduced(get_arch("qwen1.5-0.5b")),
+                    TEST_POLICY)
         elif entry == "stream_predict":
             est = KernelKMeans(3, l=16, m=8, backend="stream", device="cpu").fit(store)
             est.device = None
@@ -102,7 +115,7 @@ def test_chip_smoke_cpu_rehearsal():
     lines = [json.loads(line) for line in out.stdout.splitlines() if line.startswith("{")]
     phases = [line.get("phase") for line in lines]
     assert phases == ["device", "data", "parity", "main", "agreement", "host_copy", "stream",
-                      "rff", "sweep", "timing", "done"]
+                      "rff", "sweep", "lm_serve", "timing", "done"]
     assert not any(line.get("ok") for line in lines)
     main = lines[phases.index("main")]
     assert main["nmi"] > 0.9 and main["launches"] == {"apnc_embed": 0, "apnc_assign": 0}
@@ -117,6 +130,16 @@ def test_chip_smoke_cpu_rehearsal():
     assert sweep["equal_centroids"]["chain_label_mismatches"] == 0
     assert sweep["a_int8"]["compression_ratio"] > 3.9 and sweep["c_bf16"]["compression_ratio"] == 2
     assert {d["route"] for d in lines[phases.index("parity")]["fused_dequant"]} == {"fused"}
+    flash = lines[phases.index("parity")]["flash_attention"]
+    assert {(c["window"], c["dtype"]) for c in flash} == {
+        (w, dt) for w in (0, 50, 4096) for dt in ("float32", "bfloat16")}
+    lm = lines[phases.index("lm_serve")]
+    assert lm["arch"] == "qwen1.5-0.5b-smoke" and lm["flash_attention_launches"] == 0
+    assert lm["vs_plain"]["max_abs_diff"] == 0.0  # the CPU route is the plain version
+    dvp = lm["decode_vs_prefill"]
+    assert all(dvp["max_abs_diff"][key] <= dvp["limit"][key] for key in dvp["limit"])
+    assert dvp["limit"]["reduced_bf16_cache"] == dvp["limit"]["f32_cache"] == 2e-3
+    assert lm["int8_vs_bf16"]["max_abs_diff"] < 2e-2
 
 
 def test_chip_smoke_fails_without_a_card_or_the_repo(tmp_path):

@@ -1,5 +1,6 @@
 """The port's hand-written CUDA kernels against their plain PyTorch versions,
-on the card, and the stream backend on the card against the CPU. Every test here carries the `gpu` marker and skips inside its
+on the card, and the stream backend and the LM serving path on the card
+against the CPU. Every test here carries the `gpu` marker and skips inside its
 fixture when no card is present; the file imports no JAX, so it runs as it is
 on a machine with a card:
 
@@ -303,3 +304,67 @@ def test_stream_sweep_on_card_matches_cpu(cuda, codec):
         for r in range(2):
             assert (gpu.labels[i][r] == cpu.labels[i][r]).mean() >= 0.999
     np.testing.assert_allclose(gpu.inertia, cpu.inertia, rtol=1e-3)
+
+
+FLASH_SHAPES = [(2, 512, 3, 64), (1, 96, 2, 40), (2, 256, 4, 128), (1, 1000, 2, 128),
+                (2, 257, 3, 40), (1, 70, 2, 200)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("window", [0, 50, 4096])
+@pytest.mark.parametrize("shape", FLASH_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_flash_attention_kernel_matches_plain(cuda, shape, window, dtype):
+    from repro_torch.kernels import flash_attention as t_flash
+
+    g = torch.Generator().manual_seed(11)
+    q, k, v = (torch.randn(shape, generator=g).to(cuda) for _ in range(3))
+    if dtype == "bf16":
+        q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+    before = t_flash.launches
+    got = ops.flash_attention(q, k, v, window=window)
+    again = ops.flash_attention(q, k, v, window=window)
+    torch.cuda.synchronize()
+    assert t_flash.launches == before + 2
+    assert got.dtype == q.dtype and torch.equal(got, again)  # bitwise run to run
+    want = ref.flash_attention_ref(q, k, v, window)
+    tol = dict(rtol=2e-4, atol=2e-5) if dtype == "f32" else dict(rtol=5e-2, atol=5e-2)
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+@pytest.mark.gpu
+def test_flash_attention_kernel_reads_strided_views(cuda):
+    qkv = torch.randn((2, 300, 3, 4, 64), generator=torch.Generator().manual_seed(12)).to(cuda)
+    q, k, v = qkv.unbind(2)
+    got = ops.flash_attention(q, k, v, window=0)
+    want = ops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), window=0)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+def test_lm_serve_on_card_matches_cpu(cuda):
+    """The serving path on the card (the kernel in every prefill layer) against
+    the same model on the CPU (the plain version), reduced qwen1.5-0.5b."""
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.kernels import flash_attention as t_flash
+    from repro_torch.launch import serve
+    from repro_torch.models import model as lm
+    from repro_torch.models.common import TEST_POLICY
+
+    cfg = reduced(get_arch("qwen1.5-0.5b"))
+    cpu_model = lm.init(torch.Generator().manual_seed(0), cfg, TEST_POLICY, device="cpu")
+    gpu_model = lm.build(cfg, TEST_POLICY, cuda)
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    toks = torch.randint(1, cfg.vocab_size, (3, 70), generator=torch.Generator().manual_seed(1))
+    before = t_flash.launches
+    on_card = serve.generate(gpu_model, cfg, TEST_POLICY, {"tokens": toks.to(cuda)}, 6)
+    assert t_flash.launches == before + cfg.num_layers
+    on_cpu = serve.generate(cpu_model, cfg, TEST_POLICY, {"tokens": toks}, 6)
+    torch.testing.assert_close(on_card.logits[0].cpu(), on_cpu.logits[0], rtol=1e-4, atol=1e-5)
+    for i in range(6):  # equal tokens, up to a step whose top-2 logits nearly tie
+        if not torch.equal(on_card.tokens[:, i].cpu(), on_cpu.tokens[:, i]):
+            top2 = torch.topk(on_cpu.logits[i], 2).values
+            assert float((top2[:, 0] - top2[:, 1]).min()) < 1e-4, i
+            break
+        torch.testing.assert_close(on_card.logits[i].cpu(), on_cpu.logits[i],
+                                   rtol=1e-4, atol=1e-5)
