@@ -72,6 +72,12 @@ REHEARSAL = dict(n=4_000, d=32, k=8, separation=3.0, l=64, m=16, iters=20,
 FLASH_WINDOWS = (0, 50, 4096)
 #: The reference's tolerances for flash attention (tests/test_kernels_pallas.py).
 FLASH_TOL = {torch.float32: (2e-4, 2e-5), torch.bfloat16: (5e-2, 5e-2)}
+#: The redesigned kernels' times a pass in their first CUDA design (ms; the
+#: range of PERF.md's chip runs on an H100 80GB HBM3 at 700 W), printed
+#: beside this run's.
+PREVIOUS_MS = {
+    "fused_apnc_step": dict(previous_ms=[242.39, 244.3], previous_from="first CUDA design"),
+    "rff_embed_block": dict(previous_ms=[38.33, 39.0], previous_from="first CUDA design")}
 #: Device-memory rise allowed over a stream fit (the data is 4.54 GB).
 STREAM_RISE_LIMIT = 512 << 20
 
@@ -125,6 +131,8 @@ _TEMPLATE_ARGS = {"ILb0E": "<false>", "ILb1E": "<true>", "IfE": "<float>",
                   "I13__nv_bfloat16E": "<bf16>", "IaLb0EE": "<int8, false>",
                   "IaLb1EE": "<int8, true>", "ItLb0EE": "<bf16, false>",
                   "ItLb1EE": "<bf16, true>", "IaE": "<int8>", "ItE": "<bf16>",
+                  **{f"ILb{a}ELb{b}EE": f"<{bool(a)}, {bool(b)}>".lower()
+                     for a in (0, 1) for b in (0, 1)},
                   **{f"I{c}Li{dp}EE": f"<{t}, {dp}>" for c, t in (("f", "float"), ("t", "bf16"))
                      for dp in (64, 128, 256)}}
 
@@ -140,7 +148,7 @@ def entry_name(mangled: str) -> str:
             j += 1
         size = int(mangled[i:j])
         name, i = mangled[j:j + size], j + size
-    for code, text in _TEMPLATE_ARGS.items():
+    for code, text in sorted(_TEMPLATE_ARGS.items(), key=lambda kv: -len(kv[0])):
         if mangled.startswith(code, i):
             return name + text
     return name
@@ -578,12 +586,31 @@ def agreement(a, b) -> dict:
                 inertia_rel_diff=abs(a.inertia_ - b.inertia_) / abs(b.inertia_))
 
 
+def equal_centroid_pass(what, X, params, C, bn, embed) -> int:
+    """One fused Lloyd pass over X in bn-row blocks against the un-fused
+    chain (``embed`` over the whole X, then apnc_assign) at the same
+    centroids. On the card both run the same fmaf chains (the sources'
+    headers), so any label mismatch fails; returns the count (0)."""
+    from repro_torch.kernels import ops
+
+    C = C.contiguous()
+    lab_f = torch.cat([ops.fused_lloyd_step(X[i:i + bn], params, C)[2]
+                       for i in range(0, X.shape[0], bn)])
+    Y = embed(X, params)
+    _, _, lab_c = ops.apnc_assign(Y, C, params.discrepancy)
+    del Y
+    bad = int((lab_f != lab_c).sum())
+    if X.device.type == "cuda" and bad:
+        raise AssertionError(f"{what}: {bad} of {X.shape[0]} labels differ at equal centroids")
+    return bad
+
+
 def phase_stream(X, truth, Xq, store, local_est, cfg, device, seed) -> tuple[dict, object]:
     """The stream backend at full width: the ImageNet fit over the pinned
     host store, fused_apnc_step once per block per pass. Gated: launches,
     device-memory rise, agreement with the local fit (same phase 1, params
     and init), and at equal centroids one fused pass against the un-fused
-    apnc_embed -> apnc_assign chain on the full data."""
+    apnc_embed -> apnc_assign chain on the full data, 0 label mismatches."""
     from repro_torch.api import KernelKMeans
     from repro_torch.core.metrics import nmi
     from repro_torch.kernels import ops
@@ -614,16 +641,9 @@ def phase_stream(X, truth, Xq, store, local_est, cfg, device, seed) -> tuple[dic
     copy_pass_s = time.perf_counter() - t2
 
     # Equal centroids: the fused pass against the un-fused kernel chain.
-    C = est.model_.centroids.contiguous()
-    params = est.model_.params
     bn = cfg["block_rows"]
-    lab_f = torch.cat([ops.fused_lloyd_step(X[i:i + bn], params, C)[2]
-                       for i in range(0, X.shape[0], bn)])
-    Y = ops.apnc_embed(X, params)
-    _, _, lab_c = ops.apnc_assign(Y, C, "l2")
-    rows, gap = check_near_ties("fused pass vs apnc_embed -> apnc_assign", Y, C, lab_f, lab_c,
-                                1e-5, 1e-4)
-    del Y
+    mismatches = equal_centroid_pass("fused_apnc_step vs apnc_embed -> apnc_assign", X,
+                                     est.model_.params, est.model_.centroids, bn, ops.apnc_embed)
     pass_profile = profile_stream_pass(store, est, device) if device.type == "cuda" else None
 
     launches = info["launches"]
@@ -648,7 +668,7 @@ def phase_stream(X, truth, Xq, store, local_est, cfg, device, seed) -> tuple[dic
         bytes_h2d=info["engine"]["bytes_h2d"], copy_only_pass_s=copy_pass_s,
         copy_only_gb_per_s=X.numel() * 4 / copy_pass_s / 1e9,
         same_params_as_local=same_params, vs_local=vs_local,
-        fused_vs_chain=dict(label_mismatches=int(rows.numel()), max_rel_gap=gap),
+        fused_vs_chain=dict(label_mismatches=mismatches, gate=0),
         pass_profile=pass_profile, data_bytes=X.numel() * 4, **info,
     ), est
 
@@ -658,10 +678,13 @@ def phase_rff(X, truth, store, cfg, device, seed) -> tuple[dict, object]:
     and k on the stream backend (fused_rff_step) and the local backend
     (rff_embed_block + apnc_assign), from the same seed. Gated: both kernels
     launched, labels in range, stream vs local labels >= 0.995 with inertia
-    within rtol 1e-4. NMI is printed, not gated: the member approximates the
+    within rtol 1e-4, and at the stream fit's centroids one fused_rff_step
+    pass against rff_embed_block -> apnc_assign on the full data, 0 label
+    mismatches. NMI is printed, not gated: the member approximates the
     kernel."""
     from repro_torch.api import KernelKMeans
     from repro_torch.core.metrics import nmi
+    from repro_torch.kernels import ops
 
     kw = dict(kernel="rbf", method="rff", m=cfg["rff_m"], iters=cfg["iters"],
               block_rows=cfg["block_rows"], random_state=seed, device=device)
@@ -678,8 +701,12 @@ def phase_rff(X, truth, store, cfg, device, seed) -> tuple[dict, object]:
             raise AssertionError(f"the rff path skipped a kernel: {launches}")
         if vs_local["label_agreement"] < 0.995 or vs_local["inertia_rel_diff"] > 1e-4:
             raise AssertionError(f"rff stream vs local fit: {vs_local}")
+    mismatches = equal_centroid_pass("fused_rff_step vs rff_embed_block -> apnc_assign", X,
+                                     stream.model_.params, stream.model_.centroids,
+                                     cfg["block_rows"], ops.rff_embed)
     return dict(phase="rff", m_half=cfg["rff_m"], m=2 * cfg["rff_m"], launches=launches,
-                vs_local=vs_local, nmi_stream=nmi(stream.labels_, truth),
+                vs_local=vs_local, fused_vs_chain=dict(label_mismatches=mismatches, gate=0),
+                nmi_stream=nmi(stream.labels_, truth),
                 nmi_local=nmi(local.labels_, truth), iters=[stream.n_iter_, local.n_iter_],
                 inertia=[stream.inertia_, local.inertia_],
                 stream=s_info, local=l_info), stream
@@ -1221,6 +1248,19 @@ def check_assign_main_shape(Y, C, mismatch_share=1e-5, tie_rtol=1e-4) -> dict:
                 mismatch_max_rel_gap=gap_rel)
 
 
+def reduce_share(run) -> dict:
+    """A traced pass of a fused step: the device time of its step kernel and
+    of the (Z, g, cost) reduce kernel, and the reduce's share of the two."""
+    _, prof = device_profile(run)
+    top = prof["top_device_ms"]
+    step_ms = sum(v for key, v in top.items() if "reduce_kernel" not in key)
+    reduce_ms = sum(v for key, v in top.items() if "lloyd_reduce_kernel" in key)
+    if not reduce_ms:
+        return dict(step_ms="not measured", reduce_ms="not measured", reduce_share="not measured")
+    return dict(step_ms=step_ms, reduce_ms=reduce_ms, wall_ms=prof["wall_ms"],
+                reduce_share=reduce_ms / (step_ms + reduce_ms))
+
+
 def per_block(fn, X, bn):
     """A pass over the resident X in row blocks of bn, one call per block."""
     return lambda: [fn(X[i:i + bn]) for i in range(0, X.shape[0], bn)]
@@ -1346,6 +1386,8 @@ def phase_timing(X, est, launches, stream_est, stream_launches, rff_est, rff_lau
     t_fused_plain = cuda_ms(per_block(
         lambda xb: ref.fused_apnc_step_ref(xb, Ls, Rs, Cs, ks, "l2"), X, bn), 2, warmup=1)
     t_fused_lib = cuda_ms(per_block(fused_library, X, bn), 2, warmup=1)
+    fused_split = reduce_share(per_block(
+        lambda xb: lloyd_step.fused_apnc_step(xb, Ls, Rs, Cs, ks, "l2"), X, bn))
     b_fused, by_fused = bound(2.0 * n * l * (d + m) + 2.0 * n * k * m,
                               4.0 * (n * d + l * d + m * l + 2 * k * m + k + n + 1))
 
@@ -1369,6 +1411,9 @@ def phase_timing(X, est, launches, stream_est, stream_launches, rff_est, rff_lau
 
     t_rff_lib = cuda_ms(per_block(rff_library, X, bn), 3, warmup=1)
     b_rff, by_rff = bound(2.0 * n * d * mh, 4.0 * (n * d + d * mh + n * 2 * mh))
+    # The local rff fit's use: one launch over the whole X.
+    rff_whole = dict(ms=cuda_ms(lambda: rff_embed.rff_embed_block(X, W, scale), 3, warmup=1),
+                     library_ms=cuda_ms(lambda: rff_library(X), 3, warmup=1), bound_ms=b_rff)
 
     rff_check = check_step(
         "fused_rff_step on a main-path block",
@@ -1455,6 +1500,11 @@ def phase_timing(X, est, launches, stream_est, stream_launches, rff_est, rff_lau
                 lloyd_profile=lloyd_profile,
                 assign_main_shape=assign_check, fused_apnc_block=fused_check,
                 fused_rff_block=rff_check, fused_dequant_block=dq_check,
+                rff_embed_whole_x_launch=rff_whole,
+                fused_apnc_step_kernel_vs_reduce=fused_split,
+                redesigned_vs_previous={
+                    "fused_apnc_step": dict(ms=t_fused, **PREVIOUS_MS["fused_apnc_step"]),
+                    "rff_embed_block": dict(ms=t_rff, **PREVIOUS_MS["rff_embed_block"])},
                 rff_embed_atol=rff_tol,
                 embed_max_rel_err=embed_err / y_abs_max,
                 **{f"{r['name']}_roofline_share": r["bound_ms"] / r["ms"] for r in rows})

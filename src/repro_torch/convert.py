@@ -15,11 +15,12 @@ import torch
 from repro_torch.api.model import ClusterModel, FitMeta
 from repro_torch.core.apnc import APNCCoefficients
 from repro_torch.core.kernels_fn import Kernel
+from repro_torch.device import resolve_device
 from repro_torch.embed.rff import RFFParams
 
 
 def _tensor(a, device) -> torch.Tensor:
-    return torch.from_numpy(np.array(a, dtype=np.float32, copy=True)).to(device)
+    return torch.from_numpy(np.array(a, dtype=np.float32, copy=True)).to(resolve_device(device))
 
 
 def _kernel(fields: dict) -> Kernel:
@@ -31,19 +32,20 @@ def _kernel(fields: dict) -> Kernel:
 
 
 def apnc_params_from_numpy(
-    landmarks, R, kernel: dict, discrepancy: str, *, device="cpu",
+    landmarks, R, kernel: dict, discrepancy: str, *, device=None,
 ) -> APNCCoefficients:
     """APNC coefficients from landmarks (q, l_b, d), R (q, m_b, l_b) and the
-    kernel's fields as a dict (name, gamma, degree, coef0, scale)."""
+    kernel's fields as a dict (name, gamma, degree, coef0, scale), on
+    ``device``: the card by default (``resolve_device``), ``"cpu"`` on request."""
     return APNCCoefficients(
         landmarks=_tensor(landmarks, device), R=_tensor(R, device),
         kernel=_kernel(kernel), discrepancy=discrepancy,
     )
 
 
-def rff_params_from_numpy(W, kernel: dict, *, device="cpu") -> RFFParams:
+def rff_params_from_numpy(W, kernel: dict, *, device=None) -> RFFParams:
     """RFF params from the frequency matrix W (d, m_half) and the kernel's
-    fields as a dict."""
+    fields as a dict, on ``device`` (the card by default)."""
     return RFFParams(W=_tensor(W, device), kernel=_kernel(kernel))
 
 
@@ -70,14 +72,15 @@ def _leaves(tree: dict, prefix: str = ""):
             yield name, value
 
 
-def lm_params_from_numpy(tree: dict, cfg, *, device="cpu"):
+def lm_params_from_numpy(tree: dict, cfg, *, device=None):
     """The port's LM (``models.model.LM``, f32 params) from the reference's
     params tree as nested dicts of numpy arrays, its layer groups stacked on
     axis 0 (``tree["groups"]["layer0"]["mixer"]["wq"]`` is (G, d, H, Dh)).
 
     Every leaf lands on the parameter of the same dotted name, the groups
     unstacked (``groups.<g>.layer0.mixer.wq``). Raises ValueError on a leaf
-    that is missing, extra, or of another shape.
+    that is missing, extra, or of another shape. ``device`` is the card by
+    default (``resolve_device``), ``"cpu"`` on request.
     """
     from repro_torch.models import model as lm
     from repro_torch.models.common import Policy

@@ -5,14 +5,18 @@
 // Replaces the shared epilogue of the Pallas TPU kernels,
 // src/repro/kernels/lloyd_step.py::_assign_reduce.
 //
-// A CTA holds one 64-row tile of Y in shared memory, transposed, as
-// ys[c * PAD + r] for column c < m_pad and row r < BN. The epilogue follows
-// csrc/apnc_assign.cu step for step, so for the same Y tile it gives the same
-// labels bit for bit:
-//  * centroids stream through shared memory in chunks of KC = 64 and
-//    sub-chunks of MK = 32 columns; l2 compares yy - 2 y.c + cc clamped at 0,
+// A CTA holds one tile of Y in shared memory, transposed, as
+// ys[c * TPAD + r] for column c < m_pad and row r < TBN: 64 rows (pitch
+// PAD) for fused_rff_step and fused_dequant_step, 32 rows (pitch 36) for
+// fused_apnc_step. The epilogue follows csrc/apnc_assign.cu step for step, so
+// for the same Y tile it gives the same labels bit for bit:
+//  * centroids stream through shared memory in chunks (KC = 64 at 64 rows,
+//    128 at 32 rows: 4 rows x 4 centroids a thread either way) and
+//    sub-chunks of MK = 32 columns, each distance one chain over the columns
+//    in ascending order; l2 compares yy - 2 y.c + cc clamped at 0,
 //    l1 sums |y - c|; ties go to the lowest index (strict < in increasing
-//    order, then a lexicographic (distance, index) shuffle);
+//    order, then a lexicographic (distance, index) shuffle), whatever the
+//    split of the centroids over the threads;
 //  * each column of the CTA's (k, m) Z partial, each centroid's count and the
 //    CTA's cost are owned by one thread, which adds the tile's rows in row
 //    order; lloyd_reduce_kernel sums the P partials in the order p = 0..P-1.
@@ -41,13 +45,25 @@ constexpr int REDUCE_THREADS = 256;
 
 __host__ __device__ constexpr int round_up(int v, int to) { return (v + to - 1) / to * to; }
 
+// Thread layout of the epilogue for a TBN-row tile: TBN / 4 row groups of 4
+// rows, TX threads along the centroids, 4 centroids each, KC = 4 TX
+// centroids a chunk, C^T sub-chunks at pitch CPAD. At TBN = 64 these are
+// 16, 64 and PAD, the layout of apnc_assign.cu.
+template <int TBN>
+struct Layout {
+  static constexpr int TX = THREADS / (TBN / 4);
+  static constexpr int KC = 4 * TX;
+  static constexpr int CPAD = KC + 4;
+};
+static_assert(Layout<BN>::KC == KC && Layout<BN>::CPAD == PAD, "the 64-row layout");
+
 // Shared-memory scratch of the epilogue, apart from the Y tile.
 struct EpilogueSmem {
-  float* cs;      // [MK][PAD]  C^T sub-chunk
-  float* yy_s;    // [BN]       row norms
-  float* cc_s;    // [KC]       centroid norms
-  float* mind_s;  // [BN]       per-row min distance, in block_cost's units
-  int* lab_s;     // [BN]       per-row label
+  float* cs;      // [MK][CPAD]  C^T sub-chunk
+  float* yy_s;    // [TBN]       row norms
+  float* cc_s;    // [KC]        centroid norms
+  float* mind_s;  // [TBN]       per-row min distance, in block_cost's units
+  int* lab_s;     // [TBN]       per-row label
 };
 
 // Zero the CTA's partials: thread t owns Z columns c = t (mod THREADS) and
@@ -59,21 +75,51 @@ __device__ __forceinline__ void zero_partials(float* zp, float* gp, int k, int m
   for (int j = t; j < k; j += THREADS) gp[j] = 0.0f;
 }
 
-// One tile: labels of rows [row0, row0 + rows), their (Z, g) added to the
-// CTA's partials zp (k, m) and gp (k,), and (thread 0) their cost added to
-// cost_acc. ys must be complete; the caller syncs before overwriting it.
-template <bool L1>
+// Element i of the C^T sub-chunk (KC centroids x MK columns) that thread t
+// stages with PREFETCH: a warp takes 8 columns x 4 centroids, so its global
+// reads are 32-byte runs and its transposed stores (pitch KC + 4) hit 32
+// banks.
+static_assert(MK == 32, "c_elem spans 32 columns");
+__device__ __forceinline__ void c_elem(int i, int& j, int& c) {
+  const int lane = threadIdx.x & 31;
+  const int q = (threadIdx.x >> 5) + i * (THREADS / 32);  // 4 column groups x KC / 4 rows
+  c = (q & 3) * 8 + (lane & 7);
+  j = (q >> 2) * 4 + (lane >> 3);
+}
+
+// The values thread t stages of the C^T sub-chunk at (j0, c0), zero outside C.
+template <int KC>
+__device__ __forceinline__ void load_c(float (&v)[KC * MK / THREADS], const float* __restrict__ C,
+                                       int k, int m, int j0, int c0) {
+#pragma unroll
+  for (int i = 0; i < KC * MK / THREADS; ++i) {
+    int j, c;
+    c_elem(i, j, c);
+    v[i] = (j0 + j < k && c0 + c < m) ? C[(size_t)(j0 + j) * m + c0 + c] : 0.0f;
+  }
+}
+
+// One tile of TBN rows, Y^T at pitch TPAD: labels of rows [row0, row0 +
+// rows), their (Z, g) added to the CTA's partials zp (k, m) and gp (k,), and
+// (thread 0) their cost added to cost_acc. ys must be complete; the caller
+// syncs before overwriting it. With PREFETCH, each C^T sub-chunk is loaded
+// into registers while the one before it is in use (the same values, the
+// same arithmetic).
+template <bool L1, int TBN = BN, int TPAD = PAD, bool PREFETCH = false>
 __device__ void assign_reduce_tile(const float* ys, int m_pad, const float* __restrict__ C,
                                    int k, int m, int row0, int rows, const EpilogueSmem& s,
                                    int* __restrict__ labels, float* __restrict__ zp,
                                    float* __restrict__ gp, float& cost_acc) {
+  constexpr int TX = Layout<TBN>::TX;
+  constexpr int KC = Layout<TBN>::KC;
+  constexpr int CPAD = Layout<TBN>::CPAD;
   const int t = threadIdx.x;
-  const int tx = t % 16;
-  const int ty = t / 16;
+  const int tx = t % TX;
+  const int ty = t / TX;
   __syncthreads();  // ys complete
-  if (!L1 && t < BN) {
+  if (!L1 && t < TBN) {
     float v2 = 0.0f;
-    for (int c = 0; c < m_pad; ++c) { const float v = ys[c * PAD + t]; v2 = fmaf(v, v, v2); }
+    for (int c = 0; c < m_pad; ++c) { const float v = ys[c * TPAD + t]; v2 = fmaf(v, v, v2); }
     s.yy_s[t] = v2;
   }
 
@@ -82,24 +128,38 @@ __device__ void assign_reduce_tile(const float* ys, int m_pad, const float* __re
 #pragma unroll
   for (int i = 0; i < 4; ++i) { best_d[i] = INFINITY; best_j[i] = 0; }
 
+  constexpr int PER = KC * MK / THREADS;
+  float next[PER];
+  if constexpr (PREFETCH) load_c<KC>(next, C, k, m, 0, 0);
   for (int j0 = 0; j0 < k; j0 += KC) {
     float acc[4][4] = {};
     float cn = 0.0f;  // t < KC: |c_{j0 + t}|^2
     for (int c0 = 0; c0 < m_pad; c0 += MK) {
       __syncthreads();  // earlier readers of cs and cc_s are done; yy_s visible
-      for (int e = t; e < KC * MK; e += THREADS) {
-        const int j = e / MK, c = e % MK;
-        const int gj = j0 + j, gc = c0 + c;
-        s.cs[c * PAD + j] = (gj < k && gc < m) ? C[(size_t)gj * m + gc] : 0.0f;
+      if constexpr (PREFETCH) {
+#pragma unroll
+        for (int i = 0; i < PER; ++i) {
+          int j, c;
+          c_elem(i, j, c);
+          s.cs[c * CPAD + j] = next[i];
+        }
+        if (c0 + MK < m_pad) load_c<KC>(next, C, k, m, j0, c0 + MK);
+        else if (j0 + KC < k) load_c<KC>(next, C, k, m, j0 + KC, 0);
+      } else {
+        for (int e = t; e < KC * MK; e += THREADS) {
+          const int j = e / MK, c = e % MK;
+          const int gj = j0 + j, gc = c0 + c;
+          s.cs[c * CPAD + j] = (gj < k && gc < m) ? C[(size_t)gj * m + gc] : 0.0f;
+        }
       }
       __syncthreads();
       if (!L1 && t < KC) {
-        for (int c = 0; c < MK; ++c) { const float v = s.cs[c * PAD + t]; cn = fmaf(v, v, cn); }
+        for (int c = 0; c < MK; ++c) { const float v = s.cs[c * CPAD + t]; cn = fmaf(v, v, cn); }
       }
 #pragma unroll 8
       for (int c = 0; c < MK; ++c) {
-        tilemath::dist_4x4<L1>(acc, *reinterpret_cast<const float4*>(ys + (c0 + c) * PAD + ty * 4),
-                               *reinterpret_cast<const float4*>(s.cs + c * PAD + tx * 4));
+        tilemath::dist_4x4<L1>(acc, *reinterpret_cast<const float4*>(ys + (c0 + c) * TPAD + ty * 4),
+                               *reinterpret_cast<const float4*>(s.cs + c * CPAD + tx * 4));
       }
     }
     if (!L1 && t < KC) s.cc_s[t] = cn;
@@ -117,13 +177,14 @@ __device__ void assign_reduce_tile(const float* ys, int m_pad, const float* __re
     }
   }
 
-  // The 16 threads of one row sit in one half-warp: combine lexicographically.
+  // The TX threads of one row sit in one half-warp (TX = 16) or one warp
+  // (TX = 32): combine lexicographically.
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     float dv = best_d[i];
     int jv = best_j[i];
 #pragma unroll
-    for (int off = 8; off > 0; off >>= 1) {
+    for (int off = TX / 2; off > 0; off >>= 1) {
       const float od = __shfl_xor_sync(0xffffffffu, dv, off);
       const int oj = __shfl_xor_sync(0xffffffffu, jv, off);
       if (od < dv || (od == dv && oj < jv)) { dv = od; jv = oj; }
@@ -138,7 +199,7 @@ __device__ void assign_reduce_tile(const float* ys, int m_pad, const float* __re
   if (t < rows) labels[row0 + t] = s.lab_s[t];
   for (int c = t; c < m; c += THREADS) {
     float* zc = zp + c;
-    for (int r = 0; r < rows; ++r) zc[(size_t)s.lab_s[r] * m] += ys[c * PAD + r];
+    for (int r = 0; r < rows; ++r) zc[(size_t)s.lab_s[r] * m] += ys[c * TPAD + r];
   }
   for (int j = t; j < k; j += THREADS) {
     int cnt = 0;

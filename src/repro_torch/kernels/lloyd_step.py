@@ -6,9 +6,10 @@ sources are ``csrc/lloyd_step.cu`` (the two embedding steps) and
 ``csrc/dequant_step.cu`` (the step over a quantized cache block), both ending
 in the epilogue of ``csrc/lloyd_epilogue.cuh``; their headers hold the bound
 on an H100 and what the design does about it (operation-bound; one CTA embeds
-or decodes 64 rows into a shared-memory tile that the assign epilogue reads
-in place, so Y never reaches device memory; (Z, g, cost) go through per-CTA
-partials summed in a fixed order, so they are bitwise deterministic).
+or decodes a tile of rows, 32 for ``fused_apnc_step`` and 64 for the others,
+into a shared-memory tile that the assign epilogue reads in place, so Y never
+reaches device memory; (Z, g, cost) go through per-CTA partials summed in a
+fixed order, so they are bitwise deterministic).
 
 Each wrapper launches its kernel for CUDA tensors and raises if it cannot;
 for CPU tensors it computes the same function with the plain PyTorch version.
@@ -17,6 +18,7 @@ for CPU tensors it computes the same function with the plain PyTorch version.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -34,8 +36,9 @@ from repro_torch.kernels.ref import (
 launches = {"fused_apnc_step": 0, "fused_rff_step": 0, "fused_dequant_step": 0,
             "dequant_decode": 0}
 
-#: Largest embedding width (rff: 2 * m_half) one launch takes: the (64 x m)
-#: Y tile lives in shared memory. ``csrc/lloyd_step.cu`` holds the same bound.
+#: Largest embedding width (rff: 2 * m_half) one launch takes: the
+#: (tile rows x m) Y tile lives in shared memory. ``csrc/lloyd_step.cu``
+#: holds the same bound.
 MAX_M = 512
 
 #: Largest m one ``fused_dequant_step`` launch takes: its decoded (64 x m) Y
@@ -49,8 +52,10 @@ DEQUANT_MAX_M = 800
 #: sums, and with them every bit of (Z, g, cost), is the same on every run.
 MAX_CTAS = 264
 
-#: Rows per CTA tile of every fused step (``lloyd::BN``).
-TILE_ROWS = 64
+#: Rows per CTA tile of each fused step: ``lloyd_step_tile_rows(0)`` and
+#: ``(1)`` in ``csrc/lloyd_step.cu``, ``dequant_step_tile_rows()`` in
+#: ``csrc/dequant_step.cu``; the libraries are checked against it on load.
+TILE_ROWS = {"apnc": 32, "rff": 64, "dequant": 64}
 
 _KINDS = {"rbf": 0, "poly": 1, "tanh": 2, "linear": 3}
 _P = ctypes.c_void_p
@@ -69,7 +74,8 @@ def _dequant_lib() -> ctypes.CDLL:
         fn.argtypes = []
     lib.fused_dequant_smem_bytes.argtypes = [_I]
     lib.fused_dequant_smem_bytes.restype = ctypes.c_longlong
-    if lib.dequant_step_max_m() != DEQUANT_MAX_M or lib.dequant_step_tile_rows() != TILE_ROWS:
+    if (lib.dequant_step_max_m() != DEQUANT_MAX_M
+            or lib.dequant_step_tile_rows() != TILE_ROWS["dequant"]):
         raise RuntimeError(
             "dequant_step.cu and lloyd_step.py disagree on DEQUANT_MAX_M or TILE_ROWS")
     return lib
@@ -82,12 +88,13 @@ def _lib() -> ctypes.CDLL:
     for fn in (lib.fused_apnc_step_f32, lib.fused_rff_step_f32, lib.lloyd_step_max_m,
                lib.lloyd_step_tile_rows):
         fn.restype = ctypes.c_int
-    for fn in (lib.lloyd_step_max_m, lib.lloyd_step_tile_rows):
-        fn.argtypes = []
+    lib.lloyd_step_max_m.argtypes = []
+    lib.lloyd_step_tile_rows.argtypes = [_I]
     for fn in (lib.fused_apnc_smem_bytes, lib.fused_rff_smem_bytes):
         fn.argtypes = [_I]
         fn.restype = ctypes.c_longlong
-    if lib.lloyd_step_max_m() != MAX_M or lib.lloyd_step_tile_rows() != TILE_ROWS:
+    if (lib.lloyd_step_max_m() != MAX_M or lib.lloyd_step_tile_rows(0) != TILE_ROWS["apnc"]
+            or lib.lloyd_step_tile_rows(1) != TILE_ROWS["rff"]):
         raise RuntimeError("lloyd_step.cu and lloyd_step.py disagree on MAX_M or TILE_ROWS")
     return lib
 
@@ -119,13 +126,36 @@ def _check(named: dict, discrepancy: str, device: torch.device | None = None) ->
         raise ValueError("a Lloyd step needs at least one centroid")
 
 
-def _outputs(n: int, k: int, m: int, dev: torch.device, max_m: int = MAX_M):
+class Geometry(NamedTuple):
+    """How one fused launch covers n rows: CTA p takes the row tiles
+    [p * tiles_per_cta, (p + 1) * tiles_per_cta) of ``n_tiles``, and keeps
+    its (k, m) Z partial, (k,) count partial and cost partial in scratch."""
+
+    n_tiles: int
+    num_ctas: int
+    tiles_per_cta: int
+
+    def scratch_shapes(self, k: int, m: int) -> tuple[tuple, tuple, tuple]:
+        """Shapes of the Zp, gp and costp scratch."""
+        return (self.num_ctas, k, m), (self.num_ctas, k), (self.num_ctas,)
+
+
+def launch_geometry(n: int, tile_rows: int) -> Geometry:
+    """The CTAs of a fused launch over n rows in tiles of ``tile_rows``: at
+    most ``MAX_CTAS``, each over an equal run of whole tiles (the last
+    shorter), so the order of the final sums depends on n alone."""
+    n_tiles = -(-n // tile_rows)
+    tiles_per_cta = -(-n_tiles // max(1, min(n_tiles, MAX_CTAS)))
+    return Geometry(n_tiles, -(-n_tiles // max(1, tiles_per_cta)), tiles_per_cta)
+
+
+def _outputs(n: int, k: int, m: int, dev: torch.device, tile_rows: int, max_m: int = MAX_M):
     """The outputs (Z, g, labels, cost) of one launch, the pointers the C entry
     takes for them and for the per-CTA scratch, and the launch's CTA count and
     tiles per CTA."""
     if m > max_m:
         raise NotImplementedError(
-            f"the fused Lloyd step holds a (64 x m) Y tile in shared memory and "
+            f"the fused Lloyd step holds a ({tile_rows} x m) Y tile in shared memory and "
             f"takes m <= {max_m}, got m={m}; the ops layer routes wider blocks "
             f"to the un-fused kernels"
         )
@@ -136,16 +166,13 @@ def _outputs(n: int, k: int, m: int, dev: torch.device, max_m: int = MAX_M):
     if n == 0:  # no launch: the sums over no rows
         for t in (out[0], out[1], out[3]):
             t.zero_()
-    n_tiles = -(-n // TILE_ROWS)
-    tiles_per_cta = -(-n_tiles // max(1, min(n_tiles, MAX_CTAS)))
-    num_ctas = -(-n_tiles // max(1, tiles_per_cta))
-    Zp = torch.empty((num_ctas, k, m), dtype=torch.float32, device=dev)
-    gp = torch.empty((num_ctas, k), dtype=torch.float32, device=dev)
-    costp = torch.empty((num_ctas,), dtype=torch.float32, device=dev)
+    geo = launch_geometry(n, tile_rows)
+    Zp, gp, costp = (torch.empty(shape, dtype=torch.float32, device=dev)
+                     for shape in geo.scratch_shapes(k, m))
     Z, g, labels, cost = out
     ptrs = [Z.data_ptr(), g.data_ptr(), cost.data_ptr(), labels.data_ptr(),
             Zp.data_ptr(), gp.data_ptr(), costp.data_ptr()]
-    return out, ptrs, num_ctas, tiles_per_cta
+    return out, ptrs, geo.num_ctas, geo.tiles_per_cta
 
 
 def fused_apnc_step(
@@ -169,7 +196,7 @@ def fused_apnc_step(
         raise ValueError(f"fused_apnc_step runs on cuda or cpu, not {X.device}")
     if kernel.name not in _KINDS:
         raise ValueError(f"unknown kernel {kernel.name!r}")
-    out, ptrs, num_ctas, tiles_per_cta = _outputs(n, k, m, X.device)
+    out, ptrs, num_ctas, tiles_per_cta = _outputs(n, k, m, X.device, TILE_ROWS["apnc"])
     if n == 0:
         return out
     err = _lib().fused_apnc_step_f32(
@@ -201,7 +228,7 @@ def fused_rff_step(
         return fused_rff_step_ref(X, W, C, scale, discrepancy)
     if X.device.type != "cuda":
         raise ValueError(f"fused_rff_step runs on cuda or cpu, not {X.device}")
-    out, ptrs, num_ctas, tiles_per_cta = _outputs(n, k, 2 * mh, X.device)
+    out, ptrs, num_ctas, tiles_per_cta = _outputs(n, k, 2 * mh, X.device, TILE_ROWS["rff"])
     if n == 0:
         return out
     err = _lib().fused_rff_step_f32(
@@ -255,7 +282,8 @@ def fused_dequant_step(
         return fused_dequant_step_ref(Yq, scale, C, discrepancy)
     if Yq.device.type != "cuda":
         raise ValueError(f"fused_dequant_step runs on cuda or cpu, not {Yq.device}")
-    out, ptrs, num_ctas, tiles_per_cta = _outputs(n, k, m, Yq.device, DEQUANT_MAX_M)
+    out, ptrs, num_ctas, tiles_per_cta = _outputs(n, k, m, Yq.device, TILE_ROWS["dequant"],
+                                                  DEQUANT_MAX_M)
     if n == 0:
         return out
     row = _scale_row(Yq, scale)

@@ -368,3 +368,114 @@ def test_lm_serve_on_card_matches_cpu(cuda):
             break
         torch.testing.assert_close(on_card.logits[i].cpu(), on_cpu.logits[i],
                                    rtol=1e-4, atol=1e-5)
+
+
+def _landmark_params(X_pool, l, m, seed):
+    """Landmarks drawn from the pool and a random (m, l) R: the equalities
+    below hold for any L and R, so no fit is needed (m may exceed l)."""
+    rng = np.random.default_rng(seed)
+    L = X_pool[rng.choice(X_pool.shape[0], l, replace=False)].contiguous()
+    R = torch.from_numpy((rng.standard_normal((m, l)) * l ** -0.5).astype(np.float32))
+    return L, R
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dlm", [(77, 70, 24), (900, 500, 256), (130, 300, 512)],
+                         ids=lambda s: "d{}-l{}-m{}".format(*s))
+@pytest.mark.parametrize("n", [1, 33, 4097])
+@pytest.mark.parametrize("disc", ["l2", "l1"])
+@pytest.mark.parametrize("kern", KERNELS, ids=lambda k: k.name)
+def test_fused_apnc_step_labels_equal_unfused_chain(cuda, kern, disc, n, dlm):
+    """At equal centroids the fused step's labels are bit for bit those of
+    apnc_embed_block -> apnc_assign: both run the same fmaf chains."""
+    from repro_torch.kernels import lloyd_step
+
+    d, l, m = dlm
+    k = 9
+    X, lab = _blob_block(max(n, l) + 256, d, k, seed=5, scale=d ** -0.5)
+    L, R = _landmark_params(X, l, m, seed=6)
+    Xc, Lc, Rc = X[:n].to(cuda), L.to(cuda), R.to(cuda)
+    C = _class_means(t_embed.apnc_embed_block(X.to(cuda), Lc, Rc, kern), lab, k)
+    Y = t_embed.apnc_embed_block(Xc, Lc, Rc, kern)
+    _, _, want = t_assign.apnc_assign(Y, C, disc)
+    got = lloyd_step.fused_apnc_step(Xc, Lc, Rc, C, kern, disc)
+    again = lloyd_step.fused_apnc_step(Xc, Lc, Rc, C, kern, disc)
+    torch.cuda.synchronize()
+    assert torch.equal(got[2], want)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))  # bitwise run to run
+
+
+def _misaligned(X):
+    """A contiguous copy of X whose data starts 4 bytes past a 16-byte
+    boundary: the kernels then take their 4-byte copies."""
+    buf = torch.empty(X.numel() + 4, dtype=X.dtype, device=X.device)
+    Xu = buf[1:1 + X.numel()].view(X.shape)
+    Xu.copy_(X)
+    assert Xu.data_ptr() % 16 == 4
+    return Xu
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dlm", [(900, 500, 256), (132, 300, 512)],
+                         ids=lambda s: "d{}-l{}-m{}".format(*s))
+def test_fused_apnc_step_copy_widths_agree(cuda, dlm):
+    """The 16-byte and 4-byte copy routes give the same bits."""
+    from repro_torch.kernels import lloyd_step
+
+    d, l, m = dlm
+    X, lab = _blob_block(4097, d, 9, seed=7, scale=d ** -0.5)
+    L, R = _landmark_params(X, l, m, seed=8)
+    Xc, Lc, Rc = X.to(cuda), L.to(cuda), R.to(cuda)
+    kern = KERNELS[0]
+    C = _class_means(t_embed.apnc_embed_block(Xc, Lc, Rc, kern), lab, 9)
+    got = lloyd_step.fused_apnc_step(Xc, Lc, Rc, C, kern, "l2")
+    slow = lloyd_step.fused_apnc_step(_misaligned(Xc), Lc, Rc, C, kern, "l2")
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, slow))
+
+
+def _rff_case(n, d, mh, k, seed):
+    X, lab = _blob_block(max(n, 512), d, k, seed=seed, scale=d ** -0.5)
+    W = torch.randn((d, mh), generator=torch.Generator().manual_seed(seed)) * 0.5
+    return X, lab, W, mh ** -0.5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dmh", [(77, 65), (900, 128), (130, 12)],
+                         ids=lambda s: "d{}-mh{}".format(*s))
+@pytest.mark.parametrize("n", [1, 33, 4097])
+@pytest.mark.parametrize("disc", ["l2", "l1"])
+def test_rff_embed_then_assign_equals_fused_rff_step(cuda, disc, n, dmh):
+    """rff_embed_block's Y is the Y fused_rff_step builds inside itself: the
+    un-fused chain's labels equal the fused step's bit for bit."""
+    from repro_torch.kernels import lloyd_step, rff_embed
+
+    d, mh = dmh
+    X, lab, W, scale = _rff_case(n, d, mh, 9, seed=9)
+    Wc = W.to(cuda)
+    C = _class_means(rff_embed.rff_embed_block(X.to(cuda), Wc, scale), lab, 9)
+    Xc = X[:n].to(cuda)
+    Y = rff_embed.rff_embed_block(Xc, Wc, scale)
+    again = rff_embed.rff_embed_block(Xc, Wc, scale)
+    _, _, want = t_assign.apnc_assign(Y, C, disc)
+    got = lloyd_step.fused_rff_step(Xc, Wc, C, scale, disc)
+    torch.cuda.synchronize()
+    assert torch.equal(Y, again)  # bitwise run to run
+    assert torch.equal(got[2], want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dmh", [(77, 65), (900, 128)], ids=lambda s: "d{}-mh{}".format(*s))
+def test_rff_embed_rows_do_not_depend_on_the_tiling(cuda, dmh):
+    """Each row of Y is its own chain: a slice of the rows embeds to the same
+    bits as those rows of the whole, whatever tile they fall in, and the
+    16-byte and 4-byte copy routes agree."""
+    from repro_torch.kernels import rff_embed
+
+    d, mh = dmh
+    X, _, W, scale = _rff_case(4097, d, mh, 9, seed=10)
+    Xc, Wc = X.to(cuda), W.to(cuda)
+    Y = rff_embed.rff_embed_block(Xc, Wc, scale)
+    for i, j in ((0, 1), (3, 70), (33, 4097), (4000, 4097)):
+        assert torch.equal(rff_embed.rff_embed_block(Xc[i:j], Wc, scale), Y[i:j])
+    assert torch.equal(rff_embed.rff_embed_block(_misaligned(Xc), Wc, scale), Y)

@@ -35,7 +35,7 @@ def _embed_case(kern: dict, n: int, d: int, q: int, seed: int = 0):
     coeffs = fit_nystrom(jax.random.PRNGKey(1), jnp.asarray(X), JKernel(**kern),
                          l=48, m=17, q=q)
     params = apnc_params_from_numpy(
-        np.asarray(coeffs.landmarks), np.asarray(coeffs.R), kern, "l2"
+        np.asarray(coeffs.landmarks), np.asarray(coeffs.R), kern, "l2", device="cpu"
     )
     return X, coeffs, params
 

@@ -54,9 +54,11 @@ def _block(n: int, d: int, seed: int = 0, scale: float = 1.0) -> np.ndarray:
 
 def _convert(params):
     if hasattr(params, "W"):
-        return rff_params_from_numpy(np.asarray(params.W), dataclasses.asdict(params.kernel))
+        return rff_params_from_numpy(np.asarray(params.W), dataclasses.asdict(params.kernel),
+                                     device="cpu")
     return apnc_params_from_numpy(np.asarray(params.landmarks), np.asarray(params.R),
-                                  dataclasses.asdict(params.kernel), params.discrepancy)
+                                  dataclasses.asdict(params.kernel), params.discrepancy,
+                                  device="cpu")
 
 
 def _case(method: str, kern: dict, shape):
@@ -170,3 +172,30 @@ def test_fused_wrappers_reject_bad_inputs(bad):
             t_lloyd_step.fused_apnc_step(X, L, R, C, kern, "cosine")
         else:
             t_lloyd_step.fused_apnc_step(X, L, R.T, C, kern, "l2")
+
+
+@pytest.mark.parametrize("tile_rows", [32, 64])
+@pytest.mark.parametrize("n", [1, 31, 32, 33, 4095, 4096, 4097, 1_262_102])
+def test_launch_geometry_covers_every_tile_once(n, tile_rows):
+    """Each row tile belongs to exactly one CTA, the CTAs stay within
+    MAX_CTAS, none is empty, and the scratch holds one partial a CTA."""
+    geo = t_lloyd_step.launch_geometry(n, tile_rows)
+    assert (geo.n_tiles - 1) * tile_rows < n <= geo.n_tiles * tile_rows
+    assert 1 <= geo.num_ctas <= min(geo.n_tiles, t_lloyd_step.MAX_CTAS)
+    owner = np.full(geo.n_tiles, -1)
+    for p in range(geo.num_ctas):
+        tiles = range(p * geo.tiles_per_cta, min((p + 1) * geo.tiles_per_cta, geo.n_tiles))
+        assert len(tiles) > 0 and (owner[tiles.start:tiles.stop] == -1).all()
+        owner[tiles.start:tiles.stop] = p
+    assert (owner >= 0).all()
+    k, m = 164, 256
+    assert geo.scratch_shapes(k, m) == ((geo.num_ctas, k, m), (geo.num_ctas, k),
+                                        (geo.num_ctas,))
+
+
+def test_each_fused_step_has_its_tile_rows():
+    """fused_apnc_step takes 32-row tiles, the rff and dequant steps 64; a
+    4,096-row block is then 128 and 64 CTAs."""
+    assert t_lloyd_step.TILE_ROWS == {"apnc": 32, "rff": 64, "dequant": 64}
+    assert t_lloyd_step.launch_geometry(4096, t_lloyd_step.TILE_ROWS["apnc"]).num_ctas == 128
+    assert t_lloyd_step.launch_geometry(4096, t_lloyd_step.TILE_ROWS["rff"]).num_ctas == 64

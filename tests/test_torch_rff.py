@@ -31,7 +31,7 @@ def test_rff_transform_matches_jax(shape):
     kern = dict(name="rbf", gamma=0.05)
     jparams = j_get_embedding("rff").fit(jax.random.PRNGKey(2), jnp.asarray(X),
                                          JKernel(**kern), l=0, m=mh)
-    params = rff_params_from_numpy(np.asarray(jparams.W), kern)
+    params = rff_params_from_numpy(np.asarray(jparams.W), kern, device="cpu")
     assert (params.m, params.d, params.discrepancy) == (2 * mh, d, "l2")
     assert params.scale == pytest.approx(jparams.scale, rel=1e-7)
     got = rff_transform(params, torch.from_numpy(X)).numpy()
@@ -89,6 +89,7 @@ def test_converted_rff_params_embed_like_jax():
     X = np.random.default_rng(3).standard_normal((40, 5)).astype(np.float32)
     jparams = j_get_embedding("rff").fit(jax.random.PRNGKey(9), jnp.asarray(X),
                                          JKernel("rbf", gamma=0.1), l=0, m=7)
-    params = rff_params_from_numpy(np.asarray(jparams.W), dataclasses.asdict(jparams.kernel))
+    params = rff_params_from_numpy(np.asarray(jparams.W), dataclasses.asdict(jparams.kernel),
+                                   device="cpu")
     assert params.kernel == Kernel("rbf", gamma=0.1)
     assert params.to("cpu").W.device.type == "cpu"

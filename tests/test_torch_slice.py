@@ -31,7 +31,8 @@ def blobs():
 def _jax_params_numpy(params):
     kern = dataclasses.asdict(params.kernel)
     return apnc_params_from_numpy(
-        np.asarray(params.landmarks), np.asarray(params.R), kern, params.discrepancy
+        np.asarray(params.landmarks), np.asarray(params.R), kern, params.discrepancy,
+        device="cpu",
     )
 
 
@@ -165,3 +166,30 @@ def test_port_nmi_matches_jax_nmi():
     rng = np.random.default_rng(0)
     a, b = rng.integers(0, 5, 400), rng.integers(0, 7, 400)
     assert t_nmi(a, b) == nmi(a, b)
+
+
+def _convert_params(which: str, **kw):
+    from repro_torch.convert import rff_params_from_numpy
+
+    rng = np.random.default_rng(0)
+    kern = dict(name="rbf", gamma=0.5)
+    if which == "apnc":
+        return apnc_params_from_numpy(rng.standard_normal((1, 8, 4)),
+                                      rng.standard_normal((1, 6, 8)), kern, "l2", **kw)
+    return rff_params_from_numpy(rng.standard_normal((4, 6)), kern, **kw)
+
+
+@pytest.mark.parametrize("device", [None, "cpu"], ids=["default", "cpu"])
+@pytest.mark.parametrize("which", ["apnc", "rff"])
+def test_convert_defaults_to_the_card(which, device):
+    """Without ``device=`` the converted params land on the card, and without
+    a card that is an error; ``device="cpu"`` gives CPU tensors."""
+    if device == "cpu":
+        params = _convert_params(which, device="cpu")
+        tensors = [params.landmarks, params.R] if which == "apnc" else [params.W]
+        assert all(t.device.type == "cpu" and t.dtype == torch.float32 for t in tensors)
+    elif torch.cuda.is_available():
+        assert _convert_params(which).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA card"):
+            _convert_params(which)

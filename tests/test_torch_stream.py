@@ -174,7 +174,8 @@ def member_state(request, data):
                                 policy=JPolicy(pallas=False))
     init = np.array(kmeanspp_init(jax.random.PRNGKey(5), pool, 4, jparams.discrepancy))
     tparams = apnc_params_from_numpy(np.asarray(jparams.landmarks), np.asarray(jparams.R),
-                                     dataclasses.asdict(kern), jparams.discrepancy)
+                                     dataclasses.asdict(kern), jparams.discrepancy,
+                                     device="cpu")
     return jparams, tparams, init
 
 

@@ -221,7 +221,8 @@ def test_bf16_transform_matches_jax(blobs):
                                              l=48, m=16)
     want = np.asarray(j_transform(jparams, X, JPolicy(pallas=False, precision="bf16")))
     tparams = apnc_params_from_numpy(np.asarray(jparams.landmarks), np.asarray(jparams.R),
-                                     dataclasses.asdict(jparams.kernel), jparams.discrepancy)
+                                     dataclasses.asdict(jparams.kernel), jparams.discrepancy,
+                                     device="cpu")
     got = t_transform(tparams, torch.from_numpy(blobs), ComputePolicy(precision="bf16"))
     assert got.dtype == torch.float32
     scale = float(np.abs(want).max())
