@@ -45,6 +45,7 @@ sys.path.insert(0, str(ROOT / "src"))
 # Published peaks of one H100 SXM at its full 700 W limit (NVIDIA data sheet).
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
+PEAK_TF32_FLOPS = 495e12  # dense, on the tensor cores
 
 # The paper's ImageNet configuration (src/repro/configs/paper_datasets.py).
 # parity_assign: (n, k, m) of the assign parity cases; parity_blobs: (n, d,
@@ -59,6 +60,7 @@ IMAGENET = dict(n=1_262_102, d=900, k=164, separation=1.5, l=500, m=256, iters=2
                                 (1003, 67, 800), (1003, 9, 900)),
                 parity_flash=((4, 32, 16, 64), (1, 1000, 8, 128), (2, 257, 3, 40),
                               (1, 4096, 16, 64), (1, 2048, 32, 128)),
+                parity_flash_gqa=((1, 2048, 32, 8, 128), (2, 257, 6, 3, 40)),
                 lm_arch="qwen1.5-0.5b", lm_reduced=False, lm_batch=4, lm_prompt=4096,
                 lm_gen=32)
 REHEARSAL = dict(n=4_000, d=32, k=8, separation=3.0, l=64, m=16, iters=20,
@@ -67,6 +69,7 @@ REHEARSAL = dict(n=4_000, d=32, k=8, separation=3.0, l=64, m=16, iters=20,
                  parity_blobs=((515, 13, 40, 24, 7), (203, 9, 24, 12, 5)),
                  parity_dequant=((515, 7, 24), (203, 5, 40)),
                  parity_flash=((2, 32, 2, 16), (1, 77, 2, 40)),
+                 parity_flash_gqa=((1, 77, 4, 2, 16),),
                  lm_arch="qwen1.5-0.5b", lm_reduced=True, lm_batch=4, lm_prompt=64, lm_gen=8)
 #: Sliding windows of the attention parity cases (4,096: mixtral's).
 FLASH_WINDOWS = (0, 50, 4096)
@@ -77,7 +80,9 @@ FLASH_TOL = {torch.float32: (2e-4, 2e-5), torch.bfloat16: (5e-2, 5e-2)}
 #: beside this run's.
 PREVIOUS_MS = {
     "fused_apnc_step": dict(previous_ms=[242.39, 244.3], previous_from="first CUDA design"),
-    "rff_embed_block": dict(previous_ms=[38.33, 39.0], previous_from="first CUDA design")}
+    "rff_embed_block": dict(previous_ms=[38.33, 39.0], previous_from="first CUDA design"),
+    "apnc_embed": dict(previous_ms=[71.09, 71.61], previous_from="first CUDA design"),
+    "flash_attention_bhsd": dict(previous_ms=[4.98, 5.0], previous_from="first CUDA design")}
 #: Device-memory rise allowed over a stream fit (the data is 4.54 GB).
 STREAM_RISE_LIMIT = 512 << 20
 
@@ -133,8 +138,14 @@ _TEMPLATE_ARGS = {"ILb0E": "<false>", "ILb1E": "<true>", "IfE": "<float>",
                   "ItLb1EE": "<bf16, true>", "IaE": "<int8>", "ItE": "<bf16>",
                   **{f"ILb{a}ELb{b}EE": f"<{bool(a)}, {bool(b)}>".lower()
                      for a in (0, 1) for b in (0, 1)},
-                  **{f"I{c}Li{dp}EE": f"<{t}, {dp}>" for c, t in (("f", "float"), ("t", "bf16"))
-                     for dp in (64, 128, 256)}}
+                  **{f"I{c}Li{dp}ELb{v}EE": f"<{t}, {dp}, {'16-byte' if v else '4-byte'} copies>"
+                     for c, t in (("f", "float"), ("t", "bf16")) for dp in (64, 128, 256)
+                     for v in (0, 1)},
+                  **{f"IN6apncml8GeometryI{geo}EE{x}Lb{v}EE":
+                     f"<{name}, {t}, {'16-byte' if v else '4-byte'} copies>"
+                     for geo, name in (("Li32ELi4ELi8ELi64ELi4E", "Short"),
+                                       ("Li64ELi8ELi8ELi32ELi8E", "Tall"))
+                     for x, t in (("f", "float"), ("13__nv_bfloat16", "bf16")) for v in (0, 1)}}
 
 
 def entry_name(mangled: str) -> str:
@@ -181,14 +192,19 @@ def phase_build() -> dict:
                 nvcc_seconds=dict(build.BUILD_SECONDS), ptxas=entries,
                 spilling_kernels=len(spills),
                 dynamic_smem_bytes_main_shape=dict(
-                    apnc_embed=apnc_embed.smem_bytes(cfg["m"]),
+                    apnc_embed=apnc_embed.smem_bytes(cfg["n"], cfg["m"]),
                     apnc_assign=apnc_assign.smem_bytes(cfg["m"], cfg["k"]),
                     fused_apnc_step=lloyd_step.smem_bytes("apnc", cfg["m"]),
                     fused_rff_step=lloyd_step.smem_bytes("rff", 2 * cfg["rff_m"]),
                     fused_dequant_step=lloyd_step.smem_bytes("dequant", cfg["m"]),
                     flash_attention_bhsd=flash_attention.smem_bytes(64)),
+                apnc_embed_tile_rows=dict(whole_x=apnc_embed.tile_rows(cfg["n"], cfg["m"]),
+                                          block=apnc_embed.tile_rows(cfg["block_rows"], cfg["m"])),
+                apnc_embed_smem_bytes_block=apnc_embed.smem_bytes(cfg["block_rows"], cfg["m"]),
                 flash_attention_smem_bytes_by_head_dim={
-                    dh: flash_attention.smem_bytes(dh) for dh in (40, 128, 256)},
+                    dh: dict(f32=flash_attention.smem_bytes(dh),
+                             bf16=flash_attention.smem_bytes(dh, torch.bfloat16))
+                    for dh in (40, 64, 128, 256)},
                 dequant_max_m=lloyd_step.DEQUANT_MAX_M,
                 dynamic_smem_bytes_dequant_max_m=lloyd_step.smem_bytes(
                     "dequant", lloyd_step.DEQUANT_MAX_M))
@@ -378,6 +394,8 @@ def phase_parity(X, truth, device, cfg) -> dict:
     err = check_close("embed main shape", got, want, 2e-5, 2e-5 * float(want.abs().max()))
     out["embed"].append(dict(kernel="rbf", q=1, n=rows.shape[0], d=rows.shape[1],
                              l=cfg["l"], m=cfg["m"], max_abs_err=err, rtol=2e-5))
+    out["embed_rows_bitwise"] = embed_rows_bitwise(rows, params, cfg)
+    out["plain_route"] = plain_route(Xr, device)
     for n, k, m in cfg["parity_assign"]:
         Y = torch.randn((n, m), generator=g).to(device)
         C = (torch.randn((k, m), generator=g) * 2).to(device)
@@ -396,8 +414,57 @@ def phase_parity(X, truth, device, cfg) -> dict:
     out.update(parity_fused(X, truth, device, cfg))
     out["fused_dequant"] = parity_dequant(device, cfg)
     out["flash_attention"] = parity_flash(device, cfg)
+    out["flash_attention_gqa"] = parity_flash_gqa(device, cfg)
     sync(device)
     return out
+
+
+def embed_rows_bitwise(rows, params, cfg) -> dict:
+    """apnc_embed_block's rows do not depend on the launch: the rows of one
+    launch over ``rows`` (a many-wave launch takes the 64-row geometry) equal
+    those of launches over block-row slices of it (32-row geometry), bit for
+    bit, since every geometry runs the same fmaf chains."""
+    from repro_torch.kernels import apnc_embed
+
+    L, R, kern = params.landmarks[0].contiguous(), params.R[0].contiguous(), params.kernel
+    whole = apnc_embed.apnc_embed_block(rows, L, R, kern)
+    bn = cfg["block_rows"]
+    for lo, hi in ((0, bn), (rows.shape[0] - bn - 7, rows.shape[0]), (3, 70)):
+        part = apnc_embed.apnc_embed_block(rows[lo:hi].contiguous(), L, R, kern)
+        if not torch.equal(part, whole[lo:hi]):
+            raise AssertionError(f"embed rows {lo}:{hi} differ from the whole launch's")
+    return dict(n=rows.shape[0], slices=3, bitwise_equal=True,
+                tile_rows=dict(whole=apnc_embed.tile_rows(rows.shape[0], R.shape[0])
+                               if rows.is_cuda else None,
+                               slice=apnc_embed.tile_rows(bn, R.shape[0])
+                               if rows.is_cuda else None))
+
+
+def plain_route(X, device) -> dict:
+    """ComputePolicy(kernels=False, precision="bf16") on the device: the
+    plain version in bf16, no kernel launch, the CPU's bf16 result."""
+    from repro_torch import embed
+    from repro_torch.core.kernels_fn import Kernel
+    from repro_torch.embed.apnc import fit_nystrom
+    from repro_torch.kernels import apnc_assign, apnc_embed, lloyd_step, ops
+    from repro_torch.policy import ComputePolicy
+
+    params = fit_nystrom(3, X, Kernel("rbf", gamma=0.05), l=100, m=33)
+    pol = ComputePolicy(kernels=False, precision="bf16")
+    before = (apnc_embed.launches, apnc_assign.launches, dict(lloyd_step.launches))
+    got = embed.transform(params, X, pol)
+    ops.lloyd_step_plan(params, policy=pol).step(X, got[:5].clone())
+    sync(device)
+    if (apnc_embed.launches, apnc_assign.launches, dict(lloyd_step.launches)) != before:
+        raise AssertionError("kernels=False launched a kernel")
+    want = embed.transform(params.to("cpu"), X.cpu(), pol)
+    f32 = embed.transform(params.to("cpu"), X.cpu())
+    err = check_close("plain bf16 route on the device vs the CPU", got.cpu(), want, 1e-2,
+                      1e-2 * float(want.abs().max()))
+    if torch.equal(want, f32):
+        raise AssertionError("the bf16 route computed in f32")
+    return dict(n=X.shape[0], launches=0, max_abs_err_vs_cpu_bf16=err,
+                max_abs_bf16_vs_f32=float((want - f32).abs().max()))
 
 
 def check_flash(what, q, k, v, window) -> float:
@@ -428,6 +495,25 @@ def parity_flash(device, cfg) -> list:
             for window in FLASH_WINDOWS:
                 err = check_flash(f"flash_attention {shape} w={window} {dtype}", q, k, v, window)
                 out.append(dict(shape=list(shape), window=window, dtype=str(dtype)[6:],
+                                max_abs_err=err, rtol=FLASH_TOL[dtype][0],
+                                atol=FLASH_TOL[dtype][1], deterministic=True))
+    return out
+
+
+def parity_flash_gqa(device, cfg) -> list:
+    """flash_attention_bhsd with grouped KV heads (k, v with Hkv < H heads,
+    read by head index in the kernel) against its plain version."""
+    out = []
+    g = torch.Generator().manual_seed(29)
+    for B, S, H, Hkv, Dh in cfg["parity_flash_gqa"]:
+        q32 = torch.randn((B, S, H, Dh), generator=g).to(device)
+        k32, v32 = (torch.randn((B, S, Hkv, Dh), generator=g).to(device) for _ in range(2))
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = (t.to(dtype) for t in (q32, k32, v32))
+            for window in FLASH_WINDOWS:
+                err = check_flash(f"flash_attention gqa {(B, S, H, Hkv, Dh)} w={window} {dtype}",
+                                  q, k, v, window)
+                out.append(dict(shape=[B, S, H, Hkv, Dh], window=window, dtype=str(dtype)[6:],
                                 max_abs_err=err, rtol=FLASH_TOL[dtype][0],
                                 atol=FLASH_TOL[dtype][1], deterministic=True))
     return out
@@ -1275,7 +1361,7 @@ def library_step(Yb, C):
     return Z, torch.bincount(lab, minlength=C.shape[0]), lab, D.min(dim=1).values.sum()
 
 
-def sdpa_backend(q, k, v) -> str:
+def sdpa_backend(q, k, v, **kw) -> str:
     """The backend scaled_dot_product_attention picks for these inputs
     (causal), from PyTorch's own dispatcher, or "not determined"."""
     choose = getattr(torch, "_fused_sdp_choice", None)
@@ -1284,39 +1370,54 @@ def sdpa_backend(q, k, v) -> str:
     from torch.nn.attention import SDPBackend
 
     names = {int(v): k for k, v in SDPBackend.__members__.items()}
-    return names.get(int(choose(q, k, v, is_causal=True)), "not determined")
+    try:
+        return names.get(int(choose(q, k, v, is_causal=True, **kw)), "not determined")
+    except (TypeError, RuntimeError):  # a dispatcher without the keyword
+        return "not determined"
 
 
 def time_flash(device, cfg) -> tuple[dict, list]:
     """flash_attention_bhsd at the serving path's prefill shape (B = 4,
-    H = 16, S = 4,096, Dh = 64, f32, causal: B*H = 64) and at llama3-8b's head
-    shape (B*H = 32, Dh = 128): the kernel, its plain version and
-    scaled_dot_product_attention on the same tensors in its (B, H, S, Dh)
-    layout (contiguous copies made before timing), each against the bound.
-    The bound counts 4 * Dh * S(S+1)/2 operations per head (q k^T and p v
-    over the causal pairs; the exp left out) and q, k, v, o once each."""
+    H = 16, S = 4,096, Dh = 64, f32, causal: B*H = 64), at llama3-8b's head
+    shape (B*H = 32, Dh = 128) and at its grouped form (Hkv = 8): the kernel,
+    its plain version and scaled_dot_product_attention on the same tensors in
+    its (B, H, S, Dh) layout (contiguous copies made before timing;
+    enable_gqa=True for the grouped heads), each against the bound. The
+    bound counts 4 * Dh * S(S+1)/2 operations per query head (q k^T and p v
+    over the causal pairs; the exp left out) at the f32 FMA rate, and q, k,
+    v, o once each; the tensor-core bound counts the three TF32 products the
+    kernel runs for each of those operations at the TF32 rate."""
     from repro_torch.kernels import flash_attention, ref
 
     rows = []
-    for label, (B, S, H, Dh) in (("serve prefill (qwen1.5-0.5b)", (cfg["lm_batch"],
-                                                                    cfg["lm_prompt"], 16, 64)),
-                                 ("llama3-8b heads", (1, cfg["lm_prompt"], 32, 128))):
+    S = cfg["lm_prompt"]
+    for label, (B, H, Hkv, Dh) in (("serve prefill (qwen1.5-0.5b)", (cfg["lm_batch"], 16, 16, 64)),
+                                   ("llama3-8b heads", (1, 32, 32, 128)),
+                                   ("llama3-8b grouped heads", (1, 32, 8, 128))):
         g = torch.Generator(device=device).manual_seed(5)
-        q, k, v = (torch.randn((B, S, H, Dh), generator=g, device=device) for _ in range(3))
+        q = torch.randn((B, S, H, Dh), generator=g, device=device)
+        k, v = (torch.randn((B, S, Hkv, Dh), generator=g, device=device) for _ in range(2))
         err = check_flash(f"flash_attention timing shape {label}", q, k, v, 0)
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
         sdpa = torch.nn.functional.scaled_dot_product_attention
+        kw = dict(enable_gqa=True) if Hkv != H else {}
         t_kernel = cuda_ms(lambda: flash_attention.flash_attention_bhsd(q, k, v), 10)
         t_plain = cuda_ms(lambda: ref.flash_attention_ref(q, k, v, 0), 3, warmup=1)
-        t_sdpa = cuda_ms(lambda: sdpa(qt, kt, vt, is_causal=True), 10)
+        t_sdpa = cuda_ms(lambda: sdpa(qt, kt, vt, is_causal=True, **kw), 10)
         flops = 4.0 * Dh * (S * (S + 1) / 2) * B * H
-        b_ms, b_by = bound(flops, 4.0 * 4 * B * S * H * Dh)
-        rows.append(dict(shape=dict(B=B, S=S, H=H, Dh=Dh, BH=B * H), label=label, dtype="f32",
-                         causal=True, max_abs_err=err, ms=t_kernel, plain_ms=t_plain,
-                         library_ms=t_sdpa, library="scaled_dot_product_attention(is_causal=True)",
-                         library_backend=sdpa_backend(qt, kt, vt), bound_ms=b_ms, bound_by=b_by,
+        b_ms, b_by = bound(flops, 4.0 * (2 * B * S * H * Dh + 2 * B * S * Hkv * Dh))
+        tc_ms = 3.0 * flops / PEAK_TF32_FLOPS * 1e3
+        rows.append(dict(shape=dict(B=B, S=S, H=H, Hkv=Hkv, Dh=Dh, BH=B * H), label=label,
+                         dtype="f32", causal=True, max_abs_err=err, ms=t_kernel, plain_ms=t_plain,
+                         library_ms=t_sdpa,
+                         library="scaled_dot_product_attention(is_causal=True"
+                                 + (", enable_gqa=True)" if kw else ")"),
+                         library_backend=sdpa_backend(qt, kt, vt, **kw), bound_ms=b_ms,
+                         bound_by=b_by, tensor_core_bound_ms=tc_ms,
+                         tensor_core_bound="3 TF32 products per f32 product at 495 TFLOP/s",
                          flops=flops, kernel_tflops=flops / t_kernel / 1e9,
-                         roofline_share=b_ms / t_kernel))
+                         roofline_share=b_ms / t_kernel,
+                         tensor_core_roofline_share=tc_ms / t_kernel))
         del q, k, v, qt, kt, vt
     return rows[0], rows
 
@@ -1350,6 +1451,13 @@ def phase_timing(X, est, launches, stream_est, stream_launches, rff_est, rff_lau
     t_embed = cuda_ms(lambda: apnc_embed.apnc_embed_block(X, L, R, kern), 5)
     t_embed_plain = cuda_ms(lambda: ref.apnc_embed_ref(X, L[None], R[None], kern), 5)
     t_embed_lib = cuda_ms(embed_library, 5)
+    # The sweep's embed-once use: one launch per 4,096-row block (32-row tiles).
+    embed_blocks = dict(
+        ms=cuda_ms(per_block(lambda xb: apnc_embed.apnc_embed_block(xb, L, R, kern), X, bn),
+                   2, warmup=1),
+        library_ms=cuda_ms(per_block(
+            lambda xb: torch.exp(-kern.gamma * torch.cdist(xb, L).square()) @ R.T, X, bn),
+            2, warmup=1))
     b_embed, by_embed = bound(2.0 * n * l * (d + m), 4.0 * (n * d + l * d + m * l + n * m))
 
     assign_check = check_assign_main_shape(Y, C)
@@ -1504,7 +1612,11 @@ def phase_timing(X, est, launches, stream_est, stream_launches, rff_est, rff_lau
                 fused_apnc_step_kernel_vs_reduce=fused_split,
                 redesigned_vs_previous={
                     "fused_apnc_step": dict(ms=t_fused, **PREVIOUS_MS["fused_apnc_step"]),
-                    "rff_embed_block": dict(ms=t_rff, **PREVIOUS_MS["rff_embed_block"])},
+                    "rff_embed_block": dict(ms=t_rff, **PREVIOUS_MS["rff_embed_block"]),
+                    "apnc_embed": dict(ms=t_embed, **PREVIOUS_MS["apnc_embed"]),
+                    "flash_attention_bhsd": dict(ms=flash["ms"],
+                                                 **PREVIOUS_MS["flash_attention_bhsd"])},
+                apnc_embed_blocks_pass=embed_blocks,
                 rff_embed_atol=rff_tol,
                 embed_max_rel_err=embed_err / y_abs_max,
                 **{f"{r['name']}_roofline_share": r["bound_ms"] / r["ms"] for r in rows})

@@ -121,7 +121,7 @@ def fit_local(ctx: FitContext) -> BackendFit:
     def _run_one(init):
         res = lloyd(
             Y, ctx.k, discrepancy=ctx.params.discrepancy, iters=ctx.iters,
-            init=init,
+            init=init, policy=ctx.policy,
         )
         return BackendFit(
             labels=res.labels.cpu().numpy().astype(np.int32),

@@ -322,7 +322,8 @@ class KernelKMeans:
                 labels[lo:lo + out.shape[0]] = out.cpu().numpy()
 
             map_reduce(
-                X, lambda blk: ops.predict_block(blk, model.params, model.centroids),
+                X, lambda blk: ops.predict_block(blk, model.params, model.centroids,
+                                              policy=self.policy),
                 lambda acc, _: acc, None, prefetch=self.policy.prefetch, emit=_emit,
                 device=dev, label="predict",
             )
@@ -353,7 +354,8 @@ class KernelKMeans:
 
             self._reject_sharded(X, "score")
             total = map_reduce(
-                X, lambda blk: block_cost(ops.embed_block_map(blk, model.params),
+                X, lambda blk: block_cost(ops.embed_block_map(blk, model.params,
+                                                          policy=self.policy),
                                           model.centroids, model.discrepancy),
                 lambda acc, c: acc + c, torch.zeros((), device=dev),
                 prefetch=self.policy.prefetch, device=dev, label="score",

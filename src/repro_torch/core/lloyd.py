@@ -13,6 +13,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.core.apnc import Discrepancy, pairwise_discrepancy
+from repro_torch.policy import ComputePolicy, as_policy
 
 
 def block_cost(Y: torch.Tensor, centroids: torch.Tensor, discrepancy: Discrepancy) -> torch.Tensor:
@@ -37,14 +38,19 @@ def centroid_update(Z: torch.Tensor, g: torch.Tensor, prev: torch.Tensor) -> tor
 
 def assign_stats(
     Y: torch.Tensor, centroids: torch.Tensor, k: int, discrepancy: Discrepancy,
+    policy: ComputePolicy | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Nearest-centroid labels (int32) under e plus the (Z, g) sufficient
-    statistics for one row batch: the assign kernel for CUDA tensors, its
-    plain version for CPU tensors."""
-    from repro_torch.kernels import ops
+    statistics for one row batch: the assign kernel where
+    ``policy.resolve_kernels(Y.device)`` (by default: CUDA tensors), else its
+    plain version on Y's device."""
+    from repro_torch.kernels import ops, ref
 
     if centroids.shape[0] != k:
         raise ValueError(f"k={k} does not match {centroids.shape[0]} centroids")
+    if not as_policy(policy).resolve_kernels(Y.device):
+        return ref.apnc_assign_ref(Y.to(torch.float32), centroids.to(torch.float32),
+                                   discrepancy)
     return ops.apnc_assign(Y, centroids, discrepancy)
 
 
@@ -79,6 +85,7 @@ def lloyd(
     iters: int = 20,
     generator: torch.Generator | None = None,
     init: torch.Tensor | None = None,
+    policy: ComputePolicy | None = None,
 ) -> LloydResult:
     """Run up to ``iters`` Lloyd iterations of Algorithm 2 on embeddings Y (n, m).
 
@@ -92,7 +99,7 @@ def lloyd(
 
     from repro_torch.kernels import ops
 
-    plan = ops.lloyd_step_plan(discrepancy=discrepancy)
+    plan = ops.lloyd_step_plan(discrepancy=discrepancy, policy=policy)
     centroids = init
     labels = torch.full((Y.shape[0],), -1, dtype=torch.int32, device=Y.device)
     costs, shifts = [], []

@@ -3,8 +3,9 @@
 An ``Embedding`` is a registered object with ``fit(seed, data, kernel, ...)``
 returning typed params and a plain ``transform(params, X) -> Y``.
 ``transform(params, X, policy)`` at module level is the one routed dispatch
-point every consumer goes through: the member's hand-written kernel for a
-CUDA tensor, its plain PyTorch version for a CPU tensor.
+point every consumer goes through: by default the member's hand-written
+kernel for a CUDA tensor and its plain PyTorch version for a CPU tensor, as
+``ComputePolicy.resolve_kernels`` decides.
 """
 from __future__ import annotations
 
@@ -27,7 +28,7 @@ class Embedding(abc.ABC):
     Subclasses set ``name`` and ``params_cls`` and implement ``fit`` and
     ``transform`` (the plain version). ``kernel_transform``
     returns the hand-written kernel's result for CUDA input, or None when the
-    member has no kernel.
+    member has no kernel (``transform`` then takes the plain version).
     """
 
     name: str = ""
@@ -109,21 +110,22 @@ def transform(
 ) -> torch.Tensor:
     """THE embedding dispatch point: Y = f(X) for any registered member.
 
-    A CUDA tensor goes through the member's hand-written kernel (a member
-    without one raises); the kernels compute in f32 whatever the policy's
-    ``precision``, as the JAX package's Pallas route does on a TPU. A CPU
-    tensor goes through the plain version: in f32, or under
-    ``precision="bf16"`` with the params' float fields and X cast to bf16,
-    the result returned as f32."""
+    Routing per ``policy.resolve_kernels(X.device)``: the member's
+    hand-written kernel when it resolves True and the member has one (the
+    kernels compute in f32 whatever the policy's ``precision``, as the JAX
+    package's Pallas route does on a TPU); otherwise the plain version on
+    X's own device, in f32, or under ``precision="bf16"`` with the params'
+    float fields and X cast to bf16, the result returned as f32. By default
+    that is the kernel for a CUDA tensor and the plain version for a CPU
+    tensor; ``kernels=False`` takes the plain version on the card too. A
+    member without a kernel takes its plain version, as in the JAX package;
+    a kernel that fails to build or launch raises."""
     emb = embedding_for(params)
     pol = as_policy(policy)
-    if X.device.type == "cuda":
+    if pol.resolve_kernels(X.device):
         y = emb.kernel_transform(params, X)
-        if y is None:
-            raise NotImplementedError(
-                f"embedding {emb.name!r} has no CUDA kernel in this port yet"
-            )
-        return y
+        if y is not None:
+            return y
     if pol.precision == "bf16":
         p16 = _cast_float_fields(params, torch.bfloat16)
         return emb.transform(p16, X.to(torch.bfloat16)).to(torch.float32)

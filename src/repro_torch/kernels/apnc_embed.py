@@ -1,10 +1,12 @@
 """Fused APNC embedding, Y = kappa(X, L) @ R^T: a hand-written CUDA kernel.
 
 Replaces ``src/repro/kernels/apnc_embed.py::apnc_embed_block``, the Pallas TPU
-kernel. The source is ``csrc/apnc_embed.cu``; its header holds the bound on
-an H100 and what the design does about it (operation-bound: 2*n*l*(d + m) f32
-operations; one CTA keeps a 64-row Y accumulator in shared memory over every
-landmark tile, so the (n, l) gram never reaches device memory).
+kernel. The source is ``csrc/apnc_embed.cu`` over the mainloop of
+``csrc/apnc_mainloop.cuh``, which ``fused_apnc_step`` shares; its header
+holds the bound on an H100 and what the design does about it
+(operation-bound: 2*n*l*(d + m) f32 operations; one CTA embeds a 32- or
+64-row tile over 256-landmark super-tiles with every operand brought by
+cp.async, so the (n, l) gram never reaches device memory).
 
 ``apnc_embed_block`` launches the kernel for a CUDA tensor and raises if it
 cannot; for a CPU tensor it computes the same function with the plain PyTorch
@@ -37,14 +39,23 @@ def _lib() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.apnc_embed_max_m.argtypes = []
     lib.apnc_embed_max_m.restype = ctypes.c_int
-    lib.apnc_embed_smem_bytes.argtypes = [_I]
+    lib.apnc_embed_smem_bytes.argtypes = [_I, _I]
     lib.apnc_embed_smem_bytes.restype = ctypes.c_longlong
+    lib.apnc_embed_tile_rows.argtypes = [_I, _I]
+    lib.apnc_embed_tile_rows.restype = ctypes.c_int
     return lib
 
 
-def smem_bytes(m: int) -> int:
-    """Dynamic shared memory of one CTA for a launch with m columns."""
-    return int(_lib().apnc_embed_smem_bytes(min(m, _lib().apnc_embed_max_m())))
+def smem_bytes(n: int, m: int) -> int:
+    """Dynamic shared memory of one CTA for a launch of n rows and m columns."""
+    return int(_lib().apnc_embed_smem_bytes(n, min(m, _lib().apnc_embed_max_m())))
+
+
+def tile_rows(n: int, m: int) -> int:
+    """Rows a CTA embeds in a launch of n rows and m columns: 64 for a launch
+    of many waves, 32 otherwise (the kernel picks; the bits do not depend on
+    it)."""
+    return int(_lib().apnc_embed_tile_rows(n, min(m, _lib().apnc_embed_max_m())))
 
 
 def _check_inputs(X, landmarks, R, out) -> None:

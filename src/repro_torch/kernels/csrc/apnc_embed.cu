@@ -9,156 +9,104 @@
 // the card's 67 TFLOP/s f32 rate and 3.35 TB/s it is about 12x more
 // operation-bound than byte-bound.
 //
-// Design, and what it does about the bound:
-//  * One CTA owns BN = 64 rows of Y and walks over every landmark tile and
-//    every feature chunk itself. The TPU kernel's sequential grid, which adds
-//    each landmark tile's K R^T into a revisited output block, has no GPU
-//    counterpart; here the (BN x m) Y accumulator stays in shared memory for
-//    the whole CTA, so Y is written to device memory exactly once and the
-//    (n, l) gram never reaches it.
-//  * Both contractions (S = X L^T over d, then Y += K R^T over the landmark
-//    tile) are 64 x 64 register-tiled f32 FMA loops: 256 threads, 4 x 4
-//    outputs each, operands staged transposed in shared memory and read as
-//    float4. Plain f32 keeps the numbers of the plain PyTorch version; tensor
-//    cores (TF32, bf16) are a later step.
-//  * rbf row and landmark norms ride along in the d loop, d^2 is clamped at 0
-//    before exp, as in the TPU kernel.
-//  * Ragged n, d, l and m are masked in the loads and stores: no padded copies.
-//  * The R chunk aliases the X/L chunk buffers (they are never live together),
-//    so at m = 256 a CTA takes about 101 KB and two CTAs fit on one SM.
+// Design (redesigned for Hopper; the first port, 64-row tiles with a 4 x 4
+// register tile and synchronous staging, read X once per 64-landmark tile,
+// 8 times at l = 500, and ran 1.43x slower than cdist -> exp -> matmul):
+//  * The mainloop is apnc_mainloop.cuh's, the one fused_apnc_step runs, so
+//    the fmaf chains are one: each S entry and norm a chain over the
+//    features in ascending order, each Y entry a chain over the landmarks in
+//    ascending order, from 0.0f, padded with exact zeros. Every row's bits are
+//    the same whatever the geometry or the launch it falls in.
+//  * Landmark super-tiles of 256 stage each X chunk twice at l = 500 (l <=
+//    512 in two passes), every operand by cp.async into a 2-stage ring, X, L
+//    and R read in their natural layout, conflict-free float4 reads.
+//  * Two geometries, chosen per launch. A launch of many waves (the local
+//    fit's one launch over all of X) takes apncml::Tall: 64-row tiles, 8 x 8
+//    outputs a thread, 16 FMAs for every float4 read from shared memory, and
+//    half the L and R traffic from L2 per row of the 32-row tile; 224 KB of
+//    shared memory at m <= 256, one CTA a SM. A launch of a few waves (the
+//    sweep's 4,096-row blocks: 64 CTAs of 64 rows would leave half the SMs
+//    idle) and m up to 512 take apncml::Short, fused_apnc_step's 32-row
+//    tiles.
+//  * One tile a CTA; the last landmark super-tile writes Y from registers
+//    to device memory (row pitch ldy, so Y may be a column slice), masked to
+//    n and m.
+//  * X in bf16 is widened to f32 as it is staged; L and R are f32.
+//  * Ragged n, d, l and m are masked in the copies and the stores: no padded
+//    copies. 16-byte copies need d and l multiples of 4 and aligned L and R
+//    (and X in f32); other shapes take 4-byte copies, the same arithmetic.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <stddef.h>
 
-#include "tile_math.cuh"
+#include "apnc_mainloop.cuh"
 
 namespace {
 
-using tilemath::fma_4x4;
-using tilemath::KParams;
-using tilemath::nonlin;
-using tilemath::RBF;
+using apncml::KParams;
+using apncml::THREADS;
 
-constexpr int BN = 64;        // rows of Y per CTA
-constexpr int BL = 64;        // landmarks per tile
-constexpr int BD = 32;        // features per chunk
-constexpr int MC = 64;        // Y columns per update chunk
-constexpr int PAD = 68;       // pitch of the transposed tiles, in floats (keeps float4 alignment)
-constexpr int THREADS = 256;  // 16 x 16 threads, 4 x 4 outputs each
-static_assert(2 * BD == BL, "the R chunk aliases the X and L chunks");
+constexpr int MAX_M = 512;       // columns one launch takes
+constexpr int TALL_MAX_M = 256;  // the Tall geometry's shared memory holds Y^T up to this
+constexpr int TALL_WAVES = 4;    // launches of at least this many waves of Tall tiles take it
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-template <typename TX>
-__global__ void __launch_bounds__(THREADS)
+template <class G, typename TX, bool VEC>
+__global__ void __launch_bounds__(THREADS, 1)
 embed_kernel(const TX* __restrict__ X, const float* __restrict__ L, const float* __restrict__ R,
              float* __restrict__ Y, int n, int d, int l, int m, int ldy, KParams kp) {
   extern __shared__ __align__(16) float smem[];
-  const int m_pad = (m + MC - 1) / MC * MC;
-  float* yacc = smem;               // [BN][m_pad]  Y accumulator
-  float* ks = yacc + BN * m_pad;    // [BL][PAD]    K^T tile
-  float* xs = ks + BL * PAD;        // [BD][PAD]    X^T chunk
-  float* ls = xs + BD * PAD;        // [BD][PAD]    L^T chunk
-  float* rs = xs;                   // [BL][PAD]    R^T chunk, over xs and ls
-  float* xx_s = xs + BL * PAD;      // [BN]         row norms
-  float* ll_s = xx_s + BN;          // [BL]         landmark norms
-
-  const int t = threadIdx.x;
-  const int tx = t % 16;
-  const int ty = t / 16;
-  const int row0 = blockIdx.x * BN;
-
-  for (int e = t; e < BN * m_pad; e += THREADS) yacc[e] = 0.0f;
-
-  for (int j0 = 0; j0 < l; j0 += BL) {
-    float acc[4][4] = {};
-    float nrm = 0.0f;  // t < BN: |x_t|^2; BN <= t < BN + BL: |l_t|^2
-    for (int k0 = 0; k0 < d; k0 += BD) {
-      __syncthreads();  // earlier readers of xs / ls / rs are done
-      for (int e = t; e < BN * BD; e += THREADS) {
-        const int r = e / BD, c = e % BD;
-        const int gc = k0 + c;
-        const int gr = row0 + r, gl = j0 + r;
-        xs[c * PAD + r] = (gr < n && gc < d) ? to_f32(X[(size_t)gr * d + gc]) : 0.0f;
-        ls[c * PAD + r] = (gl < l && gc < d) ? L[(size_t)gl * d + gc] : 0.0f;
-      }
-      __syncthreads();
-      if (kp.kind == RBF) {
-        if (t < BN) {
-          for (int c = 0; c < BD; ++c) { const float v = xs[c * PAD + t]; nrm = fmaf(v, v, nrm); }
-        } else if (t < BN + BL) {
-          for (int c = 0; c < BD; ++c) { const float v = ls[c * PAD + t - BN]; nrm = fmaf(v, v, nrm); }
-        }
-      }
-#pragma unroll 8
-      for (int c = 0; c < BD; ++c) {
-        fma_4x4(acc, *reinterpret_cast<const float4*>(xs + c * PAD + ty * 4),
-                *reinterpret_cast<const float4*>(ls + c * PAD + tx * 4));
-      }
-    }
-    if (t < BN) xx_s[t] = nrm;
-    else if (t < BN + BL) ll_s[t - BN] = nrm;
-    __syncthreads();  // norms visible; xs / ls no longer read
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        const int r = ty * 4 + i, j = tx * 4 + jj;
-        ks[j * PAD + r] = (j0 + j < l) ? nonlin(acc[i][jj], xx_s[r], ll_s[j], kp) : 0.0f;
-      }
-
-    for (int c0 = 0; c0 < m_pad; c0 += MC) {
-      __syncthreads();  // ks complete; earlier readers of rs are done
-      for (int e = t; e < MC * BL; e += THREADS) {
-        const int c = e / BL, j = e % BL;
-        const int gc = c0 + c, gj = j0 + j;
-        rs[j * PAD + c] = (gc < m && gj < l) ? R[(size_t)gc * l + gj] : 0.0f;
-      }
-      __syncthreads();
-      float y[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float4 v = *reinterpret_cast<const float4*>(yacc + (ty * 4 + i) * m_pad + c0 + tx * 4);
-        y[i][0] = v.x; y[i][1] = v.y; y[i][2] = v.z; y[i][3] = v.w;
-      }
-#pragma unroll 8
-      for (int j = 0; j < BL; ++j) {
-        fma_4x4(y, *reinterpret_cast<const float4*>(ks + j * PAD + ty * 4),
-                *reinterpret_cast<const float4*>(rs + j * PAD + tx * 4));
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        *reinterpret_cast<float4*>(yacc + (ty * 4 + i) * m_pad + c0 + tx * 4) =
-            make_float4(y[i][0], y[i][1], y[i][2], y[i][3]);
-      }
-    }
-  }
-  __syncthreads();
-  for (int e = t; e < BN * m; e += THREADS) {
-    const int r = e / m, c = e % m;
-    if (row0 + r < n) Y[(size_t)(row0 + r) * ldy + c] = yacc[r * m_pad + c];
-  }
+  const int m_pad = apncml::round_up(m, G::MC);
+  const apncml::TileSmem sm = apncml::carve<G>(smem, m_pad);
+  apncml::embed_tile<G, VEC, true>(X, L, R, n, d, l, m, m_pad, (int)blockIdx.x * G::BN, sm, kp,
+                                   Y, ldy);
 }
 
+template <class G>
 size_t smem_bytes(int m) {
-  const int m_pad = (m + MC - 1) / MC * MC;
-  return sizeof(float) * ((size_t)BN * m_pad + (size_t)BL * PAD + 2 * (size_t)BD * PAD + BN + BL);
+  return sizeof(float) * G::smem_floats(apncml::round_up(m, G::MC));
+}
+
+bool aligned16(const void* p) { return ((size_t)p & 15) == 0; }
+
+// Whether a launch of n rows and m columns takes the Tall geometry.
+bool tall(int n, int m) {
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+    sms = 132;  // an H100 SXM's SMs
+  const int tiles = (n + apncml::Tall::BN - 1) / apncml::Tall::BN;
+  return m <= TALL_MAX_M && tiles >= TALL_WAVES * sms;
+}
+
+template <class G, typename TX, bool VEC>
+cudaError_t run(const TX* X, const float* L, const float* R, float* Y, int n, int d, int l, int m,
+                int ldy, const KParams& kp, cudaStream_t stream) {
+  const size_t smem = smem_bytes<G>(m);
+  cudaError_t err = cudaFuncSetAttribute(embed_kernel<G, TX, VEC>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((n + G::BN - 1) / G::BN);
+  embed_kernel<G, TX, VEC><<<grid, THREADS, smem, stream>>>(X, L, R, Y, n, d, l, m, ldy, kp);
+  return cudaGetLastError();
 }
 
 template <typename TX>
 int launch(const TX* X, const float* L, const float* R, float* Y, int n, int d, int l, int m,
            int ldy, int kind, float gamma, float coef0, float scale, int degree, void* stream) {
-  const size_t smem = smem_bytes(m);
-  cudaError_t err = cudaFuncSetAttribute(embed_kernel<TX>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
+  if (m > MAX_M) return (int)cudaErrorInvalidValue;
   const KParams kp{kind, gamma, coef0, scale, degree};
-  const dim3 grid((n + BN - 1) / BN);
-  embed_kernel<TX><<<grid, THREADS, smem, (cudaStream_t)stream>>>(X, L, R, Y, n, d, l, m, ldy, kp);
-  return (int)cudaGetLastError();
+  cudaStream_t s = (cudaStream_t)stream;
+  const bool vec = d % 4 == 0 && l % 4 == 0 && aligned16(L) && aligned16(R) &&
+                   (sizeof(TX) != 4 || aligned16(X));
+  cudaError_t err;
+  if (tall(n, m))
+    err = vec ? run<apncml::Tall, TX, true>(X, L, R, Y, n, d, l, m, ldy, kp, s)
+              : run<apncml::Tall, TX, false>(X, L, R, Y, n, d, l, m, ldy, kp, s);
+  else
+    err = vec ? run<apncml::Short, TX, true>(X, L, R, Y, n, d, l, m, ldy, kp, s)
+              : run<apncml::Short, TX, false>(X, L, R, Y, n, d, l, m, ldy, kp, s);
+  return (int)err;
 }
 
 }  // namespace
@@ -166,10 +114,17 @@ int launch(const TX* X, const float* L, const float* R, float* Y, int n, int d, 
 extern "C" {
 
 // Largest m one launch takes; the wrapper splits wider blocks into column groups.
-int apnc_embed_max_m() { return 512; }
+int apnc_embed_max_m() { return MAX_M; }
 
-// Dynamic shared memory of one CTA for a launch with m columns, in bytes.
-long long apnc_embed_smem_bytes(int m) { return (long long)smem_bytes(m); }
+// Rows per CTA tile of a launch of n rows and m columns (64: Tall, 32: Short).
+int apnc_embed_tile_rows(int n, int m) {
+  return tall(n, m) ? apncml::Tall::BN : apncml::Short::BN;
+}
+
+// Dynamic shared memory of one CTA for a launch of n rows and m columns, in bytes.
+long long apnc_embed_smem_bytes(int n, int m) {
+  return (long long)(tall(n, m) ? smem_bytes<apncml::Tall>(m) : smem_bytes<apncml::Short>(m));
+}
 
 // X (n, d) f32, L (l, d) f32, R (m, l) f32 -> Y (n, m) f32 with row pitch ldy.
 // Returns the CUDA error code of the launch (0 on success).

@@ -1,71 +1,85 @@
 // Causal flash attention for Hopper (sm_90a): softmax(q k^T * scale) v with an
-// optional sliding window, online max and sum, the (S, S) scores never in
-// device memory.
+// optional sliding window and grouped KV heads, online max and sum, the
+// (S, S) scores never in device memory.
 //
 // Replaces: src/repro/kernels/flash_attention.py::flash_attention_bhsd
 // (_flash_kernel), the Pallas TPU kernel.
 //
-// Bound on an H100 SXM: operations. Per (b, h) a causal pass takes
-// 4 * Dh * S(S+1)/2 f32 operations (q k^T and p v, the exp left out) and
-// moves 4 * S * Dh elements (q, k, v read once, o written once); at the
-// serving path's shape (B*H = 64, S = 4,096, Dh = 64, f32) that is
-// 1.37e11 FLOP, 2.05 ms at 67 TFLOP/s f32, against 268 MB, 0.08 ms at
-// 3.35 TB/s.
+// Bound on an H100 SXM: operations. Per query head a causal pass takes
+// 4 * Dh * S(S+1)/2 operations (q k^T and p v, the exp left out) and moves
+// q, k, v and o once; at the serving path's shape (B*H = 64, S = 4,096,
+// Dh = 64, f32) that is 1.37e11 FLOP, 2.05 ms at the 67 TFLOP/s f32 FMA rate,
+// against 268 MB, 0.08 ms at 3.35 TB/s. This kernel runs the products on the
+// tensor cores as 3xTF32 (three TF32 products per f32 product): 4.1e11 TF32
+// operations, 0.83 ms at 495 TFLOP/s.
 //
-// Design, and what it does about the bound:
-//  * One CTA owns one (b*h, 64-row query tile) and loops over the key/value
-//    tiles in order, only over the live ones: a 64-key tile is live when
-//    kv_start <= q_end and, with a window, kv_end > q_start - window (the
-//    TPU kernel's @pl.when skip, as a loop bound). The TPU kernel's
-//    sequential kv grid axis with its VMEM scratch becomes this loop; the
-//    running max m, sum l and the accumulator stay in registers across it.
-//  * Q (transposed), K (transposed), V and the probabilities P live in
-//    shared memory, all f32: (2 * DP * 68 + 64 * (DP + 4) + 64 * 68) * 4
-//    bytes for the head dim padded to DP = 64, 128 or 256 (69,632 bytes at
-//    DP = 64, three CTAs an SM; 223,232 at DP = 256). Ragged S and a head dim
-//    below DP are masked in the loads (zeros) and the stores: no padded
-//    copies.
-//  * 256 threads, 16 x 16: a thread owns 4 query rows x 4 keys of the score
-//    tile (tile_math's fma_4x4 over the head dim) and the same 4 rows x
-//    DP / 16 columns of the output. A row's 64 scores sit in 16 lanes of one
-//    warp, so its max and sum are shuffle reductions and m, l, alpha never
-//    leave registers.
-//  * The arithmetic is the reference's, in its order: masked scores -inf,
-//    m starts at -1e30, m_new = max(m, rowmax) (monotone, so a fully masked
-//    row of a live tile cannot blow alpha up), p = exp(s - m_new),
+// Design (redesigned for Hopper; the first port ran every product as a SIMT
+// f32 FMA with a 4 x 4 register tile, K and V staged synchronously with
+// bank-conflicted transposed stores, and P through shared memory: 1.17x
+// slower than scaled_dot_product_attention at Dh = 64, 1.95x at Dh = 128):
+//  * Both products on the tensor cores, mma.sync.m16n8k8 TF32 with f32
+//    accumulators. Each f32 operand x is split into hi = tf32(x) and
+//    lo = tf32(x - hi) with integer masks (see split), and a.b is summed as
+//    a_lo.b_hi + a_hi.b_lo + a_hi.b_hi, which keeps the products near f32
+//    accuracy (one TF32 pass would not hold the f32 tolerances). A bf16
+//    value is exact in TF32, so with bf16 inputs q k^T takes one pass and
+//    p v two (P is split, V is not). wgmma's TF32 form wants a K-major B, which V (head dim
+//    contiguous) is not; mma.sync takes it as it lies.
+//  * One CTA owns one (batch, head, 64-row query tile): 4 warps, each 16
+//    query rows. Q is staged once, in f32. K and V come by cp.async
+//    (16-byte copies, zero-filled past S and Dh) into a 2-stage ring of
+//    BK-key tiles, the next tile in flight while this one computes, one
+//    barrier a tile. BK = 32 (64 for bf16 at Dh <= 64), so a CTA takes
+//    53 KB at Dh <= 64 (four CTAs a SM, at most 128 registers a thread),
+//    101 KB at Dh <= 128 (two) and 197 KB at 256, in f32; bf16 K and V take
+//    half. Unaligned strides or a head dim that is not a multiple of 16
+//    bytes take plain loads into the same ring.
+//  * The fragment layouts. Within each 8-wide k-step of both products the
+//    order of the summed index is free, so position t of the m16n8k8
+//    A and B fragments stands for index 2t and position t + 4 for 2t + 1.
+//    Then a thread's A fragment of P is exactly the four scores of its
+//    m16n8 accumulator tile, in registers (no shuffles and no round trip
+//    through shared memory), and its q and k fragments are float2 reads.
+//    Pitches of Dh + 8 (Q, K) and Dh + 4 (f32 V) make every fragment read
+//    conflict-free.
+//  * Live key tiles only: a tile is live when kv_start <= q_end and, with a
+//    window, kv_end > q_start - window (the TPU kernel's @pl.when skip, as a
+//    loop bound); the masks are applied only on tiles that need them.
+//  * The arithmetic of the reference, in its order: masked scores -inf,
+//    m from -1e30, m_new = max(m, rowmax), p = exp(s - m_new),
 //    alpha = exp(m - m_new), l = l * alpha + sum(p), acc = acc * alpha + p v,
-//    out = acc / max(l, 1e-30). expf, not __expf, and no --use_fast_math.
-//  * Query tiles are issued longest first (the last rows see the most keys).
-//    No atomics: every bit is the same run to run.
-//  * q, k, v and o are read and written in the model's (B, S, H, Dh) layout
-//    through their strides (the last dim contiguous): no transposed copies.
+//    out = acc / max(l, 1e-30); the scores and m are kept in base 2 (log2 e
+//    folded into the scale) so each exp is one exp2f, no --use_fast_math.
+//    A row's max and sum are quad shuffles; m, l and the accumulator stay
+//    in registers.
+//  * Grouped KV heads: query head h reads KV head h / (H / Hkv) in place,
+//    with no repeated copy of k and v.
+//  * Query tiles are issued longest first. No atomics: every bit is the
+//    same run to run. q, k, v and o are read and written in the model's
+//    (B, S, H, Dh) layout through their strides (the head dim contiguous).
 //    f32 or bf16 in, f32 arithmetic, output in the input's type (bf16
 //    rounded to nearest even, as torch rounds).
-//  * Tensor cores (wgmma), TMA and a K/V ring are later work: this is the
-//    plain FMA kernel.
 #include <cuda_runtime.h>
 
 #include <math.h>
 #include <stdint.h>
 
-#include "tile_math.cuh"
+#include "cp_async.cuh"
 
 namespace {
 
 constexpr int BQ = 64;        // query rows per CTA
-constexpr int BK = 64;        // keys per tile
-constexpr int PAD = 68;       // pitch of the transposed Q / K tiles and of P (float4 aligned)
-constexpr int THREADS = 256;  // 16 x 16 threads
+constexpr int WARPS = 4;      // 16 query rows each
+constexpr int THREADS = 32 * WARPS;
+constexpr int NS = 2;         // ring stages of K / V tiles
 constexpr float NEG = -1e30f;
 
 struct Strides {
   long long b, s, h;  // in elements; the head dim is contiguous
 };
 
-__device__ __forceinline__ float load(const float* p) { return __ldg(p); }
-__device__ __forceinline__ float load(const uint16_t* p) {
-  return __uint_as_float((unsigned)__ldg(p) << 16);
-}
+__device__ __forceinline__ float widen(float x) { return x; }
+__device__ __forceinline__ float widen(uint16_t x) { return __uint_as_float((unsigned)x << 16); }
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(uint16_t* p, float x) {  // round to nearest even
   unsigned u = __float_as_uint(x);
@@ -77,50 +91,132 @@ __device__ __forceinline__ void store(uint16_t* p, float x) {  // round to neare
   *p = (uint16_t)(u >> 16);
 }
 
-template <int DP>
-constexpr size_t smem_floats() {
-  return (size_t)2 * DP * PAD + (size_t)BK * (DP + 4) + (size_t)BK * PAD;
+// Tile shapes for element type T at the padded head dim DP.
+template <typename T, int DP>
+struct Tiles {
+  static constexpr int BK = DP <= 64 && sizeof(T) == 2 ? 64 : 32;  // keys per tile
+  static constexpr int NT = BK / 8;                               // 8-key blocks of a tile
+  static constexpr int QP = DP + 8;                               // Q pitch, floats
+  static constexpr int KP = DP + 8;                               // K pitch, elements
+  static constexpr int VP = sizeof(T) == 4 ? DP + 4 : DP + 8;     // V pitch, elements
+  static constexpr size_t Q_BYTES = sizeof(float) * BQ * QP;
+  static constexpr size_t K_BYTES = sizeof(T) * BK * KP;
+  static constexpr size_t STAGE_BYTES = K_BYTES + sizeof(T) * BK * VP;
+  static constexpr size_t SMEM = Q_BYTES + NS * STAGE_BYTES;
+  static constexpr bool EXACT = sizeof(T) == 2;                   // bf16: exact in TF32
+  static_assert(Q_BYTES % 16 == 0 && K_BYTES % 16 == 0 && STAGE_BYTES % 16 == 0,
+                "16-byte aligned tiles");
+};
+
+// x = hi + lo + O(2^-21 |x|) with hi, lo TF32: hi is x rounded to TF32 (to
+// nearest, ties away), lo the exact residual x - hi truncated to TF32. Integer
+// and f32 ops only: cvt.rna.tf32.f32 issues at a fraction of their rate, on
+// the pipe the exp also needs (tools/kernel_ablation.py's cvt_split prices it).
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi)) & 0xffffe000u;
 }
 
-template <typename T, int DP>
-__global__ void __launch_bounds__(THREADS)
+// c += a b for one m16n8k8 TF32 tile, f32 accumulators.
+__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                    uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a b over f32 operands as 3xTF32, or as the passes an exact b (and,
+// with EXACT_A, an exact a) needs: the small terms first.
+template <bool EXACT_A, bool EXACT_B>
+__device__ __forceinline__ void mma3(float (&c)[4], const uint32_t (&ahi)[4],
+                                     const uint32_t (&alo)[4], float b0, float b1) {
+  if (EXACT_B) {
+    if (!EXACT_A) mma(c, alo, __float_as_uint(b0), __float_as_uint(b1));
+    mma(c, ahi, __float_as_uint(b0), __float_as_uint(b1));
+  } else {
+    uint32_t h0, l0, h1, l1;
+    split(b0, h0, l0);
+    split(b1, h1, l1);
+    mma(c, alo, h0, h1);
+    mma(c, ahi, l0, l1);
+    mma(c, ahi, h0, h1);
+  }
+}
+
+// Two consecutive elements of a K row.
+__device__ __forceinline__ float2 load2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 load2(const uint16_t* p) {
+  const unsigned w = *reinterpret_cast<const unsigned*>(p);
+  return make_float2(__uint_as_float(w << 16), __uint_as_float(w & 0xffff0000u));
+}
+
+// Issue the copies of key tile [k0, k0 + BK) of k and v into a ring stage
+// (one cp.async group), zero past S and Dh.
+template <typename T, int DP, bool VEC>
+__device__ __forceinline__ void load_kv(unsigned char* stage, const T* __restrict__ kb,
+                                        const T* __restrict__ vb, long long kss, long long vss,
+                                        int k0, int S, int Dh) {
+  using TL = Tiles<T, DP>;
+  T* ks = reinterpret_cast<T*>(stage);
+  T* vs = reinterpret_cast<T*>(stage + TL::K_BYTES);
+  if (VEC) {
+    // A thread copies the same 16 bytes of every RS-th row: its pointers
+    // advance by RS rows a copy, with no index arithmetic in the loop.
+    constexpr int CH = 16 / sizeof(T);  // elements a copy
+    constexpr int PER_ROW = DP / CH;
+    constexpr int RS = THREADS / PER_ROW;
+    static_assert(THREADS % PER_ROW == 0 && TL::BK % RS == 0, "whole rows a pass");
+    const int r0 = threadIdx.x / PER_ROW, c = (threadIdx.x % PER_ROW) * CH;
+    const T* kp = kb + (k0 + r0) * kss + c;
+    const T* vp = vb + (k0 + r0) * vss + c;
+    const bool in_head = c < Dh;
+#pragma unroll
+    for (int i = 0; i < TL::BK / RS; ++i, kp += RS * kss, vp += RS * vss) {
+      const int r = r0 + i * RS;
+      const bool ok = in_head && k0 + r < S;
+      cpasync::copy16(reinterpret_cast<float*>(ks + r * TL::KP + c),
+                      reinterpret_cast<const float*>(ok ? kp : kb), ok);
+      cpasync::copy16(reinterpret_cast<float*>(vs + r * TL::VP + c),
+                      reinterpret_cast<const float*>(ok ? vp : vb), ok);
+    }
+  } else {
+    for (int e = threadIdx.x; e < TL::BK * DP; e += THREADS) {
+      const int r = e / DP, c = e % DP;
+      const bool ok = k0 + r < S && c < Dh;
+      ks[r * TL::KP + c] = ok ? kb[(k0 + r) * kss + c] : T(0);
+      vs[r * TL::VP + c] = ok ? vb[(k0 + r) * vss + c] : T(0);
+    }
+  }
+  cpasync::commit();
+}
+
+template <typename T, int DP, bool VEC>
+__global__ void __launch_bounds__(THREADS, DP <= 64 ? 4 : 2)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-             T* __restrict__ o, Strides sq, Strides sk, Strides sv, Strides so, int H, int S,
-             int Dh, int window, float scale) {
-  constexpr int VP = DP + 4;   // pitch of the V tile
-  constexpr int G = DP / 64;   // 64-column groups of the output a thread touches
-  extern __shared__ __align__(16) float smem[];
-  float* qt = smem;            // Q^T: qt[d * PAD + r]
-  float* kt = qt + DP * PAD;   // K^T: kt[d * PAD + c]
-  float* vs = kt + DP * PAD;   // V:   vs[c * VP + d]
-  float* pt = vs + BK * VP;    // P^T: pt[c * PAD + r]
+             T* __restrict__ o, Strides sq, Strides sk, Strides sv, Strides so, int H, int group,
+             int S, int Dh, int window, float scale) {
+  using TL = Tiles<T, DP>;
+  constexpr int BK = TL::BK, NT = TL::NT, ND = DP / 8;
+  const float scale2 = scale * 1.4426950408889634f;  // exp(x) = exp2(x log2 e)
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* qs = reinterpret_cast<float*>(smem);  // Q: qs[r * QP + d], f32
+  unsigned char* ring = smem + TL::Q_BYTES;     // NS x (K tile, V tile)
 
   const int t = threadIdx.x;
-  const int tx = t % 16, ty = t / 16;
+  const int lane = t & 31;
+  const int g = lane >> 2, tq = lane & 3;  // the mma fragments' group and thread in group
+  const int m0 = (t >> 5) * 16;            // the warp's first query row in the tile
   const int bh = blockIdx.x;
   const int b = bh / H, h = bh % H;
   const int nq = (S + BQ - 1) / BQ;
   const int q0 = (nq - 1 - (int)blockIdx.y) * BQ;  // longest rows first
   const T* qb = q + b * sq.b + h * sq.h;
-  const T* kb = k + b * sk.b + h * sk.h;
-  const T* vb = v + b * sv.b + h * sv.h;
+  const T* kb = k + b * sk.b + (h / group) * sk.h;
+  const T* vb = v + b * sv.b + (h / group) * sv.h;
   T* ob = o + b * so.b + h * so.h;
-
-  for (int e = t; e < BQ * DP; e += THREADS) {
-    const int r = e / DP, d = e % DP;
-    const int row = q0 + r;
-    qt[d * PAD + r] = (row < S && d < Dh) ? load(qb + row * sq.s + d) : 0.0f;
-  }
-
-  float acc[4][4 * G];
-  float m_run[4], l_run[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m_run[i] = NEG;
-    l_run[i] = 0.0f;
-#pragma unroll
-    for (int j = 0; j < 4 * G; ++j) acc[i][j] = 0.0f;
-  }
 
   // The live key tiles: kv_start <= q_end, and with a window
   // kv_start + BK - 1 > q0 - window.
@@ -130,115 +226,176 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
     const int lo = q0 - window - BK + 2;  // least live kv_start
     j_lo = lo <= 0 ? 0 : (lo + BK - 1) / BK;
   }
+  load_kv<T, DP, VEC>(ring, kb, vb, sk.s, sv.s, j_lo * BK, S, Dh);
+
+  for (int e = t; e < BQ * DP; e += THREADS) {
+    const int r = e / DP, d = e % DP;
+    const int row = q0 + r;
+    qs[r * TL::QP + d] = (row < S && d < Dh) ? widen(qb[row * sq.s + d]) : 0.0f;
+  }
+
+  float acc[ND][4];
+  float m_run[2] = {NEG, NEG}, l_run[2] = {0.0f, 0.0f};
+#pragma unroll
+  for (int nd = 0; nd < ND; ++nd)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nd][e] = 0.0f;
 
   for (int j = j_lo; j <= j_hi; ++j) {
     const int k0 = j * BK;
-    __syncthreads();  // the last tile's readers of kt, vs and pt are done
-    for (int e = t; e < BK * DP; e += THREADS) {
-      const int c = e / DP, d = e % DP;
-      const int col = k0 + c;
-      const bool in = col < S && d < Dh;
-      kt[d * PAD + c] = in ? load(kb + col * sk.s + d) : 0.0f;
-      vs[c * VP + d] = in ? load(vb + col * sv.s + d) : 0.0f;
-    }
-    __syncthreads();
+    cpasync::wait<0>();
+    __syncthreads();  // tile j (and Q) visible; every thread is done with tile j - 1
+    if (j < j_hi)
+      load_kv<T, DP, VEC>(ring + ((j + 1 - j_lo) % NS) * TL::STAGE_BYTES, kb, vb, sk.s, sv.s,
+                          k0 + BK, S, Dh);
+    const unsigned char* stage = ring + ((j - j_lo) % NS) * TL::STAGE_BYTES;
+    const T* kt = reinterpret_cast<const T*>(stage);
+    const T* vt = reinterpret_cast<const T*>(stage + TL::K_BYTES);
 
-    float s[4][4] = {};
-#pragma unroll 8
-    for (int d = 0; d < DP; ++d)
-      tilemath::fma_4x4(s, *reinterpret_cast<const float4*>(qt + d * PAD + ty * 4),
-                        *reinterpret_cast<const float4*>(kt + d * PAD + tx * 4));
-
-    float alpha[4];
+    // S = Q K^T: 16 rows x BK keys a warp, NT accumulator tiles.
+    float s[NT][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + ty * 4 + i;
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nt][e] = 0.0f;
+#pragma unroll 4
+    for (int kk = 0; kk < ND; ++kk) {
+      const float2 qa = *reinterpret_cast<const float2*>(qs + (m0 + g) * TL::QP + kk * 8 + 2 * tq);
+      const float2 qc =
+          *reinterpret_cast<const float2*>(qs + (m0 + g + 8) * TL::QP + kk * 8 + 2 * tq);
+      const float a[4] = {qa.x, qc.x, qa.y, qc.y};
+      uint32_t ahi[4], alo[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (TL::EXACT) {
+          ahi[e] = __float_as_uint(a[e]);
+          alo[e] = 0u;
+        } else {
+          split(a[e], ahi[e], alo[e]);
+        }
+      }
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const float2 kv = load2(kt + (nt * 8 + g) * TL::KP + kk * 8 + 2 * tq);
+        mma3<TL::EXACT, TL::EXACT>(s[nt], ahi, alo, kv.x, kv.y);
+      }
+    }
+
+    // Online softmax over the tile: a thread holds rows g and g + 8, keys
+    // nt * 8 + 2 tq + {0, 1}; a row's 8 key blocks span the 4 threads of a quad.
+    const bool full = k0 + BK - 1 <= q0 && k0 + BK <= S &&
+                      (window <= 0 || q0 + BQ - 1 - k0 < window);
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int row = q0 + m0 + g + 8 * hh;
       float mx = -INFINITY;
 #pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        const int col = k0 + tx * 4 + jj;
-        const bool ok = col < S && col <= row && (window <= 0 || row - col < window);
-        s[i][jj] = ok ? s[i][jj] * scale : -INFINITY;
-        mx = fmaxf(mx, s[i][jj]);
-      }
+      for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-      for (int off = 8; off > 0; off >>= 1)  // the row's 16 lanes
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m_run[i], mx);
+        for (int e = 0; e < 2; ++e) {
+          const int col = k0 + nt * 8 + 2 * tq + e;
+          const bool ok = full || (col < S && col <= row && (window <= 0 || row - col < window));
+          const float x = ok ? s[nt][2 * hh + e] * scale2 : -INFINITY;
+          s[nt][2 * hh + e] = x;
+          mx = fmaxf(mx, x);
+        }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m_run[hh], mx);
       float sum = 0.0f;
 #pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        s[i][jj] = expf(s[i][jj] - m_new);
-        sum += s[i][jj];
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float p = exp2f(s[nt][2 * hh + e] - m_new);
+          s[nt][2 * hh + e] = p;
+          sum += p;
+        }
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      const float alpha = exp2f(m_run[hh] - m_new);
+      l_run[hh] = l_run[hh] * alpha + sum;
+      m_run[hh] = m_new;
+#pragma unroll
+      for (int nd = 0; nd < ND; ++nd) {
+        acc[nd][2 * hh] *= alpha;
+        acc[nd][2 * hh + 1] *= alpha;
       }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      alpha[i] = expf(m_run[i] - m_new);
-      l_run[i] = l_run[i] * alpha[i] + sum;
-      m_run[i] = m_new;
-#pragma unroll
-      for (int jj = 0; jj < 4 * G; ++jj) acc[i][jj] *= alpha[i];
     }
-#pragma unroll
-    for (int jj = 0; jj < 4; ++jj)
-      *reinterpret_cast<float4*>(pt + (tx * 4 + jj) * PAD + ty * 4) =
-          make_float4(s[0][jj], s[1][jj], s[2][jj], s[3][jj]);
-    __syncthreads();
 
-#pragma unroll 4
-    for (int c = 0; c < BK; ++c) {
-      const float4 pr = *reinterpret_cast<const float4*>(pt + c * PAD + ty * 4);
-      const float pv[4] = {pr.x, pr.y, pr.z, pr.w};
+    // acc += P V: P's A fragment is the thread's own accumulator tile.
 #pragma unroll
-      for (int g = 0; g < G; ++g) {
-        const float4 vv = *reinterpret_cast<const float4*>(vs + c * VP + g * 64 + tx * 4);
-        const float vw[4] = {vv.x, vv.y, vv.z, vv.w};
+    for (int kk = 0; kk < NT; ++kk) {
+      const float a[4] = {s[kk][0], s[kk][2], s[kk][1], s[kk][3]};
+      uint32_t phi[4], plo[4];
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+      for (int e = 0; e < 4; ++e) split(a[e], phi[e], plo[e]);
+      const T* vr = vt + (kk * 8 + 2 * tq) * TL::VP + g;
 #pragma unroll
-          for (int jj = 0; jj < 4; ++jj)
-            acc[i][g * 4 + jj] = fmaf(pv[i], vw[jj], acc[i][g * 4 + jj]);
-      }
+      for (int nd = 0; nd < ND; ++nd)
+        mma3<false, TL::EXACT>(acc[nd], phi, plo, widen(vr[nd * 8]), widen(vr[TL::VP + nd * 8]));
     }
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty * 4 + i;
+  for (int hh = 0; hh < 2; ++hh) {
+    const int row = q0 + m0 + g + 8 * hh;
     if (row >= S) continue;
-    const float den = fmaxf(l_run[i], 1e-30f);
+    const float den = fmaxf(l_run[hh], 1e-30f);
 #pragma unroll
-    for (int g = 0; g < G; ++g)
+    for (int nd = 0; nd < ND; ++nd)
 #pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        const int d = g * 64 + tx * 4 + jj;
-        if (d < Dh) store(ob + row * so.s + d, acc[i][g * 4 + jj] / den);
+      for (int e = 0; e < 2; ++e) {
+        const int d = nd * 8 + 2 * tq + e;
+        if (d < Dh) store(ob + row * so.s + d, acc[nd][2 * hh + e] / den);
       }
   }
 }
 
-template <typename T, int DP>
+template <typename T, int DP, bool VEC>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, const long long* st,
-                   int B, int S, int H, int Dh, int window, float scale, cudaStream_t stream) {
-  const size_t smem = smem_floats<DP>() * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(flash_kernel<T, DP>,
+                   int B, int S, int H, int Hkv, int Dh, int window, float scale,
+                   cudaStream_t stream) {
+  const size_t smem = Tiles<T, DP>::SMEM;
+  cudaError_t err = cudaFuncSetAttribute(flash_kernel<T, DP, VEC>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const Strides sq{st[0], st[1], st[2]}, sk{st[3], st[4], st[5]}, sv{st[6], st[7], st[8]},
       so{st[9], st[10], st[11]};
   const dim3 grid((unsigned)(B * H), (unsigned)((S + BQ - 1) / BQ));
-  flash_kernel<T, DP><<<grid, THREADS, smem, stream>>>(
+  flash_kernel<T, DP, VEC><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), sq, sk, sv, so, H, S, Dh, window, scale);
+      static_cast<T*>(o), sq, sk, sv, so, H, H / Hkv, S, Dh, window, scale);
   return cudaGetLastError();
+}
+
+template <typename T, int DP>
+cudaError_t by_copies(bool vec, const void* q, const void* k, const void* v, void* o,
+                      const long long* st, int B, int S, int H, int Hkv, int Dh, int window,
+                      float scale, cudaStream_t s) {
+  return vec ? launch<T, DP, true>(q, k, v, o, st, B, S, H, Hkv, Dh, window, scale, s)
+             : launch<T, DP, false>(q, k, v, o, st, B, S, H, Hkv, Dh, window, scale, s);
 }
 
 template <typename T>
 cudaError_t dispatch(const void* q, const void* k, const void* v, void* o, const long long* st,
-                     int B, int S, int H, int Dh, int window, float scale, cudaStream_t s) {
-  if (Dh <= 64) return launch<T, 64>(q, k, v, o, st, B, S, H, Dh, window, scale, s);
-  if (Dh <= 128) return launch<T, 128>(q, k, v, o, st, B, S, H, Dh, window, scale, s);
-  return launch<T, 256>(q, k, v, o, st, B, S, H, Dh, window, scale, s);
+                     int B, int S, int H, int Hkv, int Dh, int window, float scale,
+                     cudaStream_t s) {
+  // 16-byte copies of K and V: whole copies inside the head dim, aligned rows.
+  const long long ch = 16 / sizeof(T);
+  bool vec = Dh % ch == 0 && ((size_t)k & 15) == 0 && ((size_t)v & 15) == 0;
+  for (int i = 3; i < 9; ++i) vec = vec && st[i] % ch == 0;
+  if (Dh <= 64) return by_copies<T, 64>(vec, q, k, v, o, st, B, S, H, Hkv, Dh, window, scale, s);
+  if (Dh <= 128)
+    return by_copies<T, 128>(vec, q, k, v, o, st, B, S, H, Hkv, Dh, window, scale, s);
+  return by_copies<T, 256>(vec, q, k, v, o, st, B, S, H, Hkv, Dh, window, scale, s);
+}
+
+template <typename T>
+long long smem_of(int Dh) {
+  if (Dh <= 64) return (long long)Tiles<T, 64>::SMEM;
+  if (Dh <= 128) return (long long)Tiles<T, 128>::SMEM;
+  return (long long)Tiles<T, 256>::SMEM;
 }
 
 }  // namespace
@@ -248,27 +405,28 @@ extern "C" {
 // Largest head dim one launch takes.
 int flash_attention_max_head_dim() { return 256; }
 
-// Dynamic shared memory of one CTA for head dim Dh, in bytes.
-long long flash_attention_smem_bytes(int Dh) {
-  if (Dh <= 64) return (long long)(smem_floats<64>() * sizeof(float));
-  if (Dh <= 128) return (long long)(smem_floats<128>() * sizeof(float));
-  return (long long)(smem_floats<256>() * sizeof(float));
+// Dynamic shared memory of one CTA for head dim Dh, f32 (bf16 = 0) or bf16
+// inputs, in bytes.
+long long flash_attention_smem_bytes(int Dh, int bf16) {
+  return bf16 ? smem_of<uint16_t>(Dh) : smem_of<float>(Dh);
 }
 
-// q, k, v, o (B, S, H, Dh), f32 (bf16 = 0) or bf16 bits (bf16 = 1), the head
-// dim contiguous; strides[12] = (batch, seq, head) strides in elements of q,
-// k, v and o, in that order. Causal, positions = row indices, and with
-// window > 0 only keys with row - col < window. scale multiplies q k^T.
-// Returns the CUDA error code of the launch (0 on success).
+// q, o (B, S, H, Dh) and k, v (B, S, Hkv, Dh), f32 (bf16 = 0) or bf16 bits
+// (bf16 = 1), the head dim contiguous, H a multiple of Hkv; strides[12] =
+// (batch, seq, head) strides in elements of q, k, v and o, in that order.
+// Query head h reads KV head h / (H / Hkv). Causal, positions = row
+// indices, and with window > 0 only keys with row - col < window. scale
+// multiplies q k^T. Returns the CUDA error code of the launch (0 on success).
 int flash_attention(const void* q, const void* k, const void* v, void* o, int bf16, int B, int S,
-                    int H, int Dh, const long long* strides, int window, float scale,
+                    int H, int Hkv, int Dh, const long long* strides, int window, float scale,
                     void* stream) {
-  if (Dh < 1 || Dh > 256 || S < 1 || B * H < 1 || (S + BQ - 1) / BQ > 65535)
+  if (Dh < 1 || Dh > 256 || S < 1 || B * H < 1 || Hkv < 1 || H % Hkv != 0 ||
+      (S + BQ - 1) / BQ > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const cudaError_t err =
-      bf16 ? dispatch<uint16_t>(q, k, v, o, strides, B, S, H, Dh, window, scale, s)
-           : dispatch<float>(q, k, v, o, strides, B, S, H, Dh, window, scale, s);
+      bf16 ? dispatch<uint16_t>(q, k, v, o, strides, B, S, H, Hkv, Dh, window, scale, s)
+           : dispatch<float>(q, k, v, o, strides, B, S, H, Hkv, Dh, window, scale, s);
   return (int)err;
 }
 

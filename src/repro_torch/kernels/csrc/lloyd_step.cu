@@ -23,6 +23,8 @@
 //
 // fused_apnc_kernel (redesigned for Hopper; the first port ran 0.79 ms a
 // 4,096-row block, 9.6 % of its bound, with 52 % of the SMs idle):
+//  * Its embed mainloop is apnc_mainloop.cuh's, at the apncml::Short
+//    geometry: apnc_embed.cu runs the same code, so the chains are one.
 //  * A CTA owns a 32-row tile, so a 4,096-row block is 128 CTAs on the 132
 //    SMs. One CTA of 256 threads a SM (no spills), 155 KB of shared memory
 //    at m = 256, 192 KB at m = 512.
@@ -72,7 +74,7 @@
 #include <math.h>
 #include <stddef.h>
 
-#include "cp_async.cuh"
+#include "apnc_mainloop.cuh"
 #include "lloyd_epilogue.cuh"
 
 namespace {
@@ -82,8 +84,6 @@ using lloyd::KC;
 using lloyd::PAD;
 using lloyd::THREADS;
 using tilemath::KParams;
-using tilemath::nonlin;
-using tilemath::RBF;
 
 constexpr int BD = 32;  // features per chunk (fused_rff_kernel)
 constexpr int MC = 64;  // Y columns per update chunk (fused_rff_kernel)
@@ -93,104 +93,12 @@ __device__ __forceinline__ void zero_tile(float* ys, int m_pad) {
   for (int e = threadIdx.x; e < m_pad * PAD; e += THREADS) ys[e] = 0.0f;
 }
 
-// fused_apnc_kernel's geometry.
+// fused_apnc_kernel: apnc_mainloop.cuh's embed of a 32-row tile into the
+// shared Y^T tile, then the assign epilogue on it.
 namespace apnc {
-constexpr int BN = 32;         // rows per tile
-constexpr int BL = 256;        // landmarks per super-tile
-constexpr int BD = 32;         // features per chunk
-constexpr int MC = 256;        // Y columns per update chunk
-constexpr int RL = 32;         // landmarks per R sub-chunk
-constexpr int SP = 36;         // pitch of the staged chunks (SP / 4 odd: conflict-free float4)
-constexpr int KP = BL + 4;     // pitch of the K tile
-constexpr int YP = BN + 4;     // pitch of the Y^T tile
-constexpr int STAGE = (BN + BL) * SP;  // floats in one ring stage
-constexpr int NS = 2;          // ring stages: step s + 1's copies are in flight during step s
-constexpr int TX = 64;         // threads along the landmarks / Y columns
-constexpr int TY = 4;          // threads along the rows
-constexpr int RI = 8;          // rows a thread, TY apart
-constexpr int RQ = 4;          // landmarks / Y columns a thread, TX apart
-using Epi = lloyd::Layout<BN>;
-static_assert(BL == THREADS, "thread t sums landmark t's norm");
-static_assert(TX * RQ == BL && TX * RQ == MC && TY * RI == BN && TX * TY == THREADS,
-              "thread tiling");
-static_assert(MC * SP <= STAGE, "an R sub-chunk fits in a ring stage");
-static_assert(lloyd::MK * Epi::CPAD <= STAGE, "the epilogue's C sub-chunk fits in a ring stage");
-static_assert(BD == 32 && RL == 32, "stage_block copies 32 columns");
-
-// Copy rows [r0, r0 + nrows) x columns [c0, c0 + 32) of a row-major (rows,
-// cols) array A into dst at pitch SP; elements outside A are zero-filled.
-template <bool VEC>
-__device__ __forceinline__ void stage_block(float* dst, const float* __restrict__ A, int rows,
-                                            int cols, int nrows, int r0, int c0) {
-  if (VEC) {
-    for (int e = threadIdx.x; e < nrows * 8; e += THREADS) {
-      const int r = e >> 3, c = (e & 7) * 4;
-      const bool ok = r0 + r < rows && c0 + c < cols;
-      cpasync::copy16(dst + r * SP + c, ok ? A + (size_t)(r0 + r) * cols + c0 + c : A, ok);
-    }
-  } else {
-    for (int e = threadIdx.x; e < nrows * 32; e += THREADS) {
-      const int r = e >> 5, c = e & 31;
-      const bool ok = r0 + r < rows && c0 + c < cols;
-      cpasync::copy4(dst + r * SP + c, ok ? A + (size_t)(r0 + r) * cols + c0 + c : A, ok);
-    }
-  }
-}
-
-// The steps of one tile, in order: for each landmark super-tile, nd steps
-// over the feature chunks (X and L), then nr steps over the (Y column chunk,
-// R sub-chunk) pairs. Issues step s's copies into its ring stage as one
-// group (an empty group past the last step, so the group count stays fixed).
-template <bool VEC>
-__device__ __forceinline__ void issue_step(int s, int steps, float* ring, const float* X,
-                                           const float* L, const float* R, int n, int d, int l,
-                                           int m, int row0, int nd, int nr) {
-  const int per = nd + nr;
-  const int j0 = (s / per) * BL;
-  const int w = s % per;
-  float* stage = ring + (s % NS) * STAGE;
-  if (s < steps && w < nd) {
-    stage_block<VEC>(stage, X, n, d, BN, row0, w * BD);
-    stage_block<VEC>(stage + BN * SP, L, l, d, BL, j0, w * BD);
-  } else if (s < steps) {
-    const int sub = (w - nd) % (BL / RL), cc = (w - nd) / (BL / RL);
-    stage_block<VEC>(stage, R, m, l, MC, cc * MC, j0 + sub * RL);
-  }
-  cpasync::commit();
-}
-
-// The top of step s: its copies have landed and every thread is done with
-// step s - 1, whose stage then takes step s + NS - 1's copies.
-template <bool VEC>
-__device__ __forceinline__ const float* begin_step(int s, int steps, float* ring, const float* X,
-                                                   const float* L, const float* R, int n, int d,
-                                                   int l, int m, int row0, int nd, int nr) {
-  cpasync::wait<NS - 2>();
-  __syncthreads();
-  issue_step<VEC>(s + NS - 1, steps, ring, X, L, R, n, d, l, m, row0, nd, nr);
-  return ring + (s % NS) * STAGE;
-}
-
-__device__ __forceinline__ void norm4(float& acc, const float4 v) {
-  acc = fmaf(v.x, v.x, acc);
-  acc = fmaf(v.y, v.y, acc);
-  acc = fmaf(v.z, v.z, acc);
-  acc = fmaf(v.w, v.w, acc);
-}
-
-// acc[i][q] += a[i] . b[q] over four consecutive indices, in ascending order.
-__device__ __forceinline__ void fma_8x4x4(float (&acc)[RI][RQ], const float4 (&a)[RI],
-                                          const float4 (&b)[RQ]) {
-#pragma unroll
-  for (int i = 0; i < RI; ++i)
-#pragma unroll
-    for (int q = 0; q < RQ; ++q) {
-      acc[i][q] = fmaf(a[i].x, b[q].x, acc[i][q]);
-      acc[i][q] = fmaf(a[i].y, b[q].y, acc[i][q]);
-      acc[i][q] = fmaf(a[i].z, b[q].z, acc[i][q]);
-      acc[i][q] = fmaf(a[i].w, b[q].w, acc[i][q]);
-    }
-}
+using G = apncml::Short;
+using Epi = lloyd::Layout<G::BN>;
+static_assert(lloyd::MK * Epi::CPAD <= G::STAGE, "the epilogue's C sub-chunk fits in a ring stage");
 
 template <bool L1, bool VEC>
 __global__ void __launch_bounds__(THREADS, 1)
@@ -200,126 +108,39 @@ fused_apnc_kernel(const float* __restrict__ X, const float* __restrict__ L,
                   int* __restrict__ labels, int n, int d, int l, int m, int k, int tiles_per_cta,
                   KParams kp) {
   extern __shared__ __align__(16) float smem[];
-  const int m_pad = lloyd::round_up(m, MC);
-  float* ring = smem;                // NS x [STAGE]  X + L chunks or an R sub-chunk;
-                                     //               epilogue: C^T sub-chunk
-  float* ks = ring + NS * STAGE;     // [BN][KP]     K tile
-  float* ys = ks + BN * KP;          // [m_pad][YP]  Y^T tile
-  float* xx_s = ys + m_pad * YP;     // [BN]         row norms
-  float* ll_s = xx_s + BN;           // [BL]         landmark norms
+  const int m_pad = lloyd::round_up(m, G::MC);
+  const apncml::TileSmem sm = apncml::carve<G>(smem, m_pad);  // ring: also the
+                                                              // epilogue's C^T sub-chunk
   lloyd::EpilogueSmem es;
-  es.cs = ring;
-  es.yy_s = ll_s + BL;               // [BN]
-  es.cc_s = es.yy_s + BN;            // [Epi::KC]
+  es.cs = sm.ring;
+  es.yy_s = sm.ll_s + G::BL;         // [BN]
+  es.cc_s = es.yy_s + G::BN;         // [Epi::KC]
   es.mind_s = es.cc_s + Epi::KC;     // [BN]
-  es.lab_s = reinterpret_cast<int*>(es.mind_s + BN);  // [BN]
+  es.lab_s = reinterpret_cast<int*>(es.mind_s + G::BN);  // [BN]
 
-  // A warp is 4 (ty) x 8 (tx) threads: its operand reads touch 4 rows and
-  // 8 landmarks (or Y columns): a float4 read is 128 distinct bytes in distinct banks.
-  const int t = threadIdx.x;
-  const int tx = (t >> 5) * 8 + (t & 7);
-  const int ty = (t & 31) >> 3;
   float* zp = Zp + (size_t)blockIdx.x * k * m;
   float* gpc = gp + (size_t)blockIdx.x * k;
   float cost_acc = 0.0f;
   lloyd::zero_partials(zp, gpc, k, m);
 
-  const int nd = (d + BD - 1) / BD;
-  const int nr = (m_pad / MC) * (BL / RL);
-  const int n_st = (l + BL - 1) / BL;
-  const int steps = n_st * (nd + nr);
-  const int n_tiles = (n + BN - 1) / BN;
+  const int n_tiles = (n + G::BN - 1) / G::BN;
   const int tile_lo = blockIdx.x * tiles_per_cta;
   const int tile_hi = min(tile_lo + tiles_per_cta, n_tiles);
   for (int tile = tile_lo; tile < tile_hi; ++tile) {
-    const int row0 = tile * BN;
-    const int rows = min(BN, n - row0);
+    const int row0 = tile * G::BN;
+    const int rows = min(G::BN, n - row0);
     __syncthreads();  // the previous tile's epilogue is done with ys, the ring and the scratch
-    for (int p = 0; p < NS - 1; ++p)
-      issue_step<VEC>(p, steps, ring, X, L, R, n, d, l, m, row0, nd, nr);
-    int s = 0;
-    for (int st = 0; st < n_st; ++st) {
-      const int j0 = st * BL;
-      // S = X L^T for the super-tile: rows ty + 4 i, landmarks tx + 64 q.
-      float acc[RI][RQ];
-#pragma unroll
-      for (int i = 0; i < RI; ++i)
-#pragma unroll
-        for (int q = 0; q < RQ; ++q) acc[i][q] = 0.0f;
-      float nl = 0.0f, nx = 0.0f;  // |l_{j0 + t}|^2; t < BN: |x_t|^2
-      for (int w = 0; w < nd; ++w, ++s) {
-        const float* xs = begin_step<VEC>(s, steps, ring, X, L, R, n, d, l, m, row0, nd, nr);
-        const float* ls = xs + BN * SP;
-        if (kp.kind == RBF) {
-#pragma unroll
-          for (int c = 0; c < BD; c += 4) {
-            norm4(nl, *reinterpret_cast<const float4*>(ls + t * SP + c));
-            if (t < BN) norm4(nx, *reinterpret_cast<const float4*>(xs + t * SP + c));
-          }
-        }
-#pragma unroll
-        for (int c = 0; c < BD; c += 4) {
-          float4 a[RI], b[RQ];
-#pragma unroll
-          for (int i = 0; i < RI; ++i)
-            a[i] = *reinterpret_cast<const float4*>(xs + (ty + i * TY) * SP + c);
-#pragma unroll
-          for (int q = 0; q < RQ; ++q)
-            b[q] = *reinterpret_cast<const float4*>(ls + (tx + q * TX) * SP + c);
-          fma_8x4x4(acc, a, b);
-        }
-      }
-      if (t < BN) xx_s[t] = nx;
-      ll_s[t] = nl;
-      __syncthreads();  // norms visible; every thread is done with the last chunk
-#pragma unroll
-      for (int i = 0; i < RI; ++i)
-#pragma unroll
-        for (int q = 0; q < RQ; ++q) {
-          const int r = ty + i * TY, j = tx + q * TX;
-          ks[r * KP + j] = (j0 + j < l) ? nonlin(acc[i][q], xx_s[r], ll_s[j], kp) : 0.0f;
-        }
-
-      // Y += K R^T: rows ty + 4 i, columns c0 + tx + 64 q.
-      for (int c0 = 0; c0 < m_pad; c0 += MC) {
-        float y[RI][RQ];
-#pragma unroll
-        for (int q = 0; q < RQ; ++q)
-#pragma unroll
-          for (int i = 0; i < RI; ++i)
-            y[i][q] = st ? ys[(c0 + tx + q * TX) * YP + ty + i * TY] : 0.0f;
-        for (int sub = 0; sub < BL / RL; ++sub, ++s) {
-          const float* rs = begin_step<VEC>(s, steps, ring, X, L, R, n, d, l, m, row0, nd, nr);
-          const float* kt = ks + sub * RL;
-#pragma unroll
-          for (int j = 0; j < RL; j += 4) {
-            float4 a[RI], b[RQ];
-#pragma unroll
-            for (int i = 0; i < RI; ++i)
-              a[i] = *reinterpret_cast<const float4*>(kt + (ty + i * TY) * KP + j);
-#pragma unroll
-            for (int q = 0; q < RQ; ++q)
-              b[q] = *reinterpret_cast<const float4*>(rs + (tx + q * TX) * SP + j);
-            fma_8x4x4(y, a, b);
-          }
-        }
-#pragma unroll
-        for (int q = 0; q < RQ; ++q)
-#pragma unroll
-          for (int i = 0; i < RI; ++i) ys[(c0 + tx + q * TX) * YP + ty + i * TY] = y[i][q];
-      }
-    }
-    lloyd::assign_reduce_tile<L1, BN, YP, true>(ys, m_pad, C, k, m, row0, rows, es, labels, zp,
-                                                gpc, cost_acc);
+    apncml::embed_tile<G, VEC, false>(X, L, R, n, d, l, m, m_pad, row0, sm, kp, nullptr, 0);
+    lloyd::assign_reduce_tile<L1, G::BN, G::YP, true>(sm.ys, m_pad, C, k, m, row0, rows, es,
+                                                      labels, zp, gpc, cost_acc);
   }
-  if (t == 0) costp[blockIdx.x] = cost_acc;
+  if (threadIdx.x == 0) costp[blockIdx.x] = cost_acc;
 }
 
 size_t smem_bytes(int m) {
-  const int m_pad = lloyd::round_up(m, MC);
-  return sizeof(float) * (NS * (size_t)STAGE + (size_t)BN * KP + (size_t)m_pad * YP + BN + BL +
-                          BN + Epi::KC + BN) +
-         sizeof(int) * BN;
+  const int m_pad = lloyd::round_up(m, G::MC);
+  return sizeof(float) * (G::smem_floats(m_pad) + G::BN + Epi::KC + G::BN) +
+         sizeof(int) * G::BN;
 }
 }  // namespace apnc
 
@@ -420,7 +241,7 @@ int lloyd_step_max_m() { return MAX_M; }
 
 // Rows per tile of fused_apnc_step (member 0) and fused_rff_step (member
 // 1); the wrapper sizes the P partials from it.
-int lloyd_step_tile_rows(int member) { return member == 0 ? apnc::BN : BN; }
+int lloyd_step_tile_rows(int member) { return member == 0 ? apnc::G::BN : BN; }
 
 // Dynamic shared memory of one CTA, in bytes.
 long long fused_apnc_smem_bytes(int m) { return (long long)apnc::smem_bytes(m); }

@@ -3,8 +3,10 @@ engine, the Lloyd step plan, and the LM's attention.
 
 The CUDA kernels mask ragged edges themselves, so nothing here pads: there
 are no lane-multiple copies of X, no sentinel centroid rows and no padded
-[cos | 0 | sin | 0] relayout of RFF centroids. Routing follows the tensor:
-CUDA tensors reach the kernels, CPU tensors their plain PyTorch versions.
+[cos | 0 | sin | 0] relayout of RFF centroids. Routing follows
+``ComputePolicy.resolve_kernels``: by default CUDA tensors reach the kernels
+and CPU tensors their plain PyTorch versions; ``kernels=False`` takes the
+plain versions on the card too.
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ from repro_torch.kernels import apnc_assign as _assign
 from repro_torch.kernels import apnc_embed as _embed
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import lloyd_step as _lloyd_step
+from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import rff_embed as _rff
 from repro_torch.policy import ComputePolicy, as_policy
 from repro_torch.stream.blockstore import EncodedBlock
@@ -59,8 +62,10 @@ def rff_embed(X: torch.Tensor, params) -> torch.Tensor:
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     window: int = 0) -> torch.Tensor:
-    """Causal (+ sliding window) attention over flat heads: q, k, v (B, S, H, Dh)
-    with equal head counts (the GQA repeat stays upstream) -> (B, S, H, Dh).
+    """Causal (+ sliding window) attention over flat heads: q (B, S, H, Dh),
+    k, v (B, S, Hkv, Dh) with H a multiple of Hkv (grouped KV heads: query
+    head h reads KV head h // (H // Hkv), with no repeated copy) ->
+    (B, S, H, Dh).
 
     On a CUDA tensor the hand-written ``flash_attention_bhsd`` kernel, on a
     CPU tensor its plain version ``ref.flash_attention_ref``. Limits, on
@@ -85,7 +90,7 @@ def embed_assign_block(x: torch.Tensor, params, centroids: torch.Tensor, *,
     from repro_torch.core.lloyd import assign_stats
 
     y = embed_block_map(x, params, policy=policy)
-    return assign_stats(y, centroids, centroids.shape[0], params.discrepancy)
+    return assign_stats(y, centroids, centroids.shape[0], params.discrepancy, policy)
 
 
 def embed_assign_block_cost(x: torch.Tensor, params, centroids: torch.Tensor, *,
@@ -93,7 +98,7 @@ def embed_assign_block_cost(x: torch.Tensor, params, centroids: torch.Tensor, *,
     """``embed_assign_block`` plus the block's inertia contribution under the
     same centroids: (Z, g, labels, cost)."""
     y = embed_block_map(x, params, policy=policy)
-    return _assign_stats_cost_y(y, centroids, params.discrepancy)
+    return _assign_stats_cost_y(y, centroids, params.discrepancy, policy)
 
 
 def predict_block(x: torch.Tensor, params, centroids: torch.Tensor, *,
@@ -146,23 +151,28 @@ def fused_lloyd_step(x: torch.Tensor, params, centroids: torch.Tensor):
     raise ValueError(f"no fused Lloyd step for params of type {type(params).__name__}")
 
 
-def _assign_stats_cost_y(y: torch.Tensor, centroids: torch.Tensor, discrepancy: str):
+def _assign_stats_cost_y(y: torch.Tensor, centroids: torch.Tensor, discrepancy: str,
+                         policy: ComputePolicy | None = None):
     from repro_torch.core.lloyd import assign_stats, block_cost
 
-    Z, g, labels = assign_stats(y, centroids, centroids.shape[0], discrepancy)
+    Z, g, labels = assign_stats(y, centroids, centroids.shape[0], discrepancy, policy)
     return Z, g, labels, block_cost(y, centroids, discrepancy)
 
 
-def dequant_step(block: EncodedBlock, centroids: torch.Tensor, discrepancy: str):
+def dequant_step(block: EncodedBlock, centroids: torch.Tensor, discrepancy: str,
+                 policy: ComputePolicy | None = None):
     """(Z, g, labels, cost) of one quantized cache block (int8 or bf16 payload
-    and its scale). The route follows the shapes: on a card,
-    ``fused_dequant_step`` for m <= ``lloyd_step.DEQUANT_MAX_M`` (800: the
-    decoded (64 x m) tile lives in shared memory), wider blocks through the
-    ``dequant_decode`` kernel into device memory and then ``apnc_assign``; on
-    the CPU the plain version, which decodes the same way."""
+    and its scale). Where ``policy.resolve_kernels`` says the kernels (by
+    default on a card) the route follows the shapes: ``fused_dequant_step``
+    for m <= ``lloyd_step.DEQUANT_MAX_M`` (800: the decoded (64 x m) tile
+    lives in shared memory), wider blocks through the ``dequant_decode``
+    kernel into device memory and then ``apnc_assign``. Otherwise the plain
+    version on the payload's device, which decodes the same way."""
     payload, scale = block
     C = centroids.to(torch.float32).contiguous()
-    if payload.device.type == "cuda" and payload.shape[1] > _lloyd_step.DEQUANT_MAX_M:
+    if not as_policy(policy).resolve_kernels(payload.device):
+        return _ref.fused_dequant_step_ref(payload, scale, C, discrepancy)
+    if payload.shape[1] > _lloyd_step.DEQUANT_MAX_M:
         return _assign_stats_cost_y(_lloyd_step.dequant_decode(payload, scale), C, discrepancy)
     return _lloyd_step.fused_dequant_step(payload, scale, C, discrepancy)
 
@@ -188,16 +198,20 @@ class LloydStepPlan:
       * Y-mode over an ``EncodedBlock``: ``dequant_step`` (the fused
         ``fused_dequant_step`` kernel up to m = 800).
 
-    Each kernel runs on CUDA blocks and its plain version on CPU blocks.
+    Each kernel runs where ``policy.resolve_kernels`` says (by default on
+    CUDA blocks) and its plain version elsewhere; ``kernels=False`` also
+    drops the fused route, as the JAX package's plan does without Pallas.
     ``block_map(cell)`` / ``assign_map(cell)`` close over a 1-element
     centroids cell for the stream engine, so drivers swap centroids between
     blocks or iterations.
     """
 
-    def __init__(self, *, params, discrepancy: str, member: str | None):
+    def __init__(self, *, params, discrepancy: str, member: str | None,
+                 policy: ComputePolicy | None = None):
         self.params = params
         self.discrepancy = discrepancy
         self.fused_member = member
+        self.policy = as_policy(policy)
 
     @property
     def fused(self) -> bool:
@@ -205,13 +219,15 @@ class LloydStepPlan:
 
     def step(self, block: torch.Tensor, centroids: torch.Tensor):
         """(Z, g, labels, cost) for one block under ``centroids``."""
+        pol = self.policy
         if self.params is None:
             if isinstance(block, EncodedBlock):
-                return dequant_step(block, centroids, self.discrepancy)
-            return _assign_stats_cost_y(block, centroids, self.discrepancy)
+                return dequant_step(block, centroids, self.discrepancy, pol)
+            return _assign_stats_cost_y(block, centroids, self.discrepancy, pol)
         if self.fused:
+            pol.resolve_kernels(block.device)  # kernels=True raises off the card
             return fused_lloyd_step(block, self.params, centroids)
-        return embed_assign_block_cost(block, self.params, centroids)
+        return embed_assign_block_cost(block, self.params, centroids, policy=pol)
 
     def assign(self, block: torch.Tensor, centroids: torch.Tensor):
         """(labels, cost) for one block: the final / scoring pass."""
@@ -228,13 +244,16 @@ class LloydStepPlan:
         return lambda block: self.assign(block, centroids_cell[0])
 
 
-def lloyd_step_plan(params=None, discrepancy: str | None = None) -> LloydStepPlan:
+def lloyd_step_plan(params=None, discrepancy: str | None = None, *,
+                    policy: ComputePolicy | None = None) -> LloydStepPlan:
     """Build the plan. Pass embedding ``params`` for X-mode (raw blocks), or
     ``params=None`` with an explicit ``discrepancy`` for Y-mode (embedded
-    blocks)."""
+    blocks). ``policy.kernels=False`` resolves to the un-fused plain route."""
+    pol = as_policy(policy)
     if params is None:
         if discrepancy is None:
             raise ValueError("Y-mode plan (params=None) needs discrepancy=")
-        return LloydStepPlan(params=None, discrepancy=discrepancy, member=None)
-    return LloydStepPlan(params=params, discrepancy=params.discrepancy,
-                         member=fused_member(params))
+        return LloydStepPlan(params=None, discrepancy=discrepancy, member=None, policy=pol)
+    member = fused_member(params) if pol.kernels is not False else None
+    return LloydStepPlan(params=params, discrepancy=params.discrepancy, member=member,
+                         policy=pol)

@@ -91,10 +91,14 @@ def fused_dequant_step_ref(
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         window: int = 0) -> torch.Tensor:
-    """Direct masked softmax attention over flat heads, in f32: q, k, v
-    (B, S, H, Dh) -> (B, S, H, Dh) in q's dtype. Causal on the row indices,
-    and with ``window`` > 0 only keys with i - j < window."""
+    """Direct masked softmax attention over flat heads, in f32: q (B, S, H,
+    Dh), k, v (B, S, Hkv, Dh) with H a multiple of Hkv (query head h reads KV
+    head h // (H // Hkv)) -> (B, S, H, Dh) in q's dtype. Causal on the row
+    indices, and with ``window`` > 0 only keys with i - j < window."""
     Dh = q.shape[-1]
+    reps = q.shape[2] // k.shape[2]
+    if reps > 1:
+        k, v = (t.repeat_interleave(reps, dim=2) for t in (k, v))
     s = torch.einsum("bqhd,bthd->bhqt", q.to(torch.float32),
                      k.to(torch.float32)) * (Dh ** -0.5)
     pos = torch.arange(q.shape[1], device=q.device)

@@ -123,7 +123,8 @@ def _flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      window: int) -> torch.Tensor:
     """Causal (+ sliding window) softmax(q k^T Dh^-0.5) v over flat heads.
 
-    q, k, v: (B, S, H, Dh) with equal head counts -> (B, S, H, Dh). The
+    q: (B, S, H, Dh), k, v: (B, S, KV, Dh) with H a multiple of KV (query
+    head h reads KV head h // (H // KV)) -> (B, S, H, Dh). The
     positions are the row indices 0..S-1, which is what every caller has
     (``forward_prefill`` uses arange(S)); the reference's scan takes them as
     arguments. Routed by device through ``ops.flash_attention``: the CUDA
@@ -136,8 +137,8 @@ def fwd_full(p: Attention, cfg: ArchConfig, policy: Policy, x: torch.Tensor,
              positions: torch.Tensor) -> torch.Tensor:
     """Full causal (+window) attention. positions (B, S) = arange(S) per row."""
     q, k, v = _project_qkv(p, cfg, policy, x, positions)
-    reps = cfg.phys_heads // cfg.num_kv_heads
-    out = _flash_attention(q, _repeat_kv(k, reps), _repeat_kv(v, reps), cfg.sliding_window)
+    # Grouped KV heads are read in place by head index: no repeated copy.
+    out = _flash_attention(q, k, v, cfg.sliding_window)
     mask = _head_mask(cfg, out.dtype, out.device)
     if mask is not None:
         out = out * mask[None, None, :, None]

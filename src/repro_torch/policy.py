@@ -1,14 +1,18 @@
 """ComputePolicy: the "how should this math execute" knobs of the port.
 
-The fields and their validation follow the JAX package's policy. Kernel
-routing is not a field here: it follows the tensor. A CUDA tensor goes through
-the hand-written kernel and a CPU tensor through the plain PyTorch version, so
-there is no counterpart of the JAX package's ``resolve_pallas()``.
+The fields and their validation follow the JAX package's policy. ``kernels``
+is its ``pallas`` field: by default a CUDA tensor goes through the
+hand-written kernels and a CPU tensor through the plain PyTorch versions;
+``kernels=False`` asks for the plain versions on the tensor's own device,
+where ``precision="bf16"`` takes effect. ``resolve_kernels(device)`` is the
+counterpart of the JAX package's ``resolve_pallas()``.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Literal
+
+import torch
 
 Precision = Literal["f32", "bf16"]
 CacheDtype = Literal["f32", "bf16", "int8"]
@@ -19,10 +23,17 @@ class ComputePolicy:
     """Execution policy shared by every driver.
 
     Args:
+        kernels: Kernel routing, ``repro.policy.ComputePolicy.pallas`` of the
+            JAX package. ``None`` (the default): the hand-written kernels for
+            CUDA tensors, the plain PyTorch versions for CPU tensors.
+            ``False``: the plain versions on the tensor's own device (the card
+            included). ``True``: the kernels, and a CPU tensor raises, since
+            the kernels have no CPU mode.
         precision: Compute precision of the plain embedding path (``"f32"``
-            | ``"bf16"``); outputs are always f32. On a card the hand-written
-            kernels serve the transform in f32 whatever this says, as the
-            JAX package's Pallas route does on a TPU.
+            | ``"bf16"``); outputs are always f32. The hand-written kernels
+            compute in f32 whatever this says, as the JAX package's Pallas
+            route does on a TPU; with ``kernels=False`` bf16 takes effect on
+            the card too.
         prefetch: Block prefetch depth of the stream engine (0 = synchronous).
         sstep: s-step factor of the sharded stream scheduler (1 = exact).
         cache_dtype: Codec of the staged embedding cache (the host-resident
@@ -33,6 +44,7 @@ class ComputePolicy:
             resident local path (``y_array``) stays f32.
     """
 
+    kernels: bool | None = None
     precision: Precision = "f32"
     prefetch: int = 2
     sstep: int = 1
@@ -40,6 +52,8 @@ class ComputePolicy:
 
     def __post_init__(self):
         """Validate field values (ValueError on unknown settings)."""
+        if self.kernels is not None and not isinstance(self.kernels, bool):
+            raise ValueError(f"kernels must be None, True or False, got {self.kernels!r}")
         if self.precision not in ("f32", "bf16"):
             raise ValueError(f"unknown precision {self.precision!r}")
         if self.prefetch < 0:
@@ -51,6 +65,22 @@ class ComputePolicy:
                 f"unknown cache_dtype {self.cache_dtype!r}: "
                 "expected 'f32', 'bf16' or 'int8'"
             )
+
+    def resolve_kernels(self, device) -> bool:
+        """Whether the hand-written kernels serve a tensor on ``device``.
+
+        ``None``: yes on a CUDA device, no elsewhere. ``False``: no.
+        ``True``: yes, and a device other than CUDA raises ValueError.
+        """
+        on_card = torch.device(device).type == "cuda"
+        if self.kernels is None:
+            return on_card
+        if self.kernels and not on_card:
+            raise ValueError(
+                f"ComputePolicy(kernels=True) on a {torch.device(device).type} tensor: "
+                "the hand-written kernels run only on a CUDA card"
+            )
+        return self.kernels
 
 
 def as_policy(policy: "ComputePolicy | None") -> ComputePolicy:

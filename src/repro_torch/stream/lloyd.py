@@ -110,7 +110,8 @@ def stream_embed(
     )
 
 
-def _resolve_init(store, coeffs, discrepancy, k, init, generator, seed_sample, dev):
+def _resolve_init(store, coeffs, discrepancy, k, init, generator, seed_sample, dev,
+                  policy=None):
     if init is not None:
         return torch.as_tensor(init).to(dev, torch.float32)
     if generator is None:
@@ -121,7 +122,7 @@ def _resolve_init(store, coeffs, discrepancy, k, init, generator, seed_sample, d
     sample = torch.from_numpy(reservoir_sample(store, seed_sample, seed=seed)).to(
         dev, torch.float32)
     if coeffs is not None:  # raw X rows: embed the reservoir before seeding
-        sample = ops.embed_block_map(sample, coeffs)
+        sample = ops.embed_block_map(sample, coeffs, policy=policy)
     return kmeanspp_init(generator, sample, k, discrepancy)
 
 
@@ -152,9 +153,9 @@ def ooc_lloyd(
     pol = as_policy(policy)
     prefetch = pol.prefetch if prefetch is None else prefetch
     dev = resolve_device(device)
-    cell = [_resolve_init(store, coeffs, disc, k, init, generator, seed_sample, dev)]
+    cell = [_resolve_init(store, coeffs, disc, k, init, generator, seed_sample, dev, pol)]
     m = int(cell[0].shape[1])
-    map_fn = ops.lloyd_step_plan(params=coeffs, discrepancy=disc).block_map(cell)
+    map_fn = ops.lloyd_step_plan(params=coeffs, discrepancy=disc, policy=pol).block_map(cell)
     labels = _HostLabels(store.n, dev)
     prev = labels.numpy().copy()
 
@@ -182,7 +183,7 @@ def ooc_lloyd(
         prev = cur.copy()
         it += 1
 
-    inertia = _final_assign(store, coeffs, disc, cell, labels, prefetch, dev)
+    inertia = _final_assign(store, coeffs, disc, cell, labels, prefetch, dev, pol)
     trajectory.append(inertia)
     return StreamLloydResult(
         labels.numpy().copy(), cell[0], inertia, it, (it + 1) * store.n,
@@ -190,10 +191,11 @@ def ooc_lloyd(
     )
 
 
-def _final_assign(store, coeffs, disc, cell, labels: _HostLabels, prefetch, dev) -> float:
+def _final_assign(store, coeffs, disc, cell, labels: _HostLabels, prefetch, dev,
+                  policy=None) -> float:
     """Final labels + inertia under the final centroids: one plan ``assign``
     per block (labels at index 0, cost at 1)."""
-    plan = ops.lloyd_step_plan(params=coeffs, discrepancy=disc)
+    plan = ops.lloyd_step_plan(params=coeffs, discrepancy=disc, policy=policy)
 
     def emit(i, out):
         labels.put(store.row_offset(i), out[0])
@@ -234,9 +236,9 @@ def minibatch_lloyd(
     pol = as_policy(policy)
     prefetch = pol.prefetch if prefetch is None else prefetch
     dev = resolve_device(device)
-    cell = [_resolve_init(store, coeffs, disc, k, init, generator, seed_sample, dev)]
+    cell = [_resolve_init(store, coeffs, disc, k, init, generator, seed_sample, dev, pol)]
     m = int(cell[0].shape[1])
-    map_fn = ops.lloyd_step_plan(params=coeffs, discrepancy=disc).block_map(cell)
+    map_fn = ops.lloyd_step_plan(params=coeffs, discrepancy=disc, policy=pol).block_map(cell)
     labels = _HostLabels(store.n, dev)
     state = [torch.zeros((k, m), device=dev), torch.zeros((k,), device=dev),
              torch.zeros((), device=dev)]
@@ -261,7 +263,7 @@ def minibatch_lloyd(
         trajectory.append(total - seen_cost)
         seen_cost = total
 
-    inertia = _final_assign(store, coeffs, disc, cell, labels, prefetch, dev)
+    inertia = _final_assign(store, coeffs, disc, cell, labels, prefetch, dev, pol)
     trajectory.append(inertia)
     return StreamLloydResult(  # +1 pass: the final assign streams everything again
         labels.numpy().copy(), cell[0], inertia, epochs, (epochs + 1) * store.n,

@@ -69,7 +69,7 @@ def sweep_lloyd(
     pol = as_policy(policy)
     prefetch = pol.prefetch if prefetch is None else prefetch
     dev = resolve_device(device)
-    plan = ops.lloyd_step_plan(discrepancy=discrepancy)
+    plan = ops.lloyd_step_plan(discrepancy=discrepancy, policy=pol)
     K = len(inits)
     n = y_store.n
     cents = [[c.to(dev, torch.float32) for c in stack] for stack in inits]
@@ -136,6 +136,7 @@ def sweep_lloyd_local(
     discrepancy: str,
     *,
     iters: int,
+    policy: ComputePolicy | None = None,
 ) -> SweepLloydOut:
     """Resident-Y candidates: the `core.lloyd.lloyd` calls the local backend
     makes, minus its embedding."""
@@ -149,7 +150,7 @@ def sweep_lloyd_local(
         k_labels, k_cents = [], []
         for r in range(int(C.shape[0])):
             res = lloyd(Y, int(C.shape[1]), discrepancy=discrepancy, iters=iters,
-                        init=C[r].to(Y.device))
+                        init=C[r].to(Y.device), policy=policy)
             k_labels.append(res.labels.cpu().numpy().astype(np.int32))
             k_cents.append(res.centroids)
             inertia[i, r] = float(res.inertia)

@@ -49,7 +49,7 @@ def run_sweep(ctx: FitContext, k_grid: tuple[int, ...], inits: list, *, backend:
     embed cache is filled (`ensure_embedding_cache`)."""
     disc = ctx.params.discrepancy
     if backend == "local":
-        return sweep_lloyd_local(ctx.y_array, inits, disc, iters=ctx.iters)
+        return sweep_lloyd_local(ctx.y_array, inits, disc, iters=ctx.iters, policy=ctx.policy)
     if backend == "stream":
         return sweep_lloyd(ctx.y_store, inits, disc, iters=ctx.iters, policy=ctx.policy,
                            device=ctx.device)

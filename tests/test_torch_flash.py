@@ -111,3 +111,47 @@ def test_flash_attention_limits_raise(bad):
         q = torch.zeros((1, 8, 16, 2)).transpose(2, 3)
     with pytest.raises((ValueError, TypeError)):
         tops.flash_attention(q, k, v, **kwargs)
+
+
+# Grouped KV heads: (B, S, H, Hkv, Dh), H a multiple of Hkv.
+GQA_SHAPES = [(2, 96, 4, 2, 40), (1, 77, 6, 2, 33), (1, 130, 8, 1, 64)]
+GQA_CASES = [(s, w, dt) for s in GQA_SHAPES for w in (0, 100) for dt in ("f32", "bf16")]
+GQA_IDS = [f"{'x'.join(map(str, s))}-w{w}-{dt}" for s, w, dt in GQA_CASES]
+
+
+def _gqa_qkv(shape, dtype, seed):
+    """q with H heads and k, v with Hkv heads on both sides, plus the JAX k
+    and v repeated to H heads (query head h reads KV head h // (H // Hkv))."""
+    B, S, H, Hkv, Dh = shape
+    (jq, _, _), (tq, _, _) = _qkv((B, S, H, Dh), dtype, seed)
+    (jk, jv, _), (tk, tv, _) = _qkv((B, S, Hkv, Dh), dtype, seed + 1)
+    reps = H // Hkv
+    return (jq, jnp.repeat(jk, reps, axis=2), jnp.repeat(jv, reps, axis=2)), (tq, tk, tv)
+
+
+@pytest.mark.parametrize("shape,window,dtype", GQA_CASES, ids=GQA_IDS)
+def test_gqa_ops_flash_attention_matches_jax_kernel_on_repeated_kv(shape, window, dtype):
+    (jq, jk, jv), (tq, tk, tv) = _gqa_qkv(shape, dtype, seed=4)
+    want = jops.flash_attention(jq, jk, jv, window=window, bq=64, bk=64, interpret=True)
+    before = t_flash.launches
+    got = tops.flash_attention(tq, tk, tv, window=window)
+    assert t_flash.launches == before
+    assert got.shape == tq.shape and got.dtype == tq.dtype
+    np.testing.assert_allclose(_f32(got), _f32(want), **TOL[dtype])
+
+
+@pytest.mark.parametrize("shape,window,dtype", GQA_CASES, ids=GQA_IDS)
+def test_gqa_flash_attention_ref_matches_jax_oracle_on_repeated_kv(shape, window, dtype):
+    (jq, jk, jv), (tq, tk, tv) = _gqa_qkv(shape, dtype, seed=6)
+    want = jref.flash_attention_ref(jq, jk, jv, window)
+    got = tref.flash_attention_ref(tq, tk, tv, window)
+    assert got.dtype == tq.dtype
+    np.testing.assert_allclose(_f32(got), _f32(want), **TOL[dtype])
+
+
+@pytest.mark.parametrize("kv_heads", [0, 3])
+def test_flash_attention_rejects_kv_heads_that_do_not_divide(kv_heads):
+    q = torch.zeros((1, 8, 4, 16))
+    k = v = torch.zeros((1, 8, kv_heads, 16))
+    with pytest.raises(ValueError):
+        tops.flash_attention(q, k, v)

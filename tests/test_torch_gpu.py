@@ -479,3 +479,147 @@ def test_rff_embed_rows_do_not_depend_on_the_tiling(cuda, dmh):
     for i, j in ((0, 1), (3, 70), (33, 4097), (4000, 4097)):
         assert torch.equal(rff_embed.rff_embed_block(Xc[i:j], Wc, scale), Y[i:j])
     assert torch.equal(rff_embed.rff_embed_block(_misaligned(Xc), Wc, scale), Y)
+
+
+def _embed_case(n, d, l, m, seed):
+    """Rows, landmarks drawn from them and a random R, at unit row scale."""
+    X, _ = _blob_block(max(n, l), d, 9, seed=seed, scale=d ** -0.5)
+    L, R = _landmark_params(X, l, m, seed=seed + 1)
+    return X[:n].contiguous(), L, R
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dlm", [(77, 70, 24), (900, 500, 256), (130, 300, 600)],
+                         ids=lambda s: "d{}-l{}-m{}".format(*s))
+@pytest.mark.parametrize("n", [4097, 40_000])
+def test_apnc_embed_rows_do_not_depend_on_the_launch(cuda, n, dlm):
+    """X[a:b] embedded alone equals rows a:b of the whole launch bit for bit,
+    whichever geometry each launch takes (64-row tiles for a launch of many
+    waves, 32-row tiles otherwise), for ragged d, l and m, for m above one
+    launch's 512 columns (column groups), and into an out= column slice."""
+    d, l, m = dlm
+    X, L, R = (t.to(cuda) for t in _embed_case(n, d, l, m, seed=20))
+    kern = KERNELS[0]
+    Y = t_embed.apnc_embed_block(X, L, R, kern)
+    if n == 40_000 and m <= 256:
+        assert t_embed.tile_rows(n, m) == 64 and t_embed.tile_rows(4096, m) == 32
+    for a, b in ((0, 1), (3, 70), (33, 4097), (n - 100, n)):
+        assert torch.equal(t_embed.apnc_embed_block(X[a:b].contiguous(), L, R, kern), Y[a:b])
+    wide = torch.full((n, m + 40), 7.0, device=cuda)
+    t_embed.apnc_embed_block(X, L, R, kern, out=wide[:, 20:20 + m])
+    torch.cuda.synchronize()
+    assert torch.equal(wide[:, 20:20 + m], Y)
+    assert bool((wide[:, :20] == 7.0).all()) and bool((wide[:, 20 + m:] == 7.0).all())
+    want = ref.apnc_embed_ref(X, L[None], R[None], kern)
+    torch.testing.assert_close(Y, want, rtol=2e-5, atol=2e-5 * float(want.abs().max()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kern", KERNELS, ids=lambda k: k.name)
+@pytest.mark.parametrize("n", [4097, 40_000])
+def test_apnc_embed_bf16_x_matches_plain(cuda, kern, n):
+    """The bf16-X variant widens X to f32 as it stages it: its result is the
+    f32 kernel's on the widened X bit for bit, and the plain version's within
+    the f32 tolerance."""
+    X, L, R = (t.to(cuda) for t in _embed_case(n, 900, 500, 256, seed=22))
+    Xb = X.to(torch.bfloat16)
+    before = t_embed.launches
+    got = t_embed.apnc_embed_block(Xb, L, R, kern)
+    torch.cuda.synchronize()
+    assert t_embed.launches == before + 1
+    assert torch.equal(got, t_embed.apnc_embed_block(Xb.float(), L, R, kern))
+    want = ref.apnc_embed_ref(Xb, L[None], R[None], kern)
+    tol = 2e-3 if kern.name == "poly" else 2e-5  # poly amplifies roundoff
+    torch.testing.assert_close(got, want, rtol=tol, atol=tol * float(want.abs().max()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("window", [0, 50, 4096])
+@pytest.mark.parametrize("head_dim", [33, 40, 64, 128, 200, 256])
+@pytest.mark.parametrize("groups", [1, 2, 4], ids=lambda g: f"hkv=h/{g}")
+def test_flash_attention_grouped_heads_on_strided_views(cuda, groups, head_dim, window, dtype):
+    """Grouped KV heads read by head index in the kernel (k, v with H / groups
+    heads), q, k and v as head slices of one fused tensor: within the
+    reference's tolerance of the plain version on repeated k and v, bitwise
+    run to run and bitwise the result on contiguous copies."""
+    from repro_torch.kernels import flash_attention as t_flash
+
+    B, S, H = 2, 300, 4
+    hkv = H // groups
+    g = torch.Generator().manual_seed(31)
+    qkv = torch.randn((B, S, H + 2 * hkv, head_dim), generator=g).to(cuda)
+    if dtype == "bf16":
+        qkv = qkv.to(torch.bfloat16)
+    q, k, v = qkv[:, :, :H], qkv[:, :, H:H + hkv], qkv[:, :, H + hkv:]
+    before = t_flash.launches
+    got = ops.flash_attention(q, k, v, window=window)
+    again = ops.flash_attention(q, k, v, window=window)
+    dense = ops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), window=window)
+    torch.cuda.synchronize()
+    assert t_flash.launches == before + 3
+    assert got.dtype == q.dtype and torch.equal(got, again) and torch.equal(got, dense)
+    rep = (k.repeat_interleave(groups, dim=2), v.repeat_interleave(groups, dim=2))
+    want = ref.flash_attention_ref(q, *rep, window)
+    tol = dict(rtol=2e-4, atol=2e-5) if dtype == "f32" else dict(rtol=5e-2, atol=5e-2)
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+@pytest.mark.gpu
+def test_plain_bf16_route_on_the_card_launches_nothing(cuda):
+    """ComputePolicy(kernels=False, precision="bf16") on the card: the plain
+    version in bf16 (the embed and the un-fused plan), no kernel launch, and
+    the CPU's bf16 transform within the bf16 tolerance."""
+    from repro_torch import embed
+    from repro_torch.kernels import lloyd_step
+    from repro_torch.policy import ComputePolicy
+
+    X = torch.from_numpy(np.random.default_rng(4).standard_normal((1003, 77)).astype(np.float32))
+    params = fit_nystrom(1, X, KERNELS[0], l=100, m=33)
+    pol = ComputePolicy(kernels=False, precision="bf16")
+    counts = (t_embed.launches, t_assign.launches, dict(lloyd_step.launches))
+    got = embed.transform(params.to(cuda), X.to(cuda), pol)
+    plan = ops.lloyd_step_plan(params.to(cuda), policy=pol)
+    assert not plan.fused
+    plan.step(X.to(cuda), got[:5].clone())
+    torch.cuda.synchronize()
+    assert (t_embed.launches, t_assign.launches, dict(lloyd_step.launches)) == counts
+    want = embed.transform(params, X, pol)
+    assert not torch.equal(want, embed.transform(params, X))  # bf16, not f32
+    torch.testing.assert_close(got.cpu(), want, rtol=5e-2, atol=5e-2 * float(want.abs().max()))
+
+
+@pytest.mark.gpu
+def test_member_without_a_kernel_takes_its_plain_route_on_the_card(cuda, monkeypatch):
+    """A registered member whose kernel_transform returns None is served by
+    its plain version on the card, as the JAX package does without a Pallas
+    kernel; nothing is launched."""
+    import dataclasses
+
+    from repro_torch import embed
+    from repro_torch.embed import base
+
+    @dataclasses.dataclass
+    class HalvedParams:
+        scale: torch.Tensor
+        m: int = 8
+        d: int = 8
+        discrepancy: str = "l2"
+
+    class Halving(base.Embedding):
+        name = "halving-test-double"
+        params_cls = HalvedParams
+
+        def fit(self, seed, data, kernel, *, l, m, t=None, q=1):
+            return HalvedParams(torch.tensor(0.5, device=data.device))
+
+        def transform(self, params, X):
+            return X * params.scale
+
+    monkeypatch.setitem(base.EMBEDDINGS, Halving.name, Halving())
+    monkeypatch.setitem(base._BY_PARAMS, HalvedParams, base.EMBEDDINGS[Halving.name])
+    X = torch.randn((64, 8), generator=torch.Generator().manual_seed(5)).to(cuda)
+    before = t_embed.launches
+    got = embed.transform(HalvedParams(torch.tensor(0.5, device=cuda)), X)
+    torch.cuda.synchronize()
+    assert got.is_cuda and torch.equal(got, X * 0.5) and t_embed.launches == before

@@ -141,7 +141,8 @@ def _attention_pair(arch, window=0, seed=3):
     return jcfg, tcfg, jp, tp
 
 
-@pytest.mark.parametrize("arch,window", [("qwen1.5-0.5b", 0), ("qwen3-4b", 0), ("qwen3-4b", 5)])
+@pytest.mark.parametrize("arch,window", [("qwen1.5-0.5b", 0), ("qwen3-4b", 0), ("qwen3-4b", 5),
+                                         ("llama3-8b", 0)])
 def test_attention_fwd_full_matches_jax(arch, window):
     jcfg, tcfg, jp, tp = _attention_pair(arch, window)
     x = np.random.default_rng(4).standard_normal((2, 24, jcfg.d_model)).astype(np.float32)

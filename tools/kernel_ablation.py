@@ -1,24 +1,37 @@
-"""Where the time of the port's fused_apnc_step goes, on one card, without a profiler.
+"""Where the time of the port's kernels goes, on one card, without a profiler.
 
-    python3 tools/kernel_ablation.py            # needs a CUDA card and nvcc
+    python3 tools/kernel_ablation.py                          # every target; needs a card and nvcc
+    python3 tools/kernel_ablation.py --target apnc_embed      # one target (repeatable)
 
-Where no ncu or nsys can run, this script takes the kernel apart instead: it
-builds variants of
-``src/repro_torch/kernels/csrc/lloyd_step.cu`` side by side (one nvcc each,
-all at once, under ``build/ablation/``), each with one part removed or
-changed, and times each on the same inputs in one process: one 4,096-row
-block at the stream path's shape (d = 900, l = 500, m = 256, k = 164, rbf),
-the kernel plus its reduce, per launch. A variant that removes work computes
-wrong numbers; only its time is read. The base variant is also timed at
-other shapes (k = 1, the linear kernel, d = 1,800, l = 256, m = 512, d = 32),
-whose differences price one pipelined step of each phase and the epilogue.
+Where no ncu or nsys can run, this script takes a kernel apart instead: it
+builds variants of a source under ``src/repro_torch/kernels/csrc`` side by
+side (one nvcc each, all at once, under ``build/ablation/``), each with one
+part removed or changed, and times each on the same inputs in one process.
+A variant that removes work computes wrong numbers; only its time is read.
+The variants that keep the arithmetic are checked (labels, bits or the
+reference's tolerance). Three targets:
 
-The main shape is timed twice for every variant, in order and in reverse
-order, since a reading moves by several us with its place in the run. Prints
-one JSON object per variant, then the card's name and power limit.
+  * ``fused_apnc_step``: one 4,096-row block at the stream path's shape
+    (d = 900, l = 500, m = 256, k = 164, rbf), the kernel plus its reduce,
+    in us a launch; the base variant is also timed at other shapes (k = 1,
+    the linear kernel, d = 1,800, l = 256, m = 512, d = 32), whose
+    differences price one pipelined step of each phase and the epilogue.
+  * ``apnc_embed``: one launch over the local fit's X (n = 1,262,102,
+    d = 900, l = 500, m = 256, rbf), in ms; and a pass over X in the
+    sweep's 4,096-row launches.
+  * ``flash_attention``: the serving prefill (B = 4, S = 4,096, H = 16,
+    Dh = 64, f32 and bf16), llama3-8b heads (H = 32, Dh = 128) and their
+    grouped form (Hkv = 8), causal, in ms a launch.
+
+The embed mainloop is ``apnc_mainloop.cuh``, shared by the first two
+targets, so its variants edit that header. Every reading is taken twice, in
+the variants' order and then in the reverse order, since a reading moves
+with its place in the run. Prints one JSON object per variant, then the
+card's name and power limit.
 """
 from __future__ import annotations
 
+import argparse
 import ctypes
 import json
 import shutil
@@ -32,57 +45,108 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.core.kernels_fn import Kernel  # noqa: E402
-from repro_torch.kernels import apnc_assign, apnc_embed, build, lloyd_step  # noqa: E402
+from repro_torch.kernels import (  # noqa: E402
+    apnc_assign,
+    apnc_embed,
+    build,
+    flash_attention,
+    lloyd_step,
+    ref,
+)
 
 CSRC = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
 OUT = ROOT / "build" / "ablation"
+ML = "apnc_mainloop.cuh"
 LS = "lloyd_step.cu"
-_COPY_X = "    stage_block<VEC>(stage, X, n, d, BN, row0, w * BD);\n"
-_COPY_L = "    stage_block<VEC>(stage + BN * SP, L, l, d, BL, j0, w * BD);\n"
-_COPY_R = "    stage_block<VEC>(stage, R, m, l, MC, cc * MC, j0 + sub * RL);\n"
-_WAIT = "  cpasync::wait<NS - 2>();\n  __syncthreads();\n  issue_step"
-#: The variants that keep the kernel's arithmetic (their labels are checked).
-EXACT = ("base", "three_stages")
-#: name -> [(file, text, replacement)], each text replaced once.
-VARIANTS = {
-    "base": [],
-    "three_stages": [(LS, "constexpr int NS = 2;", "constexpr int NS = 3;")],
-    "no_l_copy": [(LS, _COPY_L, "")],
-    "no_copies": [(LS, _COPY_X, ""), (LS, _COPY_L, ""), (LS, _COPY_R, "")],
-    "no_copies_no_barrier": [(LS, _COPY_X, ""), (LS, _COPY_L, ""), (LS, _COPY_R, ""),
-                             (LS, _WAIT, "  issue_step")],
-    "no_s_fma": [(LS, "          fma_8x4x4(acc, a, b);\n", "")],
-    "no_y_fma": [(LS, "            fma_8x4x4(y, a, b);\n", "")],
-    "no_epilogue": [(LS, "    lloyd::assign_reduce_tile<L1, BN, YP, true>(",
-                     "    if (k < 0) lloyd::assign_reduce_tile<L1, BN, YP, true>(")],
+AE = "apnc_embed.cu"
+FA = "flash_attention.cu"
+_COPY_X = "    stage_block<G, VEC>(stage, X, n, d, G::BN, row0, w * G::BD);\n"
+_COPY_L = "    stage_block<G, VEC>(stage + G::BN * G::SP, L, l, d, G::BL, j0, w * G::BD);\n"
+_COPY_R = "    stage_block<G, VEC>(stage, R, m, l, G::MC, cc * G::MC, j0 + sub * G::RL);\n"
+_WAIT = "  cpasync::wait<G::NS - 2>();\n  __syncthreads();\n  issue_step"
+_NO_COPIES = [(ML, _COPY_X, ""), (ML, _COPY_L, ""), (ML, _COPY_R, "")]
+_FLASH_NEXT = ("      load_kv<T, DP, VEC>(ring + ((j + 1 - j_lo) % NS) * TL::STAGE_BYTES, kb, vb, "
+               "sk.s, sv.s,\n                          k0 + BK, S, Dh);\n")
+
+#: target -> (source, variants). A variant is [(file, text, replacement)],
+#: each text replaced everywhere it occurs (it must occur).
+TARGETS = {
+    "fused_apnc_step": (LS, {
+        "base": [],
+        "three_stages": [(ML, "static constexpr int NS = 2; ", "static constexpr int NS = 3; ")],
+        "no_l_copy": [(ML, _COPY_L, "")],
+        "no_copies": _NO_COPIES,
+        "no_copies_no_barrier": [*_NO_COPIES, (ML, _WAIT, "  issue_step")],
+        "no_s_fma": [(ML, "        fma_tile(acc, a, b);\n", "")],
+        "no_y_fma": [(ML, "          fma_tile(y, a, b);\n", "")],
+        "no_epilogue": [(LS, "    lloyd::assign_reduce_tile<L1, G::BN, G::YP, true>(",
+                         "    if (k < 0) lloyd::assign_reduce_tile<L1, G::BN, G::YP, true>(")],
+    }),
+    "apnc_embed": (AE, {
+        "base": [],
+        "short_geometry": [(AE, "constexpr int TALL_WAVES = 4;", "constexpr int TALL_WAVES = 1 << 20;")],
+        "tall_16x4": [(ML, "using Tall = Geometry<64, 8, 8, 32, 8>;",
+                       "using Tall = Geometry<64, 4, 16, 64, 4>;")],
+        "no_l_copy": [(ML, _COPY_L, "")],
+        "no_copies": _NO_COPIES,
+        "no_copies_no_barrier": [*_NO_COPIES, (ML, _WAIT, "  issue_step")],
+        "no_s_fma": [(ML, "        fma_tile(acc, a, b);\n", "")],
+        "no_y_fma": [(ML, "          fma_tile(y, a, b);\n", "")],
+        "no_y_store": [(ML, "          if (vy && gc + 3 < m) {", "          if (ldy < 0) {")],
+    }),
+    "flash_attention": (FA, {
+        "base": [],
+        "bk64": [(FA, "static constexpr int BK = DP <= 64 && sizeof(T) == 2 ? 64 : 32;",
+                  "static constexpr int BK = DP <= 64 ? 64 : 32;"),
+                 (FA, "__launch_bounds__(THREADS, DP <= 64 ? 4 : 2)", "__launch_bounds__(THREADS)")],
+        "no_register_cap": [(FA, "__launch_bounds__(THREADS, DP <= 64 ? 4 : 2)",
+                             "__launch_bounds__(THREADS)")],
+        "expf": [(FA, "scale * 1.4426950408889634f", "scale"), (FA, "exp2f(", "expf(")],
+        "cvt_split": [(FA, "  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;\n"
+                           "  lo = __float_as_uint(x - __uint_as_float(hi)) & 0xffffe000u;\n",
+                       "  asm(\"cvt.rna.tf32.f32 %0, %1;\" : \"=r\"(hi) : \"f\"(x));\n"
+                       "  asm(\"cvt.rna.tf32.f32 %0, %1;\" : \"=r\"(lo) : "
+                       "\"f\"(x - __uint_as_float(hi)));\n")],
+        "one_tf32_pass": [(FA, "    mma(c, alo, h0, h1);\n    mma(c, ahi, l0, l1);\n", "")],
+        "no_pv": [(FA, "        mma3<false, TL::EXACT>(acc[nd], phi, plo, widen(vr[nd * 8]), "
+                       "widen(vr[TL::VP + nd * 8]));\n", "        (void)vr;\n")],
+        "no_next_tile_copies": [(FA, _FLASH_NEXT, "      cpasync::commit();\n")],
+    }),
 }
+#: Variants that keep the kernel's arithmetic (checked), per target.
+EXACT = {"fused_apnc_step": ("base", "three_stages"),
+         "apnc_embed": ("base", "short_geometry", "tall_16x4"),
+         "flash_attention": ("base", "bk64", "no_register_cap", "expf", "cvt_split")}
 
 
-def build_variants() -> dict[str, Path]:
+def build_variants(targets) -> dict[tuple[str, str], Path]:
     procs = {}
-    for name, edits in VARIANTS.items():
-        src = OUT / name
-        shutil.rmtree(src, ignore_errors=True)
-        shutil.copytree(CSRC, src)
-        for file, text, repl in edits:
-            body = (src / file).read_text()
-            if text not in body:
-                raise RuntimeError(f"variant {name}: {text!r} is not in {file}")
-            (src / file).write_text(body.replace(text, repl, 1))
-        so = src / "lloyd_step.so"
-        cmd = [build._nvcc(), *build.NVCC_FLAGS, "-o", str(so), str(src / LS)]
-        procs[name] = (so, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                            stderr=subprocess.STDOUT, text=True))
+    for target in targets:
+        source, variants = TARGETS[target]
+        for name, edits in variants.items():
+            src = OUT / target / name
+            shutil.rmtree(src, ignore_errors=True)
+            shutil.copytree(CSRC, src)
+            for file, text, repl in edits:
+                body = (src / file).read_text()
+                if text not in body:
+                    raise RuntimeError(f"{target} variant {name}: {text!r} is not in {file}")
+                (src / file).write_text(body.replace(text, repl))
+            so = src / f"{Path(source).stem}.so"
+            cmd = [build._nvcc(), *build.NVCC_FLAGS, "-o", str(so), str(src / source)]
+            procs[target, name] = (so, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                        stderr=subprocess.STDOUT, text=True))
     libs = {}
-    for name, (so, proc) in procs.items():
+    for key, (so, proc) in procs.items():
         out, _ = proc.communicate()
         if proc.returncode:
-            raise RuntimeError(f"nvcc failed for variant {name}:\n{out}")
-        libs[name] = so
+            raise RuntimeError(f"nvcc failed for variant {key}:\n{out}")
+        libs[key] = so
     return libs
 
 
-def cuda_us(fn, iters=40, warmup=3) -> float:
+def cuda_time(fn, iters, warmup=2) -> float:
+    """ms a call."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -92,16 +156,22 @@ def cuda_us(fn, iters=40, warmup=3) -> float:
         fn()
     end.record()
     end.synchronize()
-    return start.elapsed_time(end) / iters * 1e3
+    return start.elapsed_time(end) / iters
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("kernel_ablation: needs a CUDA card", file=sys.stderr)
-        return 2
-    libs = build_variants()
-    build.build_all(("apnc_embed", "apnc_assign"))
-    dev = torch.device("cuda")
+def use(lib_name: str, so: Path) -> None:
+    build._LIBS[lib_name] = ctypes.CDLL(str(so))
+
+
+def both_orders(names, read) -> dict[str, list]:
+    """read(name) for every variant, in order and then in reverse order."""
+    got = {name: [] for name in names}
+    for name in [*names, *reversed(names)]:
+        got[name].append(read(name))
+    return got
+
+
+def ablate_fused(libs, dev) -> list[dict]:
     g = torch.Generator(device=dev).manual_seed(0)
     X = torch.randn((4096 * 2, 1800), device=dev, generator=g) * 900 ** -0.5
 
@@ -115,31 +185,135 @@ def main() -> int:
               "linear": case(900, 500, 256, 164, Kernel("linear")),
               "d1800": case(1800, 500, 256, 164), "l256": case(900, 256, 256, 164),
               "m512": case(900, 500, 512, 164), "d32": case(32, 500, 256, 164)}
-    # Bring the card to its working clock before the first timing.
-    build._LIBS["lloyd_step"] = ctypes.CDLL(str(libs["base"]))
-    xb, L, R, C, kern, _ = shapes["main"]
-    cuda_us(lambda: lloyd_step.fused_apnc_step(xb, L, R, C, kern, "l2"), iters=2000)
-    # The main shape is timed twice, in the variants' order and then in the
-    # reverse order: a reading depends on its place in the run by several us.
-    main_us = {name: [] for name in libs}
-    for name in [*libs, *reversed(libs)]:
-        build._LIBS["lloyd_step"] = ctypes.CDLL(str(libs[name]))
-        xb, L, R, C, kern, _ = shapes["main"]
-        main_us[name].append(cuda_us(lambda: lloyd_step.fused_apnc_step(xb, L, R, C, kern, "l2")))
-    for name, so in libs.items():
-        build._LIBS["lloyd_step"] = ctypes.CDLL(str(so))
-        xb, L, R, C, kern, Y = shapes["main"]
-        labels = lloyd_step.fused_apnc_step(xb, L, R, C, kern, "l2")[2]
-        row = dict(variant=name, main_us=main_us[name])
-        if name in EXACT:  # the others compute wrong labels by design
+
+    def run(sname):
+        xb, L, R, C, kern, _ = shapes[sname]
+        return lambda: lloyd_step.fused_apnc_step(xb, L, R, C, kern, "l2")
+
+    names = [n for t, n in libs if t == "fused_apnc_step"]
+    use("lloyd_step", libs["fused_apnc_step", "base"])
+    cuda_time(run("main"), 2000)  # bring the card to its working clock
+
+    def read(name):
+        use("lloyd_step", libs["fused_apnc_step", name])
+        return cuda_time(run("main"), 40, 3) * 1e3
+
+    main_us = both_orders(names, read)
+    rows = []
+    for name in names:
+        use("lloyd_step", libs["fused_apnc_step", name])
+        row = dict(target="fused_apnc_step", variant=name, main_us=main_us[name])
+        if name in EXACT["fused_apnc_step"]:
+            xb, L, R, C, kern, Y = shapes["main"]
+            labels = lloyd_step.fused_apnc_step(xb, L, R, C, kern, "l2")[2]
             row["labels_equal_unfused"] = bool(
                 torch.equal(labels, apnc_assign.apnc_assign(Y, C, "l2")[2]))
         if name == "base":
-            for sname, (xb, L, R, C, kern, _) in shapes.items():
+            for sname in shapes:
                 if sname != "main":
-                    row[f"{sname}_us"] = cuda_us(
-                        lambda: lloyd_step.fused_apnc_step(xb, L, R, C, kern, "l2"))
-        print(json.dumps(row), flush=True)
+                    row[f"{sname}_us"] = cuda_time(run(sname), 40, 3) * 1e3
+        rows.append(row)
+    return rows
+
+
+def ablate_embed(libs, dev) -> list[dict]:
+    n, d, l, m = 1_262_102, 900, 500, 256
+    g = torch.Generator(device=dev).manual_seed(0)
+    X = torch.randn((n, d), device=dev, generator=g) * d ** -0.5
+    L = X[-l:].contiguous()
+    R = torch.randn((m, l), device=dev, generator=g) * l ** -0.5
+    kern = Kernel("rbf", gamma=0.5)
+    names = [nm for t, nm in libs if t == "apnc_embed"]
+
+    def whole():
+        return apnc_embed.apnc_embed_block(X, L, R, kern)
+
+    def blocks():
+        return [apnc_embed.apnc_embed_block(X[i:i + 4096], L, R, kern) for i in range(0, n, 4096)]
+
+    use("apnc_embed", libs["apnc_embed", "base"])
+    want = whole()
+    cuda_time(whole, 10)
+
+    def read(name):
+        use("apnc_embed", libs["apnc_embed", name])
+        return cuda_time(whole, 3, 1)
+
+    whole_ms = both_orders(names, read)
+    rows = []
+    for name in names:
+        use("apnc_embed", libs["apnc_embed", name])
+        row = dict(target="apnc_embed", variant=name, whole_x_ms=whole_ms[name],
+                   tile_rows=apnc_embed.tile_rows(n, m))
+        if name in EXACT["apnc_embed"]:
+            row["bits_equal_base"] = bool(torch.equal(whole(), want))
+            row["blocks_pass_ms"] = cuda_time(blocks, 2, 1)
+        rows.append(row)
+    return rows
+
+
+def ablate_flash(libs, dev) -> list[dict]:
+    g = torch.Generator(device=dev).manual_seed(5)
+    shapes = {"serve_f32": (4, 4096, 16, 16, 64, torch.float32),
+              "serve_bf16": (4, 4096, 16, 16, 64, torch.bfloat16),
+              "d128_f32": (1, 4096, 32, 32, 128, torch.float32),
+              "gqa_f32": (1, 4096, 32, 8, 128, torch.float32)}
+    inputs = {}
+    for sname, (B, S, H, Hkv, Dh, dt) in shapes.items():
+        inputs[sname] = tuple(torch.randn(shape, device=dev, generator=g).to(dt) for shape in
+                              ((B, S, H, Dh), (B, S, Hkv, Dh), (B, S, Hkv, Dh)))
+    names = [nm for t, nm in libs if t == "flash_attention"]
+
+    def run(sname):
+        q, k, v = inputs[sname]
+        return lambda: flash_attention.flash_attention_bhsd(q, k, v)
+
+    use("flash_attention", libs["flash_attention", "base"])
+    cuda_time(run("serve_f32"), 200)
+    readings = {}
+    for sname in shapes:
+        def read(name, sname=sname):
+            use("flash_attention", libs["flash_attention", name])
+            return cuda_time(run(sname), 10, 2)
+
+        readings[sname] = both_orders(names, read)
+    rows = []
+    for name in names:
+        use("flash_attention", libs["flash_attention", name])
+        row = dict(target="flash_attention", variant=name,
+                   **{f"{s}_ms": readings[s][name] for s in shapes})
+        if name in EXACT["flash_attention"]:
+            errs = {}
+            for sname, (q, k, v) in inputs.items():
+                got = flash_attention.flash_attention_bhsd(q, k, v).float()
+                want = ref.flash_attention_ref(q[:, :1024], k[:, :1024], v[:, :1024]).float()
+                errs[sname] = float((got[:, :1024] - want).abs().max())
+            row["max_abs_err_first_1024_rows"] = errs
+        rows.append(row)
+    return rows
+
+
+ABLATE = {"fused_apnc_step": ablate_fused, "apnc_embed": ablate_embed,
+          "flash_attention": ablate_flash}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--target", action="append", choices=sorted(TARGETS),
+                    help="a target to take apart (default: all)")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("kernel_ablation: needs a CUDA card", file=sys.stderr)
+        return 2
+    targets = args.target or list(TARGETS)
+    libs = build_variants(targets)
+    build.build_all(("apnc_embed", "apnc_assign", "lloyd_step", "flash_attention"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    for target in targets:
+        for row in ABLATE[target](libs, dev):
+            print(json.dumps(row), flush=True)
+        torch.cuda.empty_cache()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True)
     print(smi.stdout.strip().splitlines()[0] if smi.stdout else "nvidia-smi: not read")
