@@ -75,14 +75,16 @@ REHEARSAL = dict(n=4_000, d=32, k=8, separation=3.0, l=64, m=16, iters=20,
 FLASH_WINDOWS = (0, 50, 4096)
 #: The reference's tolerances for flash attention (tests/test_kernels_pallas.py).
 FLASH_TOL = {torch.float32: (2e-4, 2e-5), torch.bfloat16: (5e-2, 5e-2)}
-#: The redesigned kernels' times a pass in their first CUDA design (ms; the
-#: range of PERF.md's chip runs on an H100 80GB HBM3 at 700 W), printed
-#: beside this run's.
+#: The redesigned kernels' times in their first CUDA design (ms a pass or a
+#: launch, as the timing phase takes them; the range of PERF.md's chip runs
+#: on an H100 80GB HBM3 at 700 W), printed beside this run's.
 PREVIOUS_MS = {
     "fused_apnc_step": dict(previous_ms=[242.39, 244.3], previous_from="first CUDA design"),
     "rff_embed_block": dict(previous_ms=[38.33, 39.0], previous_from="first CUDA design"),
     "apnc_embed": dict(previous_ms=[71.09, 71.61], previous_from="first CUDA design"),
-    "flash_attention_bhsd": dict(previous_ms=[4.98, 5.0], previous_from="first CUDA design")}
+    "flash_attention_bhsd": dict(previous_ms=[4.98, 5.0], previous_from="first CUDA design"),
+    "fused_dequant_step": dict(previous_ms=[27.14, 45.16], previous_from="first CUDA design"),
+    "fused_rff_step": dict(previous_ms=[77.41, 78.2], previous_from="first CUDA design")}
 #: Device-memory rise allowed over a stream fit (the data is 4.54 GB).
 STREAM_RISE_LIMIT = 512 << 20
 
@@ -1206,6 +1208,20 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def host_us(fn, iters: int = 300) -> float:
+    """Host time of one call, in us: ``iters`` calls on the host clock, the
+    card synchronized before and after (so it measures the launches, not the
+    kernels, while the card keeps up)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / iters * 1e6
+
+
 def bound(flops: float, nbytes: float) -> tuple[float, str]:
     t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
@@ -1334,17 +1350,23 @@ def check_assign_main_shape(Y, C, mismatch_share=1e-5, tie_rtol=1e-4) -> dict:
                 mismatch_max_rel_gap=gap_rel)
 
 
-def reduce_share(run) -> dict:
+def reduce_share(run, event_ms=None) -> dict:
     """A traced pass of a fused step: the device time of its step kernel and
-    of the (Z, g, cost) reduce kernel, and the reduce's share of the two."""
+    of the (Z, g, cost) reduce kernel, and the reduce's share of the two;
+    given the pass's event-timed ms, also the host's share of it (the part
+    the two kernels do not cover: the card waits on the launches)."""
     _, prof = device_profile(run)
     top = prof["top_device_ms"]
     step_ms = sum(v for key, v in top.items() if "reduce_kernel" not in key)
     reduce_ms = sum(v for key, v in top.items() if "lloyd_reduce_kernel" in key)
     if not reduce_ms:
         return dict(step_ms="not measured", reduce_ms="not measured", reduce_share="not measured")
-    return dict(step_ms=step_ms, reduce_ms=reduce_ms, wall_ms=prof["wall_ms"],
-                reduce_share=reduce_ms / (step_ms + reduce_ms))
+    out = dict(step_ms=step_ms, reduce_ms=reduce_ms, wall_ms=prof["wall_ms"],
+               reduce_share=reduce_ms / (step_ms + reduce_ms))
+    if event_ms is not None:
+        out.update(event_ms=event_ms,
+                   host_share_of_event_pass=max(0.0, 1.0 - (step_ms + reduce_ms) / event_ms))
+    return out
 
 
 def per_block(fn, X, bn):
@@ -1537,6 +1559,8 @@ def phase_timing(X, est, launches, stream_est, stream_launches, rff_est, rff_lau
     t_frff_plain = cuda_ms(per_block(
         lambda xb: ref.fused_rff_step_ref(xb, W, Cr, scale, "l2"), X, bn), 3, warmup=1)
     t_frff_lib = cuda_ms(per_block(fused_rff_library, X, bn), 3, warmup=1)
+    frff_split = reduce_share(per_block(
+        lambda xb: lloyd_step.fused_rff_step(xb, W, Cr, scale, "l2"), X, bn), t_frff)
     b_frff, by_frff = bound(2.0 * n * d * mh + 2.0 * n * k * 2 * mh,
                             4.0 * (n * d + d * mh + 2 * k * 2 * mh + k + n + 1))
 
@@ -1555,6 +1579,10 @@ def phase_timing(X, est, launches, stream_est, stream_launches, rff_est, rff_lau
                                   for e in encs], 3, warmup=1)
     t_dq_lib = cuda_ms(lambda: [library_step(e.payload.float() * e.scale, Cq) for e in encs],
                        3, warmup=1)
+    dq_split = reduce_share(
+        lambda: [lloyd_step.fused_dequant_step(e.payload, e.scale, Cq, "l2") for e in encs], t_dq)
+    dq_split["host_us_per_launch"] = host_us(
+        lambda: lloyd_step.fused_dequant_step(encs[0].payload, encs[0].scale, Cq, "l2"))
     nb = len(encs)
 
     def dequant_bound(kk):
@@ -1610,12 +1638,16 @@ def phase_timing(X, est, launches, stream_est, stream_launches, rff_est, rff_lau
                 fused_rff_block=rff_check, fused_dequant_block=dq_check,
                 rff_embed_whole_x_launch=rff_whole,
                 fused_apnc_step_kernel_vs_reduce=fused_split,
+                fused_rff_step_kernel_vs_reduce=frff_split,
+                fused_dequant_step_kernel_vs_reduce=dq_split,
                 redesigned_vs_previous={
                     "fused_apnc_step": dict(ms=t_fused, **PREVIOUS_MS["fused_apnc_step"]),
                     "rff_embed_block": dict(ms=t_rff, **PREVIOUS_MS["rff_embed_block"]),
                     "apnc_embed": dict(ms=t_embed, **PREVIOUS_MS["apnc_embed"]),
                     "flash_attention_bhsd": dict(ms=flash["ms"],
-                                                 **PREVIOUS_MS["flash_attention_bhsd"])},
+                                                 **PREVIOUS_MS["flash_attention_bhsd"]),
+                    "fused_dequant_step": dict(ms=t_dq, **PREVIOUS_MS["fused_dequant_step"]),
+                    "fused_rff_step": dict(ms=t_frff, **PREVIOUS_MS["fused_rff_step"])},
                 apnc_embed_blocks_pass=embed_blocks,
                 rff_embed_atol=rff_tol,
                 embed_max_rel_err=embed_err / y_abs_max,

@@ -1,30 +1,48 @@
-// The epilogue shared by the fused Lloyd-step kernels (lloyd_step.cu):
-// distances -> argmin -> per-CTA (Z, g, cost) partials, then a fixed-order
-// reduction of the partials.
+// The epilogue shared by the fused Lloyd-step kernels (lloyd_step.cu,
+// dequant_step.cu): distances -> argmin -> per-CTA (Z, g, cost) partials,
+// then a fixed-order reduction of the partials.
 //
 // Replaces the shared epilogue of the Pallas TPU kernels,
 // src/repro/kernels/lloyd_step.py::_assign_reduce.
 //
-// A CTA holds one tile of Y in shared memory, transposed, as
-// ys[c * TPAD + r] for column c < m_pad and row r < TBN: 64 rows (pitch
-// PAD) for fused_rff_step and fused_dequant_step, 32 rows (pitch 36) for
-// fused_apnc_step. The epilogue follows csrc/apnc_assign.cu step for step, so
+// A CTA holds one tile of BN = 32 rows of Y in shared memory, transposed, as
+// ys[c * PAD + r] for column c < m_pad (zero for c >= m) and row r < 32, at
+// pitch PAD = 36. The epilogue follows csrc/apnc_assign.cu step for step, so
 // for the same Y tile it gives the same labels bit for bit:
-//  * centroids stream through shared memory in chunks (KC = 64 at 64 rows,
-//    128 at 32 rows: 4 rows x 4 centroids a thread either way) and
-//    sub-chunks of MK = 32 columns, each distance one chain over the columns
-//    in ascending order; l2 compares yy - 2 y.c + cc clamped at 0,
-//    l1 sums |y - c|; ties go to the lowest index (strict < in increasing
-//    order, then a lexicographic (distance, index) shuffle), whatever the
-//    split of the centroids over the threads;
-//  * each column of the CTA's (k, m) Z partial, each centroid's count and the
-//    CTA's cost are owned by one thread, which adds the tile's rows in row
-//    order; lloyd_reduce_kernel sums the P partials in the order p = 0..P-1.
-//    No float atomics: Z, g and cost are bitwise identical run to run;
+//  * centroids go in chunks of KC = 256 and sub-chunks of MK = 32 columns,
+//    each distance one chain over the columns in ascending order; l2
+//    compares yy - 2 y.c + cc clamped at 0, l1 sums |y - c|; ties go to the
+//    lowest index (strict < in increasing order, then a lexicographic
+//    (distance, index) combine), whatever the split of the centroids over
+//    the threads.
+//  * a thread owns 8 rows x 4 centroids (32 FMAs for 3 float4 reads from
+//    shared memory): warp w takes rows 8 (w / 2) .. + 7 and centroids
+//    128 (w % 2) + lane + 32 q, so its Y reads are broadcasts and its C reads
+//    32 rows in distinct banks (pitch CP = 36: 9 16-byte words, odd).
+//  * C sub-chunks come in their natural (centroid, column) layout by cp.async
+//    into two buffers: sub-chunk s + 1 is in flight while s is in use, one
+//    barrier a sub-chunk. Once the last is read, the caller's after_c() runs
+//    on every thread, so a kernel may refill the buffers' space while the
+//    rest of the epilogue runs.
+//  * every norm is one chain in ascending order, and none holds the CTA up:
+//    thread t sums centroid t of the chunk, threads t < 32 also row t of the
+//    tile in the first chunk, one sub-chunk at a time beside the FMAs.
+//  * (Z, g): one lane a row groups the tile's rows by label (match.any), so
+//    each distinct label of the tile is one group of rows in row order. Each
+//    (label, column) element of the CTA's (k, m) Z partial is owned by one
+//    thread, which loads it once (or starts from 0.0f if the CTA has not met
+//    the label yet), adds the group's rows in row order and stores it once:
+//    the bits of a read-modify-write per row, one store per group. The
+//    group's leader adds its size to the label's count. Rows of labels the
+//    CTA never met are never written; lloyd_reduce_kernel skips them (their
+//    count partial is 0, and adding +0.0 to a sum that starts at +0.0 never
+//    changes it), so no CTA zeroes its Z partial;
+//  * lloyd_reduce_kernel sums the P partials in the order p = 0..P-1. No
+//    float atomics: Z, g and cost are bitwise identical run to run;
 //  * rows >= n (the ragged last tile) are computed on zeros and masked out
 //    of labels, (Z, g) and cost;
-//  * the cost is block_cost's: the sum over rows of sqrt(min d^2) for l2,
-//    of min d for l1.
+//  * the cost is block_cost's: the sum over rows, in row order, of
+//    sqrt(min d^2) for l2, of min d for l1.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -32,211 +50,315 @@
 #include <math.h>
 #include <stddef.h>
 
-#include "tile_math.cuh"
+#include "cp_async.cuh"
 
 namespace lloyd {
 
-constexpr int BN = 64;        // rows per tile
-constexpr int KC = 64;        // centroids per chunk
-constexpr int MK = 32;        // embedding columns per centroid sub-chunk
-constexpr int PAD = 68;       // pitch of the transposed tiles, in floats (keeps float4 alignment)
-constexpr int THREADS = 256;  // 16 x 16 threads, 4 rows x 4 outputs each
+constexpr int BN = 32;        // rows per tile: one lane a row in the grouping
+constexpr int PAD = BN + 4;   // pitch of the Y^T tile (float4 reads stay aligned)
+constexpr int THREADS = 256;  // 4 row groups x 2 centroid halves, a warp each
+constexpr int RI = 8;         // rows a thread
+constexpr int KC = 256;       // centroids per chunk: thread t sums centroid t's norm
+constexpr int MK = 32;        // embedding columns per C sub-chunk
+constexpr int CP = MK + 4;    // pitch of a C sub-chunk (9 16-byte words: odd)
+constexpr int CBUF = KC * CP;  // floats in one C sub-chunk buffer
 constexpr int REDUCE_THREADS = 256;
+static_assert(BN == 32 && KC == THREADS && (THREADS / 32) * RI == 2 * BN, "the thread tiling");
 
 __host__ __device__ constexpr int round_up(int v, int to) { return (v + to - 1) / to * to; }
 
-// Thread layout of the epilogue for a TBN-row tile: TBN / 4 row groups of 4
-// rows, TX threads along the centroids, 4 centroids each, KC = 4 TX
-// centroids a chunk, C^T sub-chunks at pitch CPAD. At TBN = 64 these are
-// 16, 64 and PAD, the layout of apnc_assign.cu.
-template <int TBN>
-struct Layout {
-  static constexpr int TX = THREADS / (TBN / 4);
-  static constexpr int KC = 4 * TX;
-  static constexpr int CPAD = KC + 4;
-};
-static_assert(Layout<BN>::KC == KC && Layout<BN>::CPAD == PAD, "the 64-row layout");
-
-// Shared-memory scratch of the epilogue, apart from the Y tile.
+// Shared memory of the epilogue, apart from the Y tile: the two C buffers
+// (2 CBUF floats, 16-byte aligned) and SCRATCH 4-byte words.
 struct EpilogueSmem {
-  float* cs;      // [MK][CPAD]  C^T sub-chunk
-  float* yy_s;    // [TBN]       row norms
-  float* cc_s;    // [KC]        centroid norms
-  float* mind_s;  // [TBN]       per-row min distance, in block_cost's units
-  int* lab_s;     // [TBN]       per-row label
+  float* cs;           // 2 x [KC][CP] C sub-chunks
+  float* yy_s;         // [BN]         row norms
+  float* cc_s;         // [KC]         centroid norms
+  float* cand_d;       // [2][BN]      each half's best distance a row
+  int* cand_j;         // [2][BN]      and its centroid
+  float* mind_s;       // [BN]         per-row min distance, in block_cost's units
+  int* grp_lab;        // [BN]         label of each group of the tile
+  unsigned* grp_rows;  // [BN]         its rows, a bit mask
+  int* grp_fresh;      // [BN]         1 if the CTA meets its label for the first time
+  int* n_grp;          // [1]          number of groups
 };
+constexpr int SCRATCH = 9 * BN + KC + 1;
 
-// Zero the CTA's partials: thread t owns Z columns c = t (mod THREADS) and
-// centroid counts j = t (mod THREADS), here and in every later update.
-__device__ __forceinline__ void zero_partials(float* zp, float* gp, int k, int m) {
-  const int t = threadIdx.x;
-  for (int c = t; c < m; c += THREADS)
-    for (int j = 0; j < k; ++j) zp[(size_t)j * m + c] = 0.0f;
-  for (int j = t; j < k; j += THREADS) gp[j] = 0.0f;
+__device__ __forceinline__ EpilogueSmem carve(float* scratch, float* cs) {
+  EpilogueSmem s;
+  s.cs = cs;
+  s.yy_s = scratch;
+  s.cc_s = s.yy_s + BN;
+  s.cand_d = s.cc_s + KC;
+  s.cand_j = reinterpret_cast<int*>(s.cand_d + 2 * BN);
+  s.mind_s = reinterpret_cast<float*>(s.cand_j + 2 * BN);
+  s.grp_lab = reinterpret_cast<int*>(s.mind_s + BN);
+  s.grp_rows = reinterpret_cast<unsigned*>(s.grp_lab + BN);
+  s.grp_fresh = reinterpret_cast<int*>(s.grp_rows + BN);
+  s.n_grp = s.grp_fresh + BN;
+  return s;
 }
 
-// Element i of the C^T sub-chunk (KC centroids x MK columns) that thread t
-// stages with PREFETCH: a warp takes 8 columns x 4 centroids, so its global
-// reads are 32-byte runs and its transposed stores (pitch KC + 4) hit 32
-// banks.
-static_assert(MK == 32, "c_elem spans 32 columns");
-__device__ __forceinline__ void c_elem(int i, int& j, int& c) {
-  const int lane = threadIdx.x & 31;
-  const int q = (threadIdx.x >> 5) + i * (THREADS / 32);  // 4 column groups x KC / 4 rows
-  c = (q & 3) * 8 + (lane & 7);
-  j = (q >> 2) * 4 + (lane >> 3);
+// Zero the CTA's count partial (its Z partial needs no zeroing).
+__device__ __forceinline__ void zero_counts(float* gp, int k) {
+  for (int j = threadIdx.x; j < k; j += THREADS) gp[j] = 0.0f;
 }
 
-// The values thread t stages of the C^T sub-chunk at (j0, c0), zero outside C.
-template <int KC>
-__device__ __forceinline__ void load_c(float (&v)[KC * MK / THREADS], const float* __restrict__ C,
-                                       int k, int m, int j0, int c0) {
+// C rows [j0, j0 + KC) x columns [c0, c0 + MK) into buf (pitch CP) by
+// cp.async, one group; zero outside C. 16-byte copies when the rows are whole
+// aligned words (vec), else 4-byte ones.
+__device__ __forceinline__ void issue_c(float* buf, const float* __restrict__ C, int k, int m,
+                                        int j0, int c0, bool vec) {
+  if (vec) {
+    for (unsigned e = threadIdx.x; e < KC * MK / 4; e += THREADS) {
+      const int j = (int)(e / (MK / 4)), c = (int)(e % (MK / 4)) * 4;
+      const bool ok = j0 + j < k && c0 + c < m;
+      cpasync::copy16(buf + j * CP + c, ok ? C + (size_t)(j0 + j) * m + c0 + c : C, ok);
+    }
+  } else {
+    for (unsigned e = threadIdx.x; e < KC * MK; e += THREADS) {
+      const int j = (int)(e / MK), c = (int)(e % MK);
+      const bool ok = j0 + j < k && c0 + c < m;
+      cpasync::copy4(buf + j * CP + c, ok ? C + (size_t)(j0 + j) * m + c0 + c : C, ok);
+    }
+  }
+  cpasync::commit();
+}
+
+// acc[i][q] over four columns: a[cc] holds rows i of column cc (two float4),
+// b[q] centroid q's four columns.
+template <bool L1>
+__device__ __forceinline__ void dist_8x4(float (&acc)[RI][4], const float4 (&a)[8],
+                                         const float4 (&b)[4]) {
 #pragma unroll
-  for (int i = 0; i < KC * MK / THREADS; ++i) {
-    int j, c;
-    c_elem(i, j, c);
-    v[i] = (j0 + j < k && c0 + c < m) ? C[(size_t)(j0 + j) * m + c0 + c] : 0.0f;
+  for (int cc = 0; cc < 4; ++cc) {
+    const float av[RI] = {a[2 * cc].x, a[2 * cc].y, a[2 * cc].z, a[2 * cc].w,
+                          a[2 * cc + 1].x, a[2 * cc + 1].y, a[2 * cc + 1].z, a[2 * cc + 1].w};
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const float bv = cc == 0 ? b[q].x : cc == 1 ? b[q].y : cc == 2 ? b[q].z : b[q].w;
+#pragma unroll
+      for (int i = 0; i < RI; ++i) {
+        if (L1) acc[i][q] += fabsf(av[i] - bv);
+        else acc[i][q] = fmaf(av[i], bv, acc[i][q]);
+      }
+    }
   }
 }
 
-// One tile of TBN rows, Y^T at pitch TPAD: labels of rows [row0, row0 +
-// rows), their (Z, g) added to the CTA's partials zp (k, m) and gp (k,), and
-// (thread 0) their cost added to cost_acc. ys must be complete; the caller
-// syncs before overwriting it. With PREFETCH, each C^T sub-chunk is loaded
-// into registers while the one before it is in use (the same values, the
-// same arithmetic).
-template <bool L1, int TBN = BN, int TPAD = PAD, bool PREFETCH = false>
+// One tile: labels of rows [row0, row0 + rows), their (Z, g) added to the
+// CTA's partials zp (k, m) and gp (k,), and (thread 0) their cost added to
+// cost_acc. The caller has written ys and has no cp.async copy in flight
+// (its waits here would wait for it too); the first barrier here makes ys
+// complete and frees the C buffers. after_c() runs on every thread once no
+// thread reads the C buffers any more. The caller syncs before overwriting
+// ys or the scratch.
+template <bool L1, class AfterC>
 __device__ void assign_reduce_tile(const float* ys, int m_pad, const float* __restrict__ C,
                                    int k, int m, int row0, int rows, const EpilogueSmem& s,
                                    int* __restrict__ labels, float* __restrict__ zp,
-                                   float* __restrict__ gp, float& cost_acc) {
-  constexpr int TX = Layout<TBN>::TX;
-  constexpr int KC = Layout<TBN>::KC;
-  constexpr int CPAD = Layout<TBN>::CPAD;
+                                   float* __restrict__ gp, float& cost_acc, AfterC after_c) {
   const int t = threadIdx.x;
-  const int tx = t % TX;
-  const int ty = t / TX;
-  __syncthreads();  // ys complete
-  if (!L1 && t < TBN) {
-    float v2 = 0.0f;
-    for (int c = 0; c < m_pad; ++c) { const float v = ys[c * TPAD + t]; v2 = fmaf(v, v, v2); }
-    s.yy_s[t] = v2;
-  }
+  const int lane = t & 31, warp = t >> 5;
+  const int ty = warp >> 1, half = warp & 1;  // rows RI ty + i; centroids 128 half + lane + 32 q
+  const bool vec = (m & 3) == 0 && ((size_t)C & 15) == 0;
+  __syncthreads();  // ys complete; every thread is done with the C buffers' earlier use
+  issue_c(s.cs, C, k, m, 0, 0, vec);
 
-  float best_d[4];
-  int best_j[4];
+  float best_d[RI];
+  int best_j[RI];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) { best_d[i] = INFINITY; best_j[i] = 0; }
+  for (int i = 0; i < RI; ++i) { best_d[i] = INFINITY; best_j[i] = 0; }
 
-  constexpr int PER = KC * MK / THREADS;
-  float next[PER];
-  if constexpr (PREFETCH) load_c<KC>(next, C, k, m, 0, 0);
+  float yn = 0.0f;  // t < BN: |y_t|^2, over the first chunk
+  int step = 0;
   for (int j0 = 0; j0 < k; j0 += KC) {
-    float acc[4][4] = {};
-    float cn = 0.0f;  // t < KC: |c_{j0 + t}|^2
-    for (int c0 = 0; c0 < m_pad; c0 += MK) {
-      __syncthreads();  // earlier readers of cs and cc_s are done; yy_s visible
-      if constexpr (PREFETCH) {
+    float acc[RI][4] = {};
+    float cn = 0.0f;  // |c_{j0 + t}|^2
+    for (int c0 = 0; c0 < m_pad; c0 += MK, ++step) {
+      cpasync::wait<0>();
+      __syncthreads();  // sub-chunk `step` landed; every thread is done with the other buffer
+      if (c0 + MK < m_pad) issue_c(s.cs + ((step + 1) & 1) * CBUF, C, k, m, j0, c0 + MK, vec);
+      else if (j0 + KC < k) issue_c(s.cs + ((step + 1) & 1) * CBUF, C, k, m, j0 + KC, 0, vec);
+      const float* cb = s.cs + (step & 1) * CBUF;
+      if (!L1) {
 #pragma unroll
-        for (int i = 0; i < PER; ++i) {
-          int j, c;
-          c_elem(i, j, c);
-          s.cs[c * CPAD + j] = next[i];
+        for (int c = 0; c < MK; c += 4) {
+          const float4 v = *reinterpret_cast<const float4*>(cb + t * CP + c);
+          cn = fmaf(v.x, v.x, cn);
+          cn = fmaf(v.y, v.y, cn);
+          cn = fmaf(v.z, v.z, cn);
+          cn = fmaf(v.w, v.w, cn);
         }
-        if (c0 + MK < m_pad) load_c<KC>(next, C, k, m, j0, c0 + MK);
-        else if (j0 + KC < k) load_c<KC>(next, C, k, m, j0 + KC, 0);
-      } else {
-        for (int e = t; e < KC * MK; e += THREADS) {
-          const int j = e / MK, c = e % MK;
-          const int gj = j0 + j, gc = c0 + c;
-          s.cs[c * CPAD + j] = (gj < k && gc < m) ? C[(size_t)gj * m + gc] : 0.0f;
+        if (j0 == 0 && t < BN) {
+#pragma unroll
+          for (int c = 0; c < MK; ++c) {
+            const float v = ys[(c0 + c) * PAD + t];
+            yn = fmaf(v, v, yn);
+          }
         }
       }
-      __syncthreads();
-      if (!L1 && t < KC) {
-        for (int c = 0; c < MK; ++c) { const float v = s.cs[c * CPAD + t]; cn = fmaf(v, v, cn); }
-      }
-#pragma unroll 8
-      for (int c = 0; c < MK; ++c) {
-        tilemath::dist_4x4<L1>(acc, *reinterpret_cast<const float4*>(ys + (c0 + c) * TPAD + ty * 4),
-                               *reinterpret_cast<const float4*>(s.cs + c * CPAD + tx * 4));
+#pragma unroll 2
+      for (int c = 0; c < MK; c += 4) {
+        float4 b[4], a[8];
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          b[q] = *reinterpret_cast<const float4*>(cb + (128 * half + lane + 32 * q) * CP + c);
+#pragma unroll
+        for (int cc = 0; cc < 4; ++cc) {
+          a[2 * cc] = *reinterpret_cast<const float4*>(ys + (c0 + c + cc) * PAD + RI * ty);
+          a[2 * cc + 1] = *reinterpret_cast<const float4*>(ys + (c0 + c + cc) * PAD + RI * ty + 4);
+        }
+        dist_8x4<L1>(acc, a, b);
       }
     }
-    if (!L1 && t < KC) s.cc_s[t] = cn;
+    if (!L1) s.cc_s[t] = cn;
+    if (!L1 && j0 == 0 && t < BN) s.yy_s[t] = yn;
     __syncthreads();
 #pragma unroll
-    for (int jj = 0; jj < 4; ++jj) {
-      const int j = j0 + tx * 4 + jj;
-      if (j >= k) continue;
+    for (int q = 0; q < 4; ++q) {
+      const int jl = 128 * half + lane + 32 * q;
+      if (j0 + jl >= k) continue;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float dist = L1 ? acc[i][jj]
-                              : fmaxf(s.yy_s[ty * 4 + i] - 2.0f * acc[i][jj] + s.cc_s[tx * 4 + jj], 0.0f);
-        if (dist < best_d[i]) { best_d[i] = dist; best_j[i] = j; }
+      for (int i = 0; i < RI; ++i) {
+        const float dist = L1 ? acc[i][q]
+                              : fmaxf(s.yy_s[RI * ty + i] - 2.0f * acc[i][q] + s.cc_s[jl], 0.0f);
+        if (dist < best_d[i]) { best_d[i] = dist; best_j[i] = j0 + jl; }
       }
     }
   }
+  after_c();  // every thread is past the barrier after the last C read
 
-  // The TX threads of one row sit in one half-warp (TX = 16) or one warp
-  // (TX = 32): combine lexicographically.
+  // Combine lexicographically: the 32 lanes of a warp, then the two halves.
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < RI; ++i) {
     float dv = best_d[i];
     int jv = best_j[i];
 #pragma unroll
-    for (int off = TX / 2; off > 0; off >>= 1) {
+    for (int off = 16; off > 0; off >>= 1) {
       const float od = __shfl_xor_sync(0xffffffffu, dv, off);
       const int oj = __shfl_xor_sync(0xffffffffu, jv, off);
       if (od < dv || (od == dv && oj < jv)) { dv = od; jv = oj; }
     }
-    if (tx == 0) {
-      s.lab_s[ty * 4 + i] = jv;
-      s.mind_s[ty * 4 + i] = L1 ? dv : sqrtf(dv);
+    if (lane == 0) {
+      s.cand_d[half * BN + RI * ty + i] = dv;
+      s.cand_j[half * BN + RI * ty + i] = jv;
     }
   }
   __syncthreads();
 
-  if (t < rows) labels[row0 + t] = s.lab_s[t];
-  for (int c = t; c < m; c += THREADS) {
-    float* zc = zp + c;
-    for (int r = 0; r < rows; ++r) zc[(size_t)s.lab_s[r] * m] += ys[c * TPAD + r];
+  // Lane r takes row r: its label, then the groups of rows by label, the
+  // lowest lane of each label leading its group.
+  if (t < BN) {
+    float dv = s.cand_d[t];
+    int lab = s.cand_j[t];
+    const float od = s.cand_d[BN + t];
+    const int oj = s.cand_j[BN + t];
+    if (od < dv || (od == dv && oj < lab)) { dv = od; lab = oj; }
+    s.mind_s[t] = L1 ? dv : sqrtf(dv);
+    if (t < rows) labels[row0 + t] = lab;
+    else lab = -1;
+    const unsigned same = __match_any_sync(0xffffffffu, lab);
+    const unsigned below = (1u << t) - 1u;
+    const bool lead = lab >= 0 && (same & below) == 0u;
+    const unsigned leads = __ballot_sync(0xffffffffu, lead);
+    if (lead) {
+      const int gi = __popc(leads & below);
+      const float seen = gp[lab];
+      s.grp_lab[gi] = lab;
+      s.grp_rows[gi] = same;
+      s.grp_fresh[gi] = seen == 0.0f;
+      gp[lab] = seen + (float)__popc(same);
+    }
+    if (t == 0) *s.n_grp = __popc(leads);
   }
-  for (int j = t; j < k; j += THREADS) {
-    int cnt = 0;
-    for (int r = 0; r < rows; ++r) cnt += (s.lab_s[r] == j);
-    gp[j] += (float)cnt;
+  __syncthreads();
+
+  // Z: thread t owns columns c = t (mod THREADS); one store a group.
+  const int ng = *s.n_grp;
+  for (int c = t; c < m; c += THREADS) {
+    const float* yc = ys + c * PAD;
+    for (int gi = 0; gi < ng; ++gi) {
+      float* z = zp + (size_t)s.grp_lab[gi] * m + c;
+      float v = s.grp_fresh[gi] ? 0.0f : *z;
+      for (unsigned rs = s.grp_rows[gi]; rs; rs &= rs - 1u) v += yc[__ffs(rs) - 1];
+      *z = v;
+    }
   }
   if (t == 0)
     for (int r = 0; r < rows; ++r) cost_acc += s.mind_s[r];
 }
 
 // Z = sum_p Zp[p], g = sum_p gp[p], cost = sum_p costp[p], each element
-// summed in the order p = 0..P-1.
-__global__ void lloyd_reduce_kernel(const float* __restrict__ Zp, const float* __restrict__ gp,
-                                    const float* __restrict__ costp, float* __restrict__ Z,
-                                    float* __restrict__ g, float* __restrict__ cost, int P, int k,
-                                    int m) {
-  const size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  const size_t km = (size_t)k * m;
-  float acc = 0.0f;
-  if (e < km) {
-    for (int p = 0; p < P; ++p) acc += Zp[(size_t)p * km + e];
-    Z[e] = acc;
-  } else if (e < km + k) {
-    const size_t j = e - km;
-    for (int p = 0; p < P; ++p) acc += gp[(size_t)p * k + j];
+// summed in the order p = 0..P-1: block j < k sums row j of Z and g[j],
+// block k the cost. Row j of Zp[p] holds data only where gp[p][j] > 0 and
+// is skipped elsewhere: the block lists those p in ascending order first, so
+// every thread's loads of its column are independent of each other.
+constexpr int MAX_P = 264;  // partials one reduce takes (the wrapper's MAX_CTAS)
+
+__global__ void __launch_bounds__(REDUCE_THREADS)
+lloyd_reduce_kernel(const float* __restrict__ Zp, const float* __restrict__ gp,
+                    const float* __restrict__ costp, float* __restrict__ Z,
+                    float* __restrict__ g, float* __restrict__ cost, int P, int k, int m) {
+  __shared__ float part[MAX_P];  // gp[p][j], or costp[p]
+  __shared__ int met[MAX_P];     // the p with gp[p][j] > 0, ascending
+  __shared__ unsigned masks[(MAX_P + 31) / 32];
+  const int t = threadIdx.x, j = blockIdx.x;
+  if (j == k) {
+    for (int p = t; p < P; p += REDUCE_THREADS) part[p] = costp[p];
+    __syncthreads();
+    if (t == 0) {
+      float acc = 0.0f;
+#pragma unroll 16
+      for (int p = 0; p < P; ++p) acc += part[p];
+      *cost = acc;
+    }
+    return;
+  }
+  for (int base = (t >> 5) * 32; base < P; base += REDUCE_THREADS) {  // a warp a 32-p group
+    const int p = base + (t & 31);
+    const float v = p < P ? gp[(size_t)p * k + j] : 0.0f;
+    if (p < P) part[p] = v;
+    const unsigned mask = __ballot_sync(0xffffffffu, v != 0.0f);
+    if ((t & 31) == 0) masks[base >> 5] = mask;
+  }
+  __syncthreads();
+  int n_met = 0;
+  for (int q = 0; q < (P + 31) / 32; ++q) n_met += __popc(masks[q]);
+  for (int p = t; p < P; p += REDUCE_THREADS) {
+    const unsigned mask = masks[p >> 5], below = (1u << (p & 31)) - 1u;
+    if (mask >> (p & 31) & 1u) {
+      int at = __popc(mask & below);
+      for (int q = 0; q < (p >> 5); ++q) at += __popc(masks[q]);
+      met[at] = p;
+    }
+  }
+  __syncthreads();
+  if (t == 32) {  // beside warp 0's columns
+    float acc = 0.0f;
+#pragma unroll 16
+    for (int p = 0; p < P; ++p) acc += part[p];
     g[j] = acc;
-  } else if (e == km + k) {
-    for (int p = 0; p < P; ++p) acc += costp[p];
-    *cost = acc;
+  }
+  const size_t km = (size_t)k * m;
+  for (int c = t; c < m; c += REDUCE_THREADS) {
+    const float* src = Zp + (size_t)j * m + c;
+    float acc = 0.0f;
+    for (int i0 = 0; i0 < n_met; i0 += 8) {  // 8 loads in flight, then their sums in order
+      float v[8];
+#pragma unroll
+      for (int u = 0; u < 8; ++u) v[u] = i0 + u < n_met ? src[(size_t)met[i0 + u] * km] : 0.0f;
+#pragma unroll
+      for (int u = 0; u < 8; ++u)
+        if (i0 + u < n_met) acc += v[u];
+    }
+    Z[(size_t)j * m + c] = acc;
   }
 }
 
 inline cudaError_t launch_reduce(const float* Zp, const float* gp, const float* costp, float* Z,
                                  float* g, float* cost, int P, int k, int m, cudaStream_t stream) {
-  const size_t total = (size_t)k * m + k + 1;
-  const unsigned blocks = (unsigned)((total + REDUCE_THREADS - 1) / REDUCE_THREADS);
-  lloyd_reduce_kernel<<<blocks, REDUCE_THREADS, 0, stream>>>(Zp, gp, costp, Z, g, cost, P, k, m);
+  if (P > MAX_P) return cudaErrorInvalidValue;
+  lloyd_reduce_kernel<<<k + 1, REDUCE_THREADS, 0, stream>>>(Zp, gp, costp, Z, g, cost, P, k, m);
   return cudaGetLastError();
 }
 

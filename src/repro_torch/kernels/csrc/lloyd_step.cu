@@ -26,8 +26,8 @@
 //  * Its embed mainloop is apnc_mainloop.cuh's, at the apncml::Short
 //    geometry: apnc_embed.cu runs the same code, so the chains are one.
 //  * A CTA owns a 32-row tile, so a 4,096-row block is 128 CTAs on the 132
-//    SMs. One CTA of 256 threads a SM (no spills), 155 KB of shared memory
-//    at m = 256, 192 KB at m = 512.
+//    SMs. One CTA of 256 threads a SM (no spills), 156,420 bytes of shared
+//    memory at m = 256, 193,284 at m = 512.
 //  * Landmarks go in super-tiles of 256: S (32 x 256) is 8 rows x 4
 //    landmarks a thread, 2.7 FMAs for every float read from shared memory
 //    (the first port's 4 x 4 tile did 2); the X chunk is staged twice a tile
@@ -51,9 +51,9 @@
 //    save nothing.
 //  * K (32 x 256) goes to shared memory once a super-tile, and Y (32 x m)
 //    stays in shared memory, transposed (pitch 36), for the epilogue
-//    (lloyd_epilogue.cuh at 32 rows: 4 rows x 4 centroids a thread, 128
-//    centroids a chunk, each C sub-chunk loaded into registers while the one
-//    before it is in use).
+//    (lloyd_epilogue.cuh: 8 rows x 4 centroids a thread, 256 centroids a
+//    chunk, each C sub-chunk in flight by cp.async, into the ring, while the
+//    one before it is in use).
 //  * Ragged n, d, l and m are zero-filled by the copies (zero K for padded
 //    landmarks). 16-byte copies need d and l multiples of 4 and aligned
 //    arrays; other shapes take 4-byte copies, the same arithmetic.
@@ -62,13 +62,38 @@
 //    thirds of the SM's f32 rate, the copies cost about 30 % of a launch (all
 //    128 CTAs read the same L chunk from L2 at once; a thread-block cluster
 //    multicasting it would halve that traffic), the epilogue about 20 %, the
-//    (Z, g, cost) reduce 4 %.
+//    (Z, g, cost) reduce 4 %. With the 8 x 4 epilogue (NVIDIA H100 80GB
+//    HBM3, 700.00 W; chip_smoke.py timing) a pass reads 71.3-71.8 ms,
+//    78.6-78.7 with the 4 x 4 one.
 //
-// fused_rff_kernel (the first port's design): one CTA owns 64 rows and
-// streams X and W through shared memory in synchronous chunks of 32
-// features; s cos(S), s sin(S) go into the [cos | sin] halves of the
-// (64 x m) Y^T tile, which the epilogue reads in place; 86 KB at
-// m = 256. A 4,096-row block is 64 CTAs, under half of the SMs.
+// fused_rff_kernel (redesigned for Hopper; the first port ran 64-row tiles,
+// 64 CTAs a 4,096-row block, with synchronous 32-feature chunks, two barriers
+// a chunk and every X chunk staged twice at mh = 128: 77.41-78.20 ms a pass,
+// 7.6 % of its bound):
+//  * Its projection mainloop is rff_mainloop.cuh's, at the rffml::Fused
+//    geometry: rff_embed.cu runs the same code, so the chains are one.
+//  * A CTA owns a 32-row tile and every frequency of its rows: 32 x 128 S a
+//    pass, 4 x 4 a thread, 256 threads, the work of one rff_embed_block CTA;
+//    mh = 256 (m = 512) takes two passes. A 4,096-row block is 128 CTAs.
+//  * W's 64-feature chunks come by cp.async into a 3-stage ring and X's
+//    through registers into a swizzled, double-buffered X^T, one barrier a
+//    chunk. A warp spans 8 row groups x 4 frequency groups, so each step
+//    reads 8 + 4 distinct float4 from shared memory for 16 FMAs a thread.
+//  * s cos(S) and s sin(S) go from registers into the [cos | sin] halves of
+//    the 32-row Y^T tile (pitch 36), float4 over a thread's 4 rows: the 8
+//    lanes of a quarter warp are 8 row groups, so the stores are
+//    conflict-free. The epilogue (lloyd_epilogue.cuh) reads the tile in
+//    place; the W ring holds its C buffers. 153,732 bytes of shared memory
+//    at m = 256, 190,596 at m = 512: one CTA a SM.
+//  * Ragged n, d and mh are zero-filled by the loads; the padded columns
+//    [m, m_pad) of Y^T are zeroed once a CTA.
+//  * Measured (NVIDIA H100 80GB HBM3, 700.00 W; chip_smoke.py timing, a pass
+//    of the rff stream fit, d = 900, mh = 128, k = 164): 21.8-22.1 ms of
+//    device time, 19.8-20.1 the kernel and 2.0 the reduce; 22.9-28.7 ms
+//    event-timed.
+//    tools/kernel_ablation.py puts 40 of a 73 us launch in the projection
+//    (41 % of the f32 rate, as rff_embed_block), 4 in the trig and about 30
+//    in the epilogue.
 #include <cuda_runtime.h>
 
 #include <math.h>
@@ -76,29 +101,22 @@
 
 #include "apnc_mainloop.cuh"
 #include "lloyd_epilogue.cuh"
+#include "rff_mainloop.cuh"
 
 namespace {
 
-using lloyd::BN;
-using lloyd::KC;
 using lloyd::PAD;
 using lloyd::THREADS;
 using tilemath::KParams;
 
-constexpr int BD = 32;  // features per chunk (fused_rff_kernel)
-constexpr int MC = 64;  // Y columns per update chunk (fused_rff_kernel)
 constexpr int MAX_M = 512;
-
-__device__ __forceinline__ void zero_tile(float* ys, int m_pad) {
-  for (int e = threadIdx.x; e < m_pad * PAD; e += THREADS) ys[e] = 0.0f;
-}
 
 // fused_apnc_kernel: apnc_mainloop.cuh's embed of a 32-row tile into the
 // shared Y^T tile, then the assign epilogue on it.
 namespace apnc {
 using G = apncml::Short;
-using Epi = lloyd::Layout<G::BN>;
-static_assert(lloyd::MK * Epi::CPAD <= G::STAGE, "the epilogue's C sub-chunk fits in a ring stage");
+static_assert(G::BN == lloyd::BN && G::YP == PAD, "the epilogue's tile");
+static_assert(2 * lloyd::CBUF <= G::NS * G::STAGE, "the epilogue's C buffers fit in the ring");
 
 template <bool L1, bool VEC>
 __global__ void __launch_bounds__(THREADS, 1)
@@ -110,18 +128,13 @@ fused_apnc_kernel(const float* __restrict__ X, const float* __restrict__ L,
   extern __shared__ __align__(16) float smem[];
   const int m_pad = lloyd::round_up(m, G::MC);
   const apncml::TileSmem sm = apncml::carve<G>(smem, m_pad);  // ring: also the
-                                                              // epilogue's C^T sub-chunk
-  lloyd::EpilogueSmem es;
-  es.cs = sm.ring;
-  es.yy_s = sm.ll_s + G::BL;         // [BN]
-  es.cc_s = es.yy_s + G::BN;         // [Epi::KC]
-  es.mind_s = es.cc_s + Epi::KC;     // [BN]
-  es.lab_s = reinterpret_cast<int*>(es.mind_s + G::BN);  // [BN]
+                                                              // epilogue's C buffers
+  const lloyd::EpilogueSmem es = lloyd::carve(sm.ll_s + G::BL, sm.ring);
 
   float* zp = Zp + (size_t)blockIdx.x * k * m;
   float* gpc = gp + (size_t)blockIdx.x * k;
   float cost_acc = 0.0f;
-  lloyd::zero_partials(zp, gpc, k, m);
+  lloyd::zero_counts(gpc, k);
 
   const int n_tiles = (n + G::BN - 1) / G::BN;
   const int tile_lo = blockIdx.x * tiles_per_cta;
@@ -131,101 +144,84 @@ fused_apnc_kernel(const float* __restrict__ X, const float* __restrict__ L,
     const int rows = min(G::BN, n - row0);
     __syncthreads();  // the previous tile's epilogue is done with ys, the ring and the scratch
     apncml::embed_tile<G, VEC, false>(X, L, R, n, d, l, m, m_pad, row0, sm, kp, nullptr, 0);
-    lloyd::assign_reduce_tile<L1, G::BN, G::YP, true>(sm.ys, m_pad, C, k, m, row0, rows, es,
-                                                      labels, zp, gpc, cost_acc);
+    lloyd::assign_reduce_tile<L1>(sm.ys, m_pad, C, k, m, row0, rows, es, labels, zp, gpc,
+                                  cost_acc, [] {});
   }
   if (threadIdx.x == 0) costp[blockIdx.x] = cost_acc;
 }
 
 size_t smem_bytes(int m) {
   const int m_pad = lloyd::round_up(m, G::MC);
-  return sizeof(float) * (G::smem_floats(m_pad) + G::BN + Epi::KC + G::BN) +
-         sizeof(int) * G::BN;
+  return sizeof(float) * (G::smem_floats(m_pad) + lloyd::SCRATCH);
 }
 }  // namespace apnc
 
-template <bool L1>
-__global__ void __launch_bounds__(THREADS)
+// fused_rff_kernel: rff_mainloop.cuh's projection of a 32-row tile, s cos
+// and s sin into the shared Y^T tile, then the assign epilogue on it.
+namespace rff {
+using G = rffml::Fused;
+static_assert(G::BN == lloyd::BN && rffml::THREADS == THREADS, "the epilogue's tile");
+static_assert(2 * lloyd::CBUF <= rffml::WSTAGES * G::WCH,
+              "the epilogue's C buffers fit in the W ring");
+
+template <bool L1, bool VEC>
+__global__ void __launch_bounds__(THREADS, 1)
 fused_rff_kernel(const float* __restrict__ X, const float* __restrict__ W,
                  const float* __restrict__ C, float* __restrict__ Zp, float* __restrict__ gp,
                  float* __restrict__ costp, int* __restrict__ labels, int n, int d, int mh, int k,
                  float scale, int tiles_per_cta) {
   extern __shared__ __align__(16) float smem[];
   const int m = 2 * mh;
-  const int m_pad = lloyd::round_up(m, MC);
-  float* ys = smem;                  // [m_pad][PAD]  Y^T tile, [cos | sin]
-  float* xs = ys + m_pad * PAD;      // [BD][PAD]     X^T chunk; epilogue: C^T chunk
-  float* ws = xs + BD * PAD;         // [BD][PAD]     W chunk
-  lloyd::EpilogueSmem es;
-  es.cs = xs;
-  es.yy_s = ws + BD * PAD;           // [BN]
-  es.cc_s = es.yy_s + BN;            // [KC]
-  es.mind_s = es.cc_s + KC;          // [BN]
-  es.lab_s = reinterpret_cast<int*>(es.mind_s + BN);  // [BN]
+  const int m_pad = lloyd::round_up(m, lloyd::MK);
+  float* xs = smem;                              // 2 x [BD][BN]  X^T chunks, swizzled
+  float* ws = xs + 2 * G::XCH;                   // 3 x [BD][BM]  W chunks; the C buffers
+  float* ys = ws + rffml::WSTAGES * G::WCH;      // [m_pad][PAD]  Y^T tile, [cos | sin]
+  const lloyd::EpilogueSmem es = lloyd::carve(ys + (size_t)m_pad * PAD, ws);
+  int ty, tx;
+  rffml::coords<G>(ty, tx);
 
-  const int t = threadIdx.x;
-  const int tx = t % 16;
-  const int ty = t / 16;
   float* zp = Zp + (size_t)blockIdx.x * k * m;
   float* gpc = gp + (size_t)blockIdx.x * k;
   float cost_acc = 0.0f;
-  lloyd::zero_partials(zp, gpc, k, m);
+  lloyd::zero_counts(gpc, k);
+  for (int e = threadIdx.x; e < (m_pad - m) * PAD; e += THREADS) ys[m * PAD + e] = 0.0f;
 
-  const int n_tiles = (n + BN - 1) / BN;
+  const int n_tiles = (n + G::BN - 1) / G::BN;
   const int tile_lo = blockIdx.x * tiles_per_cta;
   const int tile_hi = min(tile_lo + tiles_per_cta, n_tiles);
   for (int tile = tile_lo; tile < tile_hi; ++tile) {
-    const int row0 = tile * BN;
-    const int rows = min(BN, n - row0);
-    __syncthreads();  // the previous tile's epilogue is done with ys and the scratch
-    zero_tile(ys, m_pad);  // columns >= 2 mh stay 0
-
-    for (int c0 = 0; c0 < mh; c0 += MC) {
-      float acc[4][4] = {};
-      for (int k0 = 0; k0 < d; k0 += BD) {
-        __syncthreads();  // earlier readers of xs / ws are done
-        for (int e = t; e < BN * BD; e += THREADS) {
-          const int r = e / BD, c = e % BD;
-          const int gr = row0 + r, gc = k0 + c;
-          xs[c * PAD + r] = (gr < n && gc < d) ? X[(size_t)gr * d + gc] : 0.0f;
-        }
-        for (int e = t; e < BD * MC; e += THREADS) {
-          const int c = e / MC, j = e % MC;
-          const int gc = k0 + c, gj = c0 + j;
-          ws[c * PAD + j] = (gc < d && gj < mh) ? W[(size_t)gc * mh + gj] : 0.0f;
-        }
-        __syncthreads();
-#pragma unroll 8
-        for (int c = 0; c < BD; ++c) {
-          tilemath::fma_4x4(acc, *reinterpret_cast<const float4*>(xs + c * PAD + ty * 4),
-                            *reinterpret_cast<const float4*>(ws + c * PAD + tx * 4));
-        }
+    const int row0 = tile * G::BN;
+    const int rows = min(G::BN, n - row0);
+    for (int c0 = 0; c0 < mh; c0 += G::BM) {
+      __syncthreads();  // the previous pass or tile is done with xs, ws, ys and the scratch
+      float acc[4][4];
+      rffml::project<G, VEC>(acc, X, W, n, d, mh, row0, c0, xs, ws, ty, tx);
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        const int j = c0 + tx * 4 + jj;
+        if (j >= mh) continue;
+        float cv[4], sv[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) sincosf(acc[i][jj], &sv[i], &cv[i]);
+        *reinterpret_cast<float4*>(ys + j * PAD + ty * 4) =
+            make_float4(scale * cv[0], scale * cv[1], scale * cv[2], scale * cv[3]);
+        *reinterpret_cast<float4*>(ys + (mh + j) * PAD + ty * 4) =
+            make_float4(scale * sv[0], scale * sv[1], scale * sv[2], scale * sv[3]);
       }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int jj = 0; jj < 4; ++jj) {
-          const int r = ty * 4 + i, j = c0 + tx * 4 + jj;
-          if (j < mh) {
-            float sv, cv;
-            sincosf(acc[i][jj], &sv, &cv);
-            ys[j * PAD + r] = scale * cv;
-            ys[(mh + j) * PAD + r] = scale * sv;
-          }
-        }
     }
-    lloyd::assign_reduce_tile<L1>(ys, m_pad, C, k, m, row0, rows, es, labels, zp, gpc, cost_acc);
+    lloyd::assign_reduce_tile<L1>(ys, m_pad, C, k, m, row0, rows, es, labels, zp, gpc, cost_acc,
+                                  [] {});
   }
-  if (t == 0) costp[blockIdx.x] = cost_acc;
+  if (threadIdx.x == 0) costp[blockIdx.x] = cost_acc;
 }
+
+size_t smem_bytes(int m) {
+  const int m_pad = lloyd::round_up(m, lloyd::MK);
+  return sizeof(float) * (G::SMEM_FLOATS + (size_t)m_pad * PAD + lloyd::SCRATCH);
+}
+}  // namespace rff
 
 bool aligned16(const void* p) { return ((size_t)p & 15) == 0; }
-
-size_t rff_smem_bytes(int m) {
-  const int m_pad = lloyd::round_up(m, MC);
-  return sizeof(float) * ((size_t)m_pad * PAD + 2 * (size_t)BD * PAD + BN + KC + BN) +
-         sizeof(int) * BN;
-}
 
 template <typename Kern>
 cudaError_t set_smem(Kern kernel, size_t smem) {
@@ -241,11 +237,11 @@ int lloyd_step_max_m() { return MAX_M; }
 
 // Rows per tile of fused_apnc_step (member 0) and fused_rff_step (member
 // 1); the wrapper sizes the P partials from it.
-int lloyd_step_tile_rows(int member) { return member == 0 ? apnc::G::BN : BN; }
+int lloyd_step_tile_rows(int member) { return member == 0 ? apnc::G::BN : rff::G::BN; }
 
 // Dynamic shared memory of one CTA, in bytes.
 long long fused_apnc_smem_bytes(int m) { return (long long)apnc::smem_bytes(m); }
-long long fused_rff_smem_bytes(int m) { return (long long)rff_smem_bytes(m); }
+long long fused_rff_smem_bytes(int m) { return (long long)rff::smem_bytes(m); }
 
 // X (n, d), L (l, d), R (m, l), C (k, m) f32 -> Z (k, m), g (k,), cost (1,) f32,
 // labels (n,) int32. Zp (num_ctas, k, m), gp (num_ctas, k) and costp
@@ -281,19 +277,15 @@ int fused_rff_step_f32(const float* X, const float* W, const float* C, float* Z,
   const int m = 2 * mh;
   if (m > MAX_M) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  const size_t smem = rff_smem_bytes(m);
-  cudaError_t err;
-  if (l1) {
-    err = set_smem(fused_rff_kernel<true>, smem);
-    if (err != cudaSuccess) return (int)err;
-    fused_rff_kernel<true><<<num_ctas, THREADS, smem, s>>>(X, W, C, Zp, gp, costp, labels, n, d,
-                                                           mh, k, scale, tiles_per_cta);
-  } else {
-    err = set_smem(fused_rff_kernel<false>, smem);
-    if (err != cudaSuccess) return (int)err;
-    fused_rff_kernel<false><<<num_ctas, THREADS, smem, s>>>(X, W, C, Zp, gp, costp, labels, n, d,
-                                                            mh, k, scale, tiles_per_cta);
-  }
+  const size_t smem = rff::smem_bytes(m);
+  const bool vec = d % 4 == 0 && mh % 4 == 0 && aligned16(X) && aligned16(W);
+  const auto kernel =
+      l1 ? (vec ? rff::fused_rff_kernel<true, true> : rff::fused_rff_kernel<true, false>)
+         : (vec ? rff::fused_rff_kernel<false, true> : rff::fused_rff_kernel<false, false>);
+  cudaError_t err = set_smem(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<num_ctas, THREADS, smem, s>>>(X, W, C, Zp, gp, costp, labels, n, d, mh, k, scale,
+                                         tiles_per_cta);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   return (int)lloyd::launch_reduce(Zp, gp, costp, Z, g, cost, num_ctas, k, m, s);

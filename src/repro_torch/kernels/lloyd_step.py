@@ -6,10 +6,10 @@ sources are ``csrc/lloyd_step.cu`` (the two embedding steps) and
 ``csrc/dequant_step.cu`` (the step over a quantized cache block), both ending
 in the epilogue of ``csrc/lloyd_epilogue.cuh``; their headers hold the bound
 on an H100 and what the design does about it (operation-bound; one CTA embeds
-or decodes a tile of rows, 32 for ``fused_apnc_step`` and 64 for the others,
-into a shared-memory tile that the assign epilogue reads in place, so Y never
-reaches device memory; (Z, g, cost) go through per-CTA partials summed in a
-fixed order, so they are bitwise deterministic).
+or decodes a tile of 32 rows into a shared-memory tile that the assign
+epilogue reads in place, so Y never reaches device memory and a 4,096-row
+block is 128 CTAs; (Z, g, cost) go through per-CTA partials summed in a fixed
+order, so they are bitwise deterministic).
 
 Each wrapper launches its kernel for CUDA tensors and raises if it cannot;
 for CPU tensors it computes the same function with the plain PyTorch version.
@@ -18,6 +18,7 @@ for CPU tensors it computes the same function with the plain PyTorch version.
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import NamedTuple
 
 import torch
@@ -41,9 +42,9 @@ launches = {"fused_apnc_step": 0, "fused_rff_step": 0, "fused_dequant_step": 0,
 #: holds the same bound.
 MAX_M = 512
 
-#: Largest m one ``fused_dequant_step`` launch takes: its decoded (64 x m) Y
-#: tile, the epilogue's C sub-chunk and row scratch are 272 * m_pad + 9,728
-#: bytes (m_pad = m rounded up to 32), and a CTA may have 232,448.
+#: Largest m one ``fused_dequant_step`` launch takes: its decoded (32 x m) Y
+#: tile, the epilogue's C buffers (the raw payload tile in their space), the
+#: scales and scratch are 194,308 bytes at m = 800, and a CTA may have 232,448.
 #: ``csrc/dequant_step.cu`` holds the same bound.
 DEQUANT_MAX_M = 800
 
@@ -55,7 +56,7 @@ MAX_CTAS = 264
 #: Rows per CTA tile of each fused step: ``lloyd_step_tile_rows(0)`` and
 #: ``(1)`` in ``csrc/lloyd_step.cu``, ``dequant_step_tile_rows()`` in
 #: ``csrc/dequant_step.cu``; the libraries are checked against it on load.
-TILE_ROWS = {"apnc": 32, "rff": 64, "dequant": 64}
+TILE_ROWS = {"apnc": 32, "rff": 32, "dequant": 32}
 
 _KINDS = {"rbf": 0, "poly": 1, "tanh": 2, "linear": 3}
 _P = ctypes.c_void_p
@@ -63,8 +64,7 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 
 
-def _dequant_lib() -> ctypes.CDLL:
-    lib = build.load("dequant_step")
+def _configure_dequant(lib: ctypes.CDLL) -> None:
     lib.fused_dequant_step.argtypes = [_P, _I] + [_P] * 9 + [_I] * 6 + [_P]
     lib.dequant_decode.argtypes = [_P, _I, _P, _P, ctypes.c_longlong, _I, _P]
     for fn in (lib.fused_dequant_step, lib.dequant_decode, lib.dequant_step_max_m,
@@ -72,17 +72,15 @@ def _dequant_lib() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     for fn in (lib.dequant_step_max_m, lib.dequant_step_tile_rows):
         fn.argtypes = []
-    lib.fused_dequant_smem_bytes.argtypes = [_I]
+    lib.fused_dequant_smem_bytes.argtypes = [_I, _I]
     lib.fused_dequant_smem_bytes.restype = ctypes.c_longlong
     if (lib.dequant_step_max_m() != DEQUANT_MAX_M
             or lib.dequant_step_tile_rows() != TILE_ROWS["dequant"]):
         raise RuntimeError(
             "dequant_step.cu and lloyd_step.py disagree on DEQUANT_MAX_M or TILE_ROWS")
-    return lib
 
 
-def _lib() -> ctypes.CDLL:
-    lib = build.load("lloyd_step")
+def _configure_steps(lib: ctypes.CDLL) -> None:
     lib.fused_apnc_step_f32.argtypes = [_P] * 11 + [_I] * 9 + [_F, _F, _F, _I, _P]
     lib.fused_rff_step_f32.argtypes = [_P] * 10 + [_I] * 5 + [_F, _I, _I, _P]
     for fn in (lib.fused_apnc_step_f32, lib.fused_rff_step_f32, lib.lloyd_step_max_m,
@@ -96,14 +94,35 @@ def _lib() -> ctypes.CDLL:
     if (lib.lloyd_step_max_m() != MAX_M or lib.lloyd_step_tile_rows(0) != TILE_ROWS["apnc"]
             or lib.lloyd_step_tile_rows(1) != TILE_ROWS["rff"]):
         raise RuntimeError("lloyd_step.cu and lloyd_step.py disagree on MAX_M or TILE_ROWS")
+
+
+#: The library each name was last configured as: a launch a block pays for
+#: no ctypes set-up, and a library swapped into ``build`` is configured anew.
+_CONFIGURED: dict[str, ctypes.CDLL] = {}
+
+
+def _configured(name: str, configure) -> ctypes.CDLL:
+    lib = build.load(name)
+    if _CONFIGURED.get(name) is not lib:
+        configure(lib)
+        _CONFIGURED[name] = lib
     return lib
+
+
+def _dequant_lib() -> ctypes.CDLL:
+    return _configured("dequant_step", _configure_dequant)
+
+
+def _lib() -> ctypes.CDLL:
+    return _configured("lloyd_step", _configure_steps)
 
 
 def smem_bytes(member: str, m: int) -> int:
     """Dynamic shared memory of one CTA of the fused launch for ``member``
-    ("apnc" | "rff" | "dequant") at embedding width m."""
+    ("apnc" | "rff" | "dequant") at embedding width m; for "dequant", its
+    bf16 instance's (its raw tile holds 2 bytes a value)."""
     if member == "dequant":
-        return int(_dequant_lib().fused_dequant_smem_bytes(m))
+        return int(_dequant_lib().fused_dequant_smem_bytes(m, 1))
     lib = _lib()
     fn = lib.fused_apnc_smem_bytes if member == "apnc" else lib.fused_rff_smem_bytes
     return int(fn(m))
@@ -149,10 +168,21 @@ def launch_geometry(n: int, tile_rows: int) -> Geometry:
     return Geometry(n_tiles, -(-n_tiles // max(1, tiles_per_cta)), tiles_per_cta)
 
 
+#: The per-CTA (Z, g, cost) partials of the fused launches: one buffer per
+#: (device, stream), grown as needed and kept. The launches on a stream run
+#: one after another, so one buffer serves them all. Allocated a launch, the
+#: 21.5 MB of a 4,096-row block at k = 164, m = 256 made a pass of 309
+#: launches read 28-271 ms event-timed against 15-21 ms with this buffer, its
+#: device time 11 ms either way (chip_smoke.py timing, NVIDIA H100 80GB HBM3,
+#: 700.00 W).
+_SCRATCH: dict[tuple[int, int], torch.Tensor] = {}
+
+
 def _outputs(n: int, k: int, m: int, dev: torch.device, tile_rows: int, max_m: int = MAX_M):
     """The outputs (Z, g, labels, cost) of one launch, the pointers the C entry
-    takes for them and for the per-CTA scratch, and the launch's CTA count and
-    tiles per CTA."""
+    takes for them and for the per-CTA scratch (its three parts by offset in
+    ``_SCRATCH``), the launch's CTA count and tiles per CTA, and the stream it
+    launches on."""
     if m > max_m:
         raise NotImplementedError(
             f"the fused Lloyd step holds a ({tile_rows} x m) Y tile in shared memory and "
@@ -167,12 +197,18 @@ def _outputs(n: int, k: int, m: int, dev: torch.device, tile_rows: int, max_m: i
         for t in (out[0], out[1], out[3]):
             t.zero_()
     geo = launch_geometry(n, tile_rows)
-    Zp, gp, costp = (torch.empty(shape, dtype=torch.float32, device=dev)
-                     for shape in geo.scratch_shapes(k, m))
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    need = sum(math.prod(shape) for shape in geo.scratch_shapes(k, m))
+    scratch = _SCRATCH.get((dev.index, stream))
+    if scratch is None or scratch.numel() < need:
+        scratch = _SCRATCH[dev.index, stream] = torch.empty((need,), dtype=torch.float32,
+                                                            device=dev)
+    Zp = scratch.data_ptr()
+    gp = Zp + 4 * geo.num_ctas * k * m
     Z, g, labels, cost = out
     ptrs = [Z.data_ptr(), g.data_ptr(), cost.data_ptr(), labels.data_ptr(),
-            Zp.data_ptr(), gp.data_ptr(), costp.data_ptr()]
-    return out, ptrs, geo.num_ctas, geo.tiles_per_cta
+            Zp, gp, gp + 4 * geo.num_ctas * k]
+    return out, ptrs, geo.num_ctas, geo.tiles_per_cta, stream
 
 
 def fused_apnc_step(
@@ -196,15 +232,14 @@ def fused_apnc_step(
         raise ValueError(f"fused_apnc_step runs on cuda or cpu, not {X.device}")
     if kernel.name not in _KINDS:
         raise ValueError(f"unknown kernel {kernel.name!r}")
-    out, ptrs, num_ctas, tiles_per_cta = _outputs(n, k, m, X.device, TILE_ROWS["apnc"])
+    out, ptrs, num_ctas, tiles_per_cta, stream = _outputs(n, k, m, X.device, TILE_ROWS["apnc"])
     if n == 0:
         return out
     err = _lib().fused_apnc_step_f32(
         X.data_ptr(), landmarks.data_ptr(), R.data_ptr(), C.data_ptr(), *ptrs,
         n, d, l, m, k, int(discrepancy == "l1"), num_ctas, tiles_per_cta,
         _KINDS[kernel.name], float(kernel.gamma), float(kernel.coef0),
-        float(kernel.scale), int(kernel.degree),
-        torch.cuda.current_stream(X.device).cuda_stream,
+        float(kernel.scale), int(kernel.degree), stream,
     )
     build.check(err, "fused_apnc_step launch")
     launches["fused_apnc_step"] += 1
@@ -228,13 +263,13 @@ def fused_rff_step(
         return fused_rff_step_ref(X, W, C, scale, discrepancy)
     if X.device.type != "cuda":
         raise ValueError(f"fused_rff_step runs on cuda or cpu, not {X.device}")
-    out, ptrs, num_ctas, tiles_per_cta = _outputs(n, k, 2 * mh, X.device, TILE_ROWS["rff"])
+    out, ptrs, num_ctas, tiles_per_cta, stream = _outputs(n, k, 2 * mh, X.device,
+                                                          TILE_ROWS["rff"])
     if n == 0:
         return out
     err = _lib().fused_rff_step_f32(
         X.data_ptr(), W.data_ptr(), C.data_ptr(), *ptrs,
-        n, d, mh, k, int(discrepancy == "l1"), float(scale), num_ctas, tiles_per_cta,
-        torch.cuda.current_stream(X.device).cuda_stream,
+        n, d, mh, k, int(discrepancy == "l1"), float(scale), num_ctas, tiles_per_cta, stream,
     )
     build.check(err, "fused_rff_step launch")
     launches["fused_rff_step"] += 1
@@ -259,9 +294,11 @@ def _check_encoded(Yq: torch.Tensor, scale: torch.Tensor) -> None:
 
 
 def _scale_row(Yq: torch.Tensor, scale: torch.Tensor) -> torch.Tensor | None:
-    """The (m,) scale row the kernels read for int8; None for bf16, whose
-    codec scale is identically 1.0 and is not read."""
-    return None if Yq.dtype == torch.bfloat16 else scale.reshape(-1).contiguous()
+    """The m scales the kernels read for int8, contiguous; None for bf16,
+    whose codec scale is identically 1.0 and is not read."""
+    if Yq.dtype == torch.bfloat16:
+        return None
+    return scale if scale.is_contiguous() else scale.contiguous()
 
 
 def fused_dequant_step(
@@ -282,16 +319,15 @@ def fused_dequant_step(
         return fused_dequant_step_ref(Yq, scale, C, discrepancy)
     if Yq.device.type != "cuda":
         raise ValueError(f"fused_dequant_step runs on cuda or cpu, not {Yq.device}")
-    out, ptrs, num_ctas, tiles_per_cta = _outputs(n, k, m, Yq.device, TILE_ROWS["dequant"],
-                                                  DEQUANT_MAX_M)
+    out, ptrs, num_ctas, tiles_per_cta, stream = _outputs(n, k, m, Yq.device,
+                                                          TILE_ROWS["dequant"], DEQUANT_MAX_M)
     if n == 0:
         return out
     row = _scale_row(Yq, scale)
     err = _dequant_lib().fused_dequant_step(
         Yq.data_ptr(), int(row is None), None if row is None else row.data_ptr(),
         C.data_ptr(), *ptrs,
-        n, m, k, int(discrepancy == "l1"), num_ctas, tiles_per_cta,
-        torch.cuda.current_stream(Yq.device).cuda_stream,
+        n, m, k, int(discrepancy == "l1"), num_ctas, tiles_per_cta, stream,
     )
     build.check(err, "fused_dequant_step launch")
     launches["fused_dequant_step"] += 1

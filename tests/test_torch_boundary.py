@@ -173,9 +173,15 @@ def test_library_hash_covers_included_headers(tmp_path, monkeypatch):
     assert [n for n in build.SOURCES if after[n] != before[n]] == ["lloyd_step", "dequant_step"]
     shared = csrc / "tile_math.cuh"
     shared.write_text(shared.read_text() + "\n")
-    assert [n for n in build.SOURCES if build._target(n) == after[n]] == ["flash_attention"]
+    assert [n for n in build.SOURCES if build._target(n) == after[n]] == [
+        "dequant_step", "flash_attention"]
     again = {name: build._target(name) for name in build.SOURCES}
     copies = csrc / "cp_async.cuh"  # through apnc_mainloop.cuh for apnc_embed
     copies.write_text(copies.read_text() + "\n")
     assert [n for n in build.SOURCES if build._target(n) != again[n]] == [
-        "apnc_embed", "lloyd_step", "rff_embed", "flash_attention"]
+        "apnc_embed", "lloyd_step", "rff_embed", "dequant_step", "flash_attention"]
+    again = {name: build._target(name) for name in build.SOURCES}
+    mainloop = csrc / "rff_mainloop.cuh"
+    mainloop.write_text(mainloop.read_text() + "\n")
+    assert [n for n in build.SOURCES if build._target(n) != again[n]] == [
+        "lloyd_step", "rff_embed"]

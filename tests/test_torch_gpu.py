@@ -248,6 +248,43 @@ def test_fused_dequant_step_matches_plain(cuda, codec, disc, nkm):
     assert torch.equal(lloyd_step.dequant_decode(Yq, sc), ref.dequant_ref(Yq, sc))
 
 
+def _random_encoded(n, m, k, codec, seed, device):
+    """An unclustered block staged under ``codec`` and k centroids drawn from
+    other decoded rows: rows sit near several centroids, so the labels hold
+    the two routes' arithmetic to the bit."""
+    from repro_torch.stream.blockstore import get_codec
+    from repro_torch.stream.engine import host_tensor
+
+    rng = np.random.default_rng(seed)
+    Y = (rng.standard_normal((n + k, m)) * m ** -0.5).astype(np.float32)
+    payload, scale = get_codec(codec).encode(Y)
+    Yq = host_tensor(payload).to(device)
+    sc = torch.as_tensor(np.asarray(scale, np.float32)).to(device)
+    C = ref.dequant_ref(Yq[n:], sc).contiguous()
+    return Yq[:n].contiguous(), sc, C
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [24, 256, 800])
+@pytest.mark.parametrize("n", [1, 33, 4097, 20_000])
+@pytest.mark.parametrize("disc", ["l2", "l1"])
+@pytest.mark.parametrize("codec", ["int8", "bf16"])
+def test_fused_dequant_step_labels_equal_decode_then_assign(cuda, codec, disc, n, m):
+    """The fused step's labels are bit for bit those of dequant_decode ->
+    apnc_assign (the same decode, the epilogue repeats apnc_assign.cu), and
+    two launches are bitwise equal; n = 20,000 puts several tiles on a CTA."""
+    from repro_torch.kernels import lloyd_step
+
+    Yq, sc, C = _random_encoded(n, m, 164, codec, 11, cuda)
+    _, _, want = t_assign.apnc_assign(lloyd_step.dequant_decode(Yq, sc), C, disc)
+    got = lloyd_step.fused_dequant_step(Yq, sc, C, disc)
+    again = lloyd_step.fused_dequant_step(Yq, sc, C, disc)
+    torch.cuda.synchronize()
+    assert torch.equal(got[2], want)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))  # bitwise run to run
+    assert torch.equal(got[1], torch.bincount(want.long(), minlength=164).float())
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("codec", ["int8", "bf16"])
 def test_wide_encoded_block_takes_the_decode_route(cuda, codec):
@@ -441,9 +478,9 @@ def _rff_case(n, d, mh, k, seed):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dmh", [(77, 65), (900, 128), (130, 12)],
+@pytest.mark.parametrize("dmh", [(77, 65), (900, 128), (130, 12), (900, 256), (902, 256)],
                          ids=lambda s: "d{}-mh{}".format(*s))
-@pytest.mark.parametrize("n", [1, 33, 4097])
+@pytest.mark.parametrize("n", [1, 33, 4097, 20_000])
 @pytest.mark.parametrize("disc", ["l2", "l1"])
 def test_rff_embed_then_assign_equals_fused_rff_step(cuda, disc, n, dmh):
     """rff_embed_block's Y is the Y fused_rff_step builds inside itself: the

@@ -194,8 +194,7 @@ def test_launch_geometry_covers_every_tile_once(n, tile_rows):
 
 
 def test_each_fused_step_has_its_tile_rows():
-    """fused_apnc_step takes 32-row tiles, the rff and dequant steps 64; a
-    4,096-row block is then 128 and 64 CTAs."""
-    assert t_lloyd_step.TILE_ROWS == {"apnc": 32, "rff": 64, "dequant": 64}
-    assert t_lloyd_step.launch_geometry(4096, t_lloyd_step.TILE_ROWS["apnc"]).num_ctas == 128
-    assert t_lloyd_step.launch_geometry(4096, t_lloyd_step.TILE_ROWS["rff"]).num_ctas == 64
+    """Every fused step takes 32-row tiles: a 4,096-row block is 128 CTAs."""
+    assert t_lloyd_step.TILE_ROWS == {"apnc": 32, "rff": 32, "dequant": 32}
+    for member in ("apnc", "rff", "dequant"):
+        assert t_lloyd_step.launch_geometry(4096, t_lloyd_step.TILE_ROWS[member]).num_ctas == 128

@@ -9,7 +9,7 @@ side (one nvcc each, all at once, under ``build/ablation/``), each with one
 part removed or changed, and times each on the same inputs in one process.
 A variant that removes work computes wrong numbers; only its time is read.
 The variants that keep the arithmetic are checked (labels, bits or the
-reference's tolerance). Three targets:
+reference's tolerance). Five targets:
 
   * ``fused_apnc_step``: one 4,096-row block at the stream path's shape
     (d = 900, l = 500, m = 256, k = 164, rbf), the kernel plus its reduce,
@@ -22,12 +22,21 @@ reference's tolerance). Three targets:
   * ``flash_attention``: the serving prefill (B = 4, S = 4,096, H = 16,
     Dh = 64, f32 and bf16), llama3-8b heads (H = 32, Dh = 128) and their
     grouped form (Hkv = 8), causal, in ms a launch.
+  * ``fused_dequant_step``: one 4,096-row int8 block of the sweep's shape
+    (m = 256, k = 164), the kernel plus its reduce, in us of device time a
+    launch (torch.profiler: the host takes longer than the kernel to launch
+    it); the base variant also at k = 82 and 128, which price the
+    128-centroid chunks' padding of k = 164 (the k tail), and as bf16.
+  * ``fused_rff_step``: one 4,096-row block of the rff stream fit's shape
+    (d = 900, mh = 128, k = 164), likewise; the base variant also at k = 82
+    and 128, at mh = 256 and at a ragged d = 902.
 
 The embed mainloop is ``apnc_mainloop.cuh``, shared by the first two
-targets, so its variants edit that header. Every reading is taken twice, in
-the variants' order and then in the reverse order, since a reading moves
-with its place in the run. Prints one JSON object per variant, then the
-card's name and power limit.
+targets, so its variants edit that header; the epilogue is
+``lloyd_epilogue.cuh``, shared by the three fused steps. Every reading is
+taken twice, in the variants' order and then in the reverse order, since a
+reading moves with its place in the run. Prints one JSON object per
+variant, then the card's name and power limit.
 """
 from __future__ import annotations
 
@@ -52,6 +61,7 @@ from repro_torch.kernels import (  # noqa: E402
     flash_attention,
     lloyd_step,
     ref,
+    rff_embed,
 )
 
 CSRC = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
@@ -60,11 +70,44 @@ ML = "apnc_mainloop.cuh"
 LS = "lloyd_step.cu"
 AE = "apnc_embed.cu"
 FA = "flash_attention.cu"
+EP = "lloyd_epilogue.cuh"
+DQ = "dequant_step.cu"
 _COPY_X = "    stage_block<G, VEC>(stage, X, n, d, G::BN, row0, w * G::BD);\n"
 _COPY_L = "    stage_block<G, VEC>(stage + G::BN * G::SP, L, l, d, G::BL, j0, w * G::BD);\n"
 _COPY_R = "    stage_block<G, VEC>(stage, R, m, l, G::MC, cc * G::MC, j0 + sub * G::RL);\n"
 _WAIT = "  cpasync::wait<G::NS - 2>();\n  __syncthreads();\n  issue_step"
 _NO_COPIES = [(ML, _COPY_X, ""), (ML, _COPY_L, ""), (ML, _COPY_R, "")]
+# The epilogue's variants, shared by the fused_dequant_step and fused_rff_step
+# targets. serial_norms: the row norms as one thread a row after the chunk's
+# FMAs, the others waiting (the first port's serial spot), the same chains;
+# per_row_z: a read-modify-write of the Z partial per row, not per label
+# group, the same bits; no_prefetch: each C sub-chunk copied and waited for
+# at its own step, nothing in flight, the same values; mk16: C sub-chunks of
+# 16 columns, twice the steps and barriers, the same chains.
+_EPILOGUE = {
+    "serial_norms": [(EP, "        if (j0 == 0 && t < BN) {\n", "        if (false) {\n"),
+                     (EP, "    if (!L1 && j0 == 0 && t < BN) s.yy_s[t] = yn;\n",
+                      "    if (!L1 && j0 == 0 && t < BN) {\n      float v2 = 0.0f;\n"
+                      "      for (int c = 0; c < m_pad; ++c) { const float v = ys[c * PAD + t]; "
+                      "v2 = fmaf(v, v, v2); }\n      s.yy_s[t] = v2;\n    }\n")],
+    "per_row_z": [(EP, "      float* z = zp + (size_t)s.grp_lab[gi] * m + c;\n"
+                       "      float v = s.grp_fresh[gi] ? 0.0f : *z;\n"
+                       "      for (unsigned rs = s.grp_rows[gi]; rs; rs &= rs - 1u) "
+                       "v += yc[__ffs(rs) - 1];\n      *z = v;\n",
+                   "      volatile float* z = zp + (size_t)s.grp_lab[gi] * m + c;\n"
+                   "      if (s.grp_fresh[gi]) *z = 0.0f;\n"
+                   "      for (unsigned rs = s.grp_rows[gi]; rs; rs &= rs - 1u) "
+                   "*z = *z + yc[__ffs(rs) - 1];\n")],
+    "no_prefetch": [(EP, "      if (c0 + MK < m_pad) issue_c(s.cs + ((step + 1) & 1) * CBUF, C, "
+                         "k, m, j0, c0 + MK, vec);\n      else if (j0 + KC < k) issue_c(s.cs + "
+                         "((step + 1) & 1) * CBUF, C, k, m, j0 + KC, 0, vec);\n", ""),
+                    (EP, "      cpasync::wait<0>();\n      __syncthreads();  // sub-chunk `step` "
+                         "landed; every thread is done with the other buffer\n",
+                     "      __syncthreads();\n      if (step) issue_c(s.cs + (step & 1) * CBUF, C, k, m, "
+                     "j0, c0, vec);\n      cpasync::wait<0>();\n      __syncthreads();\n")],
+    "no_z_update": [(EP, "  const int ng = *s.n_grp;\n", "  const int ng = 0 * *s.n_grp;\n")],
+    "mk16": [(EP, "constexpr int MK = 32; ", "constexpr int MK = 16; ")],
+}
 _FLASH_NEXT = ("      load_kv<T, DP, VEC>(ring + ((j + 1 - j_lo) % NS) * TL::STAGE_BYTES, kb, vb, "
                "sk.s, sv.s,\n                          k0 + BK, S, Dh);\n")
 
@@ -79,8 +122,8 @@ TARGETS = {
         "no_copies_no_barrier": [*_NO_COPIES, (ML, _WAIT, "  issue_step")],
         "no_s_fma": [(ML, "        fma_tile(acc, a, b);\n", "")],
         "no_y_fma": [(ML, "          fma_tile(y, a, b);\n", "")],
-        "no_epilogue": [(LS, "    lloyd::assign_reduce_tile<L1, G::BN, G::YP, true>(",
-                         "    if (k < 0) lloyd::assign_reduce_tile<L1, G::BN, G::YP, true>(")],
+        "no_epilogue": [(LS, "    lloyd::assign_reduce_tile<L1>(sm.ys,",
+                         "    if (k < 0) lloyd::assign_reduce_tile<L1>(sm.ys,")],
     }),
     "apnc_embed": (AE, {
         "base": [],
@@ -112,11 +155,36 @@ TARGETS = {
                        "widen(vr[TL::VP + nd * 8]));\n", "        (void)vr;\n")],
         "no_next_tile_copies": [(FA, _FLASH_NEXT, "      cpasync::commit();\n")],
     }),
+    "fused_dequant_step": (DQ, {
+        "base": [],
+        "plain_staging": [(DQ, "  const bool vec = (m * sizeof(T)) % 16 == 0 && ((size_t)Yq & 15) == 0;",
+                           "  const bool vec = false;")],
+        **_EPILOGUE,
+        "no_decode": [(DQ, "    decode_tile<T>(ys, raw, scale_s, m_pad);",
+                       "    if (m < 0) decode_tile<T>(ys, raw, scale_s, m_pad);")],
+        "no_epilogue": [(DQ, "    lloyd::assign_reduce_tile<L1>(ys,",
+                         "    if (k < 0) lloyd::assign_reduce_tile<L1>(ys,")],
+    }),
+    "fused_rff_step": (LS, {
+        "base": [],
+        "copy4": [(LS, "  const bool vec = d % 4 == 0 && mh % 4 == 0 && aligned16(X) && aligned16(W);",
+                   "  const bool vec = false;")],
+        **_EPILOGUE,
+        "no_embed": [(LS, "rffml::project<G, VEC>(acc, X, W, n, d, mh,",
+                      "rffml::project<G, VEC>(acc, X, W, n, 0, mh,")],
+        "no_trig": [(LS, "for (int i = 0; i < 4; ++i) sincosf(acc[i][jj], &sv[i], &cv[i]);",
+                     "for (int i = 0; i < 4; ++i) { sv[i] = acc[i][jj]; cv[i] = acc[i][jj]; }")],
+        "no_epilogue": [(LS, "    lloyd::assign_reduce_tile<L1>(ys,",
+                         "    if (k < 0) lloyd::assign_reduce_tile<L1>(ys,")],
+    }),
 }
 #: Variants that keep the kernel's arithmetic (checked), per target.
 EXACT = {"fused_apnc_step": ("base", "three_stages"),
          "apnc_embed": ("base", "short_geometry", "tall_16x4"),
-         "flash_attention": ("base", "bk64", "no_register_cap", "expf", "cvt_split")}
+         "flash_attention": ("base", "bk64", "no_register_cap", "expf", "cvt_split"),
+         "fused_dequant_step": ("base", "plain_staging", "serial_norms", "per_row_z",
+                                "no_prefetch", "mk16"),
+         "fused_rff_step": ("base", "copy4", "serial_norms", "per_row_z", "no_prefetch", "mk16")}
 
 
 def build_variants(targets) -> dict[tuple[str, str], Path]:
@@ -157,6 +225,24 @@ def cuda_time(fn, iters, warmup=2) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_us(fn, reps=40) -> float:
+    """us of device time a call: the kernels' own time under torch.profiler
+    over ``reps`` calls (a call launches faster on the card than the host
+    issues it, so an event-timed loop would read the host)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(getattr(ev, "self_device_time_total", 0) for ev in prof.key_averages()
+                if ev.device_type == DeviceType.CUDA)
+    return total / reps
 
 
 def use(lib_name: str, so: Path) -> None:
@@ -293,8 +379,80 @@ def ablate_flash(libs, dev) -> list[dict]:
     return rows
 
 
+def ablate_step(target, lib_name, shapes, run, libs) -> list[dict]:
+    """One fused step's variants on shapes["main"] (device us a launch, both
+    orders), the exact ones checked bitwise against base on every output,
+    and base alone at the other shapes."""
+    names = [nm for t, nm in libs if t == target]
+    use(lib_name, libs[target, "base"])
+    want = run("main")()
+    for _ in range(200):  # bring the card to its working clock
+        run("main")()
+
+    def read(name):
+        use(lib_name, libs[target, name])
+        return device_us(run("main"))
+
+    main_us = both_orders(names, read)
+    rows = []
+    for name in names:
+        use(lib_name, libs[target, name])
+        row = dict(target=target, variant=name, main_device_us=main_us[name])
+        if name in EXACT[target]:
+            got = run("main")()
+            row["bits_equal_base"] = all(torch.equal(a, b) for a, b in zip(got, want))
+        if name == "base":
+            for sname in shapes:
+                if sname != "main":
+                    row[f"{sname}_device_us"] = device_us(run(sname))
+            row["main_event_us"] = cuda_time(run("main"), 200, 3) * 1e3
+        rows.append(row)
+    return rows
+
+
+def ablate_dequant(libs, dev) -> list[dict]:
+    g = torch.Generator(device=dev).manual_seed(0)
+    m = 256
+    Y = torch.randn((4096 + 164, m), device=dev, generator=g) * m ** -0.5
+    scale = (Y.abs().amax(0, keepdim=True) / 127).clamp(min=1e-12)
+    q = torch.round(Y / scale).clamp(-127, 127).to(torch.int8)
+    C = ref.dequant_ref(q[4096:], scale)
+    one = torch.ones((), device=dev)
+    shapes = {"main": (q[:4096], scale, C), "k82": (q[:4096], scale, C[:82].contiguous()),
+              "k128": (q[:4096], scale, C[:128].contiguous()),
+              "bf16": (Y[:4096].to(torch.bfloat16), one, C)}
+
+    def run(sname):
+        yq, sc, cc = shapes[sname]
+        return lambda: lloyd_step.fused_dequant_step(yq, sc, cc, "l2")
+
+    return ablate_step("fused_dequant_step", "dequant_step", shapes, run, libs)
+
+
+def ablate_rff(libs, dev) -> list[dict]:
+    g = torch.Generator(device=dev).manual_seed(0)
+    X = torch.randn((4096, 902), device=dev, generator=g) * 900 ** -0.5
+    W = torch.randn((902, 256), device=dev, generator=g) * 0.5
+
+    def case(d, mh, k):
+        xb, w = X[:, :d].contiguous(), W[:d, :mh].contiguous()
+        scale = mh ** -0.5
+        return xb, w, rff_embed.rff_embed_block(xb[-k:], w, scale).contiguous(), scale
+
+    shapes = {"main": case(900, 128, 164), "k82": case(900, 128, 82),
+              "k128": case(900, 128, 128), "mh256": case(900, 256, 164),
+              "d902": case(902, 128, 164)}
+
+    def run(sname):
+        xb, w, cc, scale = shapes[sname]
+        return lambda: lloyd_step.fused_rff_step(xb, w, cc, scale, "l2")
+
+    return ablate_step("fused_rff_step", "lloyd_step", shapes, run, libs)
+
+
 ABLATE = {"fused_apnc_step": ablate_fused, "apnc_embed": ablate_embed,
-          "flash_attention": ablate_flash}
+          "flash_attention": ablate_flash, "fused_dequant_step": ablate_dequant,
+          "fused_rff_step": ablate_rff}
 
 
 def main(argv=None) -> int:
@@ -307,7 +465,8 @@ def main(argv=None) -> int:
         return 2
     targets = args.target or list(TARGETS)
     libs = build_variants(targets)
-    build.build_all(("apnc_embed", "apnc_assign", "lloyd_step", "flash_attention"))
+    build.build_all(("apnc_embed", "apnc_assign", "lloyd_step", "flash_attention", "rff_embed",
+                     "dequant_step"))
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
     for target in targets:
