@@ -18,7 +18,9 @@ depth from a seeded random init (``repro_torch.launch.serve.generate``: a
 4 x 4,096-token prefill, every layer's attention in ``flash_attention_bhsd``,
 then 32 greedy decode steps over a bf16 KV cache), held against the plain
 attention, against a decode of the prompt's last token and against an int8
-cache. It times each kernel beside its bound, its plain
+cache. It holds ``apnc_assign_step`` (labels, Z, g and the block's cost in
+one launch) bit for bit against the three fused steps on the Y each one's
+un-fused chain makes. It times each kernel beside its bound, its plain
 version and a PyTorch library call (chain). Every phase prints
 one JSON line. The last lines are the kernel table, the card's name and power
 limit, and ``{"ok": true, ...}``; any failure exits non-zero before them.
@@ -51,10 +53,14 @@ PEAK_TF32_FLOPS = 495e12  # dense, on the tensor cores
 # parity_assign: (n, k, m) of the assign parity cases; parity_blobs: (n, d,
 # l, m, k) of the fused-step parity cases on blob data.
 # parity_dequant: (n, k, m) of the fused_dequant_step cases; the last m is
-# above the kernel's limit and takes the decode route.
+# above the kernel's limit and takes the decode route. parity_assign_step:
+# the n of the bitwise checks of apnc_assign_step against the fused steps (a
+# full block, one row more, several tiles a CTA); assign_wide: (n, k, m) of
+# its streamed kernel above apnc_assign.MAX_M.
 IMAGENET = dict(n=1_262_102, d=900, k=164, separation=1.5, l=500, m=256, iters=20,
                 block_rows=4096, rff_m=128, sweep_k_grid=(82, 164), sweep_restarts=2,
                 parity_assign=((5003, 67, 70), (20_011, 164, 256)),
+                parity_assign_step=(4096, 4097, 40_000), assign_wide=(1500, 70, 1000),
                 parity_blobs=((4096, 77, 150, 100, 67), (1003, 130, 70, 64, 9)),
                 parity_dequant=((4096, 67, 24), (1003, 9, 256), (4096, 164, 256),
                                 (1003, 67, 800), (1003, 9, 900)),
@@ -66,6 +72,7 @@ IMAGENET = dict(n=1_262_102, d=900, k=164, separation=1.5, l=500, m=256, iters=2
 REHEARSAL = dict(n=4_000, d=32, k=8, separation=3.0, l=64, m=16, iters=20,
                  block_rows=512, rff_m=16, sweep_k_grid=(4, 8), sweep_restarts=2,
                  parity_assign=((503, 7, 19), (2003, 13, 32)),
+                 parity_assign_step=(64, 65, 300), assign_wide=(70, 5, 40),
                  parity_blobs=((515, 13, 40, 24, 7), (203, 9, 24, 12, 5)),
                  parity_dequant=((515, 7, 24), (203, 5, 40)),
                  parity_flash=((2, 32, 2, 16), (1, 77, 2, 40)),
@@ -84,7 +91,9 @@ PREVIOUS_MS = {
     "apnc_embed": dict(previous_ms=[71.09, 71.61], previous_from="first CUDA design"),
     "flash_attention_bhsd": dict(previous_ms=[4.98, 5.0], previous_from="first CUDA design"),
     "fused_dequant_step": dict(previous_ms=[27.14, 45.16], previous_from="first CUDA design"),
-    "fused_rff_step": dict(previous_ms=[77.41, 78.2], previous_from="first CUDA design")}
+    "fused_rff_step": dict(previous_ms=[77.41, 78.2], previous_from="first CUDA design"),
+    "apnc_assign": dict(previous_ms=[7.82, 7.87],
+                        previous_from="first CUDA design, without the cost")}
 #: Device-memory rise allowed over a stream fit (the data is 4.54 GB).
 STREAM_RISE_LIMIT = 512 << 20
 
@@ -209,7 +218,22 @@ def phase_build() -> dict:
                     for dh in (40, 64, 128, 256)},
                 dequant_max_m=lloyd_step.DEQUANT_MAX_M,
                 dynamic_smem_bytes_dequant_max_m=lloyd_step.smem_bytes(
-                    "dequant", lloyd_step.DEQUANT_MAX_M))
+                    "dequant", lloyd_step.DEQUANT_MAX_M),
+                apnc_assign=assign_build(entries, cfg))
+
+
+def assign_build(entries, cfg) -> dict:
+    """The assign kernels' ptxas lines (registers, spills) and, for the tiled
+    kernel at the main path's m and the streamed one at assign_wide's m, the
+    dynamic shared memory a CTA and the CTAs an SM holds at once."""
+    from repro_torch.kernels import apnc_assign
+
+    k = cfg["k"]
+    return dict(max_m=apnc_assign.MAX_M,
+                ptxas=[e for e in entries if e["source"] == "apnc_assign"],
+                **{name: dict(m=m, dynamic_smem_bytes=apnc_assign.smem_bytes(m, k),
+                              ctas_per_sm=apnc_assign.ctas_per_sm(m, k))
+                   for name, m in (("tiled", cfg["m"]), ("wide", cfg["assign_wide"][2]))})
 
 
 def blob_block(n, d, k, seed, device):
@@ -365,6 +389,82 @@ def parity_dequant(device, cfg) -> list:
     return out
 
 
+def same_bits(what, got, want) -> None:
+    """Raise unless the two (Z, g, labels, cost) tuples are bitwise equal."""
+    names = ("Z", "g", "labels", "cost")
+    differ = [nm for nm, a, b in zip(names, got, want) if not torch.equal(a, b)]
+    if differ:
+        raise AssertionError(f"{what}: {', '.join(differ)} differ")
+
+
+def parity_assign_step(X, device, cfg) -> dict:
+    """apnc_assign_step against the three fused steps, each on the Y its
+    un-fused chain makes (X -> apnc_embed_block, X -> rff_embed_block,
+    payload -> dequant_decode, int8 and bf16), at every n of
+    cfg["parity_assign_step"], l2 and l1: all four outputs bitwise equal
+    (the same epilogue, tiles and reduction), and two launches bitwise
+    equal. Centroids are other rows' embeddings, so many rows sit near
+    several of them. Then apnc_assign_step against its plain version on blob
+    rows (check_step, cost within rtol 1e-4) at the same n and, above
+    apnc_assign.MAX_M, its streamed kernel."""
+    from repro_torch.core.kernels_fn import self_tuned_rbf
+    from repro_torch.embed.apnc import fit_nystrom
+    from repro_torch.kernels import apnc_assign, apnc_embed, lloyd_step, ref, rff_embed
+    from repro_torch.stream.blockstore import EncodedBlock, get_codec
+
+    k, ns = cfg["k"], cfg["parity_assign_step"]
+    n_max = max(ns)
+    rows, others = X[:n_max], X[n_max:n_max + k]
+    kern = self_tuned_rbf(rows[:4096])
+    p = fit_nystrom(5, rows[:4096], kern, l=cfg["l"], m=cfg["m"])
+    L, R = p.landmarks[0].contiguous(), p.R[0].contiguous()
+    mh = cfg["rff_m"]
+    W = (torch.randn((X.shape[1], mh), generator=torch.Generator().manual_seed(31))
+         * (2.0 * kern.gamma) ** 0.5).to(device)
+    scale = mh ** -0.5
+    C_apnc = apnc_embed.apnc_embed_block(others, L, R, kern)
+    C_rff = rff_embed.rff_embed_block(others, W, scale)
+    step = apnc_assign.apnc_assign_step
+    out = dict(bitwise=[], plain=[])
+    for n in ns:
+        Xn = rows[:n]
+        Y = apnc_embed.apnc_embed_block(Xn, L, R, kern)
+        Y_rff = rff_embed.rff_embed_block(Xn, W, scale)
+        encs = {}
+        for codec in ("int8", "bf16"):
+            enc = to_device(EncodedBlock(*get_codec(codec).encode(Y.cpu().numpy())), device)
+            encs[codec] = (enc, ref.dequant_ref(*to_device(EncodedBlock(
+                *get_codec(codec).encode(C_apnc.cpu().numpy())), device)).contiguous())
+        for disc in ("l2", "l1"):
+            got = step(Y, C_apnc, disc)
+            same_bits(f"apnc_assign_step run to run n={n} {disc}", step(Y, C_apnc, disc), got)
+            same_bits(f"apnc_assign_step vs fused_apnc_step n={n} {disc}", got,
+                      lloyd_step.fused_apnc_step(Xn, L, R, C_apnc, kern, disc))
+            same_bits(f"apnc_assign_step vs fused_rff_step n={n} {disc}",
+                      step(Y_rff, C_rff, disc),
+                      lloyd_step.fused_rff_step(Xn, W, C_rff, scale, disc))
+            for codec, (enc, Cq) in encs.items():
+                same_bits(f"apnc_assign_step vs fused_dequant_step {codec} n={n} {disc}",
+                          step(lloyd_step.dequant_decode(*enc), Cq, disc),
+                          lloyd_step.fused_dequant_step(enc.payload, enc.scale, Cq, disc))
+            out["bitwise"].append(dict(n=n, disc=disc, m=cfg["m"], k=k,
+                                       against=["fused_apnc_step", "fused_rff_step",
+                                                "fused_dequant_step int8",
+                                                "fused_dequant_step bf16"],
+                                       outputs_bitwise_equal=True, run_to_run_equal=True))
+    wn, wk, wm = cfg["assign_wide"]
+    for n, kk, m in [*((n, k, cfg["m"]) for n in ns), (wn, wk, wm)]:
+        Yb, lab = blob_block(n, m, kk, 33, device)
+        C = class_means(Yb, lab, kk)
+        for disc in ("l2", "l1"):
+            res = check_step(f"apnc_assign_step vs plain {disc} n={n} k={kk} m={m}",
+                             lambda: step(Yb, C, disc),
+                             lambda: ref.apnc_assign_step_ref(Yb, C, disc), cost_rtol=1e-4)
+            out["plain"].append(dict(n=n, k=kk, m=m, disc=disc,
+                                     kernel="wide" if m > apnc_assign.MAX_M else "tiled", **res))
+    return out
+
+
 def phase_parity(X, truth, device, cfg) -> dict:
     """Each kernel against its plain version on the same inputs."""
     from repro_torch.core.kernels_fn import Kernel, self_tuned_rbf
@@ -414,6 +514,7 @@ def phase_parity(X, truth, device, cfg) -> dict:
             out["assign"].append(dict(disc=disc, n=n, k=k, m=m, labels_equal=True,
                                       g_equal=True, deterministic=True, z_max_abs_err=err))
     out.update(parity_fused(X, truth, device, cfg))
+    out["assign_step"] = parity_assign_step(X, device, cfg)
     out["fused_dequant"] = parity_dequant(device, cfg)
     out["flash_attention"] = parity_flash(device, cfg)
     out["flash_attention_gqa"] = parity_flash_gqa(device, cfg)
@@ -965,6 +1066,9 @@ def phase_sweep(X, truth, store, stream_est, cfg, device, seed) -> tuple[dict, d
     est_b, res_b = runs["b_f32"]
     vs_fit = dict(label_agreement=float((res_b.best_labels == stream_est.labels_).mean()),
                   bitwise_identical=bool(np.array_equal(res_b.best_labels, stream_est.labels_)),
+                  centroids_bitwise_identical=bool(torch.equal(
+                      res_b.best.centroids, stream_est.model_.centroids)),
+                  iters=dict(sweep=est_b.n_iter_, stream_fit=stream_est.n_iter_),
                   inertia_rel_diff=abs(res_b.best_inertia - stream_est.inertia_)
                   / abs(stream_est.inertia_))
     out["b_f32_vs_stream_fit"] = vs_fit
@@ -1240,7 +1344,7 @@ def device_profile(run) -> dict:
         out = run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    per_kernel, h2d_ms = {}, 0.0
+    per_kernel, counts, h2d_ms = {}, {}, 0.0
     for ev in prof.key_averages():
         if ev.device_type != DeviceType.CUDA:  # kernels only: ops would count twice
             continue
@@ -1251,23 +1355,39 @@ def device_profile(run) -> dict:
             h2d_ms += us / 1e3
         elif us > 0 and not ev.key.startswith("Memcpy"):
             per_kernel[ev.key[:60]] = us / 1e3
+            counts[ev.key[:60]] = ev.count
     busy_ms = sum(per_kernel.values())
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:6]
     return out, dict(wall_ms=wall * 1e3,
                      device_busy_ms=busy_ms if busy_ms else "not measured",
                      device_busy_share=busy_ms / (wall * 1e3) if busy_ms else "not measured",
                      h2d_copy_ms=h2d_ms if h2d_ms else "not measured",
-                     top_device_ms=dict(top))
+                     top_device_ms=dict(top), kernel_launches=counts)
 
 
 def profile_lloyd(Y, k, iters=20) -> dict:
-    """Device busy share of a Lloyd run over the resident Y."""
+    """Device busy share of a Lloyd run over the resident Y, the kernels it
+    launched (kernel_launches) and the device ms of one launch of the assign
+    kernel and of its reduce (over the resident X). Gated: one apnc_assign
+    launch a step and no GEMM (the cost comes out of the assign launch, not
+    a second pass)."""
     from repro_torch.core.lloyd import kmeanspp_init, lloyd
+    from repro_torch.kernels import apnc_assign
 
     init = kmeanspp_init(torch.Generator().manual_seed(3), Y[:1024], k, "l2")
     lloyd(Y, k, discrepancy="l2", iters=2, init=init)  # warm-up
+    before = apnc_assign.launches
     res, prof = device_profile(lambda: lloyd(Y, k, discrepancy="l2", iters=iters, init=init))
-    return dict(iters=res.iters, **prof)
+    launched = apnc_assign.launches - before
+    gemms = [name for name in prof["kernel_launches"] if "gemm" in name.lower()]
+    if launched != res.iters + 1 or gemms:
+        raise AssertionError(f"a traced local Lloyd of {res.iters} steps launched apnc_assign "
+                             f"{launched} times and the GEMMs {gemms}")
+    top, counts = prof["top_device_ms"], prof["kernel_launches"]
+    per_launch = {name: top[key] / counts[key] for key in top
+                  for name in ("assign_kernel", "lloyd_reduce_kernel") if name in key}
+    return dict(iters=res.iters, apnc_assign_launches=launched,
+                apnc_assign_device_ms_per_launch=per_launch, **prof)
 
 
 def profile_stream_pass(store, est, device) -> dict:
@@ -1330,11 +1450,15 @@ def check_assign_main_shape(Y, C, mismatch_share=1e-5, tie_rtol=1e-4) -> dict:
       each is a near tie: its two centroids' f64 squared distances differ by
       at most ``tie_rtol`` * (|y|^2 + max |c|^2), the scale of the f32
       roundoff in yy - 2 y.c + cc.
+
+    Also reported: the step's cost against block_cost in f64.
     """
+    from repro_torch.core.lloyd import block_cost
     from repro_torch.kernels import apnc_assign, ref
 
     n, k = Y.shape[0], C.shape[0]
-    Z, g, lab = apnc_assign.apnc_assign(Y, C, "l2")
+    Z, g, lab, cost = apnc_assign.apnc_assign_step(Y, C, "l2")
+    cost64 = float(block_cost(Y.double(), C.double(), "l2"))
     _, _, lr = ref.apnc_assign_ref(Y, C, "l2")
     lab_l = lab.long()
     if not torch.equal(g, torch.bincount(lab_l, minlength=k).float()):
@@ -1347,7 +1471,8 @@ def check_assign_main_shape(Y, C, mismatch_share=1e-5, tie_rtol=1e-4) -> dict:
                                     mismatch_share, tie_rtol)
     return dict(n=n, k=k, m=Y.shape[1], g_equal_bincount=True, z_max_abs_err=z_err,
                 z_abs_max=float(Z64.abs().max()), label_mismatches_vs_plain=int(rows.numel()),
-                mismatch_max_rel_gap=gap_rel)
+                mismatch_max_rel_gap=gap_rel, cost=float(cost), cost_f64=cost64,
+                cost_rel_err_vs_f64=abs(float(cost) - cost64) / cost64)
 
 
 def reduce_share(run, event_ms=None) -> dict:
@@ -1485,15 +1610,20 @@ def phase_timing(X, est, launches, stream_est, stream_launches, rff_est, rff_lau
     assign_check = check_assign_main_shape(Y, C)
     assign_err = assign_check["z_max_abs_err"]
 
-    def assign_library():
-        lab = torch.cdist(Y, C).argmin(dim=1)
-        Z = torch.zeros((k, m), device=Y.device).index_add_(0, lab, Y)
-        return Z, torch.bincount(lab, minlength=k), lab
+    def assign_step(y):
+        return apnc_assign.apnc_assign_step(y, C, "l2")
 
-    t_assign = cuda_ms(lambda: apnc_assign.apnc_assign(Y, C, "l2"), 20)
-    t_assign_plain = cuda_ms(lambda: ref.apnc_assign_ref(Y, C, "l2"), 20)
-    t_assign_lib = cuda_ms(assign_library, 20)
-    b_assign, by_assign = bound(2.0 * n * k * m, 4.0 * (n * m + 2 * k * m + k + n))
+    t_assign = cuda_ms(lambda: assign_step(Y), 20)
+    t_assign_plain = cuda_ms(lambda: ref.apnc_assign_step_ref(Y, C, "l2"), 20)
+    t_assign_lib = cuda_ms(lambda: library_step(Y, C), 20)
+    b_assign, by_assign = bound(2.0 * n * k * m, 4.0 * (n * m + 2 * k * m + k + n + 1))
+    # Sweep (b)'s use: one launch per 4,096-row block of the f32 cache.
+    t_assign_blocks = cuda_ms(per_block(assign_step, Y, bn), 3, warmup=1)
+    assign_blocks = dict(
+        ms=t_assign_blocks,
+        library_ms=cuda_ms(per_block(lambda yb: library_step(yb, C), Y, bn), 3, warmup=1),
+        kernel_vs_reduce=reduce_share(per_block(assign_step, Y, bn), t_assign_blocks),
+        host_us_per_launch=host_us(lambda: assign_step(Y[:bn])))
     lloyd_profile = profile_lloyd(Y, k)
     y_abs_max = float(Y.abs().max())
     del Y
@@ -1624,7 +1754,8 @@ def phase_timing(X, est, launches, stream_est, stream_launches, rff_est, rff_lau
     ]
     info = dict(phase="timing", shapes=dict(n=n, d=d, l=l, m=m, k=k, block_rows=bn,
                                             rff_m_half=mh),
-                timed_per="launch over the resident X (apnc_embed, apnc_assign); pass over "
+                timed_per="launch over the resident X (apnc_embed, apnc_assign with its "
+                          "cost); pass over "
                           f"the resident X in {bn}-row blocks (the fused and RFF kernels); "
                           "pass over the int8 cache resident on the card at k = 164, one "
                           "candidate (fused_dequant_step)",
@@ -1635,6 +1766,7 @@ def phase_timing(X, est, launches, stream_est, stream_launches, rff_est, rff_lau
                 flash_attention=flash_rows,
                 lloyd_profile=lloyd_profile,
                 assign_main_shape=assign_check, fused_apnc_block=fused_check,
+                apnc_assign_blocks_pass=assign_blocks,
                 fused_rff_block=rff_check, fused_dequant_block=dq_check,
                 rff_embed_whole_x_launch=rff_whole,
                 fused_apnc_step_kernel_vs_reduce=fused_split,
@@ -1647,7 +1779,8 @@ def phase_timing(X, est, launches, stream_est, stream_launches, rff_est, rff_lau
                     "flash_attention_bhsd": dict(ms=flash["ms"],
                                                  **PREVIOUS_MS["flash_attention_bhsd"]),
                     "fused_dequant_step": dict(ms=t_dq, **PREVIOUS_MS["fused_dequant_step"]),
-                    "fused_rff_step": dict(ms=t_frff, **PREVIOUS_MS["fused_rff_step"])},
+                    "fused_rff_step": dict(ms=t_frff, **PREVIOUS_MS["fused_rff_step"]),
+                    "apnc_assign": dict(ms=t_assign, **PREVIOUS_MS["apnc_assign"])},
                 apnc_embed_blocks_pass=embed_blocks,
                 rff_embed_atol=rff_tol,
                 embed_max_rel_err=embed_err / y_abs_max,

@@ -120,6 +120,21 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
+#: The library each name was last configured as: a launch pays for no ctypes
+#: set-up, and a library swapped into ``_LIBS`` is configured anew.
+_CONFIGURED: dict[str, ctypes.CDLL] = {}
+
+
+def configured(name: str, configure) -> ctypes.CDLL:
+    """``load(name)``, with ``configure(lib)`` (argument types, checks against
+    the Python side) run once for each library object."""
+    lib = load(name)
+    if _CONFIGURED.get(name) is not lib:
+        configure(lib)
+        _CONFIGURED[name] = lib
+    return lib
+
+
 def check(err: int, what: str) -> None:
     """Raise if a C entry returned a CUDA error."""
     if err != 0:

@@ -49,11 +49,13 @@
 //    A CTA may have 232,448 bytes, so m <= 800 (dequant_step_max_m). Wider
 //    blocks take decode_kernel below, then apnc_assign.cu.
 //  * Measured (NVIDIA H100 80GB HBM3, 700.00 W; chip_smoke.py timing, a pass
-//    over the sweep's int8 cache at k = 164, 309 launches): 11.2-11.3 ms of
-//    device time, 8.7-8.8 the kernel and 2.5 the reduce; 14.9-23.3 ms
-//    event-timed, the rest the host's launches. tools/kernel_ablation.py puts a 36 us launch
-//    at 5 us for staging, decode and an empty reduce, 4 us for the Z update,
-//    the rest in the distances (about half the f32 rate) and the reduce.
+//    over the sweep's int8 cache at k = 164, 309 launches): 10.9 ms of
+//    device time, 8.4 the kernel and 2.5 the reduce (with the epilogue's
+//    narrowed k tail and batched Z loads; 11.2-11.3 before); 15.4-22.3 ms
+//    event-timed, the rest the host's launches. tools/kernel_ablation.py
+//    puts a 35 us launch at 5 us for staging, decode and an empty reduce,
+//    4.6 us for the Z update, the rest in the distances (about half the f32
+//    rate) and the reduce.
 #include <cuda_runtime.h>
 
 #include <stddef.h>
@@ -189,7 +191,8 @@ fused_dequant_kernel(const T* __restrict__ Yq, const float* __restrict__ scale,
     decode_tile<T>(ys, raw, scale_s, m_pad);
     // The epilogue's first barrier ends the decode's reads of the raw tile;
     // the next tile's copies go into the same space once its C reads are done.
-    lloyd::assign_reduce_tile<L1>(ys, m_pad, C, k, m, row0, min(BN, n - row0), es, labels, zp,
+    lloyd::assign_reduce_tile<L1>(ys, m_pad, C, k, m, row0, min(BN, n - row0),
+                                  tile == tile_lo, es, labels, zp,
                                   gpc, cost_acc, [&] {
                                     if (tile + 1 < tile_hi)
                                       stage_tile<T, VEC>(raw, Yq, n, m, m_pad, row0 + BN);

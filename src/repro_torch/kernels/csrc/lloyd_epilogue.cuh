@@ -1,14 +1,17 @@
 // The epilogue shared by the fused Lloyd-step kernels (lloyd_step.cu,
-// dequant_step.cu): distances -> argmin -> per-CTA (Z, g, cost) partials,
-// then a fixed-order reduction of the partials.
+// dequant_step.cu) and the assign kernel (apnc_assign.cu): distances ->
+// argmin -> per-CTA (Z, g, cost) partials, then a fixed-order reduction of
+// the partials. Four kernels that hand it the same Y tiles under the same
+// launch geometry give the same (Z, g, labels, cost) bit for bit.
 //
 // Replaces the shared epilogue of the Pallas TPU kernels,
-// src/repro/kernels/lloyd_step.py::_assign_reduce.
+// src/repro/kernels/lloyd_step.py::_assign_reduce, and the body of
+// src/repro/kernels/apnc_assign.py::_assign_kernel.
 //
 // A CTA holds one tile of BN = 32 rows of Y in shared memory, transposed, as
 // ys[c * PAD + r] for column c < m_pad (zero for c >= m) and row r < 32, at
-// pitch PAD = 36. The epilogue follows csrc/apnc_assign.cu step for step, so
-// for the same Y tile it gives the same labels bit for bit:
+// pitch PAD = 36. Its labels are bit for bit those of the first port's assign
+// kernel, which apnc_assign.cu's assign_wide_kernel still runs for m > 832:
 //  * centroids go in chunks of KC = 256 and sub-chunks of MK = 32 columns,
 //    each distance one chain over the columns in ascending order; l2
 //    compares yy - 2 y.c + cc clamped at 0, l1 sums |y - c|; ties go to the
@@ -17,8 +20,12 @@
 //    the threads.
 //  * a thread owns 8 rows x 4 centroids (32 FMAs for 3 float4 reads from
 //    shared memory): warp w takes rows 8 (w / 2) .. + 7 and centroids
-//    128 (w % 2) + lane + 32 q, so its Y reads are broadcasts and its C reads
-//    32 rows in distinct banks (pitch CP = 36: 9 16-byte words, odd).
+//    lane + 32 (w % 2 + 2 q), q < 4, so its Y reads are broadcasts and its C
+//    reads 32 rows in distinct banks (pitch CP = 36: 9 16-byte words, odd).
+//  * a chunk's groups of 32 centroids at or past k are skipped, warp by
+//    warp: the two halves of the row groups take alternate groups, so at
+//    k = 164 every warp runs 3 of its 4 (192 of 256 centroids' FMAs) and the
+//    last chunk of any k pads to a multiple of 64, not of 256.
 //  * C sub-chunks come in their natural (centroid, column) layout by cp.async
 //    into two buffers: sub-chunk s + 1 is in flight while s is in use, one
 //    barrier a sub-chunk. Once the last is read, the caller's after_c() runs
@@ -26,15 +33,18 @@
 //    rest of the epilogue runs.
 //  * every norm is one chain in ascending order, and none holds the CTA up:
 //    thread t sums centroid t of the chunk, threads t < 32 also row t of the
-//    tile in the first chunk, one sub-chunk at a time beside the FMAs.
+//    tile in the first chunk, one sub-chunk at a time beside the FMAs. Where
+//    k fits one chunk, the centroid norms of a CTA's first tile stay in
+//    shared memory for its later tiles (C does not change within a launch).
 //  * (Z, g): one lane a row groups the tile's rows by label (match.any), so
 //    each distinct label of the tile is one group of rows in row order. Each
 //    (label, column) element of the CTA's (k, m) Z partial is owned by one
 //    thread, which loads it once (or starts from 0.0f if the CTA has not met
 //    the label yet), adds the group's rows in row order and stores it once:
-//    the bits of a read-modify-write per row, one store per group. The
-//    group's leader adds its size to the label's count. Rows of labels the
-//    CTA never met are never written; lloyd_reduce_kernel skips them (their
+//    the bits of a read-modify-write per row, one store per group, the loads
+//    of ZB = 8 groups in flight together. The group's leader adds its size
+//    to the label's count. Rows of labels the CTA never met are never
+//    written; lloyd_reduce_kernel skips them (their
 //    count partial is 0, and adding +0.0 to a sum that starts at +0.0 never
 //    changes it), so no CTA zeroes its Z partial;
 //  * lloyd_reduce_kernel sums the P partials in the order p = 0..P-1. No
@@ -62,6 +72,7 @@ constexpr int KC = 256;       // centroids per chunk: thread t sums centroid t's
 constexpr int MK = 32;        // embedding columns per C sub-chunk
 constexpr int CP = MK + 4;    // pitch of a C sub-chunk (9 16-byte words: odd)
 constexpr int CBUF = KC * CP;  // floats in one C sub-chunk buffer
+constexpr int ZB = 8;         // Z partial loads in flight a thread
 constexpr int REDUCE_THREADS = 256;
 static_assert(BN == 32 && KC == THREADS && (THREADS / 32) * RI == 2 * BN, "the thread tiling");
 
@@ -124,17 +135,17 @@ __device__ __forceinline__ void issue_c(float* buf, const float* __restrict__ C,
   cpasync::commit();
 }
 
-// acc[i][q] over four columns: a[cc] holds rows i of column cc (two float4),
-// b[q] centroid q's four columns.
-template <bool L1>
+// acc[i][q] over four columns, for the centroids q < NQ: a[cc] holds rows i
+// of column cc (two float4), b[q] centroid q's four columns.
+template <bool L1, int NQ>
 __device__ __forceinline__ void dist_8x4(float (&acc)[RI][4], const float4 (&a)[8],
-                                         const float4 (&b)[4]) {
+                                         const float4 (&b)[NQ]) {
 #pragma unroll
   for (int cc = 0; cc < 4; ++cc) {
     const float av[RI] = {a[2 * cc].x, a[2 * cc].y, a[2 * cc].z, a[2 * cc].w,
                           a[2 * cc + 1].x, a[2 * cc + 1].y, a[2 * cc + 1].z, a[2 * cc + 1].w};
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
+    for (int q = 0; q < NQ; ++q) {
       const float bv = cc == 0 ? b[q].x : cc == 1 ? b[q].y : cc == 2 ? b[q].z : b[q].w;
 #pragma unroll
       for (int i = 0; i < RI; ++i) {
@@ -145,22 +156,45 @@ __device__ __forceinline__ void dist_8x4(float (&acc)[RI][4], const float4 (&a)[
   }
 }
 
+// The distance FMAs of one C sub-chunk cb (columns c0 .. c0 + MK of the
+// tile) for the thread's RI rows and its first NQ centroids: NQ is a
+// template argument, so every loop is unrolled and every index static.
+template <bool L1, int NQ>
+__device__ __forceinline__ void sub_chunk(float (&acc)[RI][4], const float* ys, const float* cb,
+                                          int c0, int lane, int half, int ty) {
+#pragma unroll 2
+  for (int c = 0; c < MK; c += 4) {
+    float4 b[NQ], a[8];
+#pragma unroll
+    for (int q = 0; q < NQ; ++q)
+      b[q] = *reinterpret_cast<const float4*>(cb + (lane + 32 * (half + 2 * q)) * CP + c);
+#pragma unroll
+    for (int cc = 0; cc < 4; ++cc) {
+      a[2 * cc] = *reinterpret_cast<const float4*>(ys + (c0 + c + cc) * PAD + RI * ty);
+      a[2 * cc + 1] = *reinterpret_cast<const float4*>(ys + (c0 + c + cc) * PAD + RI * ty + 4);
+    }
+    dist_8x4<L1, NQ>(acc, a, b);
+  }
+}
+
 // One tile: labels of rows [row0, row0 + rows), their (Z, g) added to the
 // CTA's partials zp (k, m) and gp (k,), and (thread 0) their cost added to
-// cost_acc. The caller has written ys and has no cp.async copy in flight
-// (its waits here would wait for it too); the first barrier here makes ys
-// complete and frees the C buffers. after_c() runs on every thread once no
-// thread reads the C buffers any more. The caller syncs before overwriting
-// ys or the scratch.
+// cost_acc; `first`: the CTA's first tile. The caller has written ys and
+// has no cp.async copy in flight (its waits here would wait for it too); the
+// first barrier here makes ys complete and frees the C buffers. after_c()
+// runs on every thread once no thread reads the C buffers any more. The
+// caller syncs before overwriting ys or the scratch (cc_s outlives a tile).
 template <bool L1, class AfterC>
 __device__ void assign_reduce_tile(const float* ys, int m_pad, const float* __restrict__ C,
-                                   int k, int m, int row0, int rows, const EpilogueSmem& s,
+                                   int k, int m, int row0, int rows, bool first,
+                                   const EpilogueSmem& s,
                                    int* __restrict__ labels, float* __restrict__ zp,
                                    float* __restrict__ gp, float& cost_acc, AfterC after_c) {
   const int t = threadIdx.x;
   const int lane = t & 31, warp = t >> 5;
-  const int ty = warp >> 1, half = warp & 1;  // rows RI ty + i; centroids 128 half + lane + 32 q
+  const int ty = warp >> 1, half = warp & 1;  // rows RI ty + i; centroids lane + 32 (half + 2 q)
   const bool vec = (m & 3) == 0 && ((size_t)C & 15) == 0;
+  const bool cc_kept = !first && k <= KC;  // cc_s holds the first tile's centroid norms
   __syncthreads();  // ys complete; every thread is done with the C buffers' earlier use
   issue_c(s.cs, C, k, m, 0, 0, vec);
 
@@ -174,6 +208,8 @@ __device__ void assign_reduce_tile(const float* ys, int m_pad, const float* __re
   for (int j0 = 0; j0 < k; j0 += KC) {
     float acc[RI][4] = {};
     float cn = 0.0f;  // |c_{j0 + t}|^2
+    const int groups = (min(k - j0, KC) + 31) / 32;  // groups of 32 centroids in the chunk
+    const int nq = (groups - half + 1) / 2;          // this warp's: half, half + 2, ...
     for (int c0 = 0; c0 < m_pad; c0 += MK, ++step) {
       cpasync::wait<0>();
       __syncthreads();  // sub-chunk `step` landed; every thread is done with the other buffer
@@ -181,13 +217,15 @@ __device__ void assign_reduce_tile(const float* ys, int m_pad, const float* __re
       else if (j0 + KC < k) issue_c(s.cs + ((step + 1) & 1) * CBUF, C, k, m, j0 + KC, 0, vec);
       const float* cb = s.cs + (step & 1) * CBUF;
       if (!L1) {
+        if (!cc_kept) {
 #pragma unroll
-        for (int c = 0; c < MK; c += 4) {
-          const float4 v = *reinterpret_cast<const float4*>(cb + t * CP + c);
-          cn = fmaf(v.x, v.x, cn);
-          cn = fmaf(v.y, v.y, cn);
-          cn = fmaf(v.z, v.z, cn);
-          cn = fmaf(v.w, v.w, cn);
+          for (int c = 0; c < MK; c += 4) {
+            const float4 v = *reinterpret_cast<const float4*>(cb + t * CP + c);
+            cn = fmaf(v.x, v.x, cn);
+            cn = fmaf(v.y, v.y, cn);
+            cn = fmaf(v.z, v.z, cn);
+            cn = fmaf(v.w, v.w, cn);
+          }
         }
         if (j0 == 0 && t < BN) {
 #pragma unroll
@@ -197,26 +235,20 @@ __device__ void assign_reduce_tile(const float* ys, int m_pad, const float* __re
           }
         }
       }
-#pragma unroll 2
-      for (int c = 0; c < MK; c += 4) {
-        float4 b[4], a[8];
-#pragma unroll
-        for (int q = 0; q < 4; ++q)
-          b[q] = *reinterpret_cast<const float4*>(cb + (128 * half + lane + 32 * q) * CP + c);
-#pragma unroll
-        for (int cc = 0; cc < 4; ++cc) {
-          a[2 * cc] = *reinterpret_cast<const float4*>(ys + (c0 + c + cc) * PAD + RI * ty);
-          a[2 * cc + 1] = *reinterpret_cast<const float4*>(ys + (c0 + c + cc) * PAD + RI * ty + 4);
-        }
-        dist_8x4<L1>(acc, a, b);
+      switch (nq) {  // warp-uniform
+        case 4: sub_chunk<L1, 4>(acc, ys, cb, c0, lane, half, ty); break;
+        case 3: sub_chunk<L1, 3>(acc, ys, cb, c0, lane, half, ty); break;
+        case 2: sub_chunk<L1, 2>(acc, ys, cb, c0, lane, half, ty); break;
+        case 1: sub_chunk<L1, 1>(acc, ys, cb, c0, lane, half, ty); break;
+        default: break;  // none of this warp's groups is below k
       }
     }
-    if (!L1) s.cc_s[t] = cn;
+    if (!L1 && !cc_kept) s.cc_s[t] = cn;
     if (!L1 && j0 == 0 && t < BN) s.yy_s[t] = yn;
     __syncthreads();
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
-      const int jl = 128 * half + lane + 32 * q;
+      const int jl = lane + 32 * (half + 2 * q);
       if (j0 + jl >= k) continue;
 #pragma unroll
       for (int i = 0; i < RI; ++i) {
@@ -273,15 +305,23 @@ __device__ void assign_reduce_tile(const float* ys, int m_pad, const float* __re
   }
   __syncthreads();
 
-  // Z: thread t owns columns c = t (mod THREADS); one store a group.
+  // Z: thread t owns columns c = t (mod THREADS); one load and one store a
+  // group. The loads of ZB groups go out together (their labels differ, so
+  // their elements do), then each group adds its rows in row order.
   const int ng = *s.n_grp;
   for (int c = t; c < m; c += THREADS) {
     const float* yc = ys + c * PAD;
-    for (int gi = 0; gi < ng; ++gi) {
-      float* z = zp + (size_t)s.grp_lab[gi] * m + c;
-      float v = s.grp_fresh[gi] ? 0.0f : *z;
-      for (unsigned rs = s.grp_rows[gi]; rs; rs &= rs - 1u) v += yc[__ffs(rs) - 1];
-      *z = v;
+    for (int g0 = 0; g0 < ng; g0 += ZB) {
+      float v[ZB];
+#pragma unroll
+      for (int u = 0; u < ZB; ++u)
+        if (g0 + u < ng) v[u] = s.grp_fresh[g0 + u] ? 0.0f : zp[(size_t)s.grp_lab[g0 + u] * m + c];
+#pragma unroll
+      for (int u = 0; u < ZB; ++u) {
+        if (g0 + u >= ng) break;
+        for (unsigned rs = s.grp_rows[g0 + u]; rs; rs &= rs - 1u) v[u] += yc[__ffs(rs) - 1];
+        zp[(size_t)s.grp_lab[g0 + u] * m + c] = v[u];
+      }
     }
   }
   if (t == 0)

@@ -63,8 +63,9 @@
 //    128 CTAs read the same L chunk from L2 at once; a thread-block cluster
 //    multicasting it would halve that traffic), the epilogue about 20 %, the
 //    (Z, g, cost) reduce 4 %. With the 8 x 4 epilogue (NVIDIA H100 80GB
-//    HBM3, 700.00 W; chip_smoke.py timing) a pass reads 71.3-71.8 ms,
-//    78.6-78.7 with the 4 x 4 one.
+//    HBM3, 700.00 W; chip_smoke.py timing) a pass reads 69.7-70.3 ms
+//    (71.3-71.8 before its k tail was narrowed), 78.6-78.7 with the 4 x 4
+//    one.
 //
 // fused_rff_kernel (redesigned for Hopper; the first port ran 64-row tiles,
 // 64 CTAs a 4,096-row block, with synchronous 32-feature chunks, two barriers
@@ -88,8 +89,8 @@
 //  * Ragged n, d and mh are zero-filled by the loads; the padded columns
 //    [m, m_pad) of Y^T are zeroed once a CTA.
 //  * Measured (NVIDIA H100 80GB HBM3, 700.00 W; chip_smoke.py timing, a pass
-//    of the rff stream fit, d = 900, mh = 128, k = 164): 21.8-22.1 ms of
-//    device time, 19.8-20.1 the kernel and 2.0 the reduce; 22.9-28.7 ms
+//    of the rff stream fit, d = 900, mh = 128, k = 164): 21.8 ms of
+//    device time, 19.8 the kernel and 2.0 the reduce; 22.8-25.5 ms
 //    event-timed.
 //    tools/kernel_ablation.py puts 40 of a 73 us launch in the projection
 //    (41 % of the f32 rate, as rff_embed_block), 4 in the trig and about 30
@@ -144,8 +145,8 @@ fused_apnc_kernel(const float* __restrict__ X, const float* __restrict__ L,
     const int rows = min(G::BN, n - row0);
     __syncthreads();  // the previous tile's epilogue is done with ys, the ring and the scratch
     apncml::embed_tile<G, VEC, false>(X, L, R, n, d, l, m, m_pad, row0, sm, kp, nullptr, 0);
-    lloyd::assign_reduce_tile<L1>(sm.ys, m_pad, C, k, m, row0, rows, es, labels, zp, gpc,
-                                  cost_acc, [] {});
+    lloyd::assign_reduce_tile<L1>(sm.ys, m_pad, C, k, m, row0, rows, tile == tile_lo, es, labels,
+                                  zp, gpc, cost_acc, [] {});
   }
   if (threadIdx.x == 0) costp[blockIdx.x] = cost_acc;
 }
@@ -209,8 +210,8 @@ fused_rff_kernel(const float* __restrict__ X, const float* __restrict__ W,
             make_float4(scale * sv[0], scale * sv[1], scale * sv[2], scale * sv[3]);
       }
     }
-    lloyd::assign_reduce_tile<L1>(ys, m_pad, C, k, m, row0, rows, es, labels, zp, gpc, cost_acc,
-                                  [] {});
+    lloyd::assign_reduce_tile<L1>(ys, m_pad, C, k, m, row0, rows, tile == tile_lo, es, labels, zp,
+                                  gpc, cost_acc, [] {});
   }
   if (threadIdx.x == 0) costp[blockIdx.x] = cost_acc;
 }

@@ -96,25 +96,12 @@ def _configure_steps(lib: ctypes.CDLL) -> None:
         raise RuntimeError("lloyd_step.cu and lloyd_step.py disagree on MAX_M or TILE_ROWS")
 
 
-#: The library each name was last configured as: a launch a block pays for
-#: no ctypes set-up, and a library swapped into ``build`` is configured anew.
-_CONFIGURED: dict[str, ctypes.CDLL] = {}
-
-
-def _configured(name: str, configure) -> ctypes.CDLL:
-    lib = build.load(name)
-    if _CONFIGURED.get(name) is not lib:
-        configure(lib)
-        _CONFIGURED[name] = lib
-    return lib
-
-
 def _dequant_lib() -> ctypes.CDLL:
-    return _configured("dequant_step", _configure_dequant)
+    return build.configured("dequant_step", _configure_dequant)
 
 
 def _lib() -> ctypes.CDLL:
-    return _configured("lloyd_step", _configure_steps)
+    return build.configured("lloyd_step", _configure_steps)
 
 
 def smem_bytes(member: str, m: int) -> int:
@@ -168,9 +155,10 @@ def launch_geometry(n: int, tile_rows: int) -> Geometry:
     return Geometry(n_tiles, -(-n_tiles // max(1, tiles_per_cta)), tiles_per_cta)
 
 
-#: The per-CTA (Z, g, cost) partials of the fused launches: one buffer per
-#: (device, stream), grown as needed and kept. The launches on a stream run
-#: one after another, so one buffer serves them all. Allocated a launch, the
+#: The per-CTA (Z, g, cost) partials of the fused launches and of
+#: ``apnc_assign``: one buffer per (device, stream), grown as needed and kept.
+#: The launches on a stream run one after another, so one buffer serves them
+#: all. Allocated a launch, the
 #: 21.5 MB of a 4,096-row block at k = 164, m = 256 made a pass of 309
 #: launches read 28-271 ms event-timed against 15-21 ms with this buffer, its
 #: device time 11 ms either way (chip_smoke.py timing, NVIDIA H100 80GB HBM3,
@@ -178,12 +166,13 @@ def launch_geometry(n: int, tile_rows: int) -> Geometry:
 _SCRATCH: dict[tuple[int, int], torch.Tensor] = {}
 
 
-def _outputs(n: int, k: int, m: int, dev: torch.device, tile_rows: int, max_m: int = MAX_M):
+def step_outputs(n: int, k: int, m: int, dev: torch.device, tile_rows: int,
+                 max_m: int | None = MAX_M):
     """The outputs (Z, g, labels, cost) of one launch, the pointers the C entry
     takes for them and for the per-CTA scratch (its three parts by offset in
     ``_SCRATCH``), the launch's CTA count and tiles per CTA, and the stream it
-    launches on."""
-    if m > max_m:
+    launches on. ``max_m``: the widest m the kernel's tile takes (None: any)."""
+    if max_m is not None and m > max_m:
         raise NotImplementedError(
             f"the fused Lloyd step holds a ({tile_rows} x m) Y tile in shared memory and "
             f"takes m <= {max_m}, got m={m}; the ops layer routes wider blocks "
@@ -232,7 +221,7 @@ def fused_apnc_step(
         raise ValueError(f"fused_apnc_step runs on cuda or cpu, not {X.device}")
     if kernel.name not in _KINDS:
         raise ValueError(f"unknown kernel {kernel.name!r}")
-    out, ptrs, num_ctas, tiles_per_cta, stream = _outputs(n, k, m, X.device, TILE_ROWS["apnc"])
+    out, ptrs, num_ctas, tiles_per_cta, stream = step_outputs(n, k, m, X.device, TILE_ROWS["apnc"])
     if n == 0:
         return out
     err = _lib().fused_apnc_step_f32(
@@ -263,8 +252,8 @@ def fused_rff_step(
         return fused_rff_step_ref(X, W, C, scale, discrepancy)
     if X.device.type != "cuda":
         raise ValueError(f"fused_rff_step runs on cuda or cpu, not {X.device}")
-    out, ptrs, num_ctas, tiles_per_cta, stream = _outputs(n, k, 2 * mh, X.device,
-                                                          TILE_ROWS["rff"])
+    out, ptrs, num_ctas, tiles_per_cta, stream = step_outputs(n, k, 2 * mh, X.device,
+                                                              TILE_ROWS["rff"])
     if n == 0:
         return out
     err = _lib().fused_rff_step_f32(
@@ -319,8 +308,8 @@ def fused_dequant_step(
         return fused_dequant_step_ref(Yq, scale, C, discrepancy)
     if Yq.device.type != "cuda":
         raise ValueError(f"fused_dequant_step runs on cuda or cpu, not {Yq.device}")
-    out, ptrs, num_ctas, tiles_per_cta, stream = _outputs(n, k, m, Yq.device,
-                                                          TILE_ROWS["dequant"], DEQUANT_MAX_M)
+    out, ptrs, num_ctas, tiles_per_cta, stream = step_outputs(n, k, m, Yq.device,
+                                                              TILE_ROWS["dequant"], DEQUANT_MAX_M)
     if n == 0:
         return out
     row = _scale_row(Yq, scale)

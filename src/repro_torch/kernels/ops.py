@@ -120,7 +120,7 @@ def fused_member(params) -> str | None:
 
     "apnc" for q = 1 Nystrom/SD and "rff" for the rff member, each while the
     embedding width m (rff: 2 * m_half) is at most ``lloyd_step.MAX_M``
-    (512): the kernel holds a (64 x m) Y tile in shared memory. Anything else
+    (512): the kernel holds a (32 x m) Y tile in shared memory. Anything else
     (q > 1 APNC, wider m, members without a fused kernel) returns None, and
     the plan runs the un-fused kernels (the member's embedding, then
     ``apnc_assign``).
@@ -153,8 +153,14 @@ def fused_lloyd_step(x: torch.Tensor, params, centroids: torch.Tensor):
 
 def _assign_stats_cost_y(y: torch.Tensor, centroids: torch.Tensor, discrepancy: str,
                          policy: ComputePolicy | None = None):
+    """(Z, g, labels, cost) of an embedded block: where ``policy.resolve_kernels``
+    says the kernels, one ``apnc_assign_step`` launch, the cost included;
+    otherwise the plain ``assign_stats`` and ``block_cost``."""
     from repro_torch.core.lloyd import assign_stats, block_cost
 
+    if as_policy(policy).resolve_kernels(y.device):
+        return _assign.apnc_assign_step(y.to(torch.float32).contiguous(),
+                                        centroids.to(torch.float32).contiguous(), discrepancy)
     Z, g, labels = assign_stats(y, centroids, centroids.shape[0], discrepancy, policy)
     return Z, g, labels, block_cost(y, centroids, discrepancy)
 
@@ -164,9 +170,9 @@ def dequant_step(block: EncodedBlock, centroids: torch.Tensor, discrepancy: str,
     """(Z, g, labels, cost) of one quantized cache block (int8 or bf16 payload
     and its scale). Where ``policy.resolve_kernels`` says the kernels (by
     default on a card) the route follows the shapes: ``fused_dequant_step``
-    for m <= ``lloyd_step.DEQUANT_MAX_M`` (800: the decoded (64 x m) tile
+    for m <= ``lloyd_step.DEQUANT_MAX_M`` (800: the decoded (32 x m) tile
     lives in shared memory), wider blocks through the ``dequant_decode``
-    kernel into device memory and then ``apnc_assign``. Otherwise the plain
+    kernel into device memory and then ``apnc_assign_step``. Otherwise the plain
     version on the payload's device, which decodes the same way."""
     payload, scale = block
     C = centroids.to(torch.float32).contiguous()
@@ -192,14 +198,15 @@ class LloydStepPlan:
 
       * X-mode, ``fused_member(params)`` not None: the fused kernel
         (``fused_apnc_step`` or ``fused_rff_step``), one launch a block;
-      * X-mode otherwise: the member's embedding, then ``apnc_assign`` and
-        ``block_cost``;
-      * Y-mode: ``apnc_assign`` and ``block_cost``;
+      * X-mode otherwise: the member's embedding, then ``apnc_assign_step``
+        (one launch, the block's cost included);
+      * Y-mode: ``apnc_assign_step``;
       * Y-mode over an ``EncodedBlock``: ``dequant_step`` (the fused
         ``fused_dequant_step`` kernel up to m = 800).
 
     Each kernel runs where ``policy.resolve_kernels`` says (by default on
-    CUDA blocks) and its plain version elsewhere; ``kernels=False`` also
+    CUDA blocks) and its plain version elsewhere (for ``apnc_assign_step``,
+    ``assign_stats`` and ``block_cost``); ``kernels=False`` also
     drops the fused route, as the JAX package's plan does without Pallas.
     ``block_map(cell)`` / ``assign_map(cell)`` close over a 1-element
     centroids cell for the stream engine, so drivers swap centroids between

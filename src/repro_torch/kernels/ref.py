@@ -1,7 +1,7 @@
 """Plain PyTorch versions of the hand-written kernels.
 
-They compute the same functions as ``apnc_embed``, ``apnc_assign``,
-``rff_embed_block``, ``fused_apnc_step``, ``fused_rff_step`` and
+They compute the same functions as ``apnc_embed``, ``apnc_assign`` (and
+``apnc_assign_step``), ``rff_embed_block``, ``fused_apnc_step``, ``fused_rff_step`` and
 ``fused_dequant_step`` (and its decode) and ``flash_attention_bhsd``, with the same
 contracts as the JAX package's oracles. The wrappers use them for CPU
 tensors; on the card they are only the yardstick the kernels are held against.
@@ -50,7 +50,12 @@ def rff_embed_ref(X: torch.Tensor, W: torch.Tensor, scale: float) -> torch.Tenso
     return scale * torch.cat([torch.cos(proj), torch.sin(proj)], dim=-1)
 
 
-def _step_ref(Y, C, discrepancy):
+def apnc_assign_step_ref(
+    Y: torch.Tensor, C: torch.Tensor, discrepancy: Discrepancy
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``apnc_assign_ref`` and the block's cost: Y (n, m), C (k, m) -> Z (k, m)
+    f32, g (k,) f32, labels (n,) int32, cost () f32 in ``block_cost``'s units
+    (the sum over rows of min e, sqrt'd for l2)."""
     Z, g, labels = apnc_assign_ref(Y, C, discrepancy)
     return Z, g, labels, block_cost(Y, C.to(torch.float32), discrepancy)
 
@@ -62,7 +67,7 @@ def fused_apnc_step_ref(
     """One Lloyd block step of a q = 1 APNC member, un-fused: embed, assign,
     stats and cost. X (n, d), landmarks (l, d), R (m, l), C (k, m) ->
     Z (k, m) f32, g (k,) f32, labels (n,) int32, cost () f32."""
-    return _step_ref(apnc_embed_ref(X, landmarks[None], R[None], kernel), C, discrepancy)
+    return apnc_assign_step_ref(apnc_embed_ref(X, landmarks[None], R[None], kernel), C, discrepancy)
 
 
 def fused_rff_step_ref(
@@ -70,7 +75,7 @@ def fused_rff_step_ref(
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """One Lloyd block step of the rff member, un-fused. X (n, d), W (d, m_half),
     C (k, 2 m_half) in the [cos | sin] layout -> as ``fused_apnc_step_ref``."""
-    return _step_ref(rff_embed_ref(X, W, scale), C, discrepancy)
+    return apnc_assign_step_ref(rff_embed_ref(X, W, scale), C, discrepancy)
 
 
 def dequant_ref(Yq: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -86,7 +91,7 @@ def fused_dequant_step_ref(
     stats and cost. Yq (n, m) int8 or bf16, scale (1, m) f32 (int8) or the
     scalar 1.0 (bf16), C (k, m) -> Z (k, m) f32, g (k,) f32, labels (n,)
     int32, cost () f32 in ``block_cost``'s units (sqrt'd for l2)."""
-    return _step_ref(dequant_ref(Yq, scale), C, discrepancy)
+    return apnc_assign_step_ref(dequant_ref(Yq, scale), C, discrepancy)
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

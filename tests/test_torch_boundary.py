@@ -170,7 +170,8 @@ def test_library_hash_covers_included_headers(tmp_path, monkeypatch):
     epilogue = csrc / "lloyd_epilogue.cuh"
     epilogue.write_text(epilogue.read_text() + "\n")
     after = {name: build._target(name) for name in build.SOURCES}
-    assert [n for n in build.SOURCES if after[n] != before[n]] == ["lloyd_step", "dequant_step"]
+    assert [n for n in build.SOURCES if after[n] != before[n]] == [
+        "apnc_assign", "lloyd_step", "dequant_step"]
     shared = csrc / "tile_math.cuh"
     shared.write_text(shared.read_text() + "\n")
     assert [n for n in build.SOURCES if build._target(n) == after[n]] == [
@@ -179,7 +180,8 @@ def test_library_hash_covers_included_headers(tmp_path, monkeypatch):
     copies = csrc / "cp_async.cuh"  # through apnc_mainloop.cuh for apnc_embed
     copies.write_text(copies.read_text() + "\n")
     assert [n for n in build.SOURCES if build._target(n) != again[n]] == [
-        "apnc_embed", "lloyd_step", "rff_embed", "dequant_step", "flash_attention"]
+        "apnc_embed", "apnc_assign", "lloyd_step", "rff_embed", "dequant_step",
+        "flash_attention"]
     again = {name: build._target(name) for name in build.SOURCES}
     mainloop = csrc / "rff_mainloop.cuh"
     mainloop.write_text(mainloop.read_text() + "\n")

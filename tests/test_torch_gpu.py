@@ -289,7 +289,7 @@ def test_fused_dequant_step_labels_equal_decode_then_assign(cuda, codec, disc, n
 @pytest.mark.parametrize("codec", ["int8", "bf16"])
 def test_wide_encoded_block_takes_the_decode_route(cuda, codec):
     """Above DEQUANT_MAX_M the plan decodes with the decode kernel and
-    assigns with apnc_assign (its streamed wide-m kernel beyond m = 768)."""
+    assigns with apnc_assign (its streamed wide-m kernel beyond m = 832)."""
     from repro_torch.kernels import lloyd_step
     from repro_torch.stream.blockstore import EncodedBlock
 
@@ -660,3 +660,92 @@ def test_member_without_a_kernel_takes_its_plain_route_on_the_card(cuda, monkeyp
     got = embed.transform(HalvedParams(torch.tensor(0.5, device=cuda)), X)
     torch.cuda.synchronize()
     assert got.is_cuda and torch.equal(got, X * 0.5) and t_embed.launches == before
+
+
+def _same_bits(got, want):
+    for name, a, b in zip(("Z", "g", "labels", "cost"), got, want):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 33, 4096, 4097, 40_000])
+@pytest.mark.parametrize("disc", ["l2", "l1"])
+def test_assign_step_equals_the_fused_steps_bitwise(cuda, disc, n):
+    """apnc_assign_step on the Y each fused step's un-fused chain makes gives
+    that fused step's (Z, g, labels, cost) bit for bit: the same epilogue,
+    32-row tiles, CTAs and reduction order. Centroids are other rows'
+    embeddings, so rows sit near several; n = 40,000 puts several tiles on a
+    CTA. Two launches are bitwise equal."""
+    from repro_torch.kernels import lloyd_step, rff_embed
+
+    d, l, m, k = 900, 500, 256, 164
+    X, _ = _blob_block(max(n, l) + k, d, 9, seed=41, scale=d ** -0.5)
+    L, R = _landmark_params(X, l, m, seed=42)
+    Xc, Lc, Rc = X[:n].to(cuda), L.to(cuda), R.to(cuda)
+    kern = KERNELS[0]
+    C = t_embed.apnc_embed_block(X[-k:].to(cuda), Lc, Rc, kern)
+    Y = t_embed.apnc_embed_block(Xc, Lc, Rc, kern)
+    got = t_assign.apnc_assign_step(Y, C, disc)
+    _same_bits(t_assign.apnc_assign_step(Y, C, disc), got)
+    _same_bits(got, lloyd_step.fused_apnc_step(Xc, Lc, Rc, C, kern, disc))
+
+    W = (torch.randn((d, m // 2), generator=torch.Generator().manual_seed(43)) * 0.5).to(cuda)
+    scale = (m // 2) ** -0.5
+    Cr = rff_embed.rff_embed_block(X[-k:].to(cuda), W, scale)
+    _same_bits(t_assign.apnc_assign_step(rff_embed.rff_embed_block(Xc, W, scale), Cr, disc),
+               lloyd_step.fused_rff_step(Xc, W, Cr, scale, disc))
+
+    for codec in ("int8", "bf16"):
+        Yq, sc, Cq = _random_encoded(n, m, k, codec, 44, cuda)
+        _same_bits(t_assign.apnc_assign_step(lloyd_step.dequant_decode(Yq, sc), Cq, disc),
+                   lloyd_step.fused_dequant_step(Yq, sc, Cq, disc))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("disc", ["l2", "l1"])
+@pytest.mark.parametrize("nkm", [(4096, 164, 256), (4097, 67, 70), (40_000, 164, 256),
+                                 (517, 13, 832), (1500, 70, 1000)],
+                         ids=lambda s: "n{}-k{}-m{}".format(*s))
+def test_assign_step_matches_plain(cuda, disc, nkm):
+    """The step against its plain version on separated blobs: labels and g
+    equal, Z within rtol 1e-4, the cost within rtol 1e-4; m = 832 is the
+    tiled kernel's widest, m = 1,000 the streamed kernel's. One launch a
+    call."""
+    n, k, m = nkm
+    Y, lab = _blob_block(n, m, k, seed=45, scale=m ** -0.5)
+    Yc = Y.to(cuda)
+    C = _class_means(Yc, lab, k)
+    before = t_assign.launches
+    got = t_assign.apnc_assign_step(Yc, C, disc)
+    got2 = t_assign.apnc_assign_step(Yc, C, disc)
+    torch.cuda.synchronize()
+    assert t_assign.launches == before + 2
+    _check_step(got, ref.apnc_assign_step_ref(Yc, C, disc), got2, cost_rtol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [256, 1000])
+def test_y_mode_step_is_one_assign_launch_and_no_gemm(cuda, m):
+    """On the card the Y-mode step makes one apnc_assign launch and its
+    reduce, and no GEMM: the cost comes out of the assign launch, where the
+    plain route computes block_cost's distance matrix."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    Y, lab = _blob_block(5000, m, 11, seed=46, scale=m ** -0.5)
+    Yc = Y.to(cuda)
+    C = _class_means(Yc, lab, 11)
+    plan = ops.lloyd_step_plan(discrepancy="l2")
+    plan.step(Yc, C)
+    torch.cuda.synchronize()
+    before = t_assign.launches
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        got = plan.step(Yc, C)
+        torch.cuda.synchronize()
+    assert t_assign.launches == before + 1
+    kernels = [ev.key for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA]
+    assert not [name for name in kernels if "gemm" in name.lower()], kernels
+    assert sum("assign" in name for name in kernels) == 1, kernels
+    assert sum("lloyd_reduce_kernel" in name for name in kernels) == 1, kernels
+    want = ref.apnc_assign_step_ref(Yc, C, "l2")
+    _check_step(got, want, plan.step(Yc, C), cost_rtol=1e-4)

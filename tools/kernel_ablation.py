@@ -9,7 +9,7 @@ side (one nvcc each, all at once, under ``build/ablation/``), each with one
 part removed or changed, and times each on the same inputs in one process.
 A variant that removes work computes wrong numbers; only its time is read.
 The variants that keep the arithmetic are checked (labels, bits or the
-reference's tolerance). Five targets:
+reference's tolerance). Six targets:
 
   * ``fused_apnc_step``: one 4,096-row block at the stream path's shape
     (d = 900, l = 500, m = 256, k = 164, rbf), the kernel plus its reduce,
@@ -26,14 +26,19 @@ reference's tolerance). Five targets:
     (m = 256, k = 164), the kernel plus its reduce, in us of device time a
     launch (torch.profiler: the host takes longer than the kernel to launch
     it); the base variant also at k = 82 and 128, which price the
-    128-centroid chunks' padding of k = 164 (the k tail), and as bf16.
+    centroid groups of k = 164 (the k tail), and as bf16.
   * ``fused_rff_step``: one 4,096-row block of the rff stream fit's shape
     (d = 900, mh = 128, k = 164), likewise; the base variant also at k = 82
     and 128, at mh = 256 and at a ragged d = 902.
+  * ``apnc_assign``: ``apnc_assign_step`` over the local fit's resident Y
+    (n = 1,262,102, m = 256, k = 164), the kernel plus its reduce, in us of
+    device time a launch; the base variant also at k = 82 and 128 and over
+    one 4,096-row block (sweep (b)'s launch).
 
 The embed mainloop is ``apnc_mainloop.cuh``, shared by the first two
 targets, so its variants edit that header; the epilogue is
-``lloyd_epilogue.cuh``, shared by the three fused steps. Every reading is
+``lloyd_epilogue.cuh``, shared by the three fused steps and the assign
+kernel. Every reading is
 taken twice, in the variants' order and then in the reverse order, since a
 reading moves with its place in the run. Prints one JSON object per
 variant, then the card's name and power limit.
@@ -72,6 +77,7 @@ AE = "apnc_embed.cu"
 FA = "flash_attention.cu"
 EP = "lloyd_epilogue.cuh"
 DQ = "dequant_step.cu"
+AS = "apnc_assign.cu"
 _COPY_X = "    stage_block<G, VEC>(stage, X, n, d, G::BN, row0, w * G::BD);\n"
 _COPY_L = "    stage_block<G, VEC>(stage + G::BN * G::SP, L, l, d, G::BL, j0, w * G::BD);\n"
 _COPY_R = "    stage_block<G, VEC>(stage, R, m, l, G::MC, cc * G::MC, j0 + sub * G::RL);\n"
@@ -81,23 +87,34 @@ _NO_COPIES = [(ML, _COPY_X, ""), (ML, _COPY_L, ""), (ML, _COPY_R, "")]
 # targets. serial_norms: the row norms as one thread a row after the chunk's
 # FMAs, the others waiting (the first port's serial spot), the same chains;
 # per_row_z: a read-modify-write of the Z partial per row, not per label
-# group, the same bits; no_prefetch: each C sub-chunk copied and waited for
+# group, the same bits; z_unbatched, zb32: one or 32 Z loads in flight a
+# thread, not 8, the same bits; no_prefetch: each C sub-chunk copied and waited for
 # at its own step, nothing in flight, the same values; mk16: C sub-chunks of
-# 16 columns, twice the steps and barriers, the same chains.
+# 16 columns, twice the steps and barriers, the same chains; kc256_tail:
+# every centroid chunk's FMAs over all 256 centroids (k = 164 padded to 256,
+# as before the tail was narrowed), the same values.
 _EPILOGUE = {
     "serial_norms": [(EP, "        if (j0 == 0 && t < BN) {\n", "        if (false) {\n"),
                      (EP, "    if (!L1 && j0 == 0 && t < BN) s.yy_s[t] = yn;\n",
                       "    if (!L1 && j0 == 0 && t < BN) {\n      float v2 = 0.0f;\n"
                       "      for (int c = 0; c < m_pad; ++c) { const float v = ys[c * PAD + t]; "
                       "v2 = fmaf(v, v, v2); }\n      s.yy_s[t] = v2;\n    }\n")],
-    "per_row_z": [(EP, "      float* z = zp + (size_t)s.grp_lab[gi] * m + c;\n"
-                       "      float v = s.grp_fresh[gi] ? 0.0f : *z;\n"
-                       "      for (unsigned rs = s.grp_rows[gi]; rs; rs &= rs - 1u) "
-                       "v += yc[__ffs(rs) - 1];\n      *z = v;\n",
+    "per_row_z": [(EP, "    for (int g0 = 0; g0 < ng; g0 += ZB) {\n      float v[ZB];\n"
+                       "#pragma unroll\n      for (int u = 0; u < ZB; ++u)\n"
+                       "        if (g0 + u < ng) v[u] = s.grp_fresh[g0 + u] ? 0.0f : "
+                       "zp[(size_t)s.grp_lab[g0 + u] * m + c];\n"
+                       "#pragma unroll\n      for (int u = 0; u < ZB; ++u) {\n"
+                       "        if (g0 + u >= ng) break;\n"
+                       "        for (unsigned rs = s.grp_rows[g0 + u]; rs; rs &= rs - 1u) "
+                       "v[u] += yc[__ffs(rs) - 1];\n"
+                       "        zp[(size_t)s.grp_lab[g0 + u] * m + c] = v[u];\n      }\n    }\n",
+                   "    for (int gi = 0; gi < ng; ++gi) {\n"
                    "      volatile float* z = zp + (size_t)s.grp_lab[gi] * m + c;\n"
                    "      if (s.grp_fresh[gi]) *z = 0.0f;\n"
                    "      for (unsigned rs = s.grp_rows[gi]; rs; rs &= rs - 1u) "
-                   "*z = *z + yc[__ffs(rs) - 1];\n")],
+                   "*z = *z + yc[__ffs(rs) - 1];\n    }\n")],
+    "z_unbatched": [(EP, "constexpr int ZB = 8; ", "constexpr int ZB = 1; ")],
+    "zb32": [(EP, "constexpr int ZB = 8; ", "constexpr int ZB = 32; ")],
     "no_prefetch": [(EP, "      if (c0 + MK < m_pad) issue_c(s.cs + ((step + 1) & 1) * CBUF, C, "
                          "k, m, j0, c0 + MK, vec);\n      else if (j0 + KC < k) issue_c(s.cs + "
                          "((step + 1) & 1) * CBUF, C, k, m, j0 + KC, 0, vec);\n", ""),
@@ -107,6 +124,8 @@ _EPILOGUE = {
                      "j0, c0, vec);\n      cpasync::wait<0>();\n      __syncthreads();\n")],
     "no_z_update": [(EP, "  const int ng = *s.n_grp;\n", "  const int ng = 0 * *s.n_grp;\n")],
     "mk16": [(EP, "constexpr int MK = 32; ", "constexpr int MK = 16; ")],
+    "kc256_tail": [(EP, "    const int nq = (groups - half + 1) / 2;          // this warp's: "
+                        "half, half + 2, ...\n", "    const int nq = 4;\n")],
 }
 _FLASH_NEXT = ("      load_kv<T, DP, VEC>(ring + ((j + 1 - j_lo) % NS) * TL::STAGE_BYTES, kb, vb, "
                "sk.s, sv.s,\n                          k0 + BK, S, Dh);\n")
@@ -165,6 +184,45 @@ TARGETS = {
         "no_epilogue": [(DQ, "    lloyd::assign_reduce_tile<L1>(ys,",
                          "    if (k < 0) lloyd::assign_reduce_tile<L1>(ys,")],
     }),
+    "apnc_assign": (AS, {
+        "base": [],
+        # the next tile's rows copied at the top of its own loop step, not
+        # in flight during the epilogue's combine and Z update
+        "no_y_prefetch": [
+            (AS, "      if (tile + 1 < tile_hi) stage_tile<VEC>(raw, Y, n, m, m_pad, row0 + BN, "
+                 "policy);\n", ""),
+            (AS, "    cpasync::wait<0>();\n    __syncthreads();  // the tile's rows landed;",
+             "    if (tile > tile_lo) stage_tile<VEC>(raw, Y, n, m, m_pad, row0, policy);\n"
+             "    cpasync::wait<0>();\n    __syncthreads();  // the tile's rows landed;")],
+        # Y's copies under L2's normal eviction, not evict-first
+        "y_evict_normal": [("cp_async.cuh", "createpolicy.fractional.L2::evict_first.b64",
+                            "createpolicy.fractional.L2::evict_normal.b64")],
+        **_EPILOGUE,
+        "no_cost": [(EP, "  if (t == 0)\n    for (int r = 0; r < rows; ++r) "
+                         "cost_acc += s.mind_s[r];\n", "")],
+        # each C (centroid) or Y operand of the distance loop read once a
+        # sub-chunk instead of once every 4 columns: the price of each stream
+        # of shared-memory reads
+        "hoisted_c_reads": [(EP, "(cb + (lane + 32 * (half + 2 * q)) * CP + c);",
+                             "(cb + (lane + 32 * (half + 2 * q)) * CP);")],
+        "hoisted_y_reads": [(EP, "(ys + (c0 + c + cc) * PAD + RI * ty);",
+                             "(ys + (c0 + cc) * PAD + RI * ty);"),
+                            (EP, "(ys + (c0 + c + cc) * PAD + RI * ty + 4);",
+                             "(ys + (c0 + cc) * PAD + RI * ty + 4);")],
+        # the centroid norms summed again in every tile, not kept from the
+        # CTA's first; the distance loop over C fully unrolled (8 steps of 4
+        # columns a sub-chunk, not 2 at a time)
+        "norms_every_tile": [(EP, "  const bool cc_kept = !first && k <= KC;",
+                              "  const bool cc_kept = false;")],
+        "c_unroll_full": [(EP, "#pragma unroll 2\n  for (int c = 0; c < MK; c += 4) {\n"
+                               "    float4 b[NQ], a[8];",
+                           "#pragma unroll\n  for (int c = 0; c < MK; c += 4) {\n"
+                           "    float4 b[NQ], a[8];")],
+        "one_cta_per_sm": [(AS, "__launch_bounds__(THREADS, 2)", "__launch_bounds__(THREADS, 1)"),
+                           (AS, "    *smem = tiled_smem_bytes(m);\n", "    *smem = SMEM_MAX;\n")],
+        "no_epilogue": [(AS, "    lloyd::assign_reduce_tile<L1>(ys,",
+                         "    if (k < 0) lloyd::assign_reduce_tile<L1>(ys,")],
+    }),
     "fused_rff_step": (LS, {
         "base": [],
         "copy4": [(LS, "  const bool vec = d % 4 == 0 && mh % 4 == 0 && aligned16(X) && aligned16(W);",
@@ -183,8 +241,12 @@ EXACT = {"fused_apnc_step": ("base", "three_stages"),
          "apnc_embed": ("base", "short_geometry", "tall_16x4"),
          "flash_attention": ("base", "bk64", "no_register_cap", "expf", "cvt_split"),
          "fused_dequant_step": ("base", "plain_staging", "serial_norms", "per_row_z",
-                                "no_prefetch", "mk16"),
-         "fused_rff_step": ("base", "copy4", "serial_norms", "per_row_z", "no_prefetch", "mk16")}
+                                "no_prefetch", "mk16", "kc256_tail", "z_unbatched", "zb32"),
+         "fused_rff_step": ("base", "copy4", "serial_norms", "per_row_z", "no_prefetch", "mk16",
+                            "kc256_tail", "z_unbatched", "zb32"),
+         "apnc_assign": ("base", "no_y_prefetch", "y_evict_normal", "serial_norms", "per_row_z",
+                         "no_prefetch", "mk16", "kc256_tail", "z_unbatched", "zb32",
+                         "norms_every_tile", "c_unroll_full", "one_cta_per_sm")}
 
 
 def build_variants(targets) -> dict[tuple[str, str], Path]:
@@ -450,9 +512,24 @@ def ablate_rff(libs, dev) -> list[dict]:
     return ablate_step("fused_rff_step", "lloyd_step", shapes, run, libs)
 
 
+def ablate_assign(libs, dev) -> list[dict]:
+    g = torch.Generator(device=dev).manual_seed(0)
+    n, m = 1_262_102, 256
+    Y = torch.randn((n, m), device=dev, generator=g) * m ** -0.5
+    C = Y[-164:].contiguous()
+    shapes = {"main": (Y, C), "k82": (Y, C[:82].contiguous()), "k128": (Y, C[:128].contiguous()),
+              "block": (Y[:4096], C)}
+
+    def run(sname):
+        y, c = shapes[sname]
+        return lambda: apnc_assign.apnc_assign_step(y, c, "l2")
+
+    return ablate_step("apnc_assign", "apnc_assign", shapes, run, libs)
+
+
 ABLATE = {"fused_apnc_step": ablate_fused, "apnc_embed": ablate_embed,
           "flash_attention": ablate_flash, "fused_dequant_step": ablate_dequant,
-          "fused_rff_step": ablate_rff}
+          "fused_rff_step": ablate_rff, "apnc_assign": ablate_assign}
 
 
 def main(argv=None) -> int:
