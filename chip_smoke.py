@@ -13,7 +13,12 @@ through the fused Lloyd-step kernel, O(block) on the card), the rff member on
 both backends, and the embed-once sweep over that store under the int8, f32
 and bf16 caches (``KernelKMeans(...).sweep(store, k_grid=[82, 164],
 restarts=2)``, every block's Lloyd step over a compressed cache in
-``fused_dequant_step``). It then serves qwen1.5-0.5b at full width and
+``fused_dequant_step``). Phase ``persist`` then saves and loads the local
+and rff models, crashes the stream and minibatch fits mid-Lloyd through a
+store whose reads fail and resumes them with ``checkpoint_dir=`` bit for
+bit, runs the int8 sweep twice over one ``checkpoint_dir`` (the second
+from the persisted stage, with no embedding pass), and streams the store
+through ``partial_fit``. It then serves qwen1.5-0.5b at full width and
 depth from a seeded random init (``repro_torch.launch.serve.generate``: a
 4 x 4,096-token prefill, every layer's attention in ``flash_attention_bhsd``,
 then 32 greedy decode steps over a bf16 KV cache), held against the plain
@@ -736,26 +741,39 @@ def pinned_store(X, block_rows):
     return BlockStore.from_array(host.numpy(), block_rows)
 
 
-def fit_measured(est, data, device) -> tuple[object, dict]:
+def zero_launches() -> None:
+    """Every clustering kernel's launch counter set to 0."""
+    from repro_torch.kernels import apnc_assign, apnc_embed, lloyd_step, rff_embed
+
+    apnc_embed.launches = apnc_assign.launches = rff_embed.launches = 0
+    for name in lloyd_step.launches:
+        lloyd_step.launches[name] = 0
+
+
+def read_launches() -> dict:
+    """Every clustering kernel's launch counter, by kernel name."""
+    from repro_torch.kernels import apnc_assign, apnc_embed, lloyd_step, rff_embed
+
+    return dict(apnc_embed=apnc_embed.launches, apnc_assign=apnc_assign.launches,
+                rff_embed_block=rff_embed.launches, **lloyd_step.launches)
+
+
+def fit_measured(est, data, device, **fit_kw) -> tuple[object, dict]:
     """Fit with the launch counters and the engine telemetry zeroed just
     before and read just after; also the device-memory rise over the fit."""
-    from repro_torch.kernels import apnc_assign, apnc_embed, lloyd_step, rff_embed
     from repro_torch.stream import engine
 
     sync(device)
     start = torch.cuda.memory_allocated(device) if device.type == "cuda" else 0
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
-    apnc_embed.launches = apnc_assign.launches = rff_embed.launches = 0
-    for name in lloyd_step.launches:
-        lloyd_step.launches[name] = 0
+    zero_launches()
     engine.reset_counters()
     t0 = time.perf_counter()
-    est.fit(data)
+    est.fit(data, **fit_kw)
     sync(device)
     wall = time.perf_counter() - t0
-    launches = dict(apnc_embed=apnc_embed.launches, apnc_assign=apnc_assign.launches,
-                    rff_embed_block=rff_embed.launches, **lloyd_step.launches)
+    launches = read_launches()
     rise = (torch.cuda.max_memory_allocated(device) - start) if device.type == "cuda" else None
     return est, dict(fit_s=wall, phases_s=est.phases_, launches=launches,
                      engine=dict(engine.COUNTERS), engine_passes=dict(engine.PASS_COUNTS),
@@ -901,26 +919,22 @@ def phase_rff(X, truth, store, cfg, device, seed) -> tuple[dict, object]:
                 stream=s_info, local=l_info), stream
 
 
-def sweep_measured(est, data, k_grid, restarts, device, seed) -> tuple[object, dict]:
+def sweep_measured(est, data, k_grid, restarts, device, seed, **sweep_kw) -> tuple[object, dict]:
     """est.sweep with the launch counters and the engine telemetry zeroed just
     before and read just after; also the device-memory rise over the sweep."""
-    from repro_torch.kernels import apnc_assign, apnc_embed, lloyd_step, rff_embed
     from repro_torch.stream import engine
 
     sync(device)
     start = torch.cuda.memory_allocated(device) if device.type == "cuda" else 0
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
-    apnc_embed.launches = apnc_assign.launches = rff_embed.launches = 0
-    for name in lloyd_step.launches:
-        lloyd_step.launches[name] = 0
+    zero_launches()
     engine.reset_counters()
     t0 = time.perf_counter()
-    res = est.sweep(data, k_grid=list(k_grid), restarts=restarts, seed=seed)
+    res = est.sweep(data, k_grid=list(k_grid), restarts=restarts, seed=seed, **sweep_kw)
     sync(device)
     wall = time.perf_counter() - t0
-    launches = dict(apnc_embed=apnc_embed.launches, apnc_assign=apnc_assign.launches,
-                    rff_embed_block=rff_embed.launches, **lloyd_step.launches)
+    launches = read_launches()
     rise = (torch.cuda.max_memory_allocated(device) - start) if device.type == "cuda" else None
     return res, dict(sweep_s=wall, phases_s=dict(est.phases_), launches=launches,
                      engine=dict(engine.COUNTERS), engine_passes=dict(engine.PASS_COUNTS),
@@ -1089,6 +1103,294 @@ def phase_sweep(X, truth, store, stream_est, cfg, device, seed) -> tuple[dict, d
     return out, dict(q8=q8, C=C, launches=out["a_int8"]["fused_dequant_step_launches"],
                      lloyd_s=out["a_int8"]["phases_s"]["lloyd"],
                      candidate_passes=int(np.sum(_iters(runs["a_int8"][1]))))
+
+
+def strict_manifest(path) -> dict:
+    """A checkpoint step's manifest, parsed by a strict JSON parser (NaN,
+    Infinity and -Infinity refused)."""
+    def reject(const):
+        raise AssertionError(f"non-strict JSON constant {const} in {path}")
+
+    return json.loads((Path(path) / "manifest.json").read_text(), parse_constant=reject)
+
+
+def dir_bytes(path) -> int:
+    return sum(f.stat().st_size for f in Path(path).rglob("*") if f.is_file())
+
+
+def failing_store(store, fail_after):
+    """``store`` behind a get() that raises once ``fail_after`` reads have
+    been served: an ingest crash mid-fit, at the seam a real one hits (the
+    engine's producer thread)."""
+    import threading
+
+    from repro_torch.stream.blockstore import BlockStore
+
+    count, lock = [0], threading.Lock()
+
+    def get(i):
+        with lock:
+            count[0] += 1
+            if count[0] > fail_after:
+                raise RuntimeError("injected ingest crash")
+        return store.get(i)
+
+    return BlockStore(get, n=store.n, d=store.d, block_rows=store.block_rows)
+
+
+def save_load_round(name, est, Xq, root, device) -> dict:
+    """est.save, KernelKMeans.load onto the device, and predict of the
+    held-out rows: the labels, centroids and params bit for bit the
+    in-memory estimator's; the manifest strict JSON."""
+    from repro_torch.api import KernelKMeans
+
+    d = Path(root) / name
+    sync(device)
+    t0 = time.perf_counter()
+    step_dir = est.save(d)
+    save_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    loaded = KernelKMeans.load(d, device=device)
+    sync(device)
+    load_s = time.perf_counter() - t1
+    manifest = strict_manifest(step_dir)
+    want, got = est.predict(Xq), loaded.predict(Xq)
+    p0, p1 = est.model_.params, loaded.model_.params
+    tensors_equal = all(torch.equal(getattr(p0, f), getattr(p1, f)) for f in
+                        ("landmarks", "R", "W") if hasattr(p0, f))
+    out = dict(save_s=save_s, load_s=load_s, artifact_bytes=dir_bytes(d),
+               method=manifest["meta"]["clustering"]["embedding"]["method"],
+               predict_bitwise=bool(np.array_equal(got, want)),
+               centroids_bitwise=bool(torch.equal(loaded.model_.centroids, est.model_.centroids)),
+               params_bitwise=tensors_equal, manifest_strict_json=True,
+               on_device=str(loaded.model_.centroids.device))
+    if not (out["predict_bitwise"] and out["centroids_bitwise"] and tensors_equal):
+        raise AssertionError(f"save/load of the {name} model: {out}")
+    return out
+
+
+def crash_and_resume(make_est, store, ref, fail_after, root, device, per_pass_s) -> dict:
+    """A fit with checkpoint_dir over ``store`` whose reads fail after
+    ``fail_after`` blocks, then the refit over ``store`` with the same
+    directory: labels, iterations and inertia bit for bit ``ref``'s (the
+    uninterrupted fit), at least one state adopted and at least one
+    iteration skipped. Also the seconds of each state save and their share
+    of a pass of the uninterrupted fit."""
+    from repro_torch.distributed import checkpoint as ckpt
+
+    saves: list[float] = []
+    real_save = ckpt.save_lloyd_state
+
+    def timed_save(*args, **kw):
+        t0 = time.perf_counter()
+        out = real_save(*args, **kw)
+        saves.append(time.perf_counter() - t0)
+        return out
+
+    t0 = time.perf_counter()
+    try:
+        make_est().fit(failing_store(store, fail_after), checkpoint_dir=root)
+    except RuntimeError as e:
+        if "injected ingest crash" not in str(e):
+            raise
+    else:
+        raise AssertionError("the fit over the failing store did not fail")
+    crashed_s = time.perf_counter() - t0
+    skipped = ckpt.latest_step(Path(root) / "restart_0" / ckpt.LLOYD_STATE_DIR)
+    if not skipped:
+        raise AssertionError("the crash landed before the first published iteration")
+    ckpt.reset_counters()
+    with patched(ckpt, "save_lloyd_state", timed_save):
+        est, info = fit_measured(make_est(), store, device, checkpoint_dir=root)
+    counters = dict(ckpt.COUNTERS)
+    out = dict(iterations_skipped=skipped, crashed_fit_s=crashed_s, resumed_fit_s=info["fit_s"],
+               iters=est.n_iter_, counters=counters, state_saves=len(saves),
+               state_save_s=dict(mean=float(np.mean(saves)), max=float(np.max(saves)))
+               if saves else None,
+               state_save_share_of_pass=float(np.mean(saves)) / per_pass_s if saves else None,
+               labels_bitwise=bool(np.array_equal(est.labels_, ref.labels_)),
+               n_iter_equal=est.n_iter_ == ref.n_iter_,
+               inertia_bitwise=est.inertia_ == ref.inertia_,
+               centroids_bitwise=bool(torch.equal(est.model_.centroids, ref.model_.centroids)),
+               launches=info["launches"])
+    if counters["ckpt_resumes"] < 1 or not all(
+            out[key] for key in ("labels_bitwise", "n_iter_equal", "inertia_bitwise",
+                                 "centroids_bitwise")):
+        raise AssertionError(f"the resumed fit is not the uninterrupted one: {out}")
+    return out
+
+
+def partial_fit_equal_state(est_dir, block, device) -> dict:
+    """Two estimators warm-started from the same saved model, the default
+    route (the kernels on the card) and kernels=False (the plain versions),
+    each given one block: labels equal but for near ties (check_near_ties, as
+    phase agreement), and, with each near-tie row moved to the plain route's
+    cluster, g equal and Z and the centroids within check_step's tolerances
+    (rtol 1e-4, atol 1e-4 of the largest |value|)."""
+    from repro_torch import embed
+    from repro_torch.api import ComputePolicy, KernelKMeans
+    from repro_torch.core.lloyd import centroid_update
+
+    kern = KernelKMeans.load(est_dir, device=device)
+    plain = KernelKMeans.load(est_dir, device=device, policy=ComputePolicy(kernels=False))
+    C = kern.model_.centroids
+    kern.partial_fit(block)
+    plain.partial_fit(block)
+    lab_k = torch.from_numpy(kern.labels_).to(device)
+    lab_p = torch.from_numpy(plain.labels_).to(device)
+    Y = embed.transform(plain.model_.params, block.to(device), ComputePolicy(kernels=False))
+    rows, gap = check_near_ties("partial_fit kernel vs plain", Y, C, lab_k, lab_p, 1e-3, 1e-4)
+    (Zk, gk, _), (Zp, gp, _) = kern._pf_state, plain._pf_state
+    Zk, gk = Zk.clone(), gk.clone()
+    for r in rows.tolist():  # the near-tie rows as the plain route assigned them
+        Zk[lab_k[r]] -= Y[r]
+        Zk[lab_p[r]] += Y[r]
+        gk[lab_k[r]] -= 1
+        gk[lab_p[r]] += 1
+    if not torch.equal(gk, gp):
+        raise AssertionError("partial_fit kernel vs plain: g differs at equal labels")
+    z_err = check_close("partial_fit Z", Zk, Zp, 1e-4, 1e-4 * float(Zp.abs().max()))
+    Cp = plain.model_.centroids
+    c_err = check_close("partial_fit centroids", centroid_update(Zk, gk, C), Cp, 1e-4,
+                        1e-4 * float(Cp.abs().max()))
+    return dict(rows=block.shape[0], label_mismatches=int(rows.numel()), max_rel_gap=gap,
+                g_equal=True, z_max_abs_err=z_err, centroids_max_abs_err=c_err,
+                inertia=[kern.inertia_, plain.inertia_])
+
+
+def phase_persist(X, truth, Xq, store, local_est, rff_est, stream_est, stream_per_pass_s,
+                  cfg, device, seed) -> dict:
+    """Checkpoints, resume and the online path at full n, under one temporary
+    directory removed at the end, failing or not:
+
+    * save_load: the local fit of phase main and the rff stream fit of phase
+      rff saved, loaded onto the card and predicting the held-out rows bit
+      for bit (apnc_embed, rff_embed_block);
+    * stream_resume: phase stream's fit with checkpoint_dir over the store
+      failing mid-iteration 2, then refit: bit for bit phase stream's fit;
+    * minibatch_resume: the same for a 3-epoch minibatch fit (decay 0.9),
+      the crash inside epoch 2, against one uninterrupted minibatch fit;
+    * sweep_resume: the int8 sweep at k = 164 with checkpoint_dir, twice:
+      the second loads the staged Y.bin and runs no embedding pass, its
+      passes in fused_dequant_step over the memmap, the result bit for bit
+      the first's; load_any_model serves the winner;
+    * partial_fit: the store's blocks streamed from a cold start, then the
+      kernel route against the plain one at equal state."""
+    import shutil
+    import tempfile
+
+    from repro_torch.api import ComputePolicy, KernelKMeans
+    from repro_torch.core.metrics import nmi
+    from repro_torch.distributed import checkpoint as ckpt
+
+    k, bn, nb, n = cfg["k"], cfg["block_rows"], store.num_blocks, X.shape[0]
+    base = dict(kernel="rbf", method="nystrom", l=cfg["l"], m=cfg["m"], iters=cfg["iters"],
+                block_rows=bn, random_state=seed, device=device)
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_persist_"))
+    parts: list[dict] = []
+    try:
+        zero_launches()
+        save_load = dict(local=save_load_round("local", local_est, Xq, root, device),
+                         rff=save_load_round("rff", rff_est, Xq, root, device))
+        parts.append(read_launches())
+
+        # Reads: the reservoir pass, iteration 1, then half of iteration 2.
+        stream_resume = crash_and_resume(
+            lambda: KernelKMeans(k, backend="stream", **base), store, stream_est,
+            2 * nb + nb // 2, root / "stream", device, stream_per_pass_s)
+        parts.append(stream_resume["launches"])
+
+        mb = dict(base, backend="minibatch", epochs=3, decay=0.9)
+        mb_ref, mb_info = fit_measured(KernelKMeans(k, **mb), store, device)
+        parts.append(mb_info["launches"])
+        minibatch_resume = crash_and_resume(
+            lambda: KernelKMeans(k, **mb), store, mb_ref, 2 * nb + nb // 2,
+            root / "minibatch", device, mb_info["phases_s"]["lloyd"] / (mb_ref.n_iter_ + 1))
+        minibatch_resume["uninterrupted_fit_s"] = mb_info["fit_s"]
+        parts.append(minibatch_resume["launches"])
+
+        runs = []
+        for _ in range(2):
+            est = KernelKMeans(k, backend="stream", policy=ComputePolicy(cache_dtype="int8"),
+                               **base)
+            res, info = sweep_measured(est, store, [k], 1, device, seed,
+                                       checkpoint_dir=root / "sweep")
+            runs.append((est, res, info))
+            parts.append(info["launches"])
+        (e1, r1, i1), (e2, r2, i2) = runs
+        stage = root / "sweep" / "embed_stage"
+        y_bin = (stage / "Y.bin").stat().st_size
+        scales = (stage / "scales.npy").stat().st_size
+        served = ckpt.load_any_model(root / "sweep", device=device)
+        passes2 = i2["engine_passes"].get("sweep_lloyd", 0)
+        sweep_resume = dict(
+            cache_embedding_passes=[i1["engine_passes"].get("cache_embedding", 0),
+                                    i2["engine_passes"].get("cache_embedding", 0)],
+            resumed=[r1.resumed, r2.resumed],
+            inertia_bitwise=bool(np.array_equal(r1.inertia, r2.inertia)),
+            labels_bitwise=bool(np.array_equal(r1.labels[0][0], r2.labels[0][0])),
+            centroids_bitwise=bool(torch.equal(r1.best.centroids, r2.best.centroids)),
+            load_any_model_predicts_like_best=bool(torch.equal(
+                served.predict(Xq, device=device), r2.best.predict(Xq, device=device))),
+            y_bin_bytes=y_bin, scales_bytes=scales,
+            f32_over_staged=4.0 * n * cfg["m"] / (y_bin + scales),
+            stage_save_s=e1.phases_.get("stage_save"), stage_load_s=e2.phases_.get("stage_load"),
+            result_save_s=[e1.phases_.get("result_save"), e2.phases_.get("result_save")],
+            sweep_s=[i1["sweep_s"], i2["sweep_s"]], phases_s=[i1["phases_s"], i2["phases_s"]],
+            passes_with_final=passes2,
+            fused_dequant_step_launches=[i1["launches"]["fused_dequant_step"],
+                                         i2["launches"]["fused_dequant_step"]])
+        if (sweep_resume["cache_embedding_passes"] != [1, 0]
+                or sweep_resume["resumed"] != [False, True]
+                or not all(sweep_resume[key] for key in (
+                    "inertia_bitwise", "labels_bitwise", "centroids_bitwise",
+                    "load_any_model_predicts_like_best"))):
+            raise AssertionError(f"the resumed sweep: {sweep_resume}")
+        if y_bin != n * cfg["m"]:
+            raise AssertionError(f"Y.bin holds {y_bin} bytes, want {n * cfg['m']}")
+        if device.type == "cuda" and i2["launches"]["fused_dequant_step"] < passes2 * nb:
+            raise AssertionError(f"the resumed sweep launched fused_dequant_step "
+                                 f"{i2['launches']['fused_dequant_step']} times in {passes2} passes")
+
+        zero_launches()
+        cold = KernelKMeans(k, **base)
+        t0 = time.perf_counter()
+        cold.partial_fit(store.get(0))
+        sync(device)
+        first_s = time.perf_counter() - t0
+        parts.append(read_launches())
+        zero_launches()
+        t1 = time.perf_counter()
+        for i in range(1, nb):
+            cold.partial_fit(store.get(i))
+        sync(device)
+        per_call_ms = (time.perf_counter() - t1) / max(nb - 1, 1) * 1e3
+        warm = read_launches()
+        parts.append(warm)
+        per_call = {name: v / max(nb - 1, 1) for name, v in warm.items() if v}
+        if cold.model_.meta.rows_seen != n:
+            raise AssertionError(f"partial_fit saw {cold.model_.meta.rows_seen} of {n} rows")
+        if device.type == "cuda" and (warm["apnc_embed"], warm["apnc_assign"]) != (nb - 1, nb - 1):
+            raise AssertionError(f"partial_fit launches over {nb - 1} calls: {warm}")
+        zero_launches()
+        equal_state = partial_fit_equal_state(root / "local", X[:bn], device)
+        parts.append(read_launches())
+        partial_fit = dict(calls=nb, rows_seen=cold.model_.meta.rows_seen,
+                           first_call_s=first_s, ms_per_call=per_call_ms,
+                           launches_per_call=per_call, nmi=nmi(cold.predict(X), truth),
+                           kernel_vs_plain=equal_state)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    launches = {name: sum(p.get(name, 0) for p in parts) for name in parts[0]}
+    if device.type == "cuda":
+        for name in ("apnc_embed", "apnc_assign", "rff_embed_block", "fused_apnc_step",
+                     "fused_dequant_step"):
+            if not launches[name]:
+                raise AssertionError(f"phase persist never launched {name}: {launches}")
+    return dict(phase="persist", n=n, k=k, m=cfg["m"], num_blocks=nb, save_load=save_load,
+                stream_resume=stream_resume, minibatch_resume=minibatch_resume,
+                sweep_resume=sweep_resume, partial_fit=partial_fit, launches=launches,
+                temp_dir_removed=not root.exists())
 
 
 @contextlib.contextmanager
@@ -1848,6 +2150,8 @@ def main(argv=None) -> int:
     emit(rff_info)
     sweep_info, sweep_data = phase_sweep(X, truth, store, stream_est, cfg, device, args.seed)
     emit(sweep_info)
+    emit(phase_persist(X, truth, Xq, store, est, rff_est, stream_est, stream_info["per_pass_s"],
+                       cfg, device, args.seed))
     lm_info = phase_lm_serve(cfg, device, args.seed)
     emit(lm_info)
 

@@ -6,6 +6,9 @@
     est.fit(X)                 # on the card; device="cpu" for the plain path
     labels = est.predict(X_new)
     result = est.sweep(X, k_grid=[4, 5, 6], restarts=2)   # embed once, select k
+    est.save("ckpt/")          # the ClusterModel, readable by the JAX package too
+    est2 = KernelKMeans.load("ckpt/")
+    est2.partial_fit(X_block)  # one decayed minibatch update from the loaded model
 """
 from repro_torch.api.model import ClusterModel, FitMeta  # noqa: F401
 from repro_torch.api.registry import (  # noqa: F401
@@ -22,7 +25,12 @@ from repro_torch.api.registry import (  # noqa: F401
     resolve_kernel,
 )
 from repro_torch.api import backends as _backends  # noqa: F401,E402  (registers local)
-from repro_torch.api.backends import BackendFit, FitContext  # noqa: F401,E402
-from repro_torch.api.estimator import KernelKMeans  # noqa: F401,E402
+from repro_torch.api.backends import (  # noqa: F401,E402
+    BackendFit,
+    FitContext,
+    ensure_embedding_cache,
+)
+from repro_torch.api.estimator import AUTO_STREAM_ROWS, KernelKMeans  # noqa: F401,E402
+from repro_torch.embed import Embedding  # noqa: F401,E402
 from repro_torch.policy import ComputePolicy  # noqa: F401,E402
 from repro_torch.sweep.result import SweepResult  # noqa: F401,E402

@@ -16,6 +16,8 @@ init centroids, local and stream reach identical labels.
 from __future__ import annotations
 
 import dataclasses
+from pathlib import Path
+from typing import Any
 
 import numpy as np
 import torch
@@ -46,10 +48,22 @@ class FitContext:
     # instead of embedding X again on every pass.
     y_store: BlockStore | None = None  # host-staged Y blocks (blocked input)
     y_array: torch.Tensor | None = None  # resident f32 Y (resident input)
+    # Root directory of the stream backends' mid-fit Lloyd checkpoints, one
+    # subdirectory a restart (None: no checkpoints; local ignores it).
+    checkpoint_dir: Any | None = None
 
     def __post_init__(self):
         if self.device is None:
             self.device = self.params.device
+
+
+def _restart_ckpt(ctx: FitContext, r: int):
+    """Restart r's checkpoint subdirectory: restarts have different inits
+    (distinct fingerprints), so one shared state directory would thrash its
+    keep_last rotation."""
+    if ctx.checkpoint_dir is None:
+        return None
+    return Path(ctx.checkpoint_dir) / f"restart_{r}"
 
 
 @dataclasses.dataclass
@@ -85,9 +99,9 @@ def ensure_embedding_cache(ctx: FitContext) -> FitContext:
 
 
 def _run_restarts(ctx: FitContext, run_one) -> BackendFit:
-    """Run every init, keep the lowest-inertia fit (the first on a tie),
-    total rows_seen over all restarts."""
-    fits = [run_one(init) for init in ctx.inits]
+    """Run every init (``run_one(init, r)``), keep the lowest-inertia fit
+    (the first on a tie), total rows_seen over all restarts."""
+    fits = [run_one(init, r) for r, init in enumerate(ctx.inits)]
     best = min(fits, key=lambda f: f.inertia)
     return dataclasses.replace(best, rows_seen=sum(f.rows_seen for f in fits))
 
@@ -118,7 +132,7 @@ def fit_local(ctx: FitContext) -> BackendFit:
         Y = embed.transform(ctx.params, X.to(ctx.device), ctx.policy)
     n = int(Y.shape[0])
 
-    def _run_one(init):
+    def _run_one(init, r):
         res = lloyd(
             Y, ctx.k, discrepancy=ctx.params.discrepancy, iters=ctx.iters,
             init=init, policy=ctx.policy,
@@ -148,9 +162,9 @@ def _stream_source(ctx: FitContext) -> dict:
 def fit_stream(ctx: FitContext) -> BackendFit:
     """Exact out-of-core Lloyd: the fixed point of ``local``, O(block) on the
     device."""
-    return _run_restarts(ctx, lambda init: _from_stream(ooc_lloyd(
+    return _run_restarts(ctx, lambda init, r: _from_stream(ooc_lloyd(
         k=ctx.k, iters=ctx.iters, init=init, policy=ctx.policy, device=ctx.device,
-        **_stream_source(ctx),
+        checkpoint_dir=_restart_ckpt(ctx, r), **_stream_source(ctx),
     )))
 
 
@@ -158,7 +172,7 @@ def fit_stream(ctx: FitContext) -> BackendFit:
 def fit_minibatch(ctx: FitContext) -> BackendFit:
     """Single-pass streaming Lloyd with decayed (Z, g) sufficient stats
     (``decay`` and ``epochs`` apply)."""
-    return _run_restarts(ctx, lambda init: _from_stream(minibatch_lloyd(
+    return _run_restarts(ctx, lambda init, r: _from_stream(minibatch_lloyd(
         k=ctx.k, decay=ctx.decay, epochs=ctx.epochs, init=init, policy=ctx.policy,
-        device=ctx.device, **_stream_source(ctx),
+        device=ctx.device, checkpoint_dir=_restart_ckpt(ctx, r), **_stream_source(ctx),
     )))

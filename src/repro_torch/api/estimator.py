@@ -1,5 +1,7 @@
 """`KernelKMeans`: the estimator of the port, on the ``local``, ``stream``
-and ``minibatch`` backends, and its embed-once ``sweep``.
+and ``minibatch`` backends, its embed-once ``sweep``, the online
+``partial_fit``, and ``save`` / ``load`` of the `ClusterModel` artifact in
+the JAX package's checkpoint format.
 
 Phase 1 runs here, identically for every backend: a reservoir sample over the
 blocked host view of the data selects landmarks, the embedding member fits
@@ -13,6 +15,7 @@ from __future__ import annotations
 
 import time
 from contextlib import contextmanager
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -21,7 +24,7 @@ from repro_torch.api.backends import FitContext
 from repro_torch.api.model import ClusterModel, FitMeta
 from repro_torch.api.registry import get_backend, get_embedding, resolve_kernel
 from repro_torch.core.kernels_fn import Kernel, self_tuned_rbf
-from repro_torch.core.lloyd import block_cost, kmeanspp_init
+from repro_torch.core.lloyd import assign_stats, block_cost, centroid_update, kmeanspp_init
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.policy import ComputePolicy
@@ -80,6 +83,12 @@ class KernelKMeans:
 
     After fit: `model_`, `labels_`, `inertia_`, `n_iter_`, `kernel_`,
     `backend_`, and `phases_` (wall seconds per phase).
+
+    Persistence: `save(dir)` writes `model_` as a checkpoint the JAX package
+    also reads, `KernelKMeans.load(dir)` rebuilds a fitted estimator from
+    one written by either package, and `fit(..., checkpoint_dir=dir)` saves
+    the streaming backends' Lloyd state after every iteration, so that a
+    killed fit refitted with the same seed and directory resumes.
     """
 
     def __init__(
@@ -127,6 +136,7 @@ class KernelKMeans:
         self.kernel_: Kernel | None = None
         self.backend_: str | None = None
         self.phases_: dict[str, float] = {}
+        self._pf_state: tuple[torch.Tensor, torch.Tensor, int] | None = None  # (Z, g, rows)
 
     # ------------------------------------------------------------- dispatch
 
@@ -158,6 +168,17 @@ class KernelKMeans:
 
     # ------------------------------------------------------------ lifecycle
 
+    def _fit_params_and_pool(self, sample: torch.Tensor, s_fit: int):
+        """The shared front half of phase 1: resolve the kernel, fit the
+        member's params on the sample, embed the seeding pool. Used by fit()
+        and sweep() (reservoir sample) and partial_fit() (first block)."""
+        self.kernel_ = self._resolve_kernel(sample)
+        params = get_embedding(self.method).fit(
+            s_fit, sample, self.kernel_, l=self.l, m=self.m, t=self.t, q=self.q
+        )
+        pool = ops.embed_block_map(sample[: self.seed_sample], params, policy=self.policy)
+        return params, pool
+
     def _phase1(self, X, seed: int, dev: torch.device, backend_name: str = "local"):
         """The backend-independent front of every fit and sweep: blocked host
         view, reservoir sample, embedding fit, seeding pool. Returns
@@ -165,7 +186,6 @@ class KernelKMeans:
         ``s_seed`` per restart, identically for fit() and sweep(). Only the
         local backend gets the whole array on the device; the streaming ones
         stay O(block) there."""
-        self.phases_ = {}
         array = None
         with self._phase("host_view", dev):
             if isinstance(X, BlockStore):
@@ -186,11 +206,7 @@ class KernelKMeans:
                 reservoir_sample(store, self.landmark_sample, seed=s_sample)
             ).to(dev)
         with self._phase("embed_fit", dev):
-            self.kernel_ = self._resolve_kernel(sample)
-            params = get_embedding(self.method).fit(
-                s_fit, sample, self.kernel_, l=self.l, m=self.m, t=self.t, q=self.q
-            )
-            pool = ops.embed_block_map(sample[: self.seed_sample], params, policy=self.policy)
+            params, pool = self._fit_params_and_pool(sample, s_fit)
         return store, array, params, pool, s_seed
 
     @staticmethod
@@ -201,8 +217,10 @@ class KernelKMeans:
         return [kmeanspp_init(restart_generator(s_seed, r), pool, k, discrepancy)
                 for r in range(restarts)]
 
-    def _prepare(self, X, seed: int, dev: torch.device, backend_name: str = "local") -> FitContext:
+    def _prepare(self, X, seed: int, dev: torch.device, backend_name: str = "local",
+                 checkpoint_dir=None) -> FitContext:
         """Phase 1 and the k-means++ seeding of every restart."""
+        self.phases_ = {}
         store, array, params, pool, s_seed = self._phase1(X, seed, dev, backend_name)
         with self._phase("seed", dev):
             inits = self._seed_inits(pool, s_seed, self.k, params.discrepancy,
@@ -210,16 +228,27 @@ class KernelKMeans:
         return FitContext(
             store=store, array=array, params=params, k=self.k, inits=inits,
             iters=self.iters, policy=self.policy, device=dev, decay=self.decay,
-            epochs=self.epochs,
+            epochs=self.epochs, checkpoint_dir=checkpoint_dir,
         )
 
-    def fit(self, X, y=None, *, seed: int | None = None) -> "KernelKMeans":
+    def fit(self, X, y=None, *, seed: int | None = None,
+            checkpoint_dir: str | Path | None = None) -> "KernelKMeans":
         """Fit on an (n, d) array (numpy or torch) or a BlockStore.
+
+        ``checkpoint_dir`` turns on mid-fit Lloyd checkpoints on the stream
+        and minibatch backends: the state after every iteration (epoch for
+        minibatch) is saved crash-atomically under
+        ``checkpoint_dir/restart_<r>/``, and a killed fit refitted with the
+        same seed and directory resumes mid-Lloyd. Phase 1 runs again (it is
+        seed-deterministic); no completed iteration does. The local backend
+        ignores it.
 
         Args:
             X: the data.
             y: ignored (sklearn signature compatibility).
             seed: root seed; ``None`` uses ``random_state``.
+            checkpoint_dir: root directory of the mid-fit checkpoints, or
+                ``None`` for none.
 
         Returns:
             self, fitted.
@@ -228,7 +257,8 @@ class KernelKMeans:
         name = self._choose_backend(X)
         backend = get_backend(name)
         get_embedding(self.method)
-        ctx = self._prepare(X, self.random_state if seed is None else seed, dev, name)
+        ctx = self._prepare(X, self.random_state if seed is None else seed, dev, name,
+                            checkpoint_dir)
         with self._phase("lloyd", dev):
             out = backend(ctx)
         meta = self._fit_meta(
@@ -243,6 +273,7 @@ class KernelKMeans:
         self.inertia_ = float(out.inertia)
         self.n_iter_ = int(out.iters)
         self.backend_ = name
+        self._pf_state = None
         return self
 
     def fit_predict(self, X, *, seed: int | None = None) -> np.ndarray:
@@ -268,7 +299,12 @@ class KernelKMeans:
             k_grid: candidate cluster counts.
             restarts: k-means++ restarts per k; ``None`` uses ``n_init``.
             seed: root seed; ``None`` uses ``random_state``.
-            checkpoint_dir: not ported yet (raises ``NotImplementedError``).
+            checkpoint_dir: persists the embed-once stage (params, seeding
+                pool and Y in the policy's ``cache_dtype`` wire form) before
+                clustering and the ``SweepResult`` after, so that an
+                interrupted sweep rerun with the same seed and directory
+                resumes past the embedding pass (``phases_`` then has
+                ``stage_load`` and no ``embed_cache``; ``result.resumed``).
 
         Returns:
             A ``SweepResult``.
@@ -277,6 +313,72 @@ class KernelKMeans:
 
         return sweep_estimator(self, X, k_grid, restarts=restarts, seed=seed,
                                checkpoint_dir=checkpoint_dir)
+
+    def partial_fit(self, X, *, seed: int | None = None) -> "KernelKMeans":
+        """The online face of the minibatch backend: one decayed (Z, g) update
+        per call, O(block) forever. On a cold estimator the first call fits
+        the embedding on that block and seeds the centroids from it (the fit
+        and seeding parts of ``phase1_seeds(seed)``); on a fitted or loaded
+        estimator it continues from ``model_`` with fresh decayed statistics
+        and the model's ``rows_seen``. Each call embeds the block, assigns it
+        (``assign_stats``), updates (Z, g) and the centroids, and reports the
+        block's cost under the new centroids as ``inertia_``.
+
+        Args:
+            X: one (b, d) block of the stream (numpy or torch).
+            seed: cold-start root seed; ``None`` uses ``random_state``.
+
+        Returns:
+            self, updated in place.
+        """
+        dev = resolve_device(self.device)
+        Xb = _as_tensor(X).to(dev, torch.float32)
+        if self.model_ is None:
+            # landmark-free members read only the input dim from the first
+            # block, but k-means++ still needs k rows; kernelized members need
+            # their l landmarks
+            need, what = (
+                (self.k, f"k={self.k} rows to seed centroids")
+                if get_embedding(self.method).landmark_free
+                else (self.l, f"l={self.l} rows to fit the embedding")
+            )
+            if Xb.shape[0] < need:
+                raise ValueError(
+                    f"partial_fit cold start needs the first block to hold at least {what}, "
+                    f"got {Xb.shape[0]}; buffer a larger first block"
+                )
+            _, s_fit, s_seed = phase1_seeds(self.random_state if seed is None else seed)
+            params, pool = self._fit_params_and_pool(Xb[: self.landmark_sample], s_fit)
+            centroids = kmeanspp_init(restart_generator(s_seed, 0), pool, self.k,
+                                      params.discrepancy)
+            self._pf_state = (torch.zeros((self.k, params.m), device=dev),
+                              torch.zeros((self.k,), device=dev), 0)
+        else:
+            model = self.model_.to(dev)
+            params, centroids = model.params, model.centroids
+            if self._pf_state is None:  # warm start from fit() or load()
+                self._pf_state = (torch.zeros((self.k, params.m), device=dev),
+                                  torch.zeros((self.k,), device=dev), model.meta.rows_seen)
+        Z, g, rows = self._pf_state
+        y = ops.embed_block_map(Xb, params, policy=self.policy)
+        Z_b, g_b, labels = assign_stats(y, centroids, self.k, params.discrepancy,
+                                        policy=self.policy)
+        Z = self.decay * Z + Z_b
+        g = self.decay * g + g_b
+        centroids = centroid_update(Z, g, centroids)
+        inertia = float(block_cost(y, centroids, params.discrepancy))
+        rows += int(Xb.shape[0])
+        self._pf_state = (Z, g, rows)
+        self.model_ = ClusterModel(
+            params=params, centroids=centroids,
+            inertia=torch.tensor(inertia, dtype=torch.float32),
+            meta=self._fit_meta(backend="minibatch", rows_seen=rows, n_init=1),
+        )
+        self.labels_ = labels.cpu().numpy().astype(np.int32)
+        self.inertia_ = inertia
+        self.n_iter_ = 0
+        self.backend_ = "minibatch"
+        return self
 
     def _fit_meta(self, **kw) -> FitMeta:
         return FitMeta(
@@ -363,3 +465,57 @@ class KernelKMeans:
             return -float(total)
         Y = self.transform(X)
         return -float(block_cost(Y, model.centroids, model.discrepancy))
+
+    # ---------------------------------------------------------- persistence
+
+    def save(self, ckpt_dir: str | Path, *, step: int = 0) -> Path:
+        """Persist ``model_`` as a ClusterModel checkpoint (crash-atomic, in
+        the JAX package's format). Returns the written step directory."""
+        from repro_torch.distributed.checkpoint import save_cluster_model
+
+        return save_cluster_model(ckpt_dir, self._require_model(), step=step)
+
+    @classmethod
+    def load(cls, ckpt_dir: str | Path, *, step: int | None = None,
+             policy: ComputePolicy | None = None, device=None) -> "KernelKMeans":
+        """A fitted estimator from a ClusterModel checkpoint written by either
+        package, whichever backend fit it: the hyperparameters rebuilt from
+        its ``FitMeta``, the model on ``device`` (default: the card).
+
+        Args:
+            ckpt_dir: the checkpoint root (as passed to ``save``).
+            step: the step to load; ``None`` for the latest.
+            policy: ``ComputePolicy`` for what follows (``None``: defaults).
+            device: where the model lives and later calls run.
+        """
+        from repro_torch.distributed.checkpoint import load_cluster_model
+
+        model = load_cluster_model(ckpt_dir, step=step, device=device)
+        meta = model.meta
+        # The kernel comes back resolved when the member's params carry it
+        # (every built-in does).
+        kernel = getattr(model.params, "kernel", None)
+        est = cls(
+            model.k,
+            kernel=kernel if kernel is not None else (meta.kernel_name or "rbf"),
+            method=meta.method,
+            backend=meta.backend if meta.backend != "unknown" else "auto",
+            # the recorded fit hyperparameters, so that a refit from the same
+            # seed reproduces the fit; artifacts that recorded none fall back
+            # to shapes and the constructor's defaults
+            l=meta.l or getattr(model.params, "l", 0) or 300,
+            m=meta.m or (model.params.R.shape[1] if hasattr(model.params, "R")
+                         else model.params.m),
+            t=meta.t, q=meta.q, iters=meta.iters_cap or 20,
+            n_init=max(1, meta.n_init), decay=meta.decay, epochs=meta.epochs,
+            landmark_sample=meta.landmark_sample or 4096,
+            seed_sample=meta.seed_sample or 1024,
+            block_rows=meta.block_rows or 4096,
+            random_state=meta.random_state, policy=policy, device=device,
+        )
+        est.kernel_ = kernel
+        est.model_ = model
+        est.inertia_ = float(model.inertia)
+        est.n_iter_ = meta.iters
+        est.backend_ = meta.backend
+        return est

@@ -53,6 +53,12 @@ class ClusterModel:
     meta: FitMeta = dataclasses.field(default_factory=FitMeta)
 
     @property
+    def coeffs(self) -> EmbeddingParams:
+        """The JAX package's alias for ``params``, from when APNC coefficients
+        were the only params."""
+        return self.params
+
+    @property
     def k(self) -> int:
         return int(self.centroids.shape[0])
 

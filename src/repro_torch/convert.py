@@ -1,9 +1,9 @@
 """Build the port's objects from plain arrays and dicts.
 
-The JAX package's fitted state (landmarks, R, the RFF frequencies W,
-centroids, inertia and the static fields) and its LM params tree are handed
-over as numpy arrays plus plain dicts, so that both packages compute from
-the same state. Nothing here imports the JAX package.
+The JAX package's fitted state (landmarks, R, the RFF frequencies W, the
+TensorSketch count-sketches S, centroids, inertia and the static fields) and
+its LM params tree are handed over as numpy arrays plus plain dicts, so that
+both packages compute from the same state. Nothing here imports the JAX package.
 """
 from __future__ import annotations
 
@@ -17,6 +17,7 @@ from repro_torch.core.apnc import APNCCoefficients
 from repro_torch.core.kernels_fn import Kernel
 from repro_torch.device import resolve_device
 from repro_torch.embed.rff import RFFParams
+from repro_torch.embed.tensorsketch import TensorSketchParams
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -49,8 +50,14 @@ def rff_params_from_numpy(W, kernel: dict, *, device=None) -> RFFParams:
     return RFFParams(W=_tensor(W, device), kernel=_kernel(kernel))
 
 
+def tensorsketch_params_from_numpy(S, kernel: dict, *, device=None) -> TensorSketchParams:
+    """TensorSketch params from the dense count-sketches S (p, d_aug, m) and
+    the kernel's fields as a dict, on ``device`` (the card by default)."""
+    return TensorSketchParams(S=_tensor(S, device), kernel=_kernel(kernel))
+
+
 def cluster_model_from_numpy(
-    params: APNCCoefficients | RFFParams, centroids, inertia, meta: dict,
+    params: APNCCoefficients | RFFParams | TensorSketchParams, centroids, inertia, meta: dict,
 ) -> ClusterModel:
     """A ClusterModel from converted params, centroids (k, m), the inertia and
     the FitMeta fields as a dict (unknown keys are ignored)."""

@@ -5,7 +5,10 @@ returning typed params and a plain ``transform(params, X) -> Y``.
 ``transform(params, X, policy)`` at module level is the one routed dispatch
 point every consumer goes through: by default the member's hand-written
 kernel for a CUDA tensor and its plain PyTorch version for a CPU tensor, as
-``ComputePolicy.resolve_kernels`` decides.
+``ComputePolicy.resolve_kernels`` decides. ``params_state`` /
+``params_restore`` give every member checkpoint serialization in the JAX
+package's format: tensor fields as host arrays, the other fields as strict
+JSON.
 """
 from __future__ import annotations
 
@@ -13,9 +16,11 @@ import abc
 import dataclasses
 from typing import Any
 
+import numpy as np
 import torch
 
 from repro_torch.core.kernels_fn import Kernel
+from repro_torch.device import resolve_device
 from repro_torch.policy import ComputePolicy, as_policy
 
 #: Any dataclass with tensor fields plus ``m``, ``d`` and ``discrepancy``.
@@ -33,6 +38,9 @@ class Embedding(abc.ABC):
 
     name: str = ""
     params_cls: type = object
+    #: The fit is a data-independent draw (no landmark gram): only the input
+    #: dimensionality is read from the data. Readable before a fit exists.
+    landmark_free: bool = False
 
     @abc.abstractmethod
     def fit(
@@ -48,6 +56,52 @@ class Embedding(abc.ABC):
     def kernel_transform(self, params: EmbeddingParams, X: torch.Tensor) -> torch.Tensor | None:
         """Hand-written kernel path for CUDA input, or None."""
         return None
+
+    # ------------------------------------------------------- serialization
+
+    def params_state(self, params: EmbeddingParams) -> tuple[dict[str, np.ndarray], dict]:
+        """(arrays, config): the tensor fields as host arrays, every other
+        field as a strict-JSON value; the JAX package's npz keys and config
+        dict for the same params."""
+        arrays: dict[str, np.ndarray] = {}
+        config: dict = {}
+        for f in dataclasses.fields(params):
+            v = getattr(params, f.name)
+            if isinstance(v, torch.Tensor):
+                arrays[f.name] = v.detach().cpu().numpy()
+            else:
+                config[f.name] = _config_encode(v)
+        return arrays, config
+
+    def params_restore(self, arrays: dict[str, np.ndarray], config: dict, *,
+                       device=None) -> EmbeddingParams:
+        """Inverse of ``params_state``, its tensors on ``device`` (default:
+        the card)."""
+        dev = resolve_device(device)
+        kw: dict = {k: _config_decode(v) for k, v in config.items()}
+        kw.update({k: torch.from_numpy(np.array(v, copy=True)).to(dev)
+                   for k, v in arrays.items()})
+        return self.params_cls(**kw)
+
+
+_KERNEL_TAG = "__kernel__"
+
+
+def _config_encode(v):
+    if isinstance(v, Kernel):
+        return {_KERNEL_TAG: dataclasses.asdict(v)}
+    if v is None or isinstance(v, (str, int, float, bool)):
+        return v
+    raise TypeError(
+        f"embedding-params field of type {type(v).__name__} is not "
+        "JSON-serializable; override params_state/params_restore"
+    )
+
+
+def _config_decode(v):
+    if isinstance(v, dict) and _KERNEL_TAG in v:
+        return Kernel(**v[_KERNEL_TAG])
+    return v
 
 
 # ------------------------------------------------------------------ registry

@@ -65,6 +65,7 @@ def rff_transform(params: RFFParams, X: torch.Tensor) -> torch.Tensor:
 class RFFEmbedding(Embedding):
     name = "rff"
     params_cls = RFFParams
+    landmark_free = True
 
     def fit(self, seed, data, kernel, *, l, m, t=None, q=1) -> RFFParams:
         """Draw W for m cosine features (output dim 2m) from a CPU generator

@@ -21,9 +21,12 @@ inside `fused_dequant_step`).
 Labels live on the host, (n,) int32: on a card each block's labels are
 copied into pinned memory without a sync, and the pass synchronizes once.
 These drivers back the "stream" and "minibatch" backends of
-`repro_torch.api.KernelKMeans`. They run on one device; `devices=`, `mesh=`
-and `checkpoint_dir=` raise `NotImplementedError` until the slices that port
-the sharded stream and the checkpoints.
+`repro_torch.api.KernelKMeans`. They run on one device; `devices=` and
+`mesh=` raise `NotImplementedError` until the slice that ports the sharded
+stream. `checkpoint_dir=` saves the state after every iteration (epoch for
+minibatch) crash-atomically, and a refit with the same data, k and init
+resumes from it and reaches the uninterrupted fit's labels, iterations and
+inertia bit for bit.
 """
 from __future__ import annotations
 
@@ -35,8 +38,10 @@ import torch
 from repro_torch.core.apnc import Discrepancy
 from repro_torch.core.lloyd import centroid_update, kmeanspp_init
 from repro_torch.device import resolve_device
+from repro_torch.distributed import checkpoint as ckpt
 from repro_torch.embed.base import EmbeddingParams
 from repro_torch.kernels import ops
+from repro_torch.launch.elastic import resume_lloyd_state
 from repro_torch.policy import ComputePolicy, as_policy
 from repro_torch.stream.blockstore import BlockStore, WritableBlockStore
 from repro_torch.stream.engine import cache_embedding, map_reduce
@@ -75,13 +80,10 @@ class _HostLabels:
         return self.buf.numpy()
 
 
-def _not_ported(devices, mesh, checkpoint_dir) -> None:
+def _not_ported(devices, mesh) -> None:
     if devices is not None or mesh is not None:
         raise NotImplementedError(
             "devices=/mesh= (the sharded stream) is not ported yet; see ROADMAP.md")
-    if checkpoint_dir is not None:
-        raise NotImplementedError(
-            "checkpoint_dir= (mid-fit Lloyd checkpoints) is not ported yet; see ROADMAP.md")
 
 
 def _source(coeffs, discrepancy) -> str:
@@ -147,8 +149,10 @@ def ooc_lloyd(
     O(block) on ``device`` (default: the card; ``"cpu"`` for the plain path).
     Stops early when no label changes, then assigns once more under the final
     centroids. ``init`` centroids, or a CPU ``generator`` for a k-means++
-    init on a reservoir sample of ``seed_sample`` rows."""
-    _not_ported(devices, mesh, checkpoint_dir)
+    init on a reservoir sample of ``seed_sample`` rows. ``checkpoint_dir``
+    saves the state after every iteration and resumes a refit of the same
+    data, k and init from the last one saved."""
+    _not_ported(devices, mesh)
     disc = _source(coeffs, discrepancy)
     pol = as_policy(policy)
     prefetch = pol.prefetch if prefetch is None else prefetch
@@ -168,6 +172,17 @@ def ooc_lloyd(
     shifts: list[float] = []
     it = 0
     changed = True
+    fp = None
+    if checkpoint_dir is not None:
+        fp = ckpt.lloyd_fingerprint(kind="ooc", n=store.n, d=store.d, k=k, m=m, init=cell[0],
+                                    cache_dtype=getattr(store, "codec", "f32"))
+        state = resume_lloyd_state(checkpoint_dir, fingerprint=fp, devices_used=1)
+        if state is not None:
+            it, changed = state["step"], state["changed"]
+            labels.buf.copy_(torch.from_numpy(state["labels"]))
+            prev = state["labels"].copy()
+            trajectory, shifts = list(state["trajectory"]), list(state["shifts"])
+            cell[0] = torch.from_numpy(state["centroids"]).to(dev)
     while it < iters and changed:
         Z, g, cost = map_reduce(
             store, map_fn,
@@ -182,6 +197,12 @@ def ooc_lloyd(
         changed = not np.array_equal(cur, prev)
         prev = cur.copy()
         it += 1
+        if checkpoint_dir is not None:
+            ckpt.save_lloyd_state(
+                checkpoint_dir, step=it, centroids=cell[0], labels=prev,
+                trajectory=trajectory, shifts=shifts, changed=changed, fingerprint=fp,
+                devices_used=1,
+            )
 
     inertia = _final_assign(store, coeffs, disc, cell, labels, prefetch, dev, pol)
     trajectory.append(inertia)
@@ -230,8 +251,11 @@ def minibatch_lloyd(
         Z <- decay * Z + Z_b,   g <- decay * g + g_b,   c = Z / g
 
     The centroids move after every block, so one pass over the stream
-    already clusters; decay < 1 forgets stale assignments."""
-    _not_ported(devices, mesh, checkpoint_dir)
+    already clusters; decay < 1 forgets stale assignments.
+    ``checkpoint_dir`` saves the state, (Z, g) included, after every epoch
+    and resumes a refit of the same data, k, init and decay from the last
+    one saved."""
+    _not_ported(devices, mesh)
     disc = _source(coeffs, discrepancy)
     pol = as_policy(policy)
     prefetch = pol.prefetch if prefetch is None else prefetch
@@ -257,11 +281,32 @@ def minibatch_lloyd(
     # under the centroids current when its block streamed.
     trajectory: list[float] = []
     seen_cost = 0.0
-    for _ in range(epochs):
+    start = 0
+    fp = None
+    if checkpoint_dir is not None:
+        fp = ckpt.lloyd_fingerprint(kind="minibatch", n=store.n, d=store.d, k=k, m=m,
+                                    init=cell[0], decay=decay,
+                                    cache_dtype=getattr(store, "codec", "f32"))
+        saved = resume_lloyd_state(checkpoint_dir, fingerprint=fp, devices_used=1)
+        if saved is not None:
+            start = saved["step"]
+            labels.buf.copy_(torch.from_numpy(saved["labels"]))
+            trajectory = list(saved["trajectory"])
+            cell[0] = torch.from_numpy(saved["centroids"]).to(dev)
+            state[:] = [torch.from_numpy(saved["stats"][name]).to(dev)
+                        for name in ("Z", "g", "seen_cost")]
+            seen_cost = float(state[2])
+    for ep in range(start, epochs):
         map_reduce(store, map_fn, combine, None, prefetch=prefetch, emit=emit, device=dev)
         total = float(state[2])
         trajectory.append(total - seen_cost)
         seen_cost = total
+        if checkpoint_dir is not None:
+            ckpt.save_lloyd_state(
+                checkpoint_dir, step=ep + 1, centroids=cell[0], labels=labels.numpy(),
+                trajectory=trajectory, shifts=[], changed=True, fingerprint=fp,
+                devices_used=1, stats={"Z": state[0], "g": state[1], "seen_cost": state[2]},
+            )
 
     inertia = _final_assign(store, coeffs, disc, cell, labels, prefetch, dev, pol)
     trajectory.append(inertia)

@@ -6,6 +6,8 @@ free if the embedding is computed once. This package is that layer:
 
   * `repro_torch.sweep.engine`: multi-candidate Lloyd drivers over a cached
     embedding (single-device stream, resident local);
+  * `repro_torch.sweep.stage`: crash-atomic persistence of the embed-once
+    artifacts, so that an interrupted sweep resumes past the embedding pass;
   * `repro_torch.sweep.result`: `SweepResult`, the candidate lattice of
     `ClusterModel`s, the inertia table and the deterministic best-model
     selection;
@@ -25,12 +27,15 @@ from repro_torch.sweep.engine import (
 )
 from repro_torch.sweep.orchestrator import SWEEP_BACKENDS, run_sweep, sweep_estimator
 from repro_torch.sweep.result import SweepResult
+from repro_torch.sweep.stage import load_embed_stage, save_embed_stage
 
 __all__ = [
     "SWEEP_BACKENDS",
     "SweepLloydOut",
     "SweepResult",
+    "load_embed_stage",
     "run_sweep",
+    "save_embed_stage",
     "sweep_estimator",
     "sweep_lloyd",
     "sweep_lloyd_local",

@@ -9,10 +9,13 @@ pay it R * |k_grid| * (iters + 1) times. `sweep_estimator` restructures that:
            k-means++ draw `fit` uses for its restart r;
   phase 2  one embedding pass: resident input into a resident f32 Y, blocked
            input staged to host blocks under the policy's `cache_dtype`;
+           with a ``checkpoint_dir``, persisted by `repro_torch.sweep.stage`
+           so that an interrupted sweep resumes past phases 1 and 2;
   phase 3  multi-candidate Lloyd over the cache (`repro_torch.sweep.engine`):
            every engine pass feeds every still-active candidate;
   phase 4  deterministic best-model selection (`SweepResult.select_best`),
-           which the estimator adopts.
+           which the estimator adopts, and with a ``checkpoint_dir`` the
+           `SweepResult` persisted.
 
 Keystone: `sweep(k_grid=[k], restarts=1)` reaches the labels of `fit(k)` from
 the same seed, for every registered embedding member, on the local and
@@ -21,14 +24,15 @@ stream backends.
 from __future__ import annotations
 
 import dataclasses
+from pathlib import Path
 
 import numpy as np
 import torch
 
 from repro_torch.api.backends import FitContext, ensure_embedding_cache
 from repro_torch.api.model import ClusterModel
-from repro_torch.core.lloyd import kmeanspp_init
 from repro_torch.device import resolve_device
+from repro_torch.stream.blockstore import BlockStore
 from repro_torch.sweep.engine import (
     SweepLloydOut,
     sweep_lloyd,
@@ -36,6 +40,7 @@ from repro_torch.sweep.engine import (
     sweep_lloyd_sharded,
 )
 from repro_torch.sweep.result import SweepResult
+from repro_torch.sweep.stage import load_embed_stage, save_embed_stage
 
 #: Backends a sweep can amortize one embedding across; minibatch's decayed
 #: trajectory has no embed-once counterpart, so `fit` stays its entry point.
@@ -61,7 +66,7 @@ def run_sweep(ctx: FitContext, k_grid: tuple[int, ...], inits: list, *, backend:
 
 
 def sweep_estimator(est, X, k_grid, *, restarts: int | None = None, seed: int | None = None,
-                    checkpoint_dir=None) -> SweepResult:
+                    checkpoint_dir: str | Path | None = None) -> SweepResult:
     """The engine behind `KernelKMeans.sweep` (``est`` is the estimator)."""
     k_grid = tuple(int(k) for k in k_grid)
     if not k_grid:
@@ -71,11 +76,6 @@ def sweep_estimator(est, X, k_grid, *, restarts: int | None = None, seed: int | 
     R = int(restarts) if restarts is not None else max(1, est.n_init)
     if R < 1:
         raise ValueError(f"restarts must be >= 1, got {restarts}")
-    if checkpoint_dir is not None:
-        raise NotImplementedError(
-            "checkpoint_dir= (the persisted embed-once stage and sweep result) is "
-            "not ported yet; it arrives with the checkpoints (ROADMAP.md, Queue 1 item 10)"
-        )
     backend = est._choose_backend(X)
     if backend == "stream_shard":
         raise NotImplementedError(
@@ -91,20 +91,48 @@ def sweep_estimator(est, X, k_grid, *, restarts: int | None = None, seed: int | 
     get_embedding(est.method)  # reject typos before streaming any data
     dev = resolve_device(est.device)
     seed = est.random_state if seed is None else seed
+    input_shape = (X.n, X.d) if isinstance(X, BlockStore) else tuple(int(v) for v in X.shape)
 
-    # Phase 1, identical to fit()'s: the same seed split feeds the same
-    # reservoir, member fit and seeding pool.
-    store, array, params, pool, s_seed = est._phase1(X, seed, dev, backend)
-    ctx = FitContext(
-        store=store, array=array, params=params, k=k_grid[0], inits=[], iters=est.iters,
-        policy=est.policy, device=dev, decay=est.decay, epochs=est.epochs,
-    )
-    with est._phase("embed_cache", dev):
-        ensure_embedding_cache(ctx)
-        if backend == "local" and ctx.y_array is None:
-            # local over a BlockStore: the resident driver takes the decoded
-            # staged blocks as one array.
-            ctx.y_array = torch.from_numpy(ctx.y_store.materialize()).to(dev)
+    est.phases_ = {}
+    stage = None
+    if checkpoint_dir is not None:
+        with est._phase("stage_load", dev):
+            stage = load_embed_stage(checkpoint_dir, method=est.method, sweep_seed=seed,
+                                     input_shape=input_shape,
+                                     cache_dtype=est.policy.cache_dtype, device=dev)
+    if stage is not None:
+        params, pool, s_seed, y_store = stage
+        est.kernel_ = getattr(params, "kernel", None) or est.kernel_
+        ctx = FitContext(
+            store=y_store, array=None, params=params, k=k_grid[0], inits=[],
+            iters=est.iters, policy=est.policy, device=dev, decay=est.decay,
+            epochs=est.epochs, y_store=y_store,
+        )
+        if backend == "local":
+            ctx.y_store = None
+            ctx.y_array = torch.from_numpy(y_store.materialize()).to(dev)
+    else:
+        # Phase 1, identical to fit()'s: the same seed split feeds the same
+        # reservoir, member fit and seeding pool.
+        store, array, params, pool, s_seed = est._phase1(X, seed, dev, backend)
+        ctx = FitContext(
+            store=store, array=array, params=params, k=k_grid[0], inits=[],
+            iters=est.iters, policy=est.policy, device=dev, decay=est.decay,
+            epochs=est.epochs,
+        )
+        with est._phase("embed_cache", dev):
+            ensure_embedding_cache(ctx)
+            if backend == "local" and ctx.y_array is None:
+                # local over a BlockStore: the resident driver takes the
+                # decoded staged blocks as one array.
+                ctx.y_array = torch.from_numpy(ctx.y_store.materialize()).to(dev)
+        if checkpoint_dir is not None:
+            with est._phase("stage_save", dev):
+                save_embed_stage(
+                    checkpoint_dir, params=params, pool=pool, s_seed=s_seed,
+                    y_store=ctx.y_store or _staged(ctx.y_array, est),
+                    sweep_seed=seed, method=est.method, input_shape=input_shape,
+                )
     # Restart r of every k seeds from restart_generator(s_seed, r): the draw
     # fit() uses for its restart r.
     with est._phase("seed", dev):
@@ -134,12 +162,30 @@ def sweep_estimator(est, X, k_grid, *, restarts: int | None = None, seed: int | 
     result = SweepResult(
         models=models, inertia=np.asarray(out.inertia), labels=out.labels, k_grid=k_grid,
         restarts=R, backend=backend, best_k_index=best_i, best_restart=best_r,
+        resumed=stage is not None,
     )
-    # The estimator adopts the selected model: predict / transform / score
-    # serve the sweep's best as if fit() had produced it.
+    if checkpoint_dir is not None:
+        from repro_torch.distributed.checkpoint import save_sweep_result
+
+        with est._phase("result_save", dev):
+            save_sweep_result(checkpoint_dir, result)
+    # The estimator adopts the selected model: predict / transform / score /
+    # save serve the sweep's best as if fit() had produced it.
     est.model_ = result.best
     est.labels_ = result.best_labels
     est.inertia_ = result.best_inertia
     est.n_iter_ = int(out.iters[best_i, best_r])
     est.backend_ = backend
+    est._pf_state = None
     return result
+
+
+def _staged(y_array: torch.Tensor, est) -> BlockStore:
+    """The local backend's resident Y as a host store under the policy's
+    codec, so that the stage's fingerprint is the one a resume asks for."""
+    y_np = y_array.cpu().numpy()
+    y_store = BlockStore.empty(n=y_np.shape[0], d=y_np.shape[1], block_rows=est.block_rows,
+                               codec=est.policy.cache_dtype)
+    for b in range(y_store.num_blocks):
+        y_store.put(b, y_np[b * est.block_rows:(b + 1) * est.block_rows])
+    return y_store

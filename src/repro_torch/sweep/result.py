@@ -35,6 +35,9 @@ class SweepResult:
     backend: str = ""
     best_k_index: int = 0
     best_restart: int = 0
+    #: whether the sweep resumed from a persisted embed stage instead of
+    #: running phase 1 and the embedding pass
+    resumed: bool = False
 
     @staticmethod
     def select_best(inertia: np.ndarray) -> tuple[int, int]:

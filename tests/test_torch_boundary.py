@@ -115,7 +115,7 @@ def test_chip_smoke_cpu_rehearsal():
     lines = [json.loads(line) for line in out.stdout.splitlines() if line.startswith("{")]
     phases = [line.get("phase") for line in lines]
     assert phases == ["device", "data", "parity", "main", "agreement", "host_copy", "stream",
-                      "rff", "sweep", "lm_serve", "timing", "done"]
+                      "rff", "sweep", "persist", "lm_serve", "timing", "done"]
     assert not any(line.get("ok") for line in lines)
     main = lines[phases.index("main")]
     assert main["nmi"] > 0.9 and main["launches"] == {"apnc_embed": 0, "apnc_assign": 0}
@@ -133,6 +133,22 @@ def test_chip_smoke_cpu_rehearsal():
     flash = lines[phases.index("parity")]["flash_attention"]
     assert {(c["window"], c["dtype"]) for c in flash} == {
         (w, dt) for w in (0, 50, 4096) for dt in ("float32", "bfloat16")}
+    persist = lines[phases.index("persist")]
+    assert persist["temp_dir_removed"] and not any(persist["launches"].values())
+    for name in ("local", "rff"):
+        saved = persist["save_load"][name]
+        assert saved["predict_bitwise"] and saved["centroids_bitwise"] and saved["params_bitwise"]
+    for name in ("stream_resume", "minibatch_resume"):
+        res = persist[name]
+        assert res["iterations_skipped"] >= 1 and res["counters"]["ckpt_resumes"] >= 1
+        assert res["labels_bitwise"] and res["n_iter_equal"] and res["inertia_bitwise"]
+    sweep_res = persist["sweep_resume"]
+    assert sweep_res["cache_embedding_passes"] == [1, 0] and sweep_res["resumed"] == [False, True]
+    assert sweep_res["inertia_bitwise"] and sweep_res["labels_bitwise"]
+    assert sweep_res["load_any_model_predicts_like_best"]
+    assert sweep_res["y_bin_bytes"] == persist["n"] * persist["m"]
+    pf = persist["partial_fit"]
+    assert pf["rows_seen"] == persist["n"] and pf["kernel_vs_plain"]["label_mismatches"] == 0
     lm = lines[phases.index("lm_serve")]
     assert lm["arch"] == "qwen1.5-0.5b-smoke" and lm["flash_attention_launches"] == 0
     assert lm["vs_plain"]["max_abs_diff"] == 0.0  # the CPU route is the plain version

@@ -749,3 +749,101 @@ def test_y_mode_step_is_one_assign_launch_and_no_gemm(cuda, m):
     assert sum("lloyd_reduce_kernel" in name for name in kernels) == 1, kernels
     want = ref.apnc_assign_step_ref(Yc, C, "l2")
     _check_step(got, want, plan.step(Yc, C), cost_rtol=1e-4)
+
+
+# ------------------------------------------------- checkpoints on the card
+
+
+def _failing(store, fail_after):
+    """``store`` behind a get() that raises once ``fail_after`` reads have
+    been served (the engine's producer thread makes them)."""
+    import threading
+
+    from repro_torch.stream.blockstore import BlockStore
+
+    count, lock = [0], threading.Lock()
+
+    def get(i):
+        with lock:
+            count[0] += 1
+            if count[0] > fail_after:
+                raise RuntimeError("injected ingest crash")
+        return store.get(i)
+
+    return BlockStore(get, n=store.n, d=store.d, block_rows=store.block_rows)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("method", ["nystrom", "rff"])
+def test_save_and_load_on_the_card_predict_bitwise(cuda, tmp_path, method):
+    from repro_torch.api import KernelKMeans
+    from repro_torch.data.synthetic import gaussian_blobs_blocks
+
+    X, _ = gaussian_blobs_blocks(0, 3000, 16, 6, block_rows=1024, separation=4.0)
+    est = KernelKMeans(6, method=method, l=128, m=64, kernel_params=dict(gamma=0.01)).fit(X)
+    est.save(tmp_path)
+    loaded = KernelKMeans.load(tmp_path)
+    assert loaded.model_.centroids.device.type == "cuda"
+    assert torch.equal(loaded.model_.centroids, est.model_.centroids)
+    np.testing.assert_array_equal(loaded.predict(X), est.predict(X))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("backend", ["stream", "minibatch"])
+def test_stream_fit_crashed_and_resumed_on_the_card_is_bitwise(cuda, tmp_path, backend):
+    from repro_torch.api import KernelKMeans
+    from repro_torch.data.synthetic import gaussian_blobs_blocks
+    from repro_torch.distributed import checkpoint as ckpt
+    from repro_torch.kernels import lloyd_step
+    from repro_torch.stream.blockstore import BlockStore
+
+    X, _ = gaussian_blobs_blocks(0, 6000, 16, 6, block_rows=1024, separation=2.0)
+    store = BlockStore.from_array(X, 500)
+    nb = store.num_blocks
+
+    def make():
+        return KernelKMeans(6, l=128, m=64, kernel_params=dict(gamma=0.01), block_rows=500,
+                            backend=backend, epochs=3, iters=10)
+
+    before = lloyd_step.launches["fused_apnc_step"]
+    ref = make().fit(store, seed=2)
+    assert lloyd_step.launches["fused_apnc_step"] > before
+    with pytest.raises(RuntimeError, match="injected ingest crash"):
+        make().fit(_failing(store, 2 * nb + nb // 2), seed=2, checkpoint_dir=tmp_path)
+    assert ckpt.latest_step(tmp_path / "restart_0" / ckpt.LLOYD_STATE_DIR) >= 1
+    ckpt.reset_counters()
+    resumed = make().fit(store, seed=2, checkpoint_dir=tmp_path)
+    assert ckpt.COUNTERS["ckpt_resumes"] == 1
+    np.testing.assert_array_equal(resumed.labels_, ref.labels_)
+    assert (resumed.n_iter_, resumed.inertia_) == (ref.n_iter_, ref.inertia_)
+    assert torch.equal(resumed.model_.centroids, ref.model_.centroids)
+
+
+@pytest.mark.gpu
+def test_partial_fit_kernel_route_matches_plain_at_equal_state(cuda, tmp_path):
+    """Both routes warm-started from one saved model and given one block:
+    each call one apnc_embed and one apnc_assign launch on the default route,
+    none on the plain one; the same labels (well-separated blobs: no near
+    ties), g equal, Z and the centroids within rtol 1e-4, atol 1e-4 of the
+    largest |value|."""
+    from repro_torch.api import ComputePolicy, KernelKMeans
+    from repro_torch.data.synthetic import gaussian_blobs_blocks
+
+    X, _ = gaussian_blobs_blocks(0, 4096, 16, 6, block_rows=1024, separation=4.0)
+    KernelKMeans(6, l=128, m=64, kernel_params=dict(gamma=0.01)).fit(X[:3000]).save(tmp_path)
+    kern = KernelKMeans.load(tmp_path)
+    plain = KernelKMeans.load(tmp_path, policy=ComputePolicy(kernels=False))
+    block = X[3000:]
+    before = (t_embed.launches, t_assign.launches)
+    kern.partial_fit(block)
+    torch.cuda.synchronize()
+    assert (t_embed.launches, t_assign.launches) == (before[0] + 1, before[1] + 1)
+    plain.partial_fit(block)
+    assert (t_embed.launches, t_assign.launches) == (before[0] + 1, before[1] + 1)
+    np.testing.assert_array_equal(kern.labels_, plain.labels_)
+    (Zk, gk, rk), (Zp, gp, rp) = kern._pf_state, plain._pf_state
+    assert rk == rp and torch.equal(gk, gp)
+    torch.testing.assert_close(Zk, Zp, rtol=1e-4, atol=1e-4 * float(Zp.abs().max()))
+    Cp = plain.model_.centroids
+    torch.testing.assert_close(kern.model_.centroids, Cp, rtol=1e-4,
+                               atol=1e-4 * float(Cp.abs().max()))

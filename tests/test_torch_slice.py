@@ -1,5 +1,6 @@
 """The whole slice: the port's local-backend fit and predict against the JAX
-package's, on the quickstart's data (examples/quickstart.py)."""
+package's, on the quickstart's data (examples/quickstart.py), and the
+estimator's partial_fit, save and load against the JAX package's."""
 import dataclasses
 
 import jax
@@ -11,6 +12,7 @@ from repro.api import KernelKMeans as JKernelKMeans
 from repro.api import backends as jbackends
 from repro.core.metrics import nmi
 from repro.data.synthetic import gaussian_blobs
+from repro.data.synthetic import gaussian_blobs_blocks as j_blocks
 from repro.stream.blockstore import BlockStore as JBlockStore
 from repro.stream.reservoir import reservoir_sample as j_reservoir
 from repro_torch import embed
@@ -193,3 +195,95 @@ def test_convert_defaults_to_the_card(which, device):
     else:
         with pytest.raises(RuntimeError, match="CUDA card"):
             _convert_params(which)
+
+
+# ------------------------------------------------ partial_fit, save and load
+
+
+@pytest.fixture(scope="module")
+def saved_jax_model(tmp_path_factory):
+    """A JAX package's local fit on 512 blobs, saved by its save()."""
+    X, _ = gaussian_blobs(jax.random.PRNGKey(0), 512, 8, 4, separation=4.0)
+    d = tmp_path_factory.mktemp("jmodel")
+    JKernelKMeans(4, l=48, m=32, iters=10, block_rows=128, backend="local").fit(
+        X, key=jax.random.PRNGKey(5)).save(d)
+    return d
+
+
+def test_partial_fit_matches_jax_per_call(saved_jax_model):
+    """Both packages warm-started from the same saved model and fed the same
+    blocks: per call, the labels exactly, the centroids, Z, g and the block's
+    inertia within rtol 1e-5 (atol 1e-5 of the largest |value| for the
+    centroids and Z, whose entries pass through zero), rows_seen equal, R
+    unchanged."""
+    Xs, _ = j_blocks(1, 1024, 8, 4, block_rows=256, separation=4.0)
+    jest = JKernelKMeans.load(saved_jax_model)
+    test = KernelKMeans.load(saved_jax_model, device="cpu")
+    R_before = test.model_.coeffs.R.clone()
+    for i in range(Xs.num_blocks):
+        block = Xs.get(i)
+        jest.partial_fit(block)
+        test.partial_fit(block)
+        np.testing.assert_array_equal(test.labels_, np.asarray(jest.labels_))
+        (Zj, gj, rows_j), (Zt, gt, rows_t) = jest._pf_state, test._pf_state
+        assert rows_t == rows_j == test.model_.meta.rows_seen
+        for got, want in ((test.model_.centroids, jest.model_.centroids), (Zt, Zj)):
+            want = np.asarray(want)
+            np.testing.assert_allclose(got.numpy(), want, rtol=1e-5,
+                                       atol=1e-5 * float(np.abs(want).max()))
+        np.testing.assert_allclose(gt.numpy(), np.asarray(gj), rtol=1e-5)
+        assert test.inertia_ == pytest.approx(jest.inertia_, rel=1e-5)
+        assert test.backend_ == jest.backend_ == "minibatch" and test.n_iter_ == 0
+    assert torch.equal(test.model_.coeffs.R, R_before)
+
+
+def test_partial_fit_warm_starts_from_loaded_model(blobs, tmp_path):
+    """partial_fit on a fitted or loaded estimator continues from its
+    ClusterModel's params, not a refit on the incoming block."""
+    X, _ = blobs
+    est = KernelKMeans(6, l=64, m=32, iters=10, block_rows=512, device="cpu").fit(X, seed=5)
+    est.save(tmp_path / "ck")
+    loaded = KernelKMeans.load(tmp_path / "ck", device="cpu")
+    R_before = loaded.model_.coeffs.R.clone()
+    rows_before = loaded.model_.meta.rows_seen
+    loaded.partial_fit(X[:128])
+    assert torch.equal(loaded.model_.coeffs.R, R_before)
+    assert loaded.model_.meta.rows_seen == rows_before + 128
+    est.partial_fit(X[:128])  # warm from fit(): the same update as from load()
+    np.testing.assert_array_equal(est.labels_, loaded.labels_)
+    assert torch.equal(est.model_.centroids, loaded.model_.centroids)
+    est.sweep(X, k_grid=[6], restarts=1, seed=5)  # a sweep clears the online state
+    assert est._pf_state is None
+
+
+@pytest.mark.parametrize("method", ["nystrom", "rff"])
+def test_partial_fit_small_first_block_raises(blobs, method):
+    X, _ = blobs
+    kw = dict(l=300) if method == "nystrom" else dict(method="rff", m=16)
+    k = 4 if method == "nystrom" else 100
+    with pytest.raises(ValueError, match="first block"):
+        KernelKMeans(k, device="cpu", **kw).partial_fit(X[:64])
+
+
+def test_partial_fit_cold_start_streams_blocks():
+    """A cold estimator fits on its first block and then updates block by
+    block; rows_seen counts every row and the model predicts the stream."""
+    Xs, ys = j_blocks(1, 2048, 8, 4, block_rows=256, separation=4.0)
+    est = KernelKMeans(4, l=48, m=32, decay=0.95, device="cpu")
+    for i in range(Xs.num_blocks):
+        est.partial_fit(Xs.get(i), seed=1)
+    assert est.backend_ == "minibatch" and est.model_.meta.rows_seen == Xs.n
+    assert est.labels_.shape == (256,) and est.labels_.dtype == np.int32
+    labels = est.predict(BlockStore.from_array(Xs.materialize(), 256))
+    assert labels.shape == (Xs.n,) and 0 <= labels.min() and labels.max() < 4
+
+
+def test_load_restores_fit_hyperparameters(blobs, tmp_path):
+    X, _ = blobs
+    KernelKMeans(6, method="sd", l=48, m=16, n_init=2, decay=0.8, iters=10, block_rows=512,
+                 device="cpu").fit(X, seed=9).save(tmp_path / "ck")
+    loaded = KernelKMeans.load(tmp_path / "ck", device="cpu")
+    assert (loaded.l, loaded.m, loaded.q) == (48, 16, 1)
+    assert loaded.method == "sd" and loaded.n_init == 2
+    assert loaded.iters == 10 and loaded.decay == 0.8 and loaded.block_rows == 512
+    assert loaded.model_.params.R.device.type == "cpu"

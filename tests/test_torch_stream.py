@@ -240,7 +240,7 @@ def test_y_mode_stream_matches_x_mode(data, member_state):
 def test_drivers_reject_what_is_not_ported(data, member_state):
     _, tparams, init = member_state
     store = BlockStore.from_array(data, 128)
-    for kw in (dict(devices=[CPU]), dict(mesh=object()), dict(checkpoint_dir="ckpt")):
+    for kw in (dict(devices=[CPU]), dict(mesh=object())):
         with pytest.raises(NotImplementedError):
             tstream.ooc_lloyd(store, 4, coeffs=tparams, init=torch.from_numpy(init),
                               device=CPU, **kw)

@@ -2,7 +2,8 @@
 keystones: the multi-candidate engine fed the same numpy Y blocks and inits
 under every codec, sweep == fit inside the port, the selection rule, the
 int8 cache against the f32 one, the two staged-cache repairs, the bf16
-transform, and what is not ported yet. Everything runs on the CPU."""
+transform, the persisted embed stage and its resume, and what is not ported
+yet. Everything runs on the CPU."""
 import dataclasses
 
 import jax
@@ -240,11 +241,128 @@ def test_what_is_not_ported_raises(blobs):
         _est("nystrom", "minibatch").sweep(store, k_grid=[3])
     with pytest.raises(NotImplementedError, match="item 13"):
         _est("nystrom", "stream_shard").sweep(store, k_grid=[3])
-    with pytest.raises(NotImplementedError, match="item 10"):
-        _est("nystrom", "stream").sweep(store, k_grid=[3], checkpoint_dir="ckpt")
     with pytest.raises(NotImplementedError, match="item 13"):
         tsweep.sweep_lloyd_sharded(store, [], "l2")
     with pytest.raises(ValueError, match="at least one candidate"):
         _est("nystrom", "stream").sweep(store, k_grid=[])
     with pytest.raises(ValueError, match="restarts"):
         _est("nystrom", "stream").sweep(store, k_grid=[3], restarts=0)
+
+
+# ------------------------------------------------- the embed stage and resume
+
+
+@pytest.mark.parametrize("codec", ["f32", "int8"])
+@pytest.mark.parametrize("backend", ["local", "stream"])
+def test_resume_skips_the_embedding_pass(blobs, tmp_path, codec, backend):
+    """A sweep rerun with the same seed and checkpoint_dir loads the staged
+    Y: no phase 1, no cache_embedding pass, bit-identical candidates."""
+    data = tbs.BlockStore.from_array(blobs, 64) if backend == "stream" else blobs
+    pol = ComputePolicy(cache_dtype=codec)
+    engine.reset_counters()
+    est1 = _est("nystrom", backend, policy=pol)
+    r1 = est1.sweep(data, k_grid=[2, 3], restarts=2, seed=17, checkpoint_dir=tmp_path)
+    assert engine.PASS_COUNTS["cache_embedding"] == (backend == "stream")
+    assert not r1.resumed and {"stage_load", "stage_save", "embed_cache"} <= set(est1.phases_)
+    engine.reset_counters()
+    est2 = _est("nystrom", backend, policy=pol)
+    r2 = est2.sweep(data, k_grid=[2, 3], restarts=2, seed=17, checkpoint_dir=tmp_path)
+    assert engine.PASS_COUNTS["cache_embedding"] == 0 and r2.resumed
+    assert "stage_load" in est2.phases_ and not {"embed_fit", "embed_cache"} & set(est2.phases_)
+    if backend == "stream" or codec == "f32":
+        # a resumed local sweep clusters the staged Y, which under int8 is
+        # the decoded cache, not the resident f32 Y (as in the JAX package)
+        np.testing.assert_array_equal(r1.inertia, r2.inertia)
+        for a_row, b_row in zip(r1.labels, r2.labels):
+            for a, b in zip(a_row, b_row):
+                np.testing.assert_array_equal(a, b)
+        assert torch.equal(r1.best.centroids, r2.best.centroids)
+    assert est2.kernel_ == est1.kernel_
+    # another seed fingerprints differently: the stage is not adopted
+    engine.reset_counters()
+    r3 = _est("nystrom", "stream", policy=pol).sweep(
+        tbs.BlockStore.from_array(blobs, 64), k_grid=[3], restarts=1, seed=99,
+        checkpoint_dir=tmp_path)
+    assert engine.PASS_COUNTS["cache_embedding"] == 1 and not r3.resumed
+
+
+def test_stale_or_truncated_stage_is_embedded_again(blobs, tmp_path):
+    from repro_torch.sweep.stage import STAGE_DIR, load_embed_stage
+
+    store = tbs.BlockStore.from_array(blobs, 64)
+    pol = ComputePolicy(cache_dtype="int8")
+    _est("nystrom", "stream", policy=pol).sweep(store, k_grid=[3], seed=4,
+                                                checkpoint_dir=tmp_path)
+    shape = (store.n, store.d)
+    ok = dict(method="nystrom", sweep_seed=4, input_shape=shape, cache_dtype="int8", device=CPU)
+    assert load_embed_stage(tmp_path, **ok) is not None
+    for bad in (dict(method="sd"), dict(sweep_seed=5), dict(input_shape=(store.n - 1, 5)),
+                dict(cache_dtype="f32")):
+        assert load_embed_stage(tmp_path, **{**ok, **bad}) is None
+    y_bin = tmp_path / STAGE_DIR / "Y.bin"
+    y_bin.write_bytes(y_bin.read_bytes()[:-16 * 64])  # lose the last block's rows
+    assert load_embed_stage(tmp_path, **ok) is None
+    engine.reset_counters()
+    res = _est("nystrom", "stream", policy=pol).sweep(store, k_grid=[3], seed=4,
+                                                      checkpoint_dir=tmp_path)
+    assert engine.PASS_COUNTS["cache_embedding"] == 1 and not res.resumed
+    assert load_embed_stage(tmp_path, **ok) is not None  # staged again, whole
+
+
+@pytest.mark.parametrize("codec", ["f32", "bf16", "int8"])
+def test_stage_bytes_are_the_references(staged_y, tmp_path, codec):
+    """The same staged Y and params give the same Y.bin and scales.npy bytes
+    and params.npz arrays in both packages; pool.npy too."""
+    from repro.sweep.stage import save_embed_stage as j_save_stage
+    from repro_torch.sweep.stage import STAGE_DIR, load_embed_stage, save_embed_stage
+
+    Y, _ = staged_y
+    jstore = jbs.BlockStore.empty(n=700, d=12, block_rows=128, codec=codec)
+    tstore = tbs.BlockStore.empty(n=700, d=12, block_rows=128, codec=codec)
+    for i in range(tstore.num_blocks):
+        jstore.put(i, Y[i * 128:(i + 1) * 128])
+        tstore.put(i, Y[i * 128:(i + 1) * 128])
+    rng = np.random.default_rng(3)
+    L, R = rng.standard_normal((1, 20, 5)), rng.standard_normal((1, 12, 20))
+    kern = dict(name="rbf", gamma=0.3, degree=5, coef0=1.0, scale=1.0)
+    pool = Y[:40]
+    jparams = j_get_embedding("nystrom").params_restore(
+        {"landmarks": L.astype(np.float32), "R": R.astype(np.float32)},
+        {"kernel": {"__kernel__": kern}, "discrepancy": "l2"})
+    tparams = apnc_params_from_numpy(L, R, kern, "l2", device="cpu")
+    j_save_stage(tmp_path / "j", params=jparams, pool=jnp.asarray(pool),
+                 seed_key=jax.random.PRNGKey(1), y_store=jstore, sweep_key=jax.random.PRNGKey(2),
+                 method="nystrom", input_shape=(700, 5))
+    save_embed_stage(tmp_path / "t", params=tparams, pool=torch.from_numpy(pool), s_seed=1,
+                     y_store=tstore, sweep_seed=2, method="nystrom", input_shape=(700, 5))
+    names = ["Y.bin", "pool.npy"] + (["scales.npy"] if codec == "int8" else [])
+    for name in names:
+        assert (tmp_path / "j" / STAGE_DIR / name).read_bytes() == \
+            (tmp_path / "t" / STAGE_DIR / name).read_bytes(), name
+    assert not (tmp_path / "t" / STAGE_DIR / "scales.npy").exists() or codec == "int8"
+    with np.load(tmp_path / "j" / STAGE_DIR / "params.npz") as a, \
+            np.load(tmp_path / "t" / STAGE_DIR / "params.npz") as b:
+        assert sorted(a.files) == sorted(b.files)
+        for k in a.files:
+            np.testing.assert_array_equal(a[k], b[k])
+    params, pool_t, s_seed, ystore = load_embed_stage(
+        tmp_path / "t", method="nystrom", sweep_seed=2, input_shape=(700, 5),
+        cache_dtype=codec, device=CPU)
+    assert s_seed == 1 and torch.equal(pool_t, torch.from_numpy(pool))
+    assert torch.equal(params.R, tparams.R) and ystore.codec == codec
+    np.testing.assert_array_equal(ystore.materialize(), tstore.materialize())
+    for i in range(tstore.num_blocks):
+        enc = tstore.get_encoded(i)
+        if enc is not None:
+            np.testing.assert_array_equal(ystore.get_encoded(i).payload, enc.payload)
+
+
+def test_save_after_a_sweep_serves_the_winner(blobs, tmp_path):
+    """est.save() after a sweep persists the selected model; a load serves it."""
+    store = tbs.BlockStore.from_array(blobs, 64)
+    est = _est("nystrom", "stream")
+    res = est.sweep(store, k_grid=[2, 3], restarts=2, seed=23)
+    est.save(tmp_path / "best")
+    served = KernelKMeans.load(tmp_path / "best", device="cpu")
+    assert served.k == res.best_k and served.method == "nystrom"
+    np.testing.assert_array_equal(served.predict(blobs), est.predict(blobs))
