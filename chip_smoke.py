@@ -18,7 +18,13 @@ and rff models, crashes the stream and minibatch fits mid-Lloyd through a
 store whose reads fail and resumes them with ``checkpoint_dir=`` bit for
 bit, runs the int8 sweep twice over one ``checkpoint_dir`` (the second
 from the persisted stage, with no embedding pass), and streams the store
-through ``partial_fit``. It then serves qwen1.5-0.5b at full width and
+through ``partial_fit``. Phase ``baselines`` runs the paper's Table 2 on the
+imagenet-50k stand-in (exact kernel k-means on the full 50,000 x 50,000
+Gram, approximate kernel k-means, RFF and SV-RFF k-means, two-stage, the
+legacy ``fit_predict`` / ``predict``), each also held on the CPU at 4,000
+rows; phase ``obs`` checks every fit's and sweep's ``FitReport`` against
+the engine's counts, traces phase stream's fit once more into a Chrome
+trace, and joins its report with the H100's roofline. It then serves qwen1.5-0.5b at full width and
 depth from a seeded random init (``repro_torch.launch.serve.generate``: a
 4 x 4,096-token prefill, every layer's attention in ``flash_attention_bhsd``,
 then 32 greedy decode steps over a bf16 KV cache), held against the plain
@@ -49,20 +55,26 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+from repro_torch import obs  # noqa: E402
+from repro_torch.configs.paper_datasets import PAPER_DATASETS  # noqa: E402
+
 # Published peaks of one H100 SXM at its full 700 W limit (NVIDIA data sheet).
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_TF32_FLOPS = 495e12  # dense, on the tensor cores
 
-# The paper's ImageNet configuration (src/repro/configs/paper_datasets.py).
-# parity_assign: (n, k, m) of the assign parity cases; parity_blobs: (n, d,
+# The paper's ImageNet configuration: n, d, k and the blobs' separation from
+# the port's configs/paper_datasets.py (the JAX package's table), the rest
+# this script's. parity_assign: (n, k, m) of the assign parity cases; parity_blobs: (n, d,
 # l, m, k) of the fused-step parity cases on blob data.
 # parity_dequant: (n, k, m) of the fused_dequant_step cases; the last m is
 # above the kernel's limit and takes the decode route. parity_assign_step:
 # the n of the bitwise checks of apnc_assign_step against the fused steps (a
 # full block, one row more, several tiles a CTA); assign_wide: (n, k, m) of
 # its streamed kernel above apnc_assign.MAX_M.
-IMAGENET = dict(n=1_262_102, d=900, k=164, separation=1.5, l=500, m=256, iters=20,
+_IMAGENET = PAPER_DATASETS["imagenet"]
+IMAGENET = dict(n=_IMAGENET.n, d=_IMAGENET.d, k=_IMAGENET.k, separation=_IMAGENET.separation,
+                l=500, m=256, iters=20,
                 block_rows=4096, rff_m=128, sweep_k_grid=(82, 164), sweep_restarts=2,
                 parity_assign=((5003, 67, 70), (20_011, 164, 256)),
                 parity_assign_step=(4096, 4097, 40_000), assign_wide=(1500, 70, 1000),
@@ -73,7 +85,12 @@ IMAGENET = dict(n=1_262_102, d=900, k=164, separation=1.5, l=500, m=256, iters=2
                               (1, 4096, 16, 64), (1, 2048, 32, 128)),
                 parity_flash_gqa=((1, 2048, 32, 8, 128), (2, 257, 6, 3, 40)),
                 lm_arch="qwen1.5-0.5b", lm_reduced=False, lm_batch=4, lm_prompt=4096,
-                lm_gen=32)
+                lm_gen=32,
+                # Table 2 on the card: the imagenet-50k stand-in (50,000 rows,
+                # the ImageNet d, k and separation, warped), 10,000 more rows
+                # of its mixture held out; `small_n` rows for card vs CPU.
+                baselines=dict(dataset="imagenet-50k", held_out=10_000, l=500, m=256,
+                               rff_m=128, iters=20, small_n=4_000))
 REHEARSAL = dict(n=4_000, d=32, k=8, separation=3.0, l=64, m=16, iters=20,
                  block_rows=512, rff_m=16, sweep_k_grid=(4, 8), sweep_restarts=2,
                  parity_assign=((503, 7, 19), (2003, 13, 32)),
@@ -82,7 +99,9 @@ REHEARSAL = dict(n=4_000, d=32, k=8, separation=3.0, l=64, m=16, iters=20,
                  parity_dequant=((515, 7, 24), (203, 5, 40)),
                  parity_flash=((2, 32, 2, 16), (1, 77, 2, 40)),
                  parity_flash_gqa=((1, 77, 4, 2, 16),),
-                 lm_arch="qwen1.5-0.5b", lm_reduced=True, lm_batch=4, lm_prompt=64, lm_gen=8)
+                 lm_arch="qwen1.5-0.5b", lm_reduced=True, lm_batch=4, lm_prompt=64, lm_gen=8,
+                 baselines=dict(dataset=None, n=1_500, held_out=300, l=64, m=16, rff_m=16,
+                                iters=20, small_n=400))
 #: Sliding windows of the attention parity cases (4,096: mixtral's).
 FLASH_WINDOWS = (0, 50, 4096)
 #: The reference's tolerances for flash attention (tests/test_kernels_pallas.py).
@@ -103,7 +122,14 @@ PREVIOUS_MS = {
 STREAM_RISE_LIMIT = 512 << 20
 
 
+#: perf_counter() when main() started: each phase line carries its end as
+#: ``at_s`` seconds after it.
+START = [time.perf_counter()]
+
+
 def emit(obj) -> None:
+    if "phase" in obj:
+        obj = dict(obj, at_s=time.perf_counter() - START[0])
     print(json.dumps(obj), flush=True)
 
 
@@ -758,6 +784,11 @@ def read_launches() -> dict:
                 rff_embed_block=rff_embed.launches, **lloyd_step.launches)
 
 
+#: Every fit and sweep run through fit_measured / sweep_measured, for phase
+#: obs: (kind, estimator, data, launches, engine.fused_dispatches).
+REPORTS: list[dict] = []
+
+
 def fit_measured(est, data, device, **fit_kw) -> tuple[object, dict]:
     """Fit with the launch counters and the engine telemetry zeroed just
     before and read just after; also the device-memory rise over the fit."""
@@ -774,6 +805,8 @@ def fit_measured(est, data, device, **fit_kw) -> tuple[object, dict]:
     sync(device)
     wall = time.perf_counter() - t0
     launches = read_launches()
+    REPORTS.append(dict(kind="fit", est=est, data=data, launches=launches,
+                        fused_dispatches=int(obs.counter("engine.fused_dispatches").value)))
     rise = (torch.cuda.max_memory_allocated(device) - start) if device.type == "cuda" else None
     return est, dict(fit_s=wall, phases_s=est.phases_, launches=launches,
                      engine=dict(engine.COUNTERS), engine_passes=dict(engine.PASS_COUNTS),
@@ -935,6 +968,8 @@ def sweep_measured(est, data, k_grid, restarts, device, seed, **sweep_kw) -> tup
     sync(device)
     wall = time.perf_counter() - t0
     launches = read_launches()
+    REPORTS.append(dict(kind="sweep", est=est, data=data, launches=launches,
+                        fused_dispatches=int(obs.counter("engine.fused_dispatches").value)))
     rise = (torch.cuda.max_memory_allocated(device) - start) if device.type == "cuda" else None
     return res, dict(sweep_s=wall, phases_s=dict(est.phases_), launches=launches,
                      engine=dict(engine.COUNTERS), engine_passes=dict(engine.PASS_COUNTS),
@@ -1391,6 +1426,284 @@ def phase_persist(X, truth, Xq, store, local_est, rff_est, stream_est, stream_pe
                 stream_resume=stream_resume, minibatch_resume=minibatch_resume,
                 sweep_resume=sweep_resume, partial_fit=partial_fit, launches=launches,
                 temp_dir_removed=not root.exists())
+
+
+def timed(device, fn) -> tuple[object, dict]:
+    """``fn()`` with its wall seconds (synchronised at both ends), the peak
+    device memory while it ran, and that peak's rise above what was
+    allocated before (the earlier phases' data stays on the card)."""
+    sync(device)
+    start = torch.cuda.memory_allocated(device) if device.type == "cuda" else 0
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    out = fn()
+    sync(device)
+    peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else None
+    return out, dict(seconds=time.perf_counter() - t0, peak_device_bytes=peak,
+                     peak_rise_bytes=None if peak is None else peak - start)
+
+
+def card_vs_cpu(name, run, seed, Xs, kern, k, bc, gated=True, tie_rtol=1e-4,
+                mismatch_share=1e-3) -> dict:
+    """One baseline on ``Xs`` where it lies (the card) and on a CPU copy from
+    the same seed (its draws are the CPU generator's either way): labels
+    equal outside near ties (each differing row's two clusters within
+    ``tie_rtol`` * the row's largest |d2| under the CPU run's distances), the
+    objective within rtol 1e-4. ``gated=False`` only reports."""
+    from repro_torch.core import baselines as B
+
+    Xc = Xs.cpu()
+    a, b = run(Xs), run(Xc)
+    lab_a, lab_b = a.labels.cpu().long(), b.labels.long()
+    rows = torch.nonzero(lab_a != lab_b).flatten()
+    gap_rel = 0.0
+    if rows.numel():
+        d2 = B._final_d2(name, seed, Xc, kern, k, l=bc["l"], m=bc["rff_m"],
+                         iters=bc["iters"])[rows]
+        gap = (d2.gather(1, lab_a[rows, None]) - d2.gather(1, lab_b[rows, None])).abs()
+        gap_rel = float((gap[:, 0] / d2.abs().max(dim=1).values).max())
+    obj_a, obj_b = float(a.objective), float(b.objective)
+    rel = abs(obj_a - obj_b) / abs(obj_b)
+    out = dict(label_mismatches=int(rows.numel()), largest_tie_gap_rel=gap_rel,
+               objective_rel_diff=rel, gated=gated)
+    if gated and (rows.numel() > mismatch_share * Xs.shape[0] or not gap_rel <= tie_rtol
+                  or not rel <= 1e-4):
+        raise AssertionError(f"{name}, card vs CPU: {out}")
+    return out
+
+
+def approx_lockstep(seed, Xs, kern, k, bc, diff_rtol=1e-3) -> dict:
+    """approx_kkm's steps on the card and on the CPU from the same labels at
+    every step (the CPU's): its pseudo-inverse may amplify roundoff by up to
+    1 / (10 l eps), so a free run's near tie at one step grows into other
+    labels at the next, and the runs are held step by step instead. Gated
+    at each step: the card's distances within ``diff_rtol`` of the largest
+    |d2| of the CPU's, and every row whose argmin differs a tie within twice
+    that row's largest card-vs-CPU difference."""
+    from repro_torch.core import baselines as B
+
+    card = B._approx_inputs(seed, Xs, kern, k, bc["l"])
+    cpu = B._approx_inputs(seed, Xs.cpu(), kern, k, bc["l"])
+    labels = cpu[4]
+    worst, flips = 0.0, 0
+    for step in range(bc["iters"]):
+        d2_card = B._approx_d2(*card[:4], labels.to(Xs.device), k).cpu()
+        d2_cpu = B._approx_d2(*cpu[:4], labels, k)
+        diff = (d2_card - d2_cpu).abs()
+        worst = max(worst, float(diff.max() / d2_cpu.abs().max()))
+        lab_card, labels = torch.argmin(d2_card, dim=-1), torch.argmin(d2_cpu, dim=-1)
+        rows = torch.nonzero(lab_card != labels).flatten()
+        flips += int(rows.numel())
+        gap = (d2_cpu[rows, lab_card[rows]] - d2_cpu[rows, labels[rows]]).abs()
+        if worst > diff_rtol or bool((gap > 2 * diff[rows].max(dim=1).values).any()):
+            raise AssertionError(f"approx_kkm step {step}, card vs CPU: distances differ by "
+                                 f"{worst} of the largest, {rows.numel()} labels")
+    return dict(steps=bc["iters"], largest_d2_diff_rel=worst, near_tie_flips=flips)
+
+
+def phase_baselines(cfg, device, seed) -> dict:
+    """The paper's Table 2 on the card: exact kernel k-means on the full
+    Gram, approx_kkm, rff_kmeans, svd_rff_kmeans and two_stage, then the
+    legacy fit_predict / predict, on the imagenet-50k stand-in (self-tuned
+    rbf). Gated: every NMI in [0, 1] and every objective finite;
+    fit_predict launching apnc_embed and one apnc_assign a Lloyd step (and
+    one for the final assignment); the legacy predict equal to
+    ClusterModel.predict bit for bit; at small_n rows each baseline on the
+    card against the same function on the CPU (`card_vs_cpu`; approx_kkm
+    step by step, `approx_lockstep`)."""
+    from repro_torch.api.model import ClusterModel
+    from repro_torch.core import baselines as B
+    from repro_torch.core import kkmeans
+    from repro_torch.core.kernels_fn import self_tuned_rbf
+    from repro_torch.core.metrics import nmi
+    from repro_torch.data.synthetic import gaussian_blobs, paper_standin
+
+    bc = cfg["baselines"]
+    held = bc["held_out"]
+    if bc["dataset"]:
+        ds = PAPER_DATASETS[bc["dataset"]]
+        n, d, k = ds.n, ds.d, ds.k
+        (X_all, y_all, _), made = timed(device, lambda: paper_standin(
+            bc["dataset"], seed, n_override=n + held, device=device))
+    else:
+        n, d, k = bc["n"], cfg["d"], cfg["k"]
+        (X_all, y_all), made = timed(device, lambda: gaussian_blobs(
+            seed, n + held, d, k, separation=cfg["separation"], warp=True, device=device))
+    X, Xq = X_all[:n], X_all[n:]
+    truth, truth_q = y_all[:n].cpu().numpy(), y_all[n:].cpu().numpy()
+    kern = self_tuned_rbf(X, seed=seed)
+
+    K, gram = timed(device, lambda: kern.gram(X, X))
+    gram["bytes"] = K.numel() * K.element_size()
+    exact, exact_t = timed(device, lambda: B.exact_kernel_kmeans(seed, K, kern.diag(X), k,
+                                                                 bc["iters"]))
+    del K
+    exact_t["seconds_per_lloyd_iteration"] = exact_t["seconds"] / (bc["iters"] + 1)
+    runs = dict(
+        approx_kkm=lambda Xr: B.approx_kkm(seed, Xr, kern, k, bc["l"], bc["iters"]),
+        rff_kmeans=lambda Xr: B.rff_kmeans(seed, Xr, kern.gamma, k, bc["rff_m"], bc["iters"]),
+        svd_rff_kmeans=lambda Xr: B.svd_rff_kmeans(seed, Xr, kern.gamma, k, bc["rff_m"],
+                                                   bc["iters"]),
+        two_stage=lambda Xr: B.two_stage(seed, Xr, kern, k, bc["l"], bc["iters"]))
+    results = dict(exact_kernel_kmeans=(exact, exact_t))
+    for name, run in runs.items():
+        results[name] = timed(device, lambda run=run: run(X))
+
+    cfg_legacy = kkmeans.APNCConfig(method="nystrom", l=bc["l"], m=bc["m"], iters=bc["iters"],
+                                    n_init=1)
+    zero_launches()
+    (res, coeffs), fit_t = timed(device, lambda: kkmeans.fit_predict(
+        seed, X, kern, k, cfg_legacy, device=device))
+    fit_launches = read_launches()
+    pred, predict_t = timed(device, lambda: kkmeans.predict(Xq, coeffs, res.centroids,
+                                                            device=device))
+    model = ClusterModel(params=coeffs, centroids=res.centroids, inertia=res.inertia)
+    predict_equal = bool(torch.equal(pred, model.predict(Xq, device=device)))
+
+    out = dict(phase="baselines", dataset=bc["dataset"] or "gaussian_blobs(warp=True)",
+               n=n, d=d, k=k, held_out=held, gamma=kern.gamma, data_s=made["seconds"],
+               gram=gram, runs={})
+    for name, (r, t) in results.items():
+        objective = float(r.objective)
+        out["runs"][name] = dict(nmi=nmi(r.labels.cpu(), truth),
+                                 nmi_vs_exact=nmi(r.labels.cpu(), exact.labels.cpu()),
+                                 objective=objective, **t)
+    out["runs"]["fit_predict"] = dict(
+        nmi=nmi(res.labels.cpu(), truth), nmi_vs_exact=nmi(res.labels.cpu(), exact.labels.cpu()),
+        objective=float(res.inertia), lloyd_iters=res.iters, launches=fit_launches, **fit_t)
+    out["predict"] = dict(rows=held, nmi=nmi(pred.cpu(), truth_q), equals_cluster_model=predict_equal,
+                          **predict_t)
+    for name, r in out["runs"].items():
+        if not (0.0 <= r["nmi"] <= 1.0 and 0.0 <= r["nmi_vs_exact"] <= 1.0
+                and np.isfinite(r["objective"])):
+            raise AssertionError(f"baseline {name}: {r}")
+    if not 0.0 <= out["predict"]["nmi"] <= 1.0 or not predict_equal:
+        raise AssertionError(f"the legacy predict: {out['predict']}")
+    if device.type == "cuda" and (fit_launches["apnc_embed"] < 1
+                                  or fit_launches["apnc_assign"] != res.iters + 1):
+        raise AssertionError(f"fit_predict launches over {res.iters} Lloyd steps: {fit_launches}")
+
+    Xs = X[:bc["small_n"]]
+    Ks = lambda Xr: B.exact_kernel_kmeans(seed, kern.gram(Xr, Xr), kern.diag(Xr), k,  # noqa: E731
+                                          bc["iters"])
+    out["card_vs_cpu"] = dict(n=Xs.shape[0], **{
+        name: card_vs_cpu(name, run, seed, Xs, kern, k, bc, gated=name != "approx_kkm")
+        for name, run in dict(exact_kernel_kmeans=Ks, **runs).items()})
+    out["card_vs_cpu"]["approx_kkm_lockstep"] = approx_lockstep(seed, Xs, kern, k, bc)
+    return out
+
+
+def check_report(rec, device) -> dict:
+    """One fit's or sweep's FitReport, gated: it is ``model_.report``, its
+    trajectory ends at ``inertia_``; over a store its blocks are the store's
+    blocks times its passes, all on one device; a fit over raw X blocks
+    moves n * d * 4 bytes a pass and counts one ``engine.fused_dispatches``
+    a block a pass, each a fused kernel's launch on the card."""
+    from repro_torch.stream import engine
+    from repro_torch.stream.blockstore import BlockStore
+
+    est, data = rec["est"], rec["data"]
+    r = est.fit_report_
+    what = f"{rec['kind']} {r.backend if r else '?'}"
+    if r is None or est.model_.report is not r:
+        raise AssertionError(f"{what}: no fit_report_ on the estimator and its model")
+    if r.inertia_trajectory[-1] != est.inertia_:
+        raise AssertionError(f"{what}: trajectory ends at {r.inertia_trajectory[-1]}, "
+                             f"inertia_ is {est.inertia_}")
+    passes = sum(r.pass_counts.values())
+    out = dict(kind=rec["kind"], backend=r.backend, summary=r.summary(), passes=passes,
+               blocks_read=r.blocks_read, bytes_h2d=r.bytes_h2d,
+               per_device_blocks=r.per_device_blocks,
+               fused_dispatches=rec["fused_dispatches"])
+    if not isinstance(data, BlockStore):
+        if r.blocks_read or passes:
+            raise AssertionError(f"{what}: a resident fit streamed {r.blocks_read} blocks")
+        return out
+    if r.blocks_read != data.num_blocks * passes or \
+            r.per_device_blocks != {engine._device_name(device): r.blocks_read}:
+        raise AssertionError(f"{what}: {r.blocks_read} blocks in {passes} passes of "
+                             f"{data.num_blocks}, by device {r.per_device_blocks}")
+    if rec["kind"] == "fit":
+        out["bytes_h2d_per_pass"] = r.bytes_h2d / max(passes, 1)
+        if r.bytes_h2d != passes * data.n * data.d * 4:
+            raise AssertionError(f"{what}: {r.bytes_h2d} bytes in {passes} passes")
+        fused = rec["launches"]["fused_apnc_step"] + rec["launches"]["fused_rff_step"]
+        out["fused_launches"] = fused
+        if rec["fused_dispatches"] != r.blocks_read or (
+                device.type == "cuda" and rec["fused_dispatches"] != fused):
+            raise AssertionError(f"{what}: {rec['fused_dispatches']} fused dispatches, "
+                                 f"{fused} launches, {r.blocks_read} blocks")
+    return out
+
+
+def phase_obs(X, store, main_est, stream_per_pass_s, stream_est, cfg, device, seed) -> dict:
+    """The reports and the trace: every fit and sweep the earlier phases ran
+    carries a FitReport (`check_report`); phase stream's fit once more with
+    tracing on, its Chrome trace written to a temporary directory and read
+    back (the lanes main and producer:<device>, one h2d span a block a pass,
+    the phase spans, labels bit for bit phase stream's); its per-pass time
+    beside phase stream's (not gated); and the roofline join of phase
+    stream's report under the H100's peaks."""
+    import shutil
+    import tempfile
+
+    from repro_torch.api import KernelKMeans
+    from repro_torch.roofline.analysis import HBM_BW, PEAK_FLOPS, lloyd_step_record
+    from repro_torch.stream import engine
+
+    reports = [check_report(dict(kind="fit", est=main_est, data=X, launches={},
+                                 fused_dispatches=0), device)]
+    reports += [check_report(rec, device) for rec in REPORTS]
+
+    obs.clear_trace()
+    obs.enable_tracing()
+    try:
+        est, info = fit_measured(
+            KernelKMeans(cfg["k"], kernel="rbf", method="nystrom", l=cfg["l"], m=cfg["m"],
+                         iters=cfg["iters"], backend="stream", block_rows=cfg["block_rows"],
+                         random_state=seed, device=device), store, device)
+    finally:
+        obs.disable_tracing()
+    report = check_report(REPORTS[-1], device)
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_trace_"))
+    try:
+        path = obs.write_trace(root / "stream_fit.trace.json")
+        trace_bytes = path.stat().st_size
+        events = json.loads(path.read_text())["traceEvents"]
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    n_spans = len(obs.TRACER.spans())
+    obs.clear_trace()
+    lanes = sorted(e["args"]["name"] for e in events if e["ph"] == "M")
+    names = [e["name"] for e in events if e["ph"] == "X"]
+    passes = report["passes"]
+    counts = {name: names.count(name) for name in sorted(set(names))}
+    want_lanes = sorted(["main", f"producer:{engine._device_name(device)}"])
+    phases = [f"phase.{p}" for p in ("reservoir", "embed_fit", "seed", "lloyd")]
+    same_labels = bool(np.array_equal(est.labels_, stream_est.labels_))
+    if (lanes != want_lanes or counts.get("h2d") != store.num_blocks * passes
+            or not all(counts.get(p) for p in phases) or not same_labels):
+        raise AssertionError(f"the traced stream fit: lanes {lanes}, spans {counts}, "
+                             f"{passes} passes, labels as phase stream's: {same_labels}")
+    traced_per_pass = info["phases_s"]["lloyd"] / passes
+
+    n, d, l, m, k = store.n, store.d, cfg["l"], cfg["m"], cfg["k"]
+    rec_block = lloyd_step_record(n=cfg["block_rows"], d=d, l=l, m=m, k=k)
+    rec_pass = lloyd_step_record(n=n, d=d, l=l, m=m, k=k)
+    stream_report = stream_est.fit_report_
+    return dict(
+        phase="obs", reports=reports, report_count=len(reports),
+        traced_stream_fit=dict(
+            lanes=lanes, span_counts=counts, spans=n_spans, trace_bytes=trace_bytes,
+            passes=passes, labels_as_phase_stream=same_labels, report=report,
+            per_pass_s=traced_per_pass, untraced_per_pass_s=stream_per_pass_s,
+            tracing_overhead=traced_per_pass / stream_per_pass_s - 1.0),
+        roofline=dict(
+            peak_flops=PEAK_FLOPS, hbm_bytes_per_s=HBM_BW,
+            join_block_record=obs.join_fit_roofline(stream_report, rec_block),
+            join_pass_record=obs.join_fit_roofline(stream_report, rec_pass),
+            record_block=rec_block, record_pass=rec_pass))
 
 
 @contextlib.contextmanager
@@ -2102,6 +2415,7 @@ def main(argv=None) -> int:
     ap.add_argument("--n", type=int, default=None,
                     help="cut the main path's rows (default: the full ImageNet n)")
     args = ap.parse_args(argv)
+    START[0] = time.perf_counter()
 
     rehearsal = args.cpu_rehearsal
     if not rehearsal and not torch.cuda.is_available():
@@ -2152,6 +2466,8 @@ def main(argv=None) -> int:
     emit(sweep_info)
     emit(phase_persist(X, truth, Xq, store, est, rff_est, stream_est, stream_info["per_pass_s"],
                        cfg, device, args.seed))
+    emit(phase_baselines(cfg, device, args.seed))
+    emit(phase_obs(X, store, est, stream_info["per_pass_s"], stream_est, cfg, device, args.seed))
     lm_info = phase_lm_serve(cfg, device, args.seed)
     emit(lm_info)
 

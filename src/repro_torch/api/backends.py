@@ -22,6 +22,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.api.registry import register_backend
 from repro_torch.core.lloyd import lloyd
 from repro_torch.embed.base import EmbeddingParams
@@ -87,9 +88,12 @@ def ensure_embedding_cache(ctx: FitContext) -> FitContext:
     Resident input (``ctx.array``) is embedded whole into the resident f32
     ``y_array``; blocked input takes one embedding pass over its blocks,
     staged to host memory as ``y_store`` under the policy's ``cache_dtype``.
+    A call that finds the cache filled counts one ``backend.embed_cache_hits``.
     Returns ``ctx``."""
     from repro_torch import embed
 
+    if (ctx.y_array if ctx.array is not None else ctx.y_store) is not None:
+        obs.counter("backend.embed_cache_hits").inc()
     if ctx.array is not None:
         if ctx.y_array is None:
             ctx.y_array = embed.transform(ctx.params, ctx.array, ctx.policy)
@@ -154,6 +158,7 @@ def _stream_source(ctx: FitContext) -> dict:
     """The stream drivers' data keywords: raw X blocks (embedding fused into
     the per-block step), or the staged Y cache when the context carries one."""
     if ctx.y_store is not None:
+        obs.counter("backend.embed_cache_hits").inc()
         return dict(store=ctx.y_store, discrepancy=ctx.params.discrepancy)
     return dict(store=ctx.store, coeffs=ctx.params)
 

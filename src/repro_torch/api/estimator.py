@@ -20,6 +20,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.api.backends import FitContext
 from repro_torch.api.model import ClusterModel, FitMeta
 from repro_torch.api.registry import get_backend, get_embedding, resolve_kernel
@@ -82,7 +83,11 @@ class KernelKMeans:
     device:          where the fit runs: None (the card) or e.g. "cpu".
 
     After fit: `model_`, `labels_`, `inertia_`, `n_iter_`, `kernel_`,
-    `backend_`, and `phases_` (wall seconds per phase).
+    `backend_`, `phases_` (wall seconds per phase) and `fit_report_` (a
+    `repro_torch.obs.FitReport`: phases, the inertia trajectory, centroid
+    shifts, engine passes, blocks and bytes streamed, per-device blocks;
+    also attached to `model_.report`). `sweep` and `partial_fit` set them
+    too.
 
     Persistence: `save(dir)` writes `model_` as a checkpoint the JAX package
     also reads, `KernelKMeans.load(dir)` rebuilds a fitted estimator from
@@ -136,6 +141,7 @@ class KernelKMeans:
         self.kernel_: Kernel | None = None
         self.backend_: str | None = None
         self.phases_: dict[str, float] = {}
+        self.fit_report_: obs.FitReport | None = None
         self._pf_state: tuple[torch.Tensor, torch.Tensor, int] | None = None  # (Z, g, rows)
 
     # ------------------------------------------------------------- dispatch
@@ -155,16 +161,19 @@ class KernelKMeans:
 
     @contextmanager
     def _phase(self, name: str, dev: torch.device):
-        """Wall time of one phase, synchronised with the card at both ends."""
+        """Wall time of one phase, synchronised with the card at both ends,
+        inside one ``phase.<name>`` span (opened after the first sync,
+        closed after the second)."""
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
-            self.phases_[name] = self.phases_.get(name, 0.0) + time.perf_counter() - t0
+        with obs.span(f"phase.{name}", cat="phase"):
+            t0 = time.perf_counter()
+            try:
+                yield
+            finally:
+                if dev.type == "cuda":
+                    torch.cuda.synchronize(dev)
+                self.phases_[name] = self.phases_.get(name, 0.0) + time.perf_counter() - t0
 
     # ------------------------------------------------------------ lifecycle
 
@@ -257,6 +266,7 @@ class KernelKMeans:
         name = self._choose_backend(X)
         backend = get_backend(name)
         get_embedding(self.method)
+        metrics_before = obs.snapshot("engine.")
         ctx = self._prepare(X, self.random_state if seed is None else seed, dev, name,
                             checkpoint_dir)
         with self._phase("lloyd", dev):
@@ -273,6 +283,8 @@ class KernelKMeans:
         self.inertia_ = float(out.inertia)
         self.n_iter_ = int(out.iters)
         self.backend_ = name
+        self._attach_report(name, metrics_before, trajectory=out.trajectory,
+                            shifts=out.shifts, iters=out.iters, rows_seen=out.rows_seen)
         self._pf_state = None
         return self
 
@@ -322,7 +334,9 @@ class KernelKMeans:
         estimator it continues from ``model_`` with fresh decayed statistics
         and the model's ``rows_seen``. Each call embeds the block, assigns it
         (``assign_stats``), updates (Z, g) and the centroids, and reports the
-        block's cost under the new centroids as ``inertia_``.
+        block's cost under the new centroids as ``inertia_``. ``phases_`` and
+        ``fit_report_`` describe the call: one phase, ``partial_fit``, and
+        the trajectory ``[inertia_]``.
 
         Args:
             X: one (b, d) block of the stream (numpy or torch).
@@ -332,7 +346,16 @@ class KernelKMeans:
             self, updated in place.
         """
         dev = resolve_device(self.device)
-        Xb = _as_tensor(X).to(dev, torch.float32)
+        metrics_before = obs.snapshot("engine.")
+        self.phases_ = {}
+        with self._phase("partial_fit", dev):
+            self._partial_fit(_as_tensor(X).to(dev, torch.float32), seed, dev)
+        self._attach_report("minibatch", metrics_before, trajectory=[self.inertia_],
+                            iters=0, rows_seen=self.model_.meta.rows_seen)
+        return self
+
+    def _partial_fit(self, Xb: torch.Tensor, seed: int | None, dev: torch.device) -> None:
+        """The body of one ``partial_fit`` call."""
         if self.model_ is None:
             # landmark-free members read only the input dim from the first
             # block, but k-means++ still needs k rows; kernelized members need
@@ -378,7 +401,25 @@ class KernelKMeans:
         self.inertia_ = inertia
         self.n_iter_ = 0
         self.backend_ = "minibatch"
-        return self
+
+    def _attach_report(self, backend_name: str, metrics_before: dict, *, trajectory=(),
+                       shifts=(), iters: int = 0, rows_seen: int = 0,
+                       extra: dict | None = None) -> obs.FitReport:
+        """Assemble the `FitReport` of the run that just finished from
+        ``phases_`` and the engine metrics since ``metrics_before``, and
+        surface it as ``fit_report_`` and ``model_.report``."""
+        d = obs.delta(metrics_before, obs.snapshot("engine."))
+        report = obs.FitReport(
+            backend=backend_name, phases=dict(self.phases_),
+            inertia_trajectory=[float(v) for v in trajectory],
+            centroid_shifts=[float(v) for v in shifts], iters=int(iters),
+            rows_seen=int(rows_seen), extra=dict(extra or {}),
+            **obs.report_from_metrics_delta(d),
+        )
+        self.fit_report_ = report
+        if self.model_ is not None:
+            self.model_.report = report
+        return report
 
     def _fit_meta(self, **kw) -> FitMeta:
         return FitMeta(

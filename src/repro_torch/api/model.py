@@ -9,11 +9,9 @@ from __future__ import annotations
 
 import dataclasses
 
-import numpy as np
 import torch
 
-from repro_torch.core.apnc import Discrepancy, assign
-from repro_torch.device import resolve_device
+from repro_torch.core.apnc import Discrepancy
 from repro_torch.embed.base import EmbeddingParams
 
 
@@ -52,6 +50,11 @@ class ClusterModel:
     inertia: torch.Tensor  # () sum of e(y_i, c_{pi(i)})
     meta: FitMeta = dataclasses.field(default_factory=FitMeta)
 
+    # `report` (a repro_torch.obs.FitReport) is attached by the estimator as a
+    # plain attribute, not a field: measurement, not model state, so neither
+    # `to` nor a checkpoint carries it.
+    report = None
+
     @property
     def coeffs(self) -> EmbeddingParams:
         """The JAX package's alias for ``params``, from when APNC coefficients
@@ -78,16 +81,12 @@ class ClusterModel:
         )
 
     def predict(self, X, *, policy=None, device=None) -> torch.Tensor:
-        """Embed ``X`` (n, d) and assign each row to its nearest centroid.
+        """Embed ``X`` (n, d) and assign each row to its nearest centroid
+        (`repro_torch.core.kkmeans.predict`, the online path).
 
         Runs on ``device`` (default: the card; ``"cpu"`` for the plain path).
         Returns (n,) int64 labels on that device.
         """
-        from repro_torch import embed
+        from repro_torch.core.kkmeans import predict as _predict
 
-        dev = resolve_device(device)
-        model = self.to(dev)
-        if isinstance(X, np.ndarray):
-            X = torch.from_numpy(np.ascontiguousarray(X, np.float32))
-        Y = embed.transform(model.params, X.to(dev, torch.float32), policy)
-        return assign(Y, model.centroids, model.discrepancy)
+        return _predict(X, self.params, self.centroids, policy=policy, device=device)

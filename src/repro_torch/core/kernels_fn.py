@@ -13,11 +13,15 @@ import torch
 def _sq_dists(X: torch.Tensor, Z: torch.Tensor) -> torch.Tensor:
     """Pairwise squared Euclidean distances, (n, l), clamped at 0.
 
-    ||x - z||^2 = ||x||^2 - 2 x'z + ||z||^2: one (n, d) x (d, l) product.
+    ||x - z||^2 = ||x||^2 - 2 x'z + ||z||^2: one (n, d) x (d, l) product,
+    then every elementwise step in place on it, so a full Gram (n = l =
+    50,000: 10 GB in f32) never has a second (n, l) buffer beside it. The
+    bits are those of ``clamp(xx - 2 (X Z^T) + zz, 0)``: scaling by -2 is
+    exact, and ``(-2p) + xx`` rounds as ``xx - 2p`` does.
     """
     xx = torch.sum(X * X, dim=-1, keepdim=True)  # (n, 1)
     zz = torch.sum(Z * Z, dim=-1, keepdim=True).T  # (1, l)
-    return torch.clamp(xx - 2.0 * (X @ Z.T) + zz, min=0.0)
+    return (X @ Z.T).mul_(-2.0).add_(xx).add_(zz).clamp_(min=0.0)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -33,7 +37,7 @@ class Kernel:
     def gram(self, X: torch.Tensor, Z: torch.Tensor) -> torch.Tensor:
         """Dense kernel matrix K[i, j] = kappa(X[i], Z[j]); shape (n, l)."""
         if self.name == "rbf":
-            return torch.exp(-self.gamma * _sq_dists(X, Z))
+            return _sq_dists(X, Z).mul_(-self.gamma).exp_()  # in place, as _sq_dists
         if self.name == "poly":
             return (X @ Z.T + self.coef0) ** self.degree
         if self.name == "tanh":

@@ -30,4 +30,5 @@ def nmi(labels_a, labels_b) -> float:
     hu = float(-(pi[pi > 0] * np.log(pi[pi > 0])).sum())
     hv = float(-(pj[pj > 0] * np.log(pj[pj > 0])).sum())
     denom = np.sqrt(hu * hv)
-    return float(mi / denom) if denom > 0 else 0.0
+    # Rounding can carry a perfect match a few ulps past 1.
+    return float(np.clip(mi / denom, 0.0, 1.0)) if denom > 0 else 0.0

@@ -19,9 +19,8 @@ either package loads in the other. The same holds for the clustering
 artifacts built on it: ``save_cluster_model`` (a ``ClusterModel``),
 ``save_sweep_result`` (a ``SweepResult``) and the mid-fit Lloyd state.
 
-The JAX package counts saves and resumes in its ``obs`` metrics; the port
-keeps them in the module-level ``COUNTERS`` (``reset_counters()`` zeroes
-them), as ``stream.engine`` keeps its telemetry.
+Saves and resumes are counted in `repro_torch.obs` under the JAX package's
+names; ``COUNTERS`` is a view of them and ``reset_counters()`` zeroes them.
 """
 from __future__ import annotations
 
@@ -40,27 +39,29 @@ from typing import Any, Iterator
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.device import resolve_device
+from repro_torch.obs.metrics import MetricsView
 
 _SEP = "/"
 
 #: Mid-fit Lloyd checkpoints since the last ``reset_counters()``: states
-#: saved, states adopted on resume, and adoptions by a run on another device
-#: count than the one that saved.
-COUNTERS: dict[str, int] = dict(ckpt_saves=0, ckpt_resumes=0, elastic_resumes=0)
-_LOCK = threading.Lock()
+#: saved (``pool.ckpt_saves``), states adopted on resume
+#: (``pool.ckpt_resumes``), and adoptions by a run on another device count
+#: than the one that saved (``pool.elastic_resumes``); a read-only view of
+#: the `repro_torch.obs` counters under their short names.
+_COUNTER_NAMES = ("ckpt_saves", "ckpt_resumes", "elastic_resumes")
+COUNTERS = MetricsView(**{name: (obs.counter(f"pool.{name}"), int) for name in _COUNTER_NAMES})
 
 
 def count(name: str) -> None:
-    with _LOCK:
-        COUNTERS[name] += 1
+    obs.counter(f"pool.{name}").inc()
 
 
 def reset_counters() -> None:
     """Zero the checkpoint counters (measurement scoping)."""
-    with _LOCK:
-        for name in COUNTERS:
-            COUNTERS[name] = 0
+    for name in _COUNTER_NAMES:
+        obs.reset_metrics(f"pool.{name}")
 
 
 @contextlib.contextmanager

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import obs
 from repro_torch.core.apnc import APNCCoefficients
 from repro_torch.embed.rff import RFFParams
 from repro_torch.kernels import apnc_assign as _assign
@@ -241,14 +242,30 @@ class LloydStepPlan:
         _, _, labels, cost = self.step(block, centroids)
         return labels, cost
 
+    def _instrumented(self, fn):
+        """On the fused route, each block's step in one ``lloyd.fused_step``
+        span (host time: the launch is queued, not waited for) and one
+        ``engine.fused_dispatches``."""
+        if not self.fused:
+            return fn
+        fused_dispatches = obs.counter("engine.fused_dispatches")
+
+        def wrapped(block):
+            with obs.span("lloyd.fused_step", cat="lloyd", member=self.fused_member):
+                out = fn(block)
+            fused_dispatches.inc()
+            return out
+
+        return wrapped
+
     def block_map(self, centroids_cell: list):
         """Per-block stats map for the stream engine (labels at index 2,
         cost at 3)."""
-        return lambda block: self.step(block, centroids_cell[0])
+        return self._instrumented(lambda block: self.step(block, centroids_cell[0]))
 
     def assign_map(self, centroids_cell: list):
         """Per-block final-pass map: (labels, cost), labels at index 0."""
-        return lambda block: self.assign(block, centroids_cell[0])
+        return self._instrumented(lambda block: self.assign(block, centroids_cell[0]))
 
 
 def lloyd_step_plan(params=None, discrepancy: str | None = None, *,

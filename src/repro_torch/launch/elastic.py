@@ -8,9 +8,10 @@ loads in another, on whatever device count it has:
     `ClusterModel` / `SweepResult` checkpoints onto a given device (default:
     the card);
   * `resume_lloyd_state`: adopt a mid-fit Lloyd checkpoint whatever device
-    count wrote it; every adoption counts as ``ckpt_resumes``, and one whose
-    device count changed between save and resume also as
-    ``elastic_resumes`` (``distributed.checkpoint.COUNTERS``).
+    count wrote it; every adoption counts as ``pool.ckpt_resumes``, and one
+    whose device count changed between save and resume also as
+    ``pool.elastic_resumes`` (`repro_torch.obs` counters;
+    ``distributed.checkpoint.COUNTERS`` views them).
 
 `reshard_restore`, the LM training half's restore onto a new mesh, is not
 ported yet.
@@ -46,8 +47,8 @@ def restore_sweep_result(ckpt_dir: str | Path, *, step: int | None = None, devic
 def resume_lloyd_state(ckpt_dir: str | Path, *, fingerprint: dict,
                        devices_used: int | None = None):
     """The saved mid-fit Lloyd state matching ``fingerprint``, or None.
-    Counts every adoption (``ckpt_resumes``) and flags an elastic one
-    (``elastic_resumes``: the device count changed between save and resume;
+    Counts every adoption (``pool.ckpt_resumes``) and flags an elastic one
+    (``pool.elastic_resumes``: the device count changed between save and resume;
     the state holds no placement, so it is adopted all the same).
     ``devices_used`` is the resuming run's device count (default: the
     visible cards, or 1 without one)."""

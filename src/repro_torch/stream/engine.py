@@ -27,10 +27,19 @@ A store staged under a compressed codec streams in its wire form
 (`fetch_block` returns the `EncodedBlock`): payload and scale cross to the
 card together, under one event, and the Lloyd step decodes them there.
 
-Telemetry is plain module-level numbers (`COUNTERS`, `PASS_COUNTS`):
-passes by label, blocks read, bytes handed to the device (wire bytes for a
-compressed store), seconds the consumer waited on an empty prefetch queue,
-map dispatches, and the bytes and compression ratio of the last staged cache.
+Telemetry lives in `repro_torch.obs`, under the JAX package's names:
+counters `engine.blocks_read`, `engine.bytes_h2d` (wire bytes for a
+compressed store), `engine.device_blocks.<device>`, `engine.map_dispatches`,
+`engine.passes.<label>` and `engine.prefetch_stall_s` (seconds the consumer
+waited on an empty prefetch queue), `cache.bytes_staged` and the
+`cache.compression_ratio` gauge of the last staged cache. With tracing on,
+the producer thread records `block.get` and `h2d` spans on its lane
+(`producer:<device>`), the consumer `stall.queue_empty` and one
+`pass.<label>` span a pass. A span is host time: `h2d` times the enqueue
+of the `non_blocking` copies on the copy stream, not the copies (as the
+JAX package's times `jax.device_put`, which only starts one). `COUNTERS` and `PASS_COUNTS` are the older
+module-level views of the same numbers, kept in lockstep; `reset_counters()`
+zeroes all of them.
 """
 from __future__ import annotations
 
@@ -44,36 +53,70 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.device import resolve_device
+from repro_torch.obs.metrics import MetricsView
 from repro_torch.stream.blockstore import BlockStore, EncodedBlock, WritableBlockStore
 
 _STOP = object()
 
-#: Engine passes recorded per label since the last ``reset_counters()``.
+_BLOCKS = obs.counter("engine.blocks_read")
+_BYTES_H2D = obs.counter("engine.bytes_h2d")
+_STALL_S = obs.counter("engine.prefetch_stall_s")
+_DISPATCHES = obs.counter("engine.map_dispatches")
+_BYTES_STAGED = obs.counter("cache.bytes_staged")
+_RATIO = obs.gauge("cache.compression_ratio")
+
+#: Engine passes recorded per label, kept in lockstep with the
+#: `engine.passes.<label>` counters.
 PASS_COUNTS: "collections.Counter[str]" = collections.Counter()
-#: blocks_read, bytes_h2d, prefetch_stall_s (consumer wait on an empty
-#: queue: the producer, not the device, was the bottleneck), map_dispatches,
-#: bytes_staged (wire bytes `cache_embedding` put into its store) and
-#: compression_ratio (f32 bytes over staged bytes of the last cache).
-COUNTERS: dict[str, float] = dict(
-    blocks_read=0, bytes_h2d=0, prefetch_stall_s=0.0, map_dispatches=0,
-    bytes_staged=0, compression_ratio=0.0,
+_PASS_LOCK = threading.Lock()
+#: The engine counters under their older short names (a read-only view).
+COUNTERS = MetricsView(
+    blocks_read=(_BLOCKS, int), bytes_h2d=(_BYTES_H2D, int),
+    prefetch_stall_s=(_STALL_S, float), map_dispatches=(_DISPATCHES, int),
+    bytes_staged=(_BYTES_STAGED, int), compression_ratio=(_RATIO, float),
 )
-_FLOAT_COUNTERS = ("prefetch_stall_s", "compression_ratio")
-_LOCK = threading.Lock()
 
 
-def _count(name: str, value: float = 1) -> None:
-    with _LOCK:
-        COUNTERS[name] += value
+def _count_pass(label: str) -> None:
+    obs.counter(f"engine.passes.{label}").inc()
+    with _PASS_LOCK:
+        PASS_COUNTS[label] += 1
+
+
+def pass_count(label: str) -> int:
+    """Engine passes recorded under ``label`` since the last reset."""
+    return int(obs.counter(f"engine.passes.{label}").value)
+
+
+def reset_pass_counts() -> None:
+    """Zero the engine-pass telemetry (measurement scoping)."""
+    obs.reset_metrics("engine.passes.")
+    with _PASS_LOCK:
+        PASS_COUNTS.clear()
 
 
 def reset_counters() -> None:
-    """Zero the engine telemetry (measurement scoping)."""
-    with _LOCK:
-        PASS_COUNTS.clear()
-        for name in COUNTERS:
-            COUNTERS[name] = 0.0 if name in _FLOAT_COUNTERS else 0
+    """Zero the engine telemetry, pass counts included (measurement
+    scoping)."""
+    reset_pass_counts()
+    obs.reset_metrics("engine.")
+    obs.reset_metrics("cache.")
+
+
+def _device_name(device: torch.device) -> str:
+    """``cuda:<index>`` for a card (the current one when unindexed), else
+    the device's type: the producer lane's and per-device counter's key."""
+    if device.type == "cuda" and device.index is None:
+        return f"cuda:{torch.cuda.current_device()}"
+    return str(device)
+
+
+def _count_block(blk, device_blocks: obs.Counter) -> None:
+    _BLOCKS.inc()
+    device_blocks.inc()
+    _BYTES_H2D.inc(block_nbytes(blk))
 
 
 def fetch_block(store: BlockStore, i: int) -> "np.ndarray | EncodedBlock":
@@ -187,17 +230,24 @@ def _offer(q: "queue.Queue", item, stop: threading.Event) -> bool:
 
 
 def _producer(store: BlockStore, q: "queue.Queue", stop: threading.Event,
-              device: torch.device, ring: int) -> None:
+              device: torch.device, ring: int, lane: str) -> None:
+    # One lane per producer thread: its spans render as this producer's row
+    # of the trace, and its per-device block counter is a FitReport's
+    # per_device_blocks.
+    obs.set_lane(lane)
+    device_blocks = obs.counter(f"engine.device_blocks.{lane.split(':', 1)[-1]}")
     try:
         with _on_device(device):
             up = _Uploader(device, ring)
             for i in range(store.num_blocks):
                 if stop.is_set():
                     return
-                blk = fetch_block(store, i)
-                dev, event = up.put(blk)
-                _count("blocks_read")
-                _count("bytes_h2d", block_nbytes(blk))
+                with obs.span("block.get", cat="ingest", block=i):
+                    blk = fetch_block(store, i)
+                # Host time: the copy is queued on the copy stream, not waited for.
+                with obs.span("h2d", cat="ingest", block=i):
+                    dev, event = up.put(blk)
+                _count_block(blk, device_blocks)
                 if not _offer(q, (i, dev, event, None), stop):
                     return
         _offer(q, _STOP, stop)
@@ -220,9 +270,10 @@ class BlockPrefetcher:
         self._q: "queue.Queue" = queue.Queue(maxsize=depth)
         self._stop = threading.Event()
         self._done = False
+        self.lane = f"producer:{_device_name(self.device)}"
         self._t = threading.Thread(
-            target=_producer, name=f"block-producer:{self.device}",
-            args=(store, self._q, self._stop, self.device, depth + 1), daemon=True,
+            target=_producer, name=f"block-{self.lane}",
+            args=(store, self._q, self._stop, self.device, depth + 1, self.lane), daemon=True,
         )
         self._t.start()
 
@@ -232,9 +283,18 @@ class BlockPrefetcher:
     def __next__(self):
         if self._done:
             raise StopIteration
+        # Time blocked on an empty queue is the ingest-bound signal: the
+        # producer, not the device, held the pass up. Counted always; a span
+        # only with tracing on.
         t0 = time.perf_counter()
         item = self._q.get()
-        _count("prefetch_stall_s", time.perf_counter() - t0)
+        wait = time.perf_counter() - t0
+        _STALL_S.inc(wait)
+        if obs.TRACER.enabled and wait > 0:
+            s = obs.Span(obs.TRACER, "stall.queue_empty", "stall",
+                         obs.TRACER.current_lane(), {"producer": self.lane})
+            s.t0, s.dur = t0, wait
+            obs.TRACER._record(s)
         if item is _STOP:
             self._done = True
             raise StopIteration
@@ -287,38 +347,38 @@ def map_reduce(
     output before the combine, on the consumer thread in block order.
 
     prefetch: depth of the producer queue; 0 is the synchronous baseline.
-    label: each call adds one pass to ``PASS_COUNTS[label]``.
+    label: each call adds one pass to ``engine.passes.<label>``.
     """
     dev = resolve_device(device)
-    with _LOCK:
-        PASS_COUNTS[label] += 1
+    _count_pass(label)
     acc = init
-    if prefetch <= 0:
-        with _on_device(dev):
-            up = _Uploader(dev, 1)
-            for i in range(store.num_blocks):
-                blk = fetch_block(store, i)
-                _count("blocks_read")
-                _count("bytes_h2d", block_nbytes(blk))
-                out = map_fn(_adopt(*up.put(blk)))
-                _count("map_dispatches")
+    with obs.span(f"pass.{label}", cat="pass", blocks=store.num_blocks, prefetch=prefetch):
+        if prefetch <= 0:
+            with _on_device(dev):
+                device_blocks = obs.counter(f"engine.device_blocks.{_device_name(dev)}")
+                up = _Uploader(dev, 1)
+                for i in range(store.num_blocks):
+                    blk = fetch_block(store, i)
+                    _count_block(blk, device_blocks)
+                    out = map_fn(_adopt(*up.put(blk)))
+                    _DISPATCHES.inc()
+                    if emit is not None:
+                        emit(i, out)
+                    acc = combine_fn(acc, out)
+                    if dev.type == "cuda":
+                        torch.cuda.synchronize(dev)
+            return acc
+
+        pf = BlockPrefetcher(store, prefetch=prefetch, device=dev)
+        try:
+            for i, blk in pf:
+                out = map_fn(blk)
+                _DISPATCHES.inc()
                 if emit is not None:
                     emit(i, out)
                 acc = combine_fn(acc, out)
-                if dev.type == "cuda":
-                    torch.cuda.synchronize(dev)
-        return acc
-
-    pf = BlockPrefetcher(store, prefetch=prefetch, device=dev)
-    try:
-        for i, blk in pf:
-            out = map_fn(blk)
-            _count("map_dispatches")
-            if emit is not None:
-                emit(i, out)
-            acc = combine_fn(acc, out)
-    finally:
-        pf.close()
+        finally:
+            pf.close()
     return acc
 
 
@@ -337,8 +397,9 @@ def cache_embedding(
     embed-once pass of the sweep. Blocks are written by global block id, so
     a shard's local block i lands at its global offset, and staged under
     ``codec`` ("f32" | "bf16" | "int8", the policy's ``cache_dtype``).
-    ``COUNTERS["bytes_staged"]`` grows by each block's wire size and
-    ``COUNTERS["compression_ratio"]`` is set to f32 bytes over staged bytes.
+    The ``cache.bytes_staged`` counter grows by each block's wire size and
+    the ``cache.compression_ratio`` gauge is set to f32 bytes over staged
+    bytes.
     The returned ``WritableBlockStore`` raises on any read of a block this
     pass never produced."""
     out = BlockStore.empty(n=store.n, d=d_out, block_rows=store.block_rows, codec=codec)
@@ -346,10 +407,9 @@ def cache_embedding(
     def emit(i, y):
         gid = store.block_id(i)
         out.put(gid, y.cpu().numpy())
-        _count("bytes_staged", out.staged_nbytes(gid))
+        _BYTES_STAGED.inc(out.staged_nbytes(gid))
 
     map_reduce(store, map_fn, lambda acc, _: acc, None, prefetch=prefetch, emit=emit,
                device=device, label=label)
-    with _LOCK:
-        COUNTERS["compression_ratio"] = out.n * out.d * 4 / max(out.nbytes_staged, 1)
+    _RATIO.set(out.n * out.d * 4 / max(out.nbytes_staged, 1))
     return out

@@ -35,6 +35,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core.apnc import Discrepancy
 from repro_torch.core.lloyd import centroid_update, kmeanspp_init
 from repro_torch.device import resolve_device
@@ -184,15 +185,17 @@ def ooc_lloyd(
             trajectory, shifts = list(state["trajectory"]), list(state["shifts"])
             cell[0] = torch.from_numpy(state["centroids"]).to(dev)
     while it < iters and changed:
-        Z, g, cost = map_reduce(
-            store, map_fn,
-            lambda acc, out: (acc[0] + out[0], acc[1] + out[1], acc[2] + out[3]),
-            zero, prefetch=prefetch, emit=emit, device=dev,
-        )
-        new_c = centroid_update(Z, g, cell[0])
-        shifts.append(float(torch.linalg.norm(new_c - cell[0])))
-        trajectory.append(float(cost))
-        cell[0] = new_c
+        with obs.span("lloyd.iter", cat="lloyd", iter=it) as sp:
+            Z, g, cost = map_reduce(
+                store, map_fn,
+                lambda acc, out: (acc[0] + out[0], acc[1] + out[1], acc[2] + out[3]),
+                zero, prefetch=prefetch, emit=emit, device=dev,
+            )
+            new_c = centroid_update(Z, g, cell[0])
+            shifts.append(float(torch.linalg.norm(new_c - cell[0])))
+            trajectory.append(float(cost))
+            sp.set(inertia=trajectory[-1], shift=shifts[-1])
+            cell[0] = new_c
         cur = labels.numpy()
         changed = not np.array_equal(cur, prev)
         prev = cur.copy()
@@ -297,10 +300,12 @@ def minibatch_lloyd(
                         for name in ("Z", "g", "seen_cost")]
             seen_cost = float(state[2])
     for ep in range(start, epochs):
-        map_reduce(store, map_fn, combine, None, prefetch=prefetch, emit=emit, device=dev)
-        total = float(state[2])
-        trajectory.append(total - seen_cost)
-        seen_cost = total
+        with obs.span("lloyd.epoch", cat="lloyd", epoch=ep) as sp:
+            map_reduce(store, map_fn, combine, None, prefetch=prefetch, emit=emit, device=dev)
+            total = float(state[2])
+            trajectory.append(total - seen_cost)
+            seen_cost = total
+            sp.set(inertia=trajectory[-1])
         if checkpoint_dir is not None:
             ckpt.save_lloyd_state(
                 checkpoint_dir, step=ep + 1, centroids=cell[0], labels=labels.numpy(),
@@ -314,3 +319,52 @@ def minibatch_lloyd(
         labels.numpy().copy(), cell[0], inertia, epochs, (epochs + 1) * store.n,
         tuple(trajectory), (),
     )
+
+
+def stream_fit_predict(
+    seed: int,
+    store: BlockStore,
+    kernel,
+    k: int,
+    cfg=None,
+    *,
+    mode: str = "exact",
+    landmark_sample: int = 4096,
+    decay: float = 0.9,
+    epochs: int = 1,
+    prefetch: int | None = None,
+    device=None,
+):
+    """End-to-end embed-and-conquer over a block stream:
+
+    1. reservoir-sample rows for landmark selection (one pass),
+    2. fit the embedding on the sample (tiny and resident, as in the paper, P4.3),
+    3. cluster the stream: exact out-of-core Lloyd (``mode="exact"``) or
+       single-pass mini-batch (``"minibatch"``), the embedding fused into the
+       per-block step (Y never materializes).
+
+    ``seed`` splits three ways (``phase1_seeds``): which rows the reservoir
+    keeps, the embedding fit's draws, and the clustering's k-means++ draws,
+    so landmark selection is not correlated with the embedding's own
+    randomness. ``cfg`` is a `core.kkmeans.APNCConfig`. Runs on ``device``
+    (default: the card). Returns (StreamLloydResult, params).
+    """
+    from repro_torch.api.estimator import phase1_seeds
+    from repro_torch.core import kkmeans
+
+    cfg = cfg or kkmeans.APNCConfig()
+    pol = cfg.compute
+    dev = resolve_device(device)
+    s_sample, s_fit, s_cluster = phase1_seeds(seed)
+    sample = torch.from_numpy(reservoir_sample(store, landmark_sample, seed=s_sample)).to(
+        dev, torch.float32)
+    coeffs = kkmeans.fit_coefficients(s_fit, sample, kernel, cfg)
+    common = dict(coeffs=coeffs, generator=torch.Generator().manual_seed(s_cluster),
+                  policy=pol, prefetch=prefetch, device=dev)
+    if mode == "exact":
+        res = ooc_lloyd(store, k, iters=cfg.iters, **common)
+    elif mode == "minibatch":
+        res = minibatch_lloyd(store, k, decay=decay, epochs=epochs, **common)
+    else:
+        raise ValueError(f"unknown mode {mode!r}")
+    return res, coeffs

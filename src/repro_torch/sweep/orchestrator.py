@@ -29,6 +29,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.api.backends import FitContext, ensure_embedding_cache
 from repro_torch.api.model import ClusterModel
 from repro_torch.device import resolve_device
@@ -93,10 +94,11 @@ def sweep_estimator(est, X, k_grid, *, restarts: int | None = None, seed: int | 
     seed = est.random_state if seed is None else seed
     input_shape = (X.n, X.d) if isinstance(X, BlockStore) else tuple(int(v) for v in X.shape)
 
+    metrics_before = obs.snapshot("engine.")
     est.phases_ = {}
     stage = None
     if checkpoint_dir is not None:
-        with est._phase("stage_load", dev):
+        with est._phase("stage_load", dev), obs.span("sweep.stage_load", cat="sweep"):
             stage = load_embed_stage(checkpoint_dir, method=est.method, sweep_seed=seed,
                                      input_shape=input_shape,
                                      cache_dtype=est.policy.cache_dtype, device=dev)
@@ -127,7 +129,7 @@ def sweep_estimator(est, X, k_grid, *, restarts: int | None = None, seed: int | 
                 # decoded staged blocks as one array.
                 ctx.y_array = torch.from_numpy(ctx.y_store.materialize()).to(dev)
         if checkpoint_dir is not None:
-            with est._phase("stage_save", dev):
+            with est._phase("stage_save", dev), obs.span("sweep.stage_save", cat="sweep"):
                 save_embed_stage(
                     checkpoint_dir, params=params, pool=pool, s_seed=s_seed,
                     y_store=ctx.y_store or _staged(ctx.y_array, est),
@@ -138,7 +140,8 @@ def sweep_estimator(est, X, k_grid, *, restarts: int | None = None, seed: int | 
     with est._phase("seed", dev):
         inits = [torch.stack(est._seed_inits(pool, s_seed, k, params.discrepancy, R))
                  for k in k_grid]
-    with est._phase("lloyd", dev):
+    with est._phase("lloyd", dev), obs.span("sweep.lloyd", cat="sweep", backend=backend,
+                                            candidates=len(k_grid) * R):
         out = run_sweep(ctx, k_grid, inits, backend=backend)
 
     n = ctx.y_store.n if ctx.y_store is not None else int(ctx.y_array.shape[0])
@@ -177,6 +180,17 @@ def sweep_estimator(est, X, k_grid, *, restarts: int | None = None, seed: int | 
     est.n_iter_ = int(out.iters[best_i, best_r])
     est.backend_ = backend
     est._pf_state = None
+    # The sweep's one FitReport (phases with the embed-once pass, passes and
+    # bytes of the whole sweep, the candidate accounting), on the result, the
+    # estimator and the best model. The engine keeps no per-iteration costs
+    # of the candidates, so the trajectory is the winner's final inertia.
+    result.report = est._attach_report(
+        backend, metrics_before, trajectory=[result.best_inertia], iters=est.n_iter_,
+        rows_seen=result.best.meta.rows_seen,
+        extra=dict(sweep=True, k_grid=list(k_grid), restarts=R, resumed=result.resumed,
+                   candidates=len(k_grid) * R, best_k=int(k_grid[best_i]),
+                   best_restart=int(best_r), lloyd_passes=int(out.passes)),
+    )
     return result
 
 

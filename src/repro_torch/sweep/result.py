@@ -39,6 +39,11 @@ class SweepResult:
     #: running phase 1 and the embedding pass
     resumed: bool = False
 
+    # `report` (a repro_torch.obs.FitReport of the whole sweep) is attached by
+    # the orchestrator as a plain attribute, not a field: measurement, not
+    # result state, so a checkpoint does not carry it.
+    report = None
+
     @staticmethod
     def select_best(inertia: np.ndarray) -> tuple[int, int]:
         """Deterministic argmin over the (k_index, restart) lattice: exact

@@ -31,6 +31,11 @@ def test_port_imports_neither_jax_nor_repro():
     assert "repro_torch.kernels.apnc_embed" in modules
     assert "repro_torch.kernels.flash_attention" in modules
     assert "repro_torch.launch.serve" in modules
+    assert {"repro_torch.obs", "repro_torch.obs.tracer", "repro_torch.obs.metrics",
+            "repro_torch.obs.export", "repro_torch.obs.report", "repro_torch.roofline.analysis",
+            "repro_torch.core.baselines", "repro_torch.core.kkmeans", "repro_torch.core.nystrom",
+            "repro_torch.core.stable", "repro_torch.configs.paper_datasets",
+            "repro_torch.data.synthetic"} <= set(modules)
     code = (
         "import importlib, sys\n"
         f"for name in {modules!r}:\n"
@@ -47,7 +52,9 @@ def test_port_imports_neither_jax_nor_repro():
 
 
 @pytest.mark.parametrize("entry", ["fit", "predict", "resolve", "stream_fit", "ooc_lloyd",
-                                   "map_reduce", "stream_predict", "sweep", "serve", "lm_init"])
+                                   "map_reduce", "stream_predict", "sweep", "serve", "lm_init",
+                                   "legacy_fit_predict", "legacy_predict",
+                                   "stream_fit_predict", "synthetic"])
 def test_entry_points_default_to_the_card(entry):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is valid here")
@@ -84,6 +91,25 @@ def test_entry_points_default_to_the_card(entry):
 
             lm.init(torch.Generator().manual_seed(0), reduced(get_arch("qwen1.5-0.5b")),
                     TEST_POLICY)
+        elif entry in ("legacy_fit_predict", "legacy_predict"):
+            from repro_torch.core import kkmeans
+            from repro_torch.core.kernels_fn import Kernel
+
+            cfg = kkmeans.APNCConfig(l=16, m=8, n_init=1)
+            if entry == "legacy_fit_predict":
+                kkmeans.fit_predict(0, X, Kernel("rbf", gamma=0.5), 3, cfg)
+            res, params = kkmeans.fit_predict(0, X, Kernel("rbf", gamma=0.5), 3, cfg,
+                                              device="cpu")
+            kkmeans.predict(X[:5], params, res.centroids)
+        elif entry == "stream_fit_predict":
+            from repro_torch.core.kernels_fn import Kernel
+            from repro_torch.stream.lloyd import stream_fit_predict
+
+            stream_fit_predict(0, store, Kernel("rbf", gamma=0.5), 3)
+        elif entry == "synthetic":
+            from repro_torch.data.synthetic import gaussian_blobs
+
+            gaussian_blobs(0, 10, 2, 2)
         elif entry == "stream_predict":
             est = KernelKMeans(3, l=16, m=8, backend="stream", device="cpu").fit(store)
             est.device = None
@@ -115,7 +141,8 @@ def test_chip_smoke_cpu_rehearsal():
     lines = [json.loads(line) for line in out.stdout.splitlines() if line.startswith("{")]
     phases = [line.get("phase") for line in lines]
     assert phases == ["device", "data", "parity", "main", "agreement", "host_copy", "stream",
-                      "rff", "sweep", "persist", "lm_serve", "timing", "done"]
+                      "rff", "sweep", "persist", "baselines", "obs", "lm_serve", "timing",
+                      "done"]
     assert not any(line.get("ok") for line in lines)
     main = lines[phases.index("main")]
     assert main["nmi"] > 0.9 and main["launches"] == {"apnc_embed": 0, "apnc_assign": 0}
@@ -149,6 +176,34 @@ def test_chip_smoke_cpu_rehearsal():
     assert sweep_res["y_bin_bytes"] == persist["n"] * persist["m"]
     pf = persist["partial_fit"]
     assert pf["rows_seen"] == persist["n"] and pf["kernel_vs_plain"]["label_mismatches"] == 0
+    base = lines[phases.index("baselines")]
+    assert set(base["runs"]) == {"exact_kernel_kmeans", "approx_kkm", "rff_kmeans",
+                                 "svd_rff_kmeans", "two_stage", "fit_predict"}
+    assert all(0.0 <= r["nmi"] <= 1.0 and 0.0 <= r["nmi_vs_exact"] <= 1.0
+               for r in base["runs"].values())
+    assert base["runs"]["exact_kernel_kmeans"]["nmi"] > 0.8
+    assert base["runs"]["exact_kernel_kmeans"]["nmi_vs_exact"] == 1.0
+    assert base["predict"]["equals_cluster_model"] and base["predict"]["nmi"] > 0.8
+    assert base["gram"]["bytes"] == base["n"] ** 2 * 4
+    cvc = base["card_vs_cpu"]
+    assert all(cvc[name]["label_mismatches"] == 0 for name in base["runs"] if name in cvc)
+    assert cvc["approx_kkm_lockstep"]["steps"] == 20 and not cvc["approx_kkm"]["gated"]
+    ob = lines[phases.index("obs")]
+    assert ob["report_count"] >= 10  # main, stream, rff x 2, sweep x 3, persist's
+    assert {r["kind"] for r in ob["reports"]} == {"fit", "sweep"}
+    for r in ob["reports"]:
+        if r["backend"] in ("stream", "minibatch") and r["kind"] == "fit":
+            assert r["fused_dispatches"] == r["blocks_read"] == r["passes"] * stream["num_blocks"]
+            assert r["per_device_blocks"] == {"cpu": r["blocks_read"]}
+    traced = ob["traced_stream_fit"]
+    assert traced["lanes"] == ["main", "producer:cpu"] and traced["labels_as_phase_stream"]
+    assert traced["span_counts"]["h2d"] == traced["passes"] * stream["num_blocks"]
+    assert traced["span_counts"]["lloyd.fused_step"] == traced["span_counts"]["h2d"]
+    assert all(traced["span_counts"][f"phase.{p}"] == 1
+               for p in ("reservoir", "embed_fit", "seed", "lloyd"))
+    roof = ob["roofline"]
+    assert roof["peak_flops"] == 67e12 and roof["hbm_bytes_per_s"] == 3.35e12
+    assert roof["join_pass_record"]["passes"] == traced["passes"]
     lm = lines[phases.index("lm_serve")]
     assert lm["arch"] == "qwen1.5-0.5b-smoke" and lm["flash_attention_launches"] == 0
     assert lm["vs_plain"]["max_abs_diff"] == 0.0  # the CPU route is the plain version

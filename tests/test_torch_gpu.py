@@ -847,3 +847,130 @@ def test_partial_fit_kernel_route_matches_plain_at_equal_state(cuda, tmp_path):
     Cp = plain.model_.centroids
     torch.testing.assert_close(kern.model_.centroids, Cp, rtol=1e-4,
                                atol=1e-4 * float(Cp.abs().max()))
+
+
+BASELINES = ["exact_kernel_kmeans", "rff_kmeans", "svd_rff_kmeans", "two_stage"]
+
+
+def _imagenet_4000(cuda):
+    from repro_torch.core.kernels_fn import self_tuned_rbf
+    from repro_torch.data.synthetic import paper_standin
+
+    X, _, ds = paper_standin("imagenet-50k", 0, n_override=4_000, device=cuda)
+    return X, self_tuned_rbf(X, seed=0), ds.k
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", BASELINES)
+def test_baseline_on_the_card_equals_the_cpu(cuda, name):
+    """The paper's baselines at n = 4,000 of the imagenet-50k stand-in
+    (d = 900, k = 164), on the card and on a CPU copy from the same seed (the
+    draws are the CPU generator's either way): labels equal outside near
+    ties under the CPU run's distances, the objective within rtol 1e-4.
+    approx_kkm is held step by step (the next test)."""
+    from repro_torch.core import baselines as B
+
+    X, kern, k = _imagenet_4000(cuda)
+    run = dict(
+        exact_kernel_kmeans=lambda Xr: B.exact_kernel_kmeans(0, kern.gram(Xr, Xr), kern.diag(Xr),
+                                                             k),
+        rff_kmeans=lambda Xr: B.rff_kmeans(0, Xr, kern.gamma, k, 128),
+        svd_rff_kmeans=lambda Xr: B.svd_rff_kmeans(0, Xr, kern.gamma, k, 128),
+        two_stage=lambda Xr: B.two_stage(0, Xr, kern, k, 500))[name]
+    a, b = run(X), run(X.cpu())
+    assert a.labels.device.type == "cuda" and a.labels.dtype == torch.int32
+    lab_a, lab_b = a.labels.cpu().long(), b.labels.long()
+    rows = torch.nonzero(lab_a != lab_b).flatten()
+    assert rows.numel() <= 4
+    if rows.numel():
+        d2 = B._final_d2(name, 0, X.cpu(), kern, k, l=500, m=128)[rows]
+        gap = (d2.gather(1, lab_a[rows, None]) - d2.gather(1, lab_b[rows, None])).abs()[:, 0]
+        assert bool((gap <= 1e-4 * d2.abs().max(dim=1).values).all())
+    np.testing.assert_allclose(float(a.objective), float(b.objective), rtol=1e-4)
+
+
+@pytest.mark.gpu
+def test_approx_kkm_steps_on_the_card_equal_the_cpu(cuda):
+    """approx_kkm's pseudo-inverse cutoff sits inside the rbf K_LL's
+    spectrum, so roundoff is amplified and a free run's near tie spreads:
+    its 20 steps are held on the card against the CPU from the same labels
+    at every step, distances within 1e-3 of the largest and every differing
+    argmin a tie within twice the row's card-vs-CPU difference."""
+    from repro_torch.core import baselines as B
+
+    X, kern, k = _imagenet_4000(cuda)
+    card, cpu = B._approx_inputs(0, X, kern, k, 500), B._approx_inputs(0, X.cpu(), kern, k, 500)
+    labels = cpu[4]
+    for _ in range(20):
+        d2_card = B._approx_d2(*card[:4], labels.to(cuda), k).cpu()
+        d2_cpu = B._approx_d2(*cpu[:4], labels, k)
+        diff = (d2_card - d2_cpu).abs()
+        assert float(diff.max() / d2_cpu.abs().max()) <= 1e-3
+        lab_card, labels = torch.argmin(d2_card, dim=-1), torch.argmin(d2_cpu, dim=-1)
+        rows = torch.nonzero(lab_card != labels).flatten()
+        gap = (d2_cpu[rows, lab_card[rows]] - d2_cpu[rows, labels[rows]]).abs()
+        assert bool((gap <= 2 * diff[rows].max(dim=1).values).all())
+
+
+@pytest.mark.gpu
+def test_rbf_gram_in_place_on_the_card(cuda):
+    """The 50,000-row Gram's path at 12,000 rows: the bits of the
+    out-of-place expression, with no second (n, n) buffer beside the output."""
+    X = torch.randn((12_000, 900), device=cuda) * 0.5
+    kern = Kernel("rbf", gamma=1e-3)
+    xx = torch.sum(X * X, dim=-1, keepdim=True)
+    want = torch.exp(-1e-3 * torch.clamp(xx - 2.0 * (X @ X.T) + xx.T, min=0.0))
+    torch.cuda.synchronize()
+    start = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    got = kern.gram(X, X)
+    torch.cuda.synchronize()
+    out_bytes = got.numel() * 4
+    assert torch.cuda.max_memory_allocated() - start < 1.05 * out_bytes
+    assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+def test_traced_stream_fit_on_the_card(cuda, tmp_path):
+    """A traced stream fit over a pinned store: the lanes main and
+    producer:cuda:<i>, one h2d span a block a pass, the phase spans; the
+    report's blocks all on that card; one engine.fused_dispatches a
+    fused_apnc_step launch; the labels those of the untraced fit."""
+    import json
+
+    from repro_torch import obs
+    from repro_torch.api import KernelKMeans
+    from repro_torch.data.synthetic import gaussian_blobs_blocks
+    from repro_torch.kernels import lloyd_step
+    from repro_torch.stream.blockstore import BlockStore
+
+    X, _ = gaussian_blobs_blocks(0, 40_000, 64, 8, block_rows=4096, separation=3.0)
+    host = torch.from_numpy(X).pin_memory()
+    store = BlockStore.from_array(host.numpy(), 4096)
+    make = lambda: KernelKMeans(8, l=128, m=64, backend="stream", iters=6,  # noqa: E731
+                                kernel_params=dict(gamma=0.01))
+    plain = make().fit(store, seed=1)
+    obs.clear_trace()
+    obs.enable_tracing()
+    before_launch = lloyd_step.launches["fused_apnc_step"]
+    before = obs.snapshot("engine.")
+    try:
+        est = make().fit(store, seed=1)
+    finally:
+        obs.disable_tracing()
+    d = obs.delta(before, obs.snapshot("engine."))
+    r = est.fit_report_
+    lane = f"cuda:{torch.cuda.current_device()}"
+    passes = sum(r.pass_counts.values())
+    assert r.per_device_blocks == {lane: store.num_blocks * passes} == {lane: r.blocks_read}
+    assert r.bytes_h2d == passes * X.nbytes
+    assert d["engine.fused_dispatches"] == (lloyd_step.launches["fused_apnc_step"]
+                                            - before_launch) == r.blocks_read
+    events = json.loads(obs.write_trace(tmp_path / "t.json").read_text())["traceEvents"]
+    obs.clear_trace()
+    assert sorted(e["args"]["name"] for e in events if e["ph"] == "M") == [
+        "main", f"producer:{lane}"]
+    names = [e["name"] for e in events if e["ph"] == "X"]
+    assert names.count("h2d") == store.num_blocks * passes
+    assert all(names.count(f"phase.{p}") == 1 for p in ("reservoir", "embed_fit", "seed", "lloyd"))
+    np.testing.assert_array_equal(est.labels_, plain.labels_)
