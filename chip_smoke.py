@@ -24,7 +24,13 @@ Gram, approximate kernel k-means, RFF and SV-RFF k-means, two-stage, the
 legacy ``fit_predict`` / ``predict``), each also held on the CPU at 4,000
 rows; phase ``obs`` checks every fit's and sweep's ``FitReport`` against
 the engine's counts, traces phase stream's fit once more into a Chrome
-trace, and joins its report with the H100's roofline. It then serves qwen1.5-0.5b at full width and
+trace, and joins its report with the H100's roofline. Phase ``serve`` saves
+phase main's Nystrom model and phase rff's model and serves them through the
+online assignment service (``repro_torch.launch.cluster_serve`` closed loop,
+then open loop with a hot swap from one to the other, then both by name in
+one ``ModelRegistry``, closed loop and an overload), every served label
+replayed exactly against ``core.kkmeans.predict``, one embedding launch and
+one ``apnc_assign`` launch a flush. It then serves qwen1.5-0.5b at full width and
 depth from a seeded random init (``repro_torch.launch.serve.generate``: a
 4 x 4,096-token prefill, every layer's attention in ``flash_attention_bhsd``,
 then 32 greedy decode steps over a bf16 KV cache), held against the plain
@@ -43,14 +49,23 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import os
 import re
 import subprocess
 import sys
 import time
 from pathlib import Path
 
-import numpy as np
-import torch
+if "--cpu-rehearsal" in sys.argv[1:]:
+    # One CPU thread for every library on every thread the run starts: the
+    # service's dispatcher and swap threads would otherwise each start a
+    # team of math-library threads at their first op (0.07 s a kind of op
+    # on a shared CPU), enough for a hot swap to land after the last request.
+    os.environ.setdefault("OMP_NUM_THREADS", "1")
+    os.environ.setdefault("MKL_NUM_THREADS", "1")
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -90,7 +105,13 @@ IMAGENET = dict(n=_IMAGENET.n, d=_IMAGENET.d, k=_IMAGENET.k, separation=_IMAGENE
                 # the ImageNet d, k and separation, warped), 10,000 more rows
                 # of its mixture held out; `small_n` rows for card vs CPU.
                 baselines=dict(dataset="imagenet-50k", held_out=10_000, l=500, m=256,
-                               rff_m=128, iters=20, small_n=4_000))
+                               rff_m=128, iters=20, small_n=4_000),
+                # The online service over phase main's and phase rff's models:
+                # requests a run, rows a flush, the micro-batch deadline, (b)'s
+                # rate and (c)'s overload as multiples of (a)'s req/s, (c)'s
+                # admission bound, the calls timing one flush.
+                serve=dict(requests=20_000, micro_batch=256, max_delay_ms=2.0, open_rate=0.5,
+                           overload=4.0, max_inflight=256, flush_iters=200))
 REHEARSAL = dict(n=4_000, d=32, k=8, separation=3.0, l=64, m=16, iters=20,
                  block_rows=512, rff_m=16, sweep_k_grid=(4, 8), sweep_restarts=2,
                  parity_assign=((503, 7, 19), (2003, 13, 32)),
@@ -101,7 +122,9 @@ REHEARSAL = dict(n=4_000, d=32, k=8, separation=3.0, l=64, m=16, iters=20,
                  parity_flash_gqa=((1, 77, 4, 2, 16),),
                  lm_arch="qwen1.5-0.5b", lm_reduced=True, lm_batch=4, lm_prompt=64, lm_gen=8,
                  baselines=dict(dataset=None, n=1_500, held_out=300, l=64, m=16, rff_m=16,
-                                iters=20, small_n=400))
+                                iters=20, small_n=400),
+                 serve=dict(requests=2_000, micro_batch=64, max_delay_ms=2.0, open_rate=0.5,
+                            overload=4.0, max_inflight=64, flush_iters=20))
 #: Sliding windows of the attention parity cases (4,096: mixtral's).
 FLASH_WINDOWS = (0, 50, 4096)
 #: The reference's tolerances for flash attention (tests/test_kernels_pallas.py).
@@ -1706,6 +1729,173 @@ def phase_obs(X, store, main_est, stream_per_pass_s, stream_est, cfg, device, se
             record_block=rec_block, record_pass=rec_pass))
 
 
+def serve_launches_gate(what, launches, flushes, extra, device) -> None:
+    """On a card, the service launched an embedding kernel (``apnc_embed`` or
+    ``rff_embed_block``) once a flush and ``apnc_assign`` as often, plus
+    ``extra`` launches of each outside the flushes (warm-ups and replays)."""
+    embeds = launches["apnc_embed"] + launches["rff_embed_block"]
+    if device.type == "cuda" and not embeds == launches["apnc_assign"] == flushes + extra:
+        raise AssertionError(f"{what}: {flushes} flushes (+{extra}), launches {launches}")
+
+
+def serve_run(what, stats, n_req, device, launches, extra) -> dict:
+    """One cluster_serve run's gates and summary: every admitted request
+    answered, 0 mismatches, offered = admitted + shed, no errors, and the
+    launches of its flushes, warm-ups and replays."""
+    admitted = stats.get("admitted", n_req)
+    flushes = stats["metrics"]["serve.batch_size"]["count"]
+    if (stats["mismatches"] or stats["served"] != admitted
+            or admitted + stats["shed"] != n_req or stats.get("errors", 0)):
+        raise AssertionError(f"{what}: {stats}")
+    serve_launches_gate(what, launches, flushes, extra, device)
+    keep = ("served", "shed", "wall_s", "req_per_s", "p50_ms", "p90_ms", "p99_ms",
+            "mismatches", "admitted", "errors", "by_version", "swap_s", "swap_at")
+    return dict({key: stats[key] for key in keep if key in stats}, flushes=flushes,
+                batch_size=stats["metrics"]["serve.batch_size"], launches=launches,
+                e2e_latency_ms=stats["metrics"]["serve.e2e_latency_ms"])
+
+
+def phase_serve(Xq, est, rff_est, cfg, device, seed) -> dict:
+    """The online assignment service (``repro_torch.serving``) on phase
+    main's Nystrom model and phase rff's model, both saved to a temporary
+    directory (removed) and served from disk, ``max_batch`` rows a flush:
+
+    * (a) ``cluster_serve.main`` closed loop over its own request log:
+      every request answered, 0 mismatches against ``core.kkmeans.predict``
+      over the whole log;
+    * (b) the same, open loop at half of (a)'s rate, hot-swapped to the rff
+      model halfway: every admitted request answered, offered = admitted +
+      shed, 0 mismatches against each version's model, both versions
+      served;
+    * (c) both models by name in one ``ModelRegistry``, over phase main's
+      held-out rows: ``submit_wait`` closed loop alternating the name, then
+      ``run_open_loop`` on "nystrom" at 4 x (a)'s rate through a tier with
+      256 requests in flight at most: each label equal to its model's
+      ``core.kkmeans.predict``, offered = admitted + shed, every admitted
+      request answered, no errors.
+
+    On a card each flush launches one embedding kernel (``apnc_embed`` or
+    ``rff_embed_block``) and one ``apnc_assign`` (``ops.assign_labels``), and
+    the gates count them against the flushes, with each run's warm-ups and
+    replays. ``process_fn`` times one full flush of each model (host clock,
+    ending in the labels' copy back)."""
+    import shutil
+    import tempfile
+
+    from repro_torch.core.kkmeans import predict
+    from repro_torch.launch import cluster_serve
+    from repro_torch.serving import ModelRegistry, ServingTier, make_process_fn, run_open_loop
+
+    sc = cfg["serve"]
+    n_req, mb = sc["requests"], sc["micro_batch"]
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_serve_"))
+    try:
+        est.save(root / "nystrom")
+        rff_est.save(root / "rff")
+        common = ["--requests", str(n_req), "--micro-batch", str(mb), "--max-delay-ms",
+                  str(sc["max_delay_ms"]), "--k", str(cfg["k"]), "--seed", str(seed),
+                  "--stats-every", "0", "--ckpt", str(root / "nystrom")]
+        if device.type == "cpu":
+            common += ["--device", "cpu"]
+        zero_launches()
+        stats = cluster_serve.main(common)
+        # one warm-up at register, one replay launch over the whole log
+        run_a = serve_run("(a) closed loop", stats, n_req, device, read_launches(), 2)
+        rate_b = sc["open_rate"] * run_a["req_per_s"]
+        zero_launches()
+        stats = cluster_serve.main(common + ["--rate", str(rate_b), "--swap-ckpt",
+                                             str(root / "rff"), "--swap-after",
+                                             str(n_req // 2)])
+        # two warm-ups (register, swap), two replays (one a version)
+        run_b = serve_run("(b) open loop, hot swap", stats, n_req, device, read_launches(), 4)
+        run_b["target_req_per_s"] = rate_b
+        if set(run_b["by_version"]) != {"1", "2"} or (
+                device.type == "cuda" and not run_b["launches"]["rff_embed_block"] > 2):
+            raise AssertionError(f"(b) the swap: {run_b}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    X_host = Xq.cpu().numpy()
+    models = {"nystrom": est.model_, "rff": rff_est.model_}
+    refs = {name: predict(X_host, m.params, m.centroids, device=device).cpu().numpy()
+            for name, m in models.items()}
+    registry = ModelRegistry(max_batch=mb, device=device)
+    for name, m in models.items():
+        registry.register(name, m)
+    names = list(models)
+
+    def mismatches(responses, name_of):
+        return sum(1 for r in responses if not r.ok or r.model != name_of(r.request_id)
+                   or r.label != refs[r.model][r.request_id % len(X_host)])
+
+    obs.reset_metrics("serve.")
+    zero_launches()
+    t0 = time.perf_counter()
+    with ServingTier(registry, max_delay_s=sc["max_delay_ms"] / 1e3) as tier:
+        futs = [tier.submit_wait(i, X_host[i % len(X_host)], names[i % 2])
+                for i in range(n_req)]
+        closed = [f.result() for f in futs]
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    snap = obs.snapshot("serve.")
+    bad = mismatches(closed, lambda i: names[i % 2])
+    if bad or len(closed) != n_req:
+        raise AssertionError(f"(c) two models, closed loop: {bad} mismatches")
+    serve_launches_gate("(c) closed loop", launches, snap["serve.batch_size"]["count"], 0,
+                        device)
+    lat = np.asarray([r.latency_s for r in closed]) * 1e3
+    run_c = dict(closed=dict(
+        served=len(closed), mismatches=bad, wall_s=wall, req_per_s=n_req / wall,
+        p50_ms=float(np.percentile(lat, 50)), p90_ms=float(np.percentile(lat, 90)),
+        p99_ms=float(np.percentile(lat, 99)), flushes=snap["serve.batch_size"]["count"],
+        by_model={name: int(snap[f"serve.model.{name}.served"]) for name in names},
+        launches=launches))
+
+    obs.reset_metrics("serve.")
+    zero_launches()
+    rate_c = sc["overload"] * run_a["req_per_s"]
+    tier = ServingTier(registry, max_delay_s=sc["max_delay_ms"] / 1e3,
+                       max_inflight=sc["max_inflight"]).start()
+    try:
+        rep = run_open_loop(tier, X_host, qps=rate_c, n_requests=n_req, model="nystrom",
+                            seed=seed)
+    finally:
+        tier.stop()
+    launches = read_launches()
+    snap = obs.snapshot("serve.")
+    bad = mismatches(rep.responses, lambda i: "nystrom")
+    if (bad or rep.errors or rep.admitted + rep.shed != rep.offered
+            or len(rep.responses) != rep.admitted):
+        raise AssertionError(f"(c) overload: {bad} mismatches, {rep.errors} errors, "
+                             f"{rep.offered} offered, {rep.admitted} admitted, {rep.shed} "
+                             f"shed, {len(rep.responses)} answered")
+    serve_launches_gate("(c) overload", launches, snap["serve.batch_size"]["count"], 0, device)
+    run_c["overload"] = dict(
+        target_req_per_s=rate_c, offered=rep.offered, admitted=rep.admitted, shed=rep.shed,
+        shed_rate=rep.shed_rate, errors=rep.errors, mismatches=bad,
+        answered_req_per_s=rep.rows_per_s, duration_s=rep.duration_s,
+        p50_ms=rep.latency_ms(50), p99_ms=rep.latency_ms(99),
+        flushes=snap["serve.batch_size"]["count"], launches=launches, metrics=snap)
+
+    # One full flush of each model through its closure: the copy in, the two
+    # launches and the labels' copy back (the flush's one synchronisation).
+    flush_ms = {}
+    for name, m in models.items():
+        process = make_process_fn(m, max_batch=mb, device=device)
+        rows = X_host[:mb]
+        process(rows)
+        t0 = time.perf_counter()
+        for _ in range(sc["flush_iters"]):
+            process(rows)
+        flush_ms[name] = (time.perf_counter() - t0) / sc["flush_iters"] * 1e3
+    total = {name: sum(r["launches"][name] for r in (run_a, run_b, run_c["closed"],
+                                                     run_c["overload"]))
+             for name in ("apnc_embed", "rff_embed_block", "apnc_assign")}
+    return dict(phase="serve", requests=n_req, micro_batch=mb, d=Xq.shape[1], k=cfg["k"],
+                a_closed_loop=run_a, b_open_loop_swap=run_b, c_two_models=run_c,
+                process_fn_ms_per_flush=flush_ms, launches=total)
+
+
 @contextlib.contextmanager
 def patched(module, name, value):
     """``module.name`` set to ``value`` inside the block, restored after."""
@@ -2184,13 +2374,61 @@ def time_flash(device, cfg) -> tuple[dict, list]:
     return rows[0], rows
 
 
+def serve_timing(X, est, rff_est, mb) -> dict:
+    """The three kernels of a serving flush, one ``mb``-row launch each at the
+    served shapes (phase main's Nystrom model, phase rff's model): kernel,
+    plain version, library call and bound, each launch event-timed over 200
+    (a launch this small costs about its launch overhead), and the host time
+    of one launch."""
+    from repro_torch.kernels import apnc_assign, apnc_embed, ref, rff_embed
+
+    p = est.model_.params
+    L, R, kern = p.landmarks[0].contiguous(), p.R[0].contiguous(), p.kernel
+    C = est.model_.centroids.contiguous()
+    W = rff_est.model_.params.W.contiguous()
+    scale = rff_est.model_.params.scale
+    Xb = X[:mb].contiguous()
+    d, l, m, k, mh = X.shape[1], L.shape[0], R.shape[0], C.shape[0], W.shape[1]
+    Yb = apnc_embed.apnc_embed_block(Xb, L, R, kern)
+    out = {}
+
+    def one(name, run, plain, library, flops, nbytes, err):
+        b, by = bound(flops, nbytes)
+        out[name] = dict(rows=mb, ms=cuda_ms(run, 200, warmup=5),
+                         plain_ms=cuda_ms(plain, 200, warmup=5), bound_ms=b, bound_by=by,
+                         library_ms=cuda_ms(library, 200, warmup=5),
+                         host_us_per_launch=host_us(run), max_abs_err=err)
+
+    one("apnc_embed", lambda: apnc_embed.apnc_embed_block(Xb, L, R, kern),
+        lambda: ref.apnc_embed_ref(Xb, L[None], R[None], kern),
+        lambda: torch.exp(-kern.gamma * torch.cdist(Xb, L).square()) @ R.T,
+        2.0 * mb * l * (d + m), 4.0 * (mb * d + l * d + m * l + mb * m),
+        float((Yb - ref.apnc_embed_ref(Xb, L[None], R[None], kern)).abs().max()))
+    one("rff_embed_block", lambda: rff_embed.rff_embed_block(Xb, W, scale),
+        lambda: ref.rff_embed_ref(Xb, W, scale),
+        lambda: (torch.cos(Xb @ W) * scale, torch.sin(Xb @ W) * scale),
+        2.0 * mb * d * mh, 4.0 * (mb * d + d * mh + mb * 2 * mh),
+        float((rff_embed.rff_embed_block(Xb, W, scale) - ref.rff_embed_ref(Xb, W, scale))
+              .abs().max()))
+    labels = apnc_assign.apnc_assign(Yb, C, "l2")[2]
+    plain_labels = ref.apnc_assign_ref(Yb, C, "l2")[2]
+    one("apnc_assign", lambda: apnc_assign.apnc_assign(Yb, C, "l2"),
+        lambda: ref.apnc_assign_ref(Yb, C, "l2"),
+        lambda: torch.cdist(Yb, C).argmin(dim=1),
+        2.0 * mb * k * m, 4.0 * (mb * m + 2 * k * m + k + mb),
+        float((labels != plain_labels).sum()))
+    return out
+
+
 def phase_timing(X, est, launches, stream_est, stream_launches, rff_est, rff_launches,
-                 sweep_data, lm_launches, cfg) -> tuple[dict, list]:
+                 sweep_data, lm_launches, serve_launches, cfg) -> tuple[dict, list]:
     """Each kernel at the main path's shapes: kernel, plain version, library
     call chain, and the bound computed from this run's shapes. The Lloyd-step
     and RFF kernels are timed per pass over the resident X in the stream
     path's row blocks; fused_dequant_step per pass over the sweep's int8
-    cache, its blocks resident on the card, at k = 164."""
+    cache, its blocks resident on the card, at k = 164. The three kernels a
+    serving flush launches are also timed at one flush's shape
+    (``serve_timing``); their rows add phase serve's launches."""
     from repro_torch.kernels import apnc_assign, apnc_embed, lloyd_step, ref, rff_embed
 
     params = est.model_.params
@@ -2344,19 +2582,20 @@ def phase_timing(X, est, launches, stream_est, stream_launches, rff_est, rff_lau
                     plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                     library_ms=lib_ms)
 
+    serve_rows = serve_timing(X, est, rff_est, cfg["serve"]["micro_batch"])
     rows = [
         row("apnc_embed", "apnc_embed.cu", "src/repro/kernels/apnc_embed.py:88",
-            launches["apnc_embed"], embed_err, t_embed, t_embed_plain, b_embed, by_embed,
-            t_embed_lib),
+            launches["apnc_embed"] + serve_launches["apnc_embed"], embed_err, t_embed,
+            t_embed_plain, b_embed, by_embed, t_embed_lib),
         row("apnc_assign", "apnc_assign.cu", "src/repro/kernels/apnc_assign.py:91",
-            launches["apnc_assign"], assign_err, t_assign, t_assign_plain, b_assign,
-            by_assign, t_assign_lib),
+            launches["apnc_assign"] + serve_launches["apnc_assign"], assign_err, t_assign,
+            t_assign_plain, b_assign, by_assign, t_assign_lib),
         row("fused_apnc_step", "lloyd_step.cu", "src/repro/kernels/lloyd_step.py:114",
             stream_launches["fused_apnc_step"], fused_check["z_max_abs_err"], t_fused,
             t_fused_plain, b_fused, by_fused, t_fused_lib),
         row("rff_embed_block", "rff_embed.cu", "src/repro/kernels/rff_embed.py:60",
-            rff_launches["rff_embed_block"], rff_err, t_rff, t_rff_plain, b_rff, by_rff,
-            t_rff_lib),
+            rff_launches["rff_embed_block"] + serve_launches["rff_embed_block"], rff_err,
+            t_rff, t_rff_plain, b_rff, by_rff, t_rff_lib),
         row("fused_rff_step", "lloyd_step.cu", "src/repro/kernels/lloyd_step.py:268",
             rff_launches["fused_rff_step"], rff_check["z_max_abs_err"], t_frff,
             t_frff_plain, b_frff, by_frff, t_frff_lib),
@@ -2367,6 +2606,10 @@ def phase_timing(X, est, launches, stream_est, stream_launches, rff_est, rff_lau
             lm_launches, flash["max_abs_err"], flash["ms"], flash["plain_ms"], flash["bound_ms"],
             flash["bound_by"], flash["library_ms"]),
     ]
+    for r in rows:  # the serving flush's launches and one flush-shaped launch
+        if r["name"] in serve_rows:
+            r["serve_launches"] = serve_launches[r["name"]]
+            r["serve_launch"] = serve_rows[r["name"]]
     info = dict(phase="timing", shapes=dict(n=n, d=d, l=l, m=m, k=k, block_rows=bn,
                                             rff_m_half=mh),
                 timed_per="launch over the resident X (apnc_embed, apnc_assign with its "
@@ -2468,6 +2711,8 @@ def main(argv=None) -> int:
                        cfg, device, args.seed))
     emit(phase_baselines(cfg, device, args.seed))
     emit(phase_obs(X, store, est, stream_info["per_pass_s"], stream_est, cfg, device, args.seed))
+    serve_info = phase_serve(Xq, est, rff_est, cfg, device, args.seed)
+    emit(serve_info)
     lm_info = phase_lm_serve(cfg, device, args.seed)
     emit(lm_info)
 
@@ -2476,7 +2721,8 @@ def main(argv=None) -> int:
     else:
         info, rows = phase_timing(X, est, main_info["launches"], stream_est,
                                   stream_info["launches"], rff_est, rff_info["launches"],
-                                  sweep_data, lm_info["flash_attention_launches"], cfg)
+                                  sweep_data, lm_info["flash_attention_launches"],
+                                  serve_info["launches"], cfg)
         emit(info)
 
     leaked = sorted(m for m in sys.modules

@@ -76,3 +76,12 @@ def self_tuned_rbf(X: torch.Tensor, sample: int = 512, seed: int = 0) -> Kernel:
     m = d2.shape[0]
     sigma2 = max(float(torch.sum(d2)) / (m * (m - 1)), 1e-12)
     return Kernel("rbf", gamma=float(1.0 / (2.0 * sigma2)))
+
+
+# The paper's Section 9 kernel settings, by dataset family.
+USPS_KERNEL = Kernel("tanh", scale=0.0045, coef0=0.11)
+MNIST_KERNEL = Kernel("poly", degree=5, coef0=1.0)
+
+
+def make_kernel(name: str, **kw) -> Kernel:
+    return Kernel(name=name, **kw)

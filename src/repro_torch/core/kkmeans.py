@@ -18,7 +18,6 @@ import dataclasses
 import numpy as np
 import torch
 
-from repro_torch.core.apnc import assign
 from repro_torch.core.kernels_fn import Kernel
 from repro_torch.core.lloyd import LloydResult, lloyd
 from repro_torch.device import resolve_device
@@ -100,7 +99,12 @@ def predict(X, coeffs, centroids: torch.Tensor, *, policy: ComputePolicy | None 
             device=None) -> torch.Tensor:
     """Assign unseen points: embed, then the nearest centroid under e — the
     online path a serving system uses (Property 4.4). Runs on ``device``
-    (default: the card); returns (n,) int64 labels there."""
+    (default: the card); returns (n,) int64 labels there. The assignment is
+    ``ops.assign_labels``: on the card the ``apnc_assign`` kernel's labels,
+    which do not depend on how many rows one call takes, so the serving
+    tier's micro-batches replay exactly."""
+    from repro_torch.kernels import ops
+
     dev = resolve_device(device)
     Y = apnc_embed(_as_tensor(X, dev), coeffs.to(dev), policy)
-    return assign(Y, centroids.to(dev), coeffs.discrepancy)
+    return ops.assign_labels(Y, centroids.to(dev), coeffs.discrepancy, policy)

@@ -32,3 +32,15 @@ def nmi(labels_a, labels_b) -> float:
     denom = np.sqrt(hu * hv)
     # Rounding can carry a perfect match a few ulps past 1.
     return float(np.clip(mi / denom, 0.0, 1.0)) if denom > 0 else 0.0
+
+
+def purity(labels_pred, labels_true) -> float:
+    M = contingency(labels_pred, labels_true)
+    return float(M.max(axis=1).sum() / M.sum())
+
+
+def clustering_accuracy_proxy(labels_pred, labels_true) -> float:
+    """Greedy (non-Hungarian) cluster -> class matching accuracy; a fast
+    proxy for sanity checks of obvious successes and failures."""
+    M = contingency(labels_pred, labels_true)
+    return float(M.max(axis=1).sum() / M.sum())

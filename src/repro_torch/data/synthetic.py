@@ -16,7 +16,8 @@ is in `_blobs_from_draws` / `_rings_from_draws`, which tests feed the JAX
 package's draws. The mixture's centers, scales and warp are drawn before the
 labels and the noise, so they do not depend on n. The blocked generators
 (`gaussian_blobs_blocks`, `rings_blocks`) are numpy copies of the JAX
-package's: the same seed gives the same rows and labels.
+package's: two generator-backed BlockStores (rows, labels) that make one
+block at a time, the same seed giving the same rows and labels.
 """
 from __future__ import annotations
 
@@ -97,34 +98,74 @@ def rings(seed: int, n: int, k: int = 3, noise: float = 0.05, gap: float = 2.0, 
     return _rings_from_draws(labels, u, eps, noise, gap)
 
 
+def _blocked_pair(make_block, n: int, d: int, block_rows: int):
+    """Wrap a ``make_block(i) -> (X_block, y_block)`` generator as two
+    BlockStores (features, labels) sharing a small per-block cache, so that
+    reading X and then y of one block generates it once."""
+    from repro_torch.stream.blockstore import BlockStore
+
+    cache: dict[int, tuple] = {}
+
+    def cached(i):
+        if i not in cache:
+            if len(cache) > 2:  # keep at most a couple of blocks resident
+                cache.clear()
+            cache[i] = make_block(i)
+        return cache[i]
+
+    X_store = BlockStore.from_generator(
+        lambda i: cached(i)[0], n=n, d=d, block_rows=block_rows
+    )
+    y_store = BlockStore.from_generator(
+        lambda i: cached(i)[1].reshape(-1, 1), n=n, d=1, block_rows=block_rows,
+        dtype=np.int32,
+    )
+    return X_store, y_store
+
+
 def gaussian_blobs_blocks(
     seed: int, n: int, d: int, k: int, *, block_rows: int,
-    separation: float = 3.0, anisotropy: float = 0.5,
-) -> tuple[np.ndarray, np.ndarray]:
-    """The blocked gaussian mixture, blocks concatenated: (X (n, d) f32,
-    labels (n,) i32). Block i is drawn from ``default_rng((seed, i))``."""
+    separation: float = 3.0, anisotropy: float = 0.5, warp: bool = False,
+):
+    """Blocked gaussian mixture, one (block_rows, d) numpy block at a time: the
+    host-side generator for out-of-core runs. Block i is drawn from
+    ``default_rng((seed, i))``, so blocks can be re-requested across Lloyd
+    iterations. ``warp`` applies `gaussian_blobs`' warp, dense up to d = 2048
+    and of rank 256 above. Returns (X_store, labels_store)."""
     base = np.random.default_rng(seed)
     centers = (base.standard_normal((k, d)) * separation).astype(np.float32)
     scales = (1.0 + anisotropy * base.random((k, d))).astype(np.float32)
-    Xs, ys = [], []
-    for i in range(-(-n // block_rows)):
+    if warp:
+        if d <= 2048:
+            W = (base.standard_normal((d, d)) / np.sqrt(d)).astype(np.float32)
+            UV = None
+        else:
+            UV = (
+                (base.standard_normal((d, _WARP_RANK)) / np.sqrt(d)).astype(np.float32),
+                (base.standard_normal((_WARP_RANK, d)) / np.sqrt(_WARP_RANK)).astype(np.float32),
+            )
+
+    def make_block(i: int):
         rows = min(block_rows, n - i * block_rows)
         rng = np.random.default_rng((seed, i))
         labels = rng.integers(0, k, size=rows, dtype=np.int32)
         X = centers[labels] + rng.standard_normal((rows, d)).astype(np.float32) * scales[labels]
-        Xs.append(X.astype(np.float32))
-        ys.append(labels)
-    return np.concatenate(Xs), np.concatenate(ys)
+        if warp:
+            warped = np.tanh(X * 0.5)
+            X = (warped @ W if UV is None else (warped @ UV[0]) @ UV[1]) + 0.1 * X
+        return X.astype(np.float32), labels
+
+    return _blocked_pair(make_block, n, d, block_rows)
 
 
 def rings_blocks(
     seed: int, n: int, k: int = 3, *, block_rows: int, noise: float = 0.05,
     gap: float = 2.0,
-) -> tuple[np.ndarray, np.ndarray]:
-    """Blocked `rings`, blocks concatenated: (X (n, 2) f32, labels (n,) i32).
-    Block i is drawn from ``default_rng((seed, i))``."""
-    Xs, ys = [], []
-    for i in range(-(-n // block_rows)):
+):
+    """Blocked `rings`: concentric 2-D shells, one block at a time, block i
+    drawn from ``default_rng((seed, i))``. Returns (X_store, labels_store)."""
+
+    def make_block(i: int):
         rows = min(block_rows, n - i * block_rows)
         rng = np.random.default_rng((seed, i))
         labels = rng.integers(0, k, size=rows, dtype=np.int32)
@@ -132,9 +173,9 @@ def rings_blocks(
         theta = rng.random(rows).astype(np.float32) * 2 * np.pi
         X = np.stack([radius * np.cos(theta), radius * np.sin(theta)], axis=1)
         X = X + noise * rng.standard_normal((rows, 2)).astype(np.float32)
-        Xs.append(X.astype(np.float32))
-        ys.append(labels)
-    return np.concatenate(Xs), np.concatenate(ys)
+        return X.astype(np.float32), labels
+
+    return _blocked_pair(make_block, n, 2, block_rows)
 
 
 def paper_standin(name: str, seed: int = 0, n_override: int = 0, *,

@@ -16,7 +16,7 @@ import torch
 
 from repro_torch.core.apnc import APNCCoefficients, embed
 from repro_torch.core.kernels_fn import Kernel
-from repro_torch.embed.base import Embedding, register_embedding
+from repro_torch.embed.base import Embedding, EmbeddingProps, register_embedding
 
 _EIG_EPS = 1e-8
 _EIG_RCOND = 1e-6  # relative to the top eigenvalue, pinv-style
@@ -111,7 +111,7 @@ def fit_sd(
 
 
 class _APNCBase(Embedding):
-    """Shared transform and kernel path of the two (R, L) members."""
+    """Shared transform, kernel path and props of the two (R, L) members."""
 
     params_cls = APNCCoefficients
 
@@ -122,6 +122,16 @@ class _APNCBase(Embedding):
         from repro_torch.kernels import ops
 
         return ops.apnc_embed(X, params)
+
+    def props(self, params: APNCCoefficients) -> EmbeddingProps:
+        return EmbeddingProps(
+            # y = R K_{L, i} is linear in the kernel representation always
+            # (P4.1 proper); it is linear in the input exactly when kappa is.
+            linear=params.kernel.name == "linear",
+            discrepancy=params.discrepancy,
+            blockwise=True,
+            landmark_free=self.landmark_free,
+        )
 
 
 @register_embedding

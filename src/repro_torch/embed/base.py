@@ -1,7 +1,9 @@
 """The Embedding protocol: the paper's family definition (Section 4) as an API.
 
 An ``Embedding`` is a registered object with ``fit(seed, data, kernel, ...)``
-returning typed params and a plain ``transform(params, X) -> Y``.
+returning typed params, a plain ``transform(params, X) -> Y`` and
+``props(params)``, the family properties (`EmbeddingProps`) its consumers
+rely on.
 ``transform(params, X, policy)`` at module level is the one routed dispatch
 point every consumer goes through: by default the member's hand-written
 kernel for a CUDA tensor and its plain PyTorch version for a CPU tensor, as
@@ -19,6 +21,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch.core.apnc import Discrepancy
 from repro_torch.core.kernels_fn import Kernel
 from repro_torch.device import resolve_device
 from repro_torch.policy import ComputePolicy, as_policy
@@ -27,11 +30,32 @@ from repro_torch.policy import ComputePolicy, as_policy
 EmbeddingParams = Any
 
 
+@dataclasses.dataclass(frozen=True)
+class EmbeddingProps:
+    """Declared family properties of a *fitted* member (paper Section 4).
+
+    linear:        P4.1 as an input-space statement: transform commutes with
+                   row means (APNC under the linear kernel, degree-1
+                   sketches).
+    discrepancy:   the e(., .) of P4.4 under which embedded distances
+                   concentrate: "l2" (Nystrom, RFF, sketches) or "l1"
+                   (stable distributions).
+    blockwise:     P4.3: supports q > 1 block-diagonal ensembles.
+    landmark_free: the fit is a data-independent draw (no landmark gram);
+                   mirrors the member's class attribute of the same name.
+    """
+
+    linear: bool
+    discrepancy: Discrepancy
+    blockwise: bool = False
+    landmark_free: bool = False
+
+
 class Embedding(abc.ABC):
     """One member of the paper's embedding family.
 
-    Subclasses set ``name`` and ``params_cls`` and implement ``fit`` and
-    ``transform`` (the plain version). ``kernel_transform``
+    Subclasses set ``name`` and ``params_cls`` and implement ``fit``,
+    ``transform`` (the plain version) and ``props``. ``kernel_transform``
     returns the hand-written kernel's result for CUDA input, or None when the
     member has no kernel (``transform`` then takes the plain version).
     """
@@ -41,6 +65,9 @@ class Embedding(abc.ABC):
     #: The fit is a data-independent draw (no landmark gram): only the input
     #: dimensionality is read from the data. Readable before a fit exists.
     landmark_free: bool = False
+    #: Kernel families the member can approximate, or None for any kernel
+    #: (the kernelized APNC members).
+    kernel_families: tuple[str, ...] | None = None
 
     @abc.abstractmethod
     def fit(
@@ -52,6 +79,10 @@ class Embedding(abc.ABC):
     @abc.abstractmethod
     def transform(self, params: EmbeddingParams, X: torch.Tensor) -> torch.Tensor:
         """Plain reference map: (n, d) -> (n, params.m), f32."""
+
+    @abc.abstractmethod
+    def props(self, params: EmbeddingParams) -> EmbeddingProps:
+        """Family properties of this fitted member."""
 
     def kernel_transform(self, params: EmbeddingParams, X: torch.Tensor) -> torch.Tensor | None:
         """Hand-written kernel path for CUDA input, or None."""
@@ -109,6 +140,9 @@ def _config_decode(v):
 EMBEDDINGS: dict[str, Embedding] = {}
 _BY_PARAMS: dict[type, Embedding] = {}
 
+#: The registry's default member (what the CLIs fall back to).
+DEFAULT_EMBEDDING = "nystrom"
+
 
 def register_embedding(embedding: Embedding | type) -> Embedding | type:
     """Register a family member (instance or class; usable as a decorator)."""
@@ -120,6 +154,22 @@ def register_embedding(embedding: Embedding | type) -> Embedding | type:
     EMBEDDINGS[emb.name] = emb
     _BY_PARAMS[emb.params_cls] = emb
     return embedding
+
+
+def unregister_embedding(name: str) -> None:
+    """Remove a registered member (tests, plugin teardown)."""
+    emb = EMBEDDINGS.pop(name, None)
+    if emb is not None and _BY_PARAMS.get(emb.params_cls) is emb:
+        # Members may share a params type (nystrom and sd both use
+        # APNCCoefficients): rebind the type's dispatch to a surviving member
+        # instead of orphaning every other user of that params class.
+        survivor = next(
+            (e for e in EMBEDDINGS.values() if e.params_cls is emb.params_cls), None,
+        )
+        if survivor is not None:
+            _BY_PARAMS[emb.params_cls] = survivor
+        else:
+            del _BY_PARAMS[emb.params_cls]
 
 
 def available_embeddings() -> list[str]:
@@ -184,3 +234,8 @@ def transform(
         p16 = _cast_float_fields(params, torch.bfloat16)
         return emb.transform(p16, X.to(torch.bfloat16)).to(torch.float32)
     return emb.transform(params, X.to(torch.float32))
+
+
+def props_of(params: EmbeddingParams) -> EmbeddingProps:
+    """Family properties of fitted params (dispatched on their type)."""
+    return embedding_for(params).props(params)

@@ -19,7 +19,7 @@ import math
 import torch
 
 from repro_torch.core.kernels_fn import Kernel
-from repro_torch.embed.base import Embedding, register_embedding
+from repro_torch.embed.base import Embedding, EmbeddingProps, register_embedding
 from repro_torch.kernels.ref import rff_embed_ref
 
 
@@ -66,6 +66,7 @@ class RFFEmbedding(Embedding):
     name = "rff"
     params_cls = RFFParams
     landmark_free = True
+    kernel_families = ("rbf",)  # the shift-invariant kernels implemented
 
     def fit(self, seed, data, kernel, *, l, m, t=None, q=1) -> RFFParams:
         """Draw W for m cosine features (output dim 2m) from a CPU generator
@@ -92,3 +93,9 @@ class RFFEmbedding(Embedding):
         from repro_torch.kernels import ops
 
         return ops.rff_embed(X, params)
+
+    def props(self, params: RFFParams) -> EmbeddingProps:
+        return EmbeddingProps(
+            linear=False, discrepancy="l2", blockwise=False,
+            landmark_free=self.landmark_free,
+        )

@@ -26,7 +26,7 @@ import math
 import torch
 
 from repro_torch.core.kernels_fn import Kernel
-from repro_torch.embed.base import Embedding, register_embedding
+from repro_torch.embed.base import Embedding, EmbeddingProps, register_embedding
 
 
 @dataclasses.dataclass
@@ -75,6 +75,7 @@ class TensorSketchEmbedding(Embedding):
     name = "tensorsketch"
     params_cls = TensorSketchParams
     landmark_free = True
+    kernel_families = ("poly",)
 
     def fit(self, seed, data, kernel, *, l, m, t=None, q=1) -> TensorSketchParams:
         """Draw the p count-sketches for the kernel (x'z + coef0)^degree from a
@@ -107,3 +108,13 @@ class TensorSketchEmbedding(Embedding):
 
     def transform(self, params: TensorSketchParams, X: torch.Tensor) -> torch.Tensor:
         return tensorsketch_transform(params, X)
+
+    def props(self, params: TensorSketchParams) -> EmbeddingProps:
+        return EmbeddingProps(
+            # degree 1 makes the sketch (affine-)linear in x, which commutes
+            # with row means: the testable P4.1 statement.
+            linear=params.kernel.degree == 1,
+            discrepancy="l2",
+            blockwise=False,
+            landmark_free=self.landmark_free,
+        )

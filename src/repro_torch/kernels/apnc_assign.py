@@ -29,6 +29,15 @@ from repro_torch.kernels.ref import apnc_assign_ref, apnc_assign_step_ref
 #: Kernel launches so far (CUDA tensors only).
 launches = 0
 
+
+def _count() -> None:
+    """Count one launch; under a lock, since launches come from several
+    threads (the serving tier's dispatcher, a swap's warm-up)."""
+    global launches
+    with build.LAUNCH_LOCK:
+        launches += 1
+
+
 #: Largest m of the tiled kernel: its (32 x m) Y tile, the epilogue's C
 #: buffers (the raw rows in their space) and scratch are 228,996 bytes at
 #: m = 832, and a CTA may have 232,448. ``csrc/apnc_assign.cu`` holds the same
@@ -109,7 +118,6 @@ def _check_inputs(Y, C, discrepancy) -> None:
 
 
 def _launch(Y: torch.Tensor, C: torch.Tensor, discrepancy: str):
-    global launches
     n, m = Y.shape
     k = C.shape[0]
     out, ptrs, num_ctas, tiles_per_cta, stream = lloyd_step.step_outputs(
@@ -121,7 +129,7 @@ def _launch(Y: torch.Tensor, C: torch.Tensor, discrepancy: str):
         num_ctas, tiles_per_cta, stream,
     )
     build.check(err, "apnc_assign launch")
-    launches += 1
+    _count()
     return out
 
 

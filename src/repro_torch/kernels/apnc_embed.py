@@ -25,6 +25,15 @@ from repro_torch.kernels.ref import apnc_embed_ref
 #: Kernel launches so far (CUDA tensors only).
 launches = 0
 
+
+def _count() -> None:
+    """Count one launch; under a lock, since launches come from several
+    threads (the serving tier's dispatcher, a swap's warm-up)."""
+    global launches
+    with build.LAUNCH_LOCK:
+        launches += 1
+
+
 _KINDS = {"rbf": 0, "poly": 1, "tanh": 2, "linear": 3}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -92,7 +101,6 @@ def apnc_embed_block(
     """One APNC block: X (n, d) f32/bf16, landmarks (l, d) f32, R (m, l) f32
     -> Y (n, m) f32. ``out`` may be a column slice of a wider (n, M) tensor
     (row pitch M, unit column stride): the kernel writes into it in place."""
-    global launches
     _check_inputs(X, landmarks, R, out)
     if X.device.type == "cpu":
         Y = apnc_embed_ref(X, landmarks[None], R[None], kernel)
@@ -126,5 +134,5 @@ def apnc_embed_block(
             int(kernel.degree), stream,
         )
         build.check(err, "apnc_embed launch")
-        launches += 1
+        _count()
     return out

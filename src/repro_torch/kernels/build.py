@@ -21,6 +21,7 @@ import os
 import re
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -34,6 +35,12 @@ NVCC_FLAGS = (
 )
 
 _LIBS: dict[str, ctypes.CDLL] = {}
+#: Serialises ``load`` and ``configured``: two threads that reach one library
+#: for the first time (the serving tier's dispatcher and a swap warming a
+#: model) build and configure it once.
+_LOAD_LOCK = threading.RLock()
+#: Serialises the kernel modules' launch counters across threads.
+LAUNCH_LOCK = threading.Lock()
 #: Seconds each nvcc took in this process (absent for a cached library).
 BUILD_SECONDS: dict[str, float] = {}
 
@@ -113,11 +120,12 @@ def build_all(names=SOURCES) -> dict[str, Path]:
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, building it if needed."""
-    lib = _LIBS.get(name)
-    if lib is None:
-        lib = ctypes.CDLL(str(build_all((name,))[name]))
-        _LIBS[name] = lib
-    return lib
+    with _LOAD_LOCK:
+        lib = _LIBS.get(name)
+        if lib is None:
+            lib = ctypes.CDLL(str(build_all((name,))[name]))
+            _LIBS[name] = lib
+        return lib
 
 
 #: The library each name was last configured as: a launch pays for no ctypes
@@ -128,11 +136,12 @@ _CONFIGURED: dict[str, ctypes.CDLL] = {}
 def configured(name: str, configure) -> ctypes.CDLL:
     """``load(name)``, with ``configure(lib)`` (argument types, checks against
     the Python side) run once for each library object."""
-    lib = load(name)
-    if _CONFIGURED.get(name) is not lib:
-        configure(lib)
-        _CONFIGURED[name] = lib
-    return lib
+    with _LOAD_LOCK:
+        lib = load(name)
+        if _CONFIGURED.get(name) is not lib:
+            configure(lib)
+            _CONFIGURED[name] = lib
+        return lib
 
 
 def check(err: int, what: str) -> None:

@@ -31,6 +31,15 @@ from repro_torch.kernels.ref import flash_attention_ref
 #: Kernel launches so far (CUDA tensors only).
 launches = 0
 
+
+def _count() -> None:
+    """Count one launch; under a lock, since launches come from several
+    threads (the serving tier's dispatcher, a swap's warm-up)."""
+    global launches
+    with build.LAUNCH_LOCK:
+        launches += 1
+
+
 #: Largest head dim one launch takes (the kernel pads Dh to 64, 128 or 256).
 MAX_HEAD_DIM = 256
 
@@ -91,7 +100,6 @@ def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``window`` > 0, i - j < window. f32 arithmetic; returns (B, S, H, Dh) in
     q's dtype. Anything outside these limits raises, on either device.
     """
-    global launches
     _check_inputs(q, k, v, window)
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, window)
@@ -109,5 +117,5 @@ def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     build.check(err, "flash_attention launch")
-    launches += 1
+    _count()
     return out

@@ -37,6 +37,14 @@ from repro_torch.kernels.ref import (
 launches = {"fused_apnc_step": 0, "fused_rff_step": 0, "fused_dequant_step": 0,
             "dequant_decode": 0}
 
+
+def _count(name: str) -> None:
+    """Count one launch of kernel ``name``; under a lock, since launches come
+    from several threads (the serving tier's dispatcher, a swap's warm-up)."""
+    with build.LAUNCH_LOCK:
+        launches[name] += 1
+
+
 #: Largest embedding width (rff: 2 * m_half) one launch takes: the
 #: (tile rows x m) Y tile lives in shared memory. ``csrc/lloyd_step.cu``
 #: holds the same bound.
@@ -231,7 +239,7 @@ def fused_apnc_step(
         float(kernel.scale), int(kernel.degree), stream,
     )
     build.check(err, "fused_apnc_step launch")
-    launches["fused_apnc_step"] += 1
+    _count("fused_apnc_step")
     return out
 
 
@@ -261,7 +269,7 @@ def fused_rff_step(
         n, d, mh, k, int(discrepancy == "l1"), float(scale), num_ctas, tiles_per_cta, stream,
     )
     build.check(err, "fused_rff_step launch")
-    launches["fused_rff_step"] += 1
+    _count("fused_rff_step")
     return out
 
 
@@ -319,7 +327,7 @@ def fused_dequant_step(
         n, m, k, int(discrepancy == "l1"), num_ctas, tiles_per_cta, stream,
     )
     build.check(err, "fused_dequant_step launch")
-    launches["fused_dequant_step"] += 1
+    _count("fused_dequant_step")
     return out
 
 
@@ -343,5 +351,5 @@ def dequant_decode(Yq: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
         torch.cuda.current_stream(Yq.device).cuda_stream,
     )
     build.check(err, "dequant_decode launch")
-    launches["dequant_decode"] += 1
+    _count("dequant_decode")
     return Y

@@ -10,6 +10,9 @@ plain versions on the card too.
 """
 from __future__ import annotations
 
+import warnings
+from functools import wraps
+
 import torch
 
 from repro_torch import obs
@@ -102,13 +105,35 @@ def embed_assign_block_cost(x: torch.Tensor, params, centroids: torch.Tensor, *,
     return _assign_stats_cost_y(y, centroids, params.discrepancy, policy)
 
 
-def predict_block(x: torch.Tensor, params, centroids: torch.Tensor, *,
+def assign_labels(y: torch.Tensor, centroids: torch.Tensor, discrepancy: str,
                   policy: ComputePolicy | None = None) -> torch.Tensor:
-    """Labels only, for serving: embed + nearest centroid, without the (Z, g)
-    sufficient statistics the training maps build."""
+    """Nearest-centroid labels of embedded rows, (n,) int64: the assignment of
+    ``predict_block`` and ``core.kkmeans.predict``.
+
+    Where ``policy.resolve_kernels`` says the kernels (by default on a card),
+    the labels of one ``apnc_assign`` launch: each row's distances are its
+    own f32 chain, whatever the launch's row count, so a 256-row serving
+    micro-batch gets the labels that a replay of the whole request log gets.
+    The plain ``assign`` takes ``Y @ Cᵀ`` in cuBLAS, which may sum in another
+    order at another row count: on an H100 the distance bits of every row
+    differed between the two, and a near tie flipped a served label.
+    Otherwise the plain ``assign`` (a CPU tensor, ``kernels=False``)."""
+    if as_policy(policy).resolve_kernels(y.device):
+        _, _, labels = _assign.apnc_assign(y.to(torch.float32).contiguous(),
+                                           centroids.to(torch.float32).contiguous(),
+                                           discrepancy)
+        return labels.long()
     from repro_torch.core.apnc import assign
 
-    return assign(embed_block_map(x, params, policy=policy), centroids, params.discrepancy)
+    return assign(y, centroids, discrepancy)
+
+
+def predict_block(x: torch.Tensor, params, centroids: torch.Tensor, *,
+                  policy: ComputePolicy | None = None) -> torch.Tensor:
+    """Labels only, for serving: embed + nearest centroid (`assign_labels`),
+    without the (Z, g) sufficient statistics the training maps build."""
+    return assign_labels(embed_block_map(x, params, policy=policy), centroids,
+                         params.discrepancy, policy)
 
 
 # ---------------------------------------------------------------------------
@@ -281,3 +306,28 @@ def lloyd_step_plan(params=None, discrepancy: str | None = None, *,
     member = fused_member(params) if pol.kernels is not False else None
     return LloydStepPlan(params=params, discrepancy=params.discrepancy, member=member,
                          policy=pol)
+
+
+def _deprecated_alias(name: str, replacement: str, fn):
+    @wraps(fn)
+    def wrapper(*args, **kwargs):
+        warnings.warn(
+            f"ops.{name} is deprecated; use ops.{replacement} instead",
+            DeprecationWarning, stacklevel=2,
+        )
+        return fn(*args, **kwargs)
+
+    return wrapper
+
+
+# Legacy names from when APNC was the only family member: warning shims over
+# the same functions (they delegate without touching the arguments).
+apnc_embed_block_map = _deprecated_alias(
+    "apnc_embed_block_map", "embed_block_map", embed_block_map
+)
+apnc_embed_assign_block = _deprecated_alias(
+    "apnc_embed_assign_block", "embed_assign_block", embed_assign_block
+)
+apnc_predict_block = _deprecated_alias(
+    "apnc_predict_block", "predict_block", predict_block
+)

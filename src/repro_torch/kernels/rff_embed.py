@@ -22,6 +22,15 @@ from repro_torch.kernels.ref import rff_embed_ref
 #: Kernel launches so far (CUDA tensors only).
 launches = 0
 
+
+def _count() -> None:
+    """Count one launch; under a lock, since launches come from several
+    threads (the serving tier's dispatcher, a swap's warm-up)."""
+    global launches
+    with build.LAUNCH_LOCK:
+        launches += 1
+
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
@@ -51,7 +60,6 @@ def _check_inputs(X, W) -> None:
 def rff_embed_block(X: torch.Tensor, W: torch.Tensor, scale: float) -> torch.Tensor:
     """X (n, d) f32, W (d, m_half) f32 -> Y (n, 2 m_half) f32 in the [cos | sin]
     layout, each half scaled by ``scale``."""
-    global launches
     _check_inputs(X, W)
     if X.device.type == "cpu":
         return rff_embed_ref(X, W, scale)
@@ -67,5 +75,5 @@ def rff_embed_block(X: torch.Tensor, W: torch.Tensor, scale: float) -> torch.Ten
         torch.cuda.current_stream(X.device).cuda_stream,
     )
     build.check(err, "rff_embed launch")
-    launches += 1
+    _count()
     return Y

@@ -84,7 +84,8 @@ class _HostLabels:
 def _not_ported(devices, mesh) -> None:
     if devices is not None or mesh is not None:
         raise NotImplementedError(
-            "devices=/mesh= (the sharded stream) is not ported yet; see ROADMAP.md")
+            "devices=/mesh= (the sharded stream) is not ported yet; see "
+            "ROADMAP.md Queue 1 item 13")
 
 
 def _source(coeffs, discrepancy) -> str:

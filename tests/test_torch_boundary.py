@@ -36,6 +36,10 @@ def test_port_imports_neither_jax_nor_repro():
             "repro_torch.core.baselines", "repro_torch.core.kkmeans", "repro_torch.core.nystrom",
             "repro_torch.core.stable", "repro_torch.configs.paper_datasets",
             "repro_torch.data.synthetic"} <= set(modules)
+    assert {"repro_torch.serving", "repro_torch.serving.admission",
+            "repro_torch.serving.registry", "repro_torch.serving.server",
+            "repro_torch.serving.loadgen", "repro_torch.stream.microbatch",
+            "repro_torch.launch.cluster_serve"} <= set(modules)
     code = (
         "import importlib, sys\n"
         f"for name in {modules!r}:\n"
@@ -54,7 +58,8 @@ def test_port_imports_neither_jax_nor_repro():
 @pytest.mark.parametrize("entry", ["fit", "predict", "resolve", "stream_fit", "ooc_lloyd",
                                    "map_reduce", "stream_predict", "sweep", "serve", "lm_init",
                                    "legacy_fit_predict", "legacy_predict",
-                                   "stream_fit_predict", "synthetic"])
+                                   "stream_fit_predict", "synthetic", "make_process_fn",
+                                   "registry_register", "cluster_serve"])
 def test_entry_points_default_to_the_card(entry):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is valid here")
@@ -110,6 +115,18 @@ def test_entry_points_default_to_the_card(entry):
             from repro_torch.data.synthetic import gaussian_blobs
 
             gaussian_blobs(0, 10, 2, 2)
+        elif entry in ("make_process_fn", "registry_register"):
+            from repro_torch.serving import ModelRegistry, make_process_fn
+
+            model = KernelKMeans(3, l=16, m=8, device="cpu").fit(X).model_
+            if entry == "make_process_fn":
+                make_process_fn(model, max_batch=8)
+            ModelRegistry(max_batch=8).register("m", model)
+        elif entry == "cluster_serve":
+            from repro_torch.launch import cluster_serve
+
+            cluster_serve.main(["--requests", "10", "--n-fit", "200", "--l", "16",
+                                "--m", "8", "--iters", "2"])
         elif entry == "stream_predict":
             est = KernelKMeans(3, l=16, m=8, backend="stream", device="cpu").fit(store)
             est.device = None
@@ -141,8 +158,8 @@ def test_chip_smoke_cpu_rehearsal():
     lines = [json.loads(line) for line in out.stdout.splitlines() if line.startswith("{")]
     phases = [line.get("phase") for line in lines]
     assert phases == ["device", "data", "parity", "main", "agreement", "host_copy", "stream",
-                      "rff", "sweep", "persist", "baselines", "obs", "lm_serve", "timing",
-                      "done"]
+                      "rff", "sweep", "persist", "baselines", "obs", "serve", "lm_serve",
+                      "timing", "done"]
     assert not any(line.get("ok") for line in lines)
     main = lines[phases.index("main")]
     assert main["nmi"] > 0.9 and main["launches"] == {"apnc_embed": 0, "apnc_assign": 0}
@@ -204,6 +221,19 @@ def test_chip_smoke_cpu_rehearsal():
     roof = ob["roofline"]
     assert roof["peak_flops"] == 67e12 and roof["hbm_bytes_per_s"] == 3.35e12
     assert roof["join_pass_record"]["passes"] == traced["passes"]
+    serve = lines[phases.index("serve")]
+    a, b, c = serve["a_closed_loop"], serve["b_open_loop_swap"], serve["c_two_models"]
+    assert a["served"] == serve["requests"] and a["mismatches"] == 0
+    assert a["batch_size"]["sum"] == serve["requests"] and a["batch_size"]["max"] <= 64
+    assert b["mismatches"] == 0 and b["served"] == b["admitted"] and b["errors"] == 0
+    assert b["admitted"] + b["shed"] == serve["requests"] and set(b["by_version"]) == {"1", "2"}
+    assert c["closed"]["mismatches"] == 0 and c["closed"]["served"] == serve["requests"]
+    assert c["closed"]["by_model"] == {"nystrom": serve["requests"] // 2,
+                                       "rff": serve["requests"] // 2}
+    over = c["overload"]
+    assert over["offered"] == over["admitted"] + over["shed"] and over["errors"] == 0
+    assert over["mismatches"] == 0
+    assert not any(serve["launches"].values())  # the CPU route launches no kernel
     lm = lines[phases.index("lm_serve")]
     assert lm["arch"] == "qwen1.5-0.5b-smoke" and lm["flash_attention_launches"] == 0
     assert lm["vs_plain"]["max_abs_diff"] == 0.0  # the CPU route is the plain version

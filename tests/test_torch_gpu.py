@@ -92,7 +92,7 @@ def test_local_fit_on_card_matches_cpu(cuda):
     from repro_torch.api import KernelKMeans
     from repro_torch.data.synthetic import gaussian_blobs_blocks
 
-    X, _ = gaussian_blobs_blocks(0, 3000, 16, 6, block_rows=1024, separation=4.0)
+    X = gaussian_blobs_blocks(0, 3000, 16, 6, block_rows=1024, separation=4.0)[0].materialize()
     t_before = (t_embed.launches, t_assign.launches)
     gpu = KernelKMeans(6, l=128, m=64, n_init=2, kernel_params=dict(gamma=0.01)).fit(X)
     assert t_embed.launches > t_before[0] and t_assign.launches > t_before[1]
@@ -202,7 +202,7 @@ def test_stream_fit_on_card_matches_cpu(cuda, method):
     from repro_torch.kernels import lloyd_step
     from repro_torch.stream.blockstore import BlockStore
 
-    X, _ = gaussian_blobs_blocks(0, 5000, 16, 6, block_rows=1024, separation=4.0)
+    X = gaussian_blobs_blocks(0, 5000, 16, 6, block_rows=1024, separation=4.0)[0].materialize()
     kw = dict(method=method, l=128, m=64, kernel_params=dict(gamma=0.01), block_rows=1000)
     name = "fused_apnc_step" if method == "nystrom" else "fused_rff_step"
     before = lloyd_step.launches[name]
@@ -328,7 +328,7 @@ def test_stream_sweep_on_card_matches_cpu(cuda, codec):
     from repro_torch.kernels import lloyd_step
     from repro_torch.stream.blockstore import BlockStore
 
-    X, _ = gaussian_blobs_blocks(0, 5000, 16, 6, block_rows=1024, separation=4.0)
+    X = gaussian_blobs_blocks(0, 5000, 16, 6, block_rows=1024, separation=4.0)[0].materialize()
     kw = dict(l=128, m=64, kernel_params=dict(gamma=0.01), block_rows=1000, backend="stream",
               policy=ComputePolicy(cache_dtype=codec))
     before = lloyd_step.launches["fused_dequant_step"]
@@ -653,6 +653,9 @@ def test_member_without_a_kernel_takes_its_plain_route_on_the_card(cuda, monkeyp
         def transform(self, params, X):
             return X * params.scale
 
+        def props(self, params):
+            return base.EmbeddingProps(linear=True, discrepancy="l2")
+
     monkeypatch.setitem(base.EMBEDDINGS, Halving.name, Halving())
     monkeypatch.setitem(base._BY_PARAMS, HalvedParams, base.EMBEDDINGS[Halving.name])
     X = torch.randn((64, 8), generator=torch.Generator().manual_seed(5)).to(cuda)
@@ -779,7 +782,7 @@ def test_save_and_load_on_the_card_predict_bitwise(cuda, tmp_path, method):
     from repro_torch.api import KernelKMeans
     from repro_torch.data.synthetic import gaussian_blobs_blocks
 
-    X, _ = gaussian_blobs_blocks(0, 3000, 16, 6, block_rows=1024, separation=4.0)
+    X = gaussian_blobs_blocks(0, 3000, 16, 6, block_rows=1024, separation=4.0)[0].materialize()
     est = KernelKMeans(6, method=method, l=128, m=64, kernel_params=dict(gamma=0.01)).fit(X)
     est.save(tmp_path)
     loaded = KernelKMeans.load(tmp_path)
@@ -797,7 +800,7 @@ def test_stream_fit_crashed_and_resumed_on_the_card_is_bitwise(cuda, tmp_path, b
     from repro_torch.kernels import lloyd_step
     from repro_torch.stream.blockstore import BlockStore
 
-    X, _ = gaussian_blobs_blocks(0, 6000, 16, 6, block_rows=1024, separation=2.0)
+    X = gaussian_blobs_blocks(0, 6000, 16, 6, block_rows=1024, separation=2.0)[0].materialize()
     store = BlockStore.from_array(X, 500)
     nb = store.num_blocks
 
@@ -829,7 +832,7 @@ def test_partial_fit_kernel_route_matches_plain_at_equal_state(cuda, tmp_path):
     from repro_torch.api import ComputePolicy, KernelKMeans
     from repro_torch.data.synthetic import gaussian_blobs_blocks
 
-    X, _ = gaussian_blobs_blocks(0, 4096, 16, 6, block_rows=1024, separation=4.0)
+    X = gaussian_blobs_blocks(0, 4096, 16, 6, block_rows=1024, separation=4.0)[0].materialize()
     KernelKMeans(6, l=128, m=64, kernel_params=dict(gamma=0.01)).fit(X[:3000]).save(tmp_path)
     kern = KernelKMeans.load(tmp_path)
     plain = KernelKMeans.load(tmp_path, policy=ComputePolicy(kernels=False))
@@ -944,7 +947,7 @@ def test_traced_stream_fit_on_the_card(cuda, tmp_path):
     from repro_torch.kernels import lloyd_step
     from repro_torch.stream.blockstore import BlockStore
 
-    X, _ = gaussian_blobs_blocks(0, 40_000, 64, 8, block_rows=4096, separation=3.0)
+    X = gaussian_blobs_blocks(0, 40_000, 64, 8, block_rows=4096, separation=3.0)[0].materialize()
     host = torch.from_numpy(X).pin_memory()
     store = BlockStore.from_array(host.numpy(), 4096)
     make = lambda: KernelKMeans(8, l=128, m=64, backend="stream", iters=6,  # noqa: E731
@@ -974,3 +977,107 @@ def test_traced_stream_fit_on_the_card(cuda, tmp_path):
     assert names.count("h2d") == store.num_blocks * passes
     assert all(names.count(f"phase.{p}") == 1 for p in ("reservoir", "embed_fit", "seed", "lloyd"))
     np.testing.assert_array_equal(est.labels_, plain.labels_)
+
+
+# ------------------------------------------------------------------ serving
+
+
+@pytest.fixture(scope="module")
+def served_models():
+    """A Nystrom and an rff model at the paper's ImageNet width (d = 900,
+    k = 164; l = 500, m = 256 and m/2 = 128) fitted on the card, and 10,000
+    held-out rows of their mixture on the host."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the hand-written kernels have no CPU mode")
+    from repro_torch.api import KernelKMeans
+    from repro_torch.data.synthetic import gaussian_blobs
+
+    X, _ = gaussian_blobs(0, 40_000, 900, 164, separation=1.5)
+    fit = lambda **kw: KernelKMeans(164, kernel="rbf", iters=5, backend="local",  # noqa: E731
+                                    **kw).fit(X[:30_000]).model_
+    return dict(nystrom=fit(l=500, m=256), rff=fit(method="rff", m=128)), X[30_000:].cpu().numpy()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["nystrom", "rff"])
+def test_served_labels_equal_predict_on_the_card(cuda, served_models, name):
+    """make_process_fn's 256-row micro-batches (the last one padded) give
+    core.kkmeans.predict's labels over all 10,000 rows, exactly, with one
+    embedding launch and one apnc_assign launch a micro-batch."""
+    from repro_torch.core.kkmeans import predict
+    from repro_torch.kernels import rff_embed as t_rff
+    from repro_torch.serving import make_process_fn
+
+    models, Xq = served_models
+    model = models[name]
+    embed_mod = t_embed if name == "nystrom" else t_rff
+    process = make_process_fn(model, max_batch=256)
+    before = (embed_mod.launches, t_assign.launches)
+    served = np.concatenate([process(Xq[lo:lo + 256]) for lo in range(0, len(Xq), 256)])
+    flushes = -(-len(Xq) // 256)
+    assert (embed_mod.launches - before[0], t_assign.launches - before[1]) == (flushes, flushes)
+    want = predict(Xq, model.params, model.centroids).cpu().numpy()
+    np.testing.assert_array_equal(served, want)
+    assert served.dtype == np.int32 and len(np.unique(want)) > 100
+
+
+@pytest.mark.gpu
+def test_swap_under_load_on_the_card(cuda, served_models):
+    """An open-loop run hot-swapped from the Nystrom to the rff model: every
+    admitted request answered, both versions served, each label its
+    version's predict; the two threads' launches all counted."""
+    from repro_torch.core.kkmeans import predict
+    from repro_torch.kernels import rff_embed as t_rff
+    from repro_torch.serving import ModelRegistry, ServingTier, run_open_loop
+
+    models, Xq = served_models
+    refs = {1: predict(Xq, models["nystrom"].params, models["nystrom"].centroids),
+            2: predict(Xq, models["rff"].params, models["rff"].centroids)}
+    refs = {v: r.cpu().numpy() for v, r in refs.items()}
+    registry = ModelRegistry(max_batch=256)
+    registry.register("default", models["nystrom"])
+    before = (t_embed.launches, t_rff.launches, t_assign.launches)
+    tier = ServingTier(registry, max_inflight=4096).start()
+    try:
+        rep = run_open_loop(tier, Xq, qps=5000, n_requests=6000, seed=0, swap_after=2000,
+                            swap_source=models["rff"])
+    finally:
+        tier.stop()
+    assert rep.errors == 0 and len(rep.responses) == rep.admitted
+    assert rep.admitted + rep.shed == rep.offered and set(rep.by_version) == {1, 2}
+    for r in rep.responses:
+        assert r.label == refs[r.version][r.request_id % len(Xq)], r
+    embeds = (t_embed.launches - before[0]) + (t_rff.launches - before[1])
+    assert embeds == t_assign.launches - before[2]  # one of each a flush, the warm included
+    assert t_rff.launches - before[1] >= 2
+
+
+@pytest.mark.gpu
+def test_launch_counts_from_two_threads_on_the_card(cuda, served_models):
+    """Two threads serving through their own closures at once: every launch
+    counted, and each thread's labels its model's."""
+    import threading
+
+    from repro_torch.kernels import rff_embed as t_rff
+    from repro_torch.serving import make_process_fn
+
+    models, Xq = served_models
+    rows = Xq[:256]
+    procs = {name: make_process_fn(m, max_batch=256) for name, m in models.items()}
+    want = {name: p(rows) for name, p in procs.items()}
+    before = (t_embed.launches, t_rff.launches, t_assign.launches)
+    calls, bad = 200, []
+
+    def serve(name):
+        for _ in range(calls):
+            if not np.array_equal(procs[name](rows), want[name]):
+                bad.append(name)
+
+    threads = [threading.Thread(target=serve, args=(name,)) for name in procs]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert not bad
+    assert (t_embed.launches - before[0], t_rff.launches - before[1],
+            t_assign.launches - before[2]) == (calls, calls, 2 * calls)

@@ -105,3 +105,78 @@ def test_cpu_wrappers_do_not_count_launches():
     t_embed.apnc_embed_block(X, X[:5].contiguous(), torch.ones((3, 5)), Kernel("linear"))
     t_assign.apnc_assign(X, X[:2].contiguous(), "l2")
     assert (t_embed.launches, t_assign.launches) == before
+
+
+def test_launch_counters_are_exact_across_threads():
+    """Sixteen threads counting launches at once, with a short switch
+    interval (the serving tier's dispatcher and a swap's warm-up launch
+    count from two threads), lose no count: every kernel module counts
+    under build.LAUNCH_LOCK."""
+    import sys
+    import threading
+
+    from repro_torch.kernels import flash_attention as t_flash
+    from repro_torch.kernels import lloyd_step as t_step
+    from repro_torch.kernels import rff_embed as t_rff
+
+    modules = (t_embed, t_assign, t_rff, t_flash)
+    before = [mod.launches for mod in modules]
+    step_before = t_step.launches["fused_apnc_step"]
+    per_thread, threads = 5_000, 16
+    gate = threading.Barrier(threads)
+
+    def count():
+        gate.wait()
+        for _ in range(per_thread):
+            for mod in modules:
+                mod._count()
+            t_step._count("fused_apnc_step")
+
+    workers = [threading.Thread(target=count) for _ in range(threads)]
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        for w in workers:
+            w.start()
+        for w in workers:
+            w.join(timeout=60)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(w.is_alive() for w in workers)
+    want = per_thread * threads
+    assert [mod.launches - b for mod, b in zip(modules, before)] == [want] * len(modules)
+    assert t_step.launches["fused_apnc_step"] - step_before == want
+    for mod, b in zip(modules, before):
+        mod.launches = b
+    t_step.launches["fused_apnc_step"] = step_before
+
+
+def test_library_loader_builds_one_library_once_across_threads(monkeypatch):
+    """Two threads reaching one library for the first time build and
+    configure it once (build.load / build.configured under one lock)."""
+    import threading
+    import time
+
+    from repro_torch.kernels import build
+
+    builds, configures = [], []
+
+    def slow_build(names):
+        builds.append(tuple(names))
+        time.sleep(0.05)  # a second caller arrives while the first builds
+        return {name: f"{name}.so" for name in names}
+
+    monkeypatch.setattr(build, "build_all", slow_build)
+    monkeypatch.setattr(build.ctypes, "CDLL", lambda path: object())
+    monkeypatch.setattr(build, "_LIBS", {})
+    monkeypatch.setattr(build, "_CONFIGURED", {})
+    libs = []
+    workers = [threading.Thread(target=lambda: libs.append(
+        build.configured("apnc_embed", configures.append))) for _ in range(8)]
+    for w in workers:
+        w.start()
+    for w in workers:
+        w.join(timeout=60)
+    assert not any(w.is_alive() for w in workers)
+    assert builds == [("apnc_embed",)] and len(configures) == 1
+    assert len(libs) == 8 and all(lib is libs[0] for lib in libs)

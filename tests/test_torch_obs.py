@@ -216,7 +216,7 @@ def test_counter_thread_safety():
 
 def test_pass_counts_shim_stays_in_lockstep():
     engine.reset_pass_counts()
-    store = BlockStore.from_array(gaussian_blobs_blocks(0, 512, 4, 2, block_rows=128)[0], 128)
+    store = BlockStore.from_array(gaussian_blobs_blocks(0, 512, 4, 2, block_rows=128)[0].materialize(), 128)
     engine.map_reduce(store, lambda x: x.sum(), lambda a, b: a + b, torch.zeros(()),
                       label="shim_probe", device="cpu")
     assert engine.pass_count("shim_probe") == 1
@@ -230,7 +230,7 @@ def test_pass_counts_shim_stays_in_lockstep():
 @pytest.mark.parametrize("prefetch", [0, 2])
 def test_engine_counters_view_the_registry(prefetch):
     engine.reset_counters()
-    X = gaussian_blobs_blocks(1, 700, 6, 3, block_rows=128)[0]
+    X = gaussian_blobs_blocks(1, 700, 6, 3, block_rows=128)[0].materialize()
     store = BlockStore.from_array(X, 128)
     engine.map_reduce(store, lambda x: x.sum(), lambda a, b: a + b, torch.zeros(()),
                       prefetch=prefetch, device="cpu")
@@ -249,7 +249,7 @@ def test_engine_counters_view_the_registry(prefetch):
 
 def test_cache_embedding_counts_staged_bytes_and_ratio():
     engine.reset_counters()
-    X = gaussian_blobs_blocks(1, 700, 6, 3, block_rows=128)[0]
+    X = gaussian_blobs_blocks(1, 700, 6, 3, block_rows=128)[0].materialize()
     out = engine.cache_embedding(BlockStore.from_array(X, 128), lambda x: x * 2.0, d_out=6,
                                  codec="int8", device="cpu")
     assert obs.counter("cache.bytes_staged").value == out.nbytes_staged
@@ -281,7 +281,7 @@ def test_checkpoint_counters_view_the_registry(tmp_path):
 
 
 def _data():
-    return gaussian_blobs_blocks(0, 1024, 8, 3, block_rows=256)[0]
+    return gaussian_blobs_blocks(0, 1024, 8, 3, block_rows=256)[0].materialize()
 
 
 def _fit(backend, method="rff", **kw):

@@ -190,6 +190,9 @@ def test_member_without_a_kernel_takes_its_plain_route(blobs, monkeypatch):
         def transform(self, params, X):
             return X * params.scale
 
+        def props(self, params):
+            return base.EmbeddingProps(linear=True, discrepancy="l2")
+
     monkeypatch.setitem(base.EMBEDDINGS, Doubling.name, Doubling())
     monkeypatch.setitem(base._BY_PARAMS, DoubledParams, base.EMBEDDINGS[Doubling.name])
     # The kernel route as on a card, here on the CPU tensor.

@@ -158,8 +158,31 @@ def test_blocks_match_jax_generator():
 
     X, y = gaussian_blobs_blocks(3, 1000, 12, 5, block_rows=300, separation=1.5)
     Xs, ys = j_blocks(3, 1000, 12, 5, block_rows=300, separation=1.5)
-    np.testing.assert_array_equal(X, Xs.materialize())
-    np.testing.assert_array_equal(y, ys.materialize()[:, 0])
+    np.testing.assert_array_equal(X.materialize(), Xs.materialize())
+    np.testing.assert_array_equal(y.materialize(), ys.materialize())
+
+
+@pytest.mark.parametrize("d,warp", [(12, False), (12, True), (2048, True), (2056, True)])
+def test_blocked_stores_equal_the_references_block_by_block(d, warp):
+    """Each store the port's generator returns equals the JAX package's block
+    by block: its shape, dtype and every block's bits, the warp's dense form
+    (d <= 2048) and its rank-256 form (d > 2048) included. Reading a block
+    twice, or y before X, gives the same bits (the two-block cache)."""
+    from repro.data.synthetic import gaussian_blobs_blocks as j_blocks
+    from repro_torch.data.synthetic import gaussian_blobs_blocks
+    from repro_torch.stream.blockstore import BlockStore
+
+    n, k = (700, 5) if d < 1000 else (300, 3)
+    X, y = gaussian_blobs_blocks(7, n, d, k, block_rows=128, separation=2.0, warp=warp)
+    Xs, ys = j_blocks(7, n, d, k, block_rows=128, separation=2.0, warp=warp)
+    assert isinstance(X, BlockStore) and isinstance(y, BlockStore)
+    assert (X.n, X.d, X.num_blocks, y.d) == (Xs.n, Xs.d, Xs.num_blocks, 1)
+    for i in reversed(range(X.num_blocks)):
+        got_y, got_X = y.get(i), X.get(i)
+        assert got_X.dtype == np.float32 and got_y.dtype == np.int32
+        np.testing.assert_array_equal(got_X, Xs.get(i))
+        np.testing.assert_array_equal(got_y, ys.get(i))
+        np.testing.assert_array_equal(X.get(i), got_X)
 
 
 def test_port_nmi_matches_jax_nmi():

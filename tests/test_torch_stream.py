@@ -241,7 +241,7 @@ def test_drivers_reject_what_is_not_ported(data, member_state):
     _, tparams, init = member_state
     store = BlockStore.from_array(data, 128)
     for kw in (dict(devices=[CPU]), dict(mesh=object())):
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 13"):
             tstream.ooc_lloyd(store, 4, coeffs=tparams, init=torch.from_numpy(init),
                               device=CPU, **kw)
     with pytest.raises(ValueError, match="exactly one"):
