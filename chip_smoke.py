@@ -1159,8 +1159,338 @@ def phase_sweep(X, truth, store, stream_est, cfg, device, seed) -> tuple[dict, d
         if nmi_gap > 0.01:
             raise AssertionError(f"NMI of the int8 winner is {nmi_gap} from the f32 one")
     return out, dict(q8=q8, C=C, launches=out["a_int8"]["fused_dequant_step_launches"],
+                     a_result=runs["a_int8"][1],
                      lloyd_s=out["a_int8"]["phases_s"]["lloyd"],
                      candidate_passes=int(np.sum(_iters(runs["a_int8"][1]))))
+
+
+# ------------------------------------------------------------------ shard
+
+
+#: First-order bound of float32 summation (unit roundoff 2^-24): two orders
+#: of summing B block partials differ by at most 2 (B - 1) u sum |partial|.
+F32_U = 2.0 ** -24
+
+
+def shard_equal_centroid_pass(store, params, C, devices, device) -> dict:
+    """One Lloyd pass at the centroids ``C`` on the single-device engine and on
+    the shards ``devices`` (two logical shards of one card on the card): the
+    same plan, the same blocks, each block's (Z, g, labels, cost) bitwise
+    the same launch-independent f32 chain; only the order of the block sums
+    differs. Gated: 0 label mismatches, g exactly equal (counts below 2^24
+    are exact in f32), Z and cost within 2 (B - 1) u sum_b |partial_b| of
+    each other."""
+    from repro_torch.kernels import ops
+    from repro_torch.stream.engine import map_reduce
+    from repro_torch.stream.sharded import cross_device_sum, sharded_map_reduce
+
+    k, m = C.shape
+    n, B = store.n, store.num_blocks
+    fn = ops.lloyd_step_plan(params=params).block_map([C.contiguous()])
+
+    def combine(acc, out):
+        return (acc[0] + out[0], acc[1] + out[1], acc[2] + out[3], acc[3] + out[0].abs(),
+                acc[4] + out[3].abs())
+
+    def zeros():
+        return (torch.zeros((k, m), device=device), torch.zeros((k,), device=device),
+                torch.zeros((), device=device), torch.zeros((k, m), device=device),
+                torch.zeros((), device=device))
+
+    def writer(lab, shard):
+        def emit(i, out):
+            lo = shard.row_offset(i)
+            lab[lo:lo + out[2].shape[0]].copy_(out[2])
+        return emit
+
+    lab1 = torch.full((n,), -1, dtype=torch.int32, device=device)
+    lab2 = torch.full((n,), -1, dtype=torch.int32, device=device)
+    Z1, g1, c1, absZ, abs_c = map_reduce(store, fn, combine, zeros(), emit=writer(lab1, store),
+                                         device=device)
+    shards = [store.shard(d, len(devices)) for d in range(len(devices))]
+    accs = sharded_map_reduce(shards, [fn] * len(devices), combine,
+                              [zeros() for _ in devices], devices=devices,
+                              emits=[writer(lab2, s) for s in shards])
+    Z2, g2, c2, _, _ = cross_device_sum(accs, devices)
+    sync(device)
+    z_bound = 2 * (B - 1) * F32_U * absZ
+    c_bound = 2 * (B - 1) * F32_U * float(abs_c)
+    dz = (Z1 - Z2).abs()
+    dc = abs(float(c1) - float(c2))
+    out = dict(label_mismatches=int((lab1 != lab2).sum()), g_equal=bool(torch.equal(g1, g2)),
+               z_max_abs_diff=float(dz.max()), z_worst_share_of_bound=float(
+                   (dz / z_bound.clamp_min(1e-30)).max()),
+               z_bound_max=float(z_bound.max()), cost_abs_diff=dc, cost_bound=c_bound,
+               bound=f"2 (B - 1) u sum_b |partial_b|, B = {B}, u = 2^-24",
+               every_row_assigned=bool((lab2 >= 0).all()))
+    if (out["label_mismatches"] or not out["g_equal"] or not out["every_row_assigned"]
+            or bool((dz > z_bound).any()) or dc > c_bound):
+        raise AssertionError(f"two shards vs one device at equal centroids: {out}")
+    return out
+
+
+def shard_fit(make_est, data, device, **fit_kw) -> tuple[object, dict]:
+    """A sharded fit with the launch counters, the engine telemetry and the
+    reduction count zeroed just before and read just after; its FitReport
+    gated: the trajectory ends at ``inertia_`` and the per-shard block counts
+    sum to ``blocks_read``."""
+    from repro_torch.stream import engine
+    
+    est = make_est()
+    sync(device)
+    zero_launches()
+    engine.reset_counters()
+    shuffles = obs.counter("reduce.cross_device")
+    reductions = shuffles.value
+    t0 = time.perf_counter()
+    est.fit(data, **fit_kw)
+    sync(device)
+    wall = time.perf_counter() - t0
+    r = est.fit_report_
+    if r.inertia_trajectory[-1] != est.inertia_ or \
+            sum(r.per_device_blocks.values()) != r.blocks_read:
+        raise AssertionError(f"{r.backend} report: {r.summary()}, {r.per_device_blocks}")
+    passes = est.n_iter_ + 1
+    return est, dict(fit_s=wall, lloyd_s=est.phases_["lloyd"],
+                     per_pass_s=est.phases_["lloyd"] / passes, passes=passes,
+                     launches=read_launches(), reductions=int(shuffles.value - reductions),
+                     per_device_blocks=r.per_device_blocks, blocks_read=r.blocks_read)
+
+
+def time_reduce(run, device) -> dict:
+    """One ``reduce.cross_device`` call: host us a call (the launches queued,
+    the card synchronized before and after) and, on a card, event-timed ms a
+    call over 200."""
+    run()
+    sync(device)
+    t0 = time.perf_counter()
+    for _ in range(200):
+        run()
+    host = (time.perf_counter() - t0) / 200 * 1e6
+    sync(device)
+    return dict(host_us_per_call=host,
+                event_ms_per_call=cuda_ms(run, 200) if device.type == "cuda" else None)
+
+
+def _bitwise(a, b) -> bool:
+    return bool(np.array_equal(a.labels_, b.labels_) and a.inertia_ == b.inertia_
+                and torch.equal(a.model_.centroids.cpu(), b.model_.centroids.cpu())
+                and a.fit_report_.inertia_trajectory == b.fit_report_.inertia_trajectory
+                and a.fit_report_.centroid_shifts == b.fit_report_.centroid_shifts)
+
+
+def phase_shard(X, truth, store, main_est, stream_est, rff_stream_est, sweep_res, cfg, device,
+                seed) -> dict:
+    """The sharded stream, the pool scheduler and the shard_map backend over
+    phase stream's pinned store, from the same seed (the same phase 1 params
+    and init): (a) a mesh of the visible cards (one on a one-card machine),
+    bit for bit phase stream's fit; (b) two logical shards of cuda:0, each
+    with its own producer, thread and CUDA stream: an equal-centroid pass
+    against one device (`shard_equal_centroid_pass`), the full fit (labels
+    >= 0.995 phase stream's), ``sstep=2`` (one shuffle every second
+    iteration and at the last, labels >= 0.98 phase stream's), the rff
+    member (>= 0.995 phase rff's stream fit); the pool scheduler
+    fault-free and with worker 1
+    killed after 40 blocks (a quarter of the store's at the rehearsal's size)
+    and worker 0 delayed 1 ms a block, bit for bit;
+    the sharded mini-batch (one epoch); (c) shard_map on nystrom and rff
+    over the resident X split in two (labels >= 0.995 phase main's local
+    fit, and phase rff's stream fit); (d) the int8 sweep, k_grid and
+    restarts of phase sweep (a), on the two shards (its k = 164 winner's
+    labels >= 0.995 phase sweep's). Every clustering kernel of the path is
+    launched, each run with the counters zeroed just before and read just
+    after. Times are host clock, synchronized: "2 logical shards on one
+    card", no cross-card number."""
+    from repro_torch.api import ComputePolicy, KernelKMeans
+    from repro_torch.core.distributed import distributed_embed, distributed_lloyd
+    from repro_torch.core.lloyd import lloyd
+    from repro_torch.core.metrics import nmi
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.pool import ChaosPlan, inject
+    from repro_torch.stream.lloyd import minibatch_lloyd
+    from repro_torch.stream.sharded import cross_device_sum, shard_devices, shard_names
+
+    on_card = device.type == "cuda"
+    k, bn = cfg["k"], cfg["block_rows"]
+    common = dict(kernel="rbf", method="nystrom", l=cfg["l"], m=cfg["m"], iters=cfg["iters"],
+                  block_rows=bn, random_state=seed)
+    cards = make_mesh((torch.cuda.device_count(), 1), ("data", "model")) if on_card \
+        else make_mesh((1, 1), ("data", "model"), devices=[device])
+    two = make_mesh((2, 1), ("data", "model"), devices=[device] * 2)
+    logical = shard_devices(two)
+    out = dict(phase="shard", card=nvidia_smi() if on_card else "cpu",
+               layout="2 logical shards on one card" if on_card else "2 cpu shards",
+               cards_mesh=[str(d) for d in shard_devices(cards)])
+    launches: dict[str, int] = {}
+
+    def add(info):
+        for name, v in info["launches"].items():
+            launches[name] = launches.get(name, 0) + v
+
+    # (a) the mesh of the visible cards
+    d1, info = shard_fit(lambda: KernelKMeans(k, backend="stream_shard", mesh=cards, **common),
+                         store, device)
+    add(info)
+    check_labels(d1, k, X.shape[0])
+    out["cards"] = dict(info, devices=len(shard_devices(cards)),
+                        bitwise_phase_stream=_bitwise(d1, stream_est),
+                        label_agreement=float((d1.labels_ == stream_est.labels_).mean()))
+    if len(shard_devices(cards)) == 1 and not out["cards"]["bitwise_phase_stream"]:
+        raise AssertionError("a one-card mesh is not bit for bit phase stream's fit")
+
+    # (b) two logical shards
+    out["equal_centroids"] = shard_equal_centroid_pass(
+        store, stream_est.model_.params, stream_est.model_.centroids, logical, device)
+    lock, info = shard_fit(lambda: KernelKMeans(k, backend="stream_shard", mesh=two, **common),
+                           store, device)
+    add(info)
+    check_labels(lock, k, X.shape[0])
+    pair = [(lock.model_.centroids.clone(), torch.ones((k,), device=device),
+             torch.ones((), device=device))] * 2
+    out["lockstep"] = dict(
+        info, vs_phase_stream=agreement(lock, stream_est), nmi=nmi(lock.labels_, truth),
+        nmi_phase_stream=nmi(stream_est.labels_, truth),
+        per_pass_s_one_device=out["cards"]["per_pass_s"],
+        reduce_cross_device=time_reduce(lambda: cross_device_sum(pair, logical), device))
+    if on_card:  # one pass each way, traced, in turns: one, two, two, one
+        runs = [("one_device", [device]), ("two_shards", logical)] * 2
+        profiles = {name: [] for name, _ in runs[:2]}
+        for name, devs in runs[:2] + runs[2:][::-1]:
+            profiles[name].append(profile_stream_pass(store, lock, device, devs))
+        out["pass_profile"] = profiles
+    if not set(shard_names(logical)) <= set(lock.fit_report_.per_device_blocks):
+        raise AssertionError(f"per-shard counters: {lock.fit_report_.per_device_blocks}")
+    if info["reductions"] != lock.n_iter_:
+        raise AssertionError(f"{info['reductions']} reductions in {lock.n_iter_} iterations")
+
+    s2, info = shard_fit(lambda: KernelKMeans(k, backend="stream_shard", mesh=two,
+                                              policy=ComputePolicy(sstep=2), **common),
+                         store, device)
+    add(info)
+    check_labels(s2, k, X.shape[0])
+    out["sstep2"] = dict(info, vs_phase_stream=agreement(s2, stream_est),
+                         nmi=nmi(s2.labels_, truth))
+    # The s-step rule shuffles at every second iteration and at the last one.
+    if info["reductions"] != -(-s2.n_iter_ // 2):
+        raise AssertionError(f"sstep=2: {info['reductions']} reductions in {s2.n_iter_} "
+                             "iterations")
+    if on_card and out["sstep2"]["vs_phase_stream"]["label_agreement"] < 0.98:
+        raise AssertionError(f"phase shard sstep2: {out['sstep2']['vs_phase_stream']}")
+
+    rff_kw = dict(common, method="rff", m=cfg["rff_m"])
+    del rff_kw["l"]
+    rff2, info = shard_fit(lambda: KernelKMeans(k, backend="stream_shard", mesh=two, **rff_kw),
+                           store, device)
+    add(info)
+    check_labels(rff2, k, X.shape[0])
+    out["rff"] = dict(info, vs_phase_rff_stream=agreement(rff2, rff_stream_est))
+
+    pool, info = shard_fit(lambda: KernelKMeans(k, backend="stream_shard", mesh=two,
+                                                scheduler="pool", **common), store, device)
+    add(info)
+    before = obs.snapshot("pool.")
+    kill_after = min(40, store.num_blocks // 4)  # mid-first-pass at any size
+    with inject(ChaosPlan().kill(1, after_blocks=kill_after).delay(0, 0.001)):
+        chaos, chaos_info = shard_fit(
+            lambda: KernelKMeans(k, backend="stream_shard", mesh=two, scheduler="pool",
+                                 **common), store, device)
+    add(chaos_info)
+    seen = obs.delta(before, obs.snapshot("pool."))
+    out["pool"] = dict(info, vs_lockstep=agreement(pool, lock),
+                       bitwise_phase_stream=_bitwise(pool, stream_est),
+                       per_pass_s_lockstep=out["lockstep"]["per_pass_s"])
+    if not out["pool"]["bitwise_phase_stream"]:  # its host merge is one device's order
+        raise AssertionError(f"the pool fit is not phase stream's: {out['pool']}")
+    out["chaos"] = dict(chaos_info, bitwise_fault_free=_bitwise(chaos, pool),
+                        plan=f"kill worker 1 after {kill_after} blocks, delay worker 0 by "
+                             "1 ms a block",
+                        **{name: seen.get(f"pool.{name}", 0) for name in (
+                            "tasks_requeued", "worker_deaths", "duplicates_dropped",
+                            "tasks_stolen", "tasks_speculated")})
+    if not out["chaos"]["bitwise_fault_free"] or not out["chaos"]["worker_deaths"]:
+        raise AssertionError(f"the chaos pool fit: {out['chaos']}")
+
+    ctx = KernelKMeans(k, backend="stream", device=device, **common)._prepare(
+        store, seed, device, "stream")
+    zero_launches()
+    t0 = time.perf_counter()
+    mb = minibatch_lloyd(store, k, coeffs=ctx.params, init=ctx.inits[0], devices=logical,
+                         epochs=1)
+    sync(device)
+    add(dict(launches=read_launches()))
+    mb_s = time.perf_counter() - t0
+    mb1 = minibatch_lloyd(store, k, coeffs=ctx.params, init=ctx.inits[0], device=device,
+                          epochs=1)
+    out["minibatch"] = dict(seconds=mb_s, nmi=nmi(mb.labels, truth),
+                            nmi_one_device=nmi(mb1.labels, truth), inertia=mb.inertia)
+    if mb.labels.min() < 0 or not np.isfinite(mb.inertia) or \
+            out["minibatch"]["nmi"] < out["minibatch"]["nmi_one_device"] - 0.15:
+        raise AssertionError(f"the sharded mini-batch: {out['minibatch']}")
+
+    # (c) shard_map on the resident X
+    for name, kw, ref in (("shard_map_nystrom", common, main_est),
+                          ("shard_map_rff", rff_kw, rff_stream_est)):
+        est, info = shard_fit(lambda kw=kw: KernelKMeans(k, backend="shard_map", mesh=two, **kw),
+                              X, device)
+        add(info)
+        check_labels(est, k, X.shape[0])
+        out[name] = dict(fit_s=info["fit_s"], lloyd_s=info["lloyd_s"], launches=info["launches"],
+                         reductions=info["reductions"], iters=est.n_iter_,
+                         vs_reference_fit=agreement(est, ref), nmi=nmi(est.labels_, truth))
+    # Lloyd alone, from phase 1's init over the embedded X: the two shards'
+    # loop (every iteration) against the local backend's (until fixed).
+    Ys = distributed_embed(two, X, ctx.params)
+    Y = torch.cat(Ys)
+    distributed_lloyd(two, Ys, ctx.inits[0], k=k, discrepancy="l2", iters=1)
+    sync(device)
+    t0 = time.perf_counter()
+    distributed_lloyd(two, Ys, ctx.inits[0], k=k, discrepancy="l2", iters=cfg["iters"])
+    sync(device)
+    t_shards = (time.perf_counter() - t0) / cfg["iters"]
+    t0 = time.perf_counter()
+    local = lloyd(Y, k, discrepancy="l2", iters=cfg["iters"], init=ctx.inits[0])
+    sync(device)
+    out["shard_map_nystrom"].update(
+        lloyd_s_per_iter=t_shards,
+        local_lloyd_s_per_iter=(time.perf_counter() - t0) / max(local.iters, 1),
+        local_lloyd_iters=local.iters)
+    del Ys, Y
+
+    # (d) the int8 sweep on the two shards
+    est = KernelKMeans(k, backend="stream_shard", mesh=two,
+                       policy=ComputePolicy(cache_dtype="int8"), **common)
+    zero_launches()
+    t0 = time.perf_counter()
+    res = est.sweep(store, k_grid=list(cfg["sweep_k_grid"]), restarts=cfg["sweep_restarts"],
+                    seed=seed)
+    sync(device)
+    info = dict(launches=read_launches())
+    add(info)
+    ki = res.k_grid.index(k)
+    r = int(np.argmin(sweep_res.inertia[ki]))  # phase sweep's winner at k, restart r here too
+    out["sweep_int8"] = dict(
+        seconds=time.perf_counter() - t0, launches=info["launches"], phases_s=dict(est.phases_),
+        k_grid=list(res.k_grid), restarts=res.restarts, best=[res.best_k, res.best_restart],
+        best_phase_sweep=[sweep_res.best_k, sweep_res.best_restart],
+        label_agreement_at_k=float((res.labels[ki][r] == sweep_res.labels[ki][r]).mean()),
+        inertia_rel_diff_at_k=abs(res.inertia[ki][r] - sweep_res.inertia[ki][r])
+        / abs(sweep_res.inertia[ki][r]))
+
+    out["launches"] = launches
+    path = ("apnc_embed", "apnc_assign", "fused_apnc_step", "fused_rff_step",
+            "rff_embed_block", "fused_dequant_step")
+    if on_card:
+        if not all(launches.get(name) for name in path):
+            raise AssertionError(f"phase shard skipped a kernel: {launches}")
+        for what, a in (("lockstep", out["lockstep"]["vs_phase_stream"]),
+                        ("rff", out["rff"]["vs_phase_rff_stream"]),
+                        ("shard_map_nystrom", out["shard_map_nystrom"]["vs_reference_fit"]),
+                        ("shard_map_rff", out["shard_map_rff"]["vs_reference_fit"]),
+                        ("sweep_int8", dict(label_agreement=out["sweep_int8"][
+                            "label_agreement_at_k"]))):
+            if a["label_agreement"] < 0.995:
+                raise AssertionError(f"phase shard {what}: {a}")
+    return out
 
 
 def strict_manifest(path) -> dict:
@@ -1644,7 +1974,7 @@ def check_report(rec, device) -> dict:
             raise AssertionError(f"{what}: a resident fit streamed {r.blocks_read} blocks")
         return out
     if r.blocks_read != data.num_blocks * passes or \
-            r.per_device_blocks != {engine._device_name(device): r.blocks_read}:
+            r.per_device_blocks != {engine.device_name(device): r.blocks_read}:
         raise AssertionError(f"{what}: {r.blocks_read} blocks in {passes} passes of "
                              f"{data.num_blocks}, by device {r.per_device_blocks}")
     if rec["kind"] == "fit":
@@ -1702,7 +2032,7 @@ def phase_obs(X, store, main_est, stream_per_pass_s, stream_est, cfg, device, se
     names = [e["name"] for e in events if e["ph"] == "X"]
     passes = report["passes"]
     counts = {name: names.count(name) for name in sorted(set(names))}
-    want_lanes = sorted(["main", f"producer:{engine._device_name(device)}"])
+    want_lanes = sorted(["main", f"producer:{engine.device_name(device)}"])
     phases = [f"phase.{p}" for p in ("reservoir", "embed_fit", "seed", "lloyd")]
     same_labels = bool(np.array_equal(est.labels_, stream_est.labels_))
     if (lanes != want_lanes or counts.get("h2d") != store.num_blocks * passes
@@ -2195,12 +2525,13 @@ def profile_lloyd(Y, k, iters=20) -> dict:
                 apnc_assign_device_ms_per_launch=per_launch, **prof)
 
 
-def profile_stream_pass(store, est, device) -> dict:
+def profile_stream_pass(store, est, device, devices=None) -> dict:
     """One Lloyd pass of the stream fit (every block through the fused step,
     the (Z, g, cost) combine and the label copy-out), traced: where a pass's
-    wall time goes between the card's kernels, the copy engine and the host."""
+    wall time goes between the card's kernels, the copy engine and the host.
+    ``devices``: the pass sharded over them (their shuffle included)."""
     from repro_torch.kernels import ops
-    from repro_torch.stream import engine, lloyd
+    from repro_torch.stream import engine, lloyd, sharded
 
     cell = [est.model_.centroids]
     step = ops.lloyd_step_plan(params=est.model_.params).block_map(cell)
@@ -2209,10 +2540,19 @@ def profile_stream_pass(store, est, device) -> dict:
     zero = (torch.zeros((k, m), device=device), torch.zeros((k,), device=device),
             torch.zeros((), device=device))
 
+    def combine(acc, out):
+        return acc[0] + out[0], acc[1] + out[1], acc[2] + out[3]
+
     def one_pass():
+        if devices is not None:
+            shards = [store.shard(d, len(devices)) for d in range(len(devices))]
+            accs = sharded.sharded_map_reduce(
+                shards, [step] * len(devices), combine, [zero] * len(devices), devices=devices,
+                emits=[lambda i, out, s=s: labels.put(s.row_offset(i), out[2]) for s in shards])
+            return sharded.cross_device_sum(accs, devices)
         return engine.map_reduce(
-            store, step, lambda acc, out: (acc[0] + out[0], acc[1] + out[1], acc[2] + out[3]),
-            zero, emit=lambda i, out: labels.put(store.row_offset(i), out[2]), device=device)
+            store, step, combine, zero,
+            emit=lambda i, out: labels.put(store.row_offset(i), out[2]), device=device)
 
     one_pass()  # warm-up
     engine.reset_counters()
@@ -2421,7 +2761,8 @@ def serve_timing(X, est, rff_est, mb) -> dict:
 
 
 def phase_timing(X, est, launches, stream_est, stream_launches, rff_est, rff_launches,
-                 sweep_data, lm_launches, serve_launches, cfg) -> tuple[dict, list]:
+                 sweep_data, lm_launches, serve_launches, shard_launches, cfg
+                 ) -> tuple[dict, list]:
     """Each kernel at the main path's shapes: kernel, plain version, library
     call chain, and the bound computed from this run's shapes. The Lloyd-step
     and RFF kernels are timed per pass over the resident X in the stream
@@ -2606,6 +2947,9 @@ def phase_timing(X, est, launches, stream_est, stream_launches, rff_est, rff_lau
             lm_launches, flash["max_abs_err"], flash["ms"], flash["plain_ms"], flash["bound_ms"],
             flash["bound_by"], flash["library_ms"]),
     ]
+    for r in rows:  # phase shard's launches count with the main path's
+        r["shard_launches"] = shard_launches.get(r["name"], 0)
+        r["launches"] += r["shard_launches"]
     for r in rows:  # the serving flush's launches and one flush-shaped launch
         if r["name"] in serve_rows:
             r["serve_launches"] = serve_launches[r["name"]]
@@ -2707,6 +3051,9 @@ def main(argv=None) -> int:
     emit(rff_info)
     sweep_info, sweep_data = phase_sweep(X, truth, store, stream_est, cfg, device, args.seed)
     emit(sweep_info)
+    shard_info = phase_shard(X, truth, store, est, stream_est, rff_est, sweep_data["a_result"],
+                             cfg, device, args.seed)
+    emit(shard_info)
     emit(phase_persist(X, truth, Xq, store, est, rff_est, stream_est, stream_info["per_pass_s"],
                        cfg, device, args.seed))
     emit(phase_baselines(cfg, device, args.seed))
@@ -2722,7 +3069,7 @@ def main(argv=None) -> int:
         info, rows = phase_timing(X, est, main_info["launches"], stream_est,
                                   stream_info["launches"], rff_est, rff_info["launches"],
                                   sweep_data, lm_info["flash_attention_launches"],
-                                  serve_info["launches"], cfg)
+                                  serve_info["launches"], shard_info["launches"], cfg)
         emit(info)
 
     leaked = sorted(m for m in sys.modules

@@ -3,12 +3,17 @@
 Each backend receives the same prepared inputs (a FitContext) and returns the
 same result shape (a BackendFit):
 
-  local      embed everything, then Lloyd per restart over the resident Y
-  stream     exact out-of-core Lloyd over row blocks (stream.ooc_lloyd): the
-             same fixed point as local from the same init, device memory
-             O(block)
-  minibatch  single-pass streaming Lloyd with decayed (Z, g)
-             (stream.minibatch_lloyd)
+  local        embed everything, then Lloyd per restart over the resident Y
+  shard_map    Algorithms 1 + 2 over the row shards of a resident X on a
+               device mesh (core.distributed)
+  stream       exact out-of-core Lloyd over row blocks (stream.ooc_lloyd): the
+               same fixed point as local from the same init, device memory
+               O(block)
+  stream_shard exact out-of-core Lloyd with the block stream sharded across
+               the mesh's data devices (stream.sharded): the fixed point of
+               stream, O(block) a shard
+  minibatch    single-pass streaming Lloyd with decayed (Z, g)
+               (stream.minibatch_lloyd)
 
 Because every backend clusters from the same embedding params and the same
 init centroids, local and stream reach identical labels.
@@ -52,6 +57,11 @@ class FitContext:
     # Root directory of the stream backends' mid-fit Lloyd checkpoints, one
     # subdirectory a restart (None: no checkpoints; local ignores it).
     checkpoint_dir: Any | None = None
+    # The sharded backends' `launch.mesh.Mesh` (None: stream_shard takes every
+    # visible card, or [cpu] on the CPU; shard_map one device), and
+    # stream_shard's pass scheduling: "lockstep" or "pool".
+    mesh: Any | None = None
+    scheduler: str = "lockstep"
 
     def __post_init__(self):
         if self.device is None:
@@ -82,12 +92,14 @@ class BackendFit:
     shifts: list = dataclasses.field(default_factory=list)
 
 
-def ensure_embedding_cache(ctx: FitContext) -> FitContext:
+def ensure_embedding_cache(ctx: FitContext, *, devices=None) -> FitContext:
     """Fill the context's embed-once cache if it is empty; idempotent.
 
     Resident input (``ctx.array``) is embedded whole into the resident f32
     ``y_array``; blocked input takes one embedding pass over its blocks,
-    staged to host memory as ``y_store`` under the policy's ``cache_dtype``.
+    staged to host memory as ``y_store`` under the policy's ``cache_dtype``,
+    sharded across ``devices`` when more than one is given
+    (`stream.sharded.stream_embed_sharded`).
     A call that finds the cache filled counts one ``backend.embed_cache_hits``.
     Returns ``ctx``."""
     from repro_torch import embed
@@ -98,7 +110,9 @@ def ensure_embedding_cache(ctx: FitContext) -> FitContext:
         if ctx.y_array is None:
             ctx.y_array = embed.transform(ctx.params, ctx.array, ctx.policy)
     elif ctx.y_store is None:
-        ctx.y_store = stream_embed(ctx.store, ctx.params, policy=ctx.policy, device=ctx.device)
+        ctx.y_store = stream_embed(
+            ctx.store, ctx.params, policy=ctx.policy, device=ctx.device,
+            devices=devices if devices is not None and len(devices) > 1 else None)
     return ctx
 
 
@@ -171,6 +185,66 @@ def fit_stream(ctx: FitContext) -> BackendFit:
         k=ctx.k, iters=ctx.iters, init=init, policy=ctx.policy, device=ctx.device,
         checkpoint_dir=_restart_ckpt(ctx, r), **_stream_source(ctx),
     )))
+
+
+@register_backend("stream_shard")
+def fit_stream_shard(ctx: FitContext) -> BackendFit:
+    """Exact out-of-core Lloyd sharded across the mesh's data devices (no
+    mesh: every visible card, or [cpu] for a fit on the CPU): shard d
+    streams ``store.shard(d, D)`` through its own producer, thread and
+    stream; an iteration reduces the shards' (Z, g) once and updates the
+    centroids once. The labels of ``stream`` from the same init, O(block) a
+    shard. ``ctx.scheduler``: "lockstep" or "pool" (the fault-tolerant
+    `repro_torch.pool` plane)."""
+    from repro_torch.stream.sharded import shard_devices
+
+    devices = shard_devices(ctx.mesh, device=ctx.device)
+    return _run_restarts(ctx, lambda init, r: _from_stream(ooc_lloyd(
+        k=ctx.k, iters=ctx.iters, init=init, policy=ctx.policy, devices=devices,
+        scheduler=ctx.scheduler, checkpoint_dir=_restart_ckpt(ctx, r), **_stream_source(ctx),
+    )))
+
+
+@register_backend("shard_map")
+def fit_shard_map(ctx: FitContext) -> BackendFit:
+    """Algorithms 1 + 2 over the row shards of the resident X on the mesh
+    (`core.distributed`), or on the fit's one device without a mesh. n must
+    divide the mesh's data extent. The Lloyd loop runs the whole ``iters``
+    budget; the inertia is the final centroids' assignment cost, summed over
+    the shards on the host."""
+    from repro_torch.core.distributed import distributed_embed, distributed_lloyd, shard_rows
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.device import on_device
+
+    mesh = ctx.mesh if ctx.mesh is not None else make_mesh((1, 1), ("data", "model"),
+                                                           devices=[ctx.device])
+    if ctx.array is not None:
+        X = ctx.array
+    else:
+        X = torch.from_numpy(np.ascontiguousarray(ctx.store.materialize(), np.float32))
+    Xs = shard_rows(mesh, X)
+    Y = distributed_embed(mesh, Xs, ctx.params, policy=ctx.policy)
+    disc = ctx.params.discrepancy
+    plan = ops.lloyd_step_plan(discrepancy=disc, policy=ctx.policy)
+    n = int(X.shape[0])
+
+    def _run_one(init, r):
+        labels, centroids, costs = distributed_lloyd(
+            mesh, Y, init, k=ctx.k, discrepancy=disc, iters=ctx.iters, policy=ctx.policy,
+            return_costs=True,
+        )
+        inertia = 0.0
+        for y in Y:
+            with on_device(y.device):
+                inertia += float(plan.assign(y, centroids.to(y.device))[1])
+        return BackendFit(
+            labels=labels.cpu().numpy().astype(np.int32), centroids=centroids,
+            inertia=inertia, iters=ctx.iters, rows_seen=(ctx.iters + 1) * n,
+            trajectory=costs.tolist() + [inertia],
+        )
+
+    return _run_restarts(ctx, _run_one)
 
 
 @register_backend("minibatch")

@@ -1,7 +1,7 @@
-"""`KernelKMeans`: the estimator of the port, on the ``local``, ``stream``
-and ``minibatch`` backends, its embed-once ``sweep``, the online
-``partial_fit``, and ``save`` / ``load`` of the `ClusterModel` artifact in
-the JAX package's checkpoint format.
+"""`KernelKMeans`: the estimator of the port, on the ``local``,
+``shard_map``, ``stream``, ``stream_shard`` and ``minibatch`` backends, its
+embed-once ``sweep``, the online ``partial_fit``, and ``save`` / ``load`` of
+the `ClusterModel` artifact in the JAX package's checkpoint format.
 
 Phase 1 runs here, identically for every backend: a reservoir sample over the
 blocked host view of the data selects landmarks, the embedding member fits
@@ -9,7 +9,8 @@ its params on the sample, the seeding pool is embedded, and k-means++ seeds
 one init per restart. Phase 2 (Lloyd) runs in the backend, so ``local`` and
 ``stream`` reach the same fixed point from the same init. Everything runs on
 the card unless the caller passes ``device="cpu"``; the streaming backends
-keep O(block) of the data on it.
+keep O(block) of the data on it. With a ``mesh=`` the mesh's devices decide:
+phase 1 runs on its first data device.
 """
 from __future__ import annotations
 
@@ -67,9 +68,13 @@ class KernelKMeans:
                      no kernel_params, gamma is self-tuned on the landmark sample.
     method:          registered embedding member: "nystrom" (l2), "sd" (l1) or
                      "rff" (random Fourier features, rbf kernels).
-    backend:         "local" | "stream" | "minibatch" | "auto". auto ->
-                     "stream" for a BlockStore input or an array of at least
-                     AUTO_STREAM_ROWS rows, else "local".
+    backend:         "local" | "shard_map" | "stream" | "stream_shard" |
+                     "minibatch" | "auto". auto -> "stream_shard" for a
+                     BlockStore input plus a mesh with more than one data
+                     device, "stream" for any other BlockStore input,
+                     "shard_map" for an array when a mesh was given, "stream"
+                     for an array of at least AUTO_STREAM_ROWS rows, else
+                     "local".
     l, m, t, q:      landmark count, embedding dim per block, SD subset size,
                      ensemble blocks, as in the paper. rff reads only m (its
                      output has 2m features).
@@ -81,6 +86,14 @@ class KernelKMeans:
     policy:          `ComputePolicy`.
     random_state:    root seed when fit() is not given one.
     device:          where the fit runs: None (the card) or e.g. "cpu".
+    mesh:            `repro_torch.launch.mesh.Mesh` of the shard_map /
+                     stream_shard backends; its first data device is the
+                     fit's device, and a ``device`` that differs raises.
+    scheduler:       stream_shard pass scheduling: "lockstep" (fixed block ->
+                     shard placement, one device reduction an iteration) or
+                     "pool" (`repro_torch.pool`: leased tasks that survive
+                     dead and slow workers, merged on the host in block
+                     order).
 
     After fit: `model_`, `labels_`, `inertia_`, `n_iter_`, `kernel_`,
     `backend_`, `phases_` (wall seconds per phase) and `fit_report_` (a
@@ -118,6 +131,8 @@ class KernelKMeans:
         policy: ComputePolicy | None = None,
         random_state: int = 0,
         device=None,
+        mesh=None,
+        scheduler: str = "lockstep",
     ):
         self.k = int(k)
         self.kernel = kernel
@@ -133,6 +148,8 @@ class KernelKMeans:
         self.policy = policy if policy is not None else ComputePolicy()
         self.random_state = random_state
         self.device = device
+        self.mesh = mesh
+        self.scheduler = scheduler
 
         self.model_: ClusterModel | None = None
         self.labels_: np.ndarray | None = None
@@ -149,9 +166,37 @@ class KernelKMeans:
     def _choose_backend(self, X) -> str:
         if self.backend != "auto":
             return self.backend
-        if isinstance(X, BlockStore) or len(X) >= AUTO_STREAM_ROWS:
+        if isinstance(X, BlockStore):
+            # Blocked input and a mesh of more than one data device: shard
+            # the stream across it (one producer and one block shard a device).
+            if self.mesh is not None:
+                from repro_torch.stream.sharded import shard_devices
+
+                if len(shard_devices(self.mesh)) > 1:
+                    return "stream_shard"
+            return "stream"
+        if self.mesh is not None:
+            return "shard_map"
+        if len(X) >= AUTO_STREAM_ROWS:
             return "stream"
         return "local"
+
+    def _device(self) -> torch.device:
+        """Where this estimator runs: the mesh's first data device when it has
+        a mesh (``device=`` must then name that device), else ``device``
+        (default: the card)."""
+        if self.mesh is None:
+            return resolve_device(self.device)
+        from repro_torch.stream.sharded import shard_devices
+
+        first = shard_devices(self.mesh)[0]
+        want = None if self.device is None else torch.device(self.device)
+        if want is not None and (want.type != first.type or
+                                 want.index not in (None, first.index)):
+            raise ValueError(
+                f"device={self.device!r} disagrees with the mesh, whose first data device "
+                f"is {first}; pass device=None or the mesh's device")
+        return first
 
     def _resolve_kernel(self, sample: torch.Tensor) -> Kernel:
         if not isinstance(self.kernel, Kernel) and self.kernel == "rbf" \
@@ -207,7 +252,7 @@ class KernelKMeans:
                 store = BlockStore.from_array(
                     X.detach().to("cpu", torch.float32).numpy(), self.block_rows
                 )
-                if backend_name == "local":
+                if backend_name in ("local", "shard_map"):
                     array = X.to(dev, torch.float32)
         s_sample, s_fit, s_seed = phase1_seeds(seed)
         with self._phase("reservoir", dev):
@@ -237,7 +282,8 @@ class KernelKMeans:
         return FitContext(
             store=store, array=array, params=params, k=self.k, inits=inits,
             iters=self.iters, policy=self.policy, device=dev, decay=self.decay,
-            epochs=self.epochs, checkpoint_dir=checkpoint_dir,
+            epochs=self.epochs, checkpoint_dir=checkpoint_dir, mesh=self.mesh,
+            scheduler=self.scheduler,
         )
 
     def fit(self, X, y=None, *, seed: int | None = None,
@@ -262,7 +308,7 @@ class KernelKMeans:
         Returns:
             self, fitted.
         """
-        dev = resolve_device(self.device)
+        dev = self._device()
         name = self._choose_backend(X)
         backend = get_backend(name)
         get_embedding(self.method)
@@ -297,9 +343,11 @@ class KernelKMeans:
         """Embed-once model selection: embed the data once, then run
         ``restarts`` k-means++ restarts for every k in ``k_grid`` over the
         cached embedding, one engine pass feeding every candidate per Lloyd
-        iteration. Backends "local" and "stream" (per ``backend=`` or the auto
-        dispatch); the stream backend stages Y under the policy's
-        ``cache_dtype`` and decodes each block inside ``fused_dequant_step``.
+        iteration. Backends "local", "stream" and "stream_shard" (per
+        ``backend=`` or the auto dispatch); the stream backends stage Y under
+        the policy's ``cache_dtype`` and decode each block inside
+        ``fused_dequant_step``, on ``stream_shard`` across the mesh's data
+        devices.
 
         ``sweep(k_grid=[k], restarts=1)`` gives the labels of ``fit`` at k from
         the same seed. The estimator adopts the best candidate (``model_``,
@@ -345,7 +393,7 @@ class KernelKMeans:
         Returns:
             self, updated in place.
         """
-        dev = resolve_device(self.device)
+        dev = self._device()
         metrics_before = obs.snapshot("engine.")
         self.phases_ = {}
         with self._phase("partial_fit", dev):
@@ -456,7 +504,7 @@ class KernelKMeans:
             from repro_torch.stream.engine import map_reduce
 
             self._reject_sharded(X, "predict")
-            dev = resolve_device(self.device)
+            dev = self._device()
             model = model.to(dev)
             labels = np.full(X.n, -1, dtype=np.int32)
 
@@ -471,7 +519,7 @@ class KernelKMeans:
                 device=dev, label="predict",
             )
             return labels
-        labels = model.predict(X, policy=self.policy, device=self.device)
+        labels = model.predict(X, policy=self.policy, device=self._device())
         return labels.cpu().numpy().astype(np.int32)
 
     def transform(self, X):
@@ -480,7 +528,7 @@ class KernelKMeans:
         BlockStore (still O(block) on the device)."""
         from repro_torch import embed
 
-        dev = resolve_device(self.device)
+        dev = self._device()
         model = self._require_model().to(dev)
         if isinstance(X, BlockStore):
             from repro_torch.stream.lloyd import stream_embed
@@ -490,7 +538,7 @@ class KernelKMeans:
 
     def score(self, X) -> float:
         """Negative inertia of X under the fitted centroids (higher is better)."""
-        dev = resolve_device(self.device)
+        dev = self._device()
         model = self._require_model().to(dev)
         if isinstance(X, BlockStore):
             from repro_torch.stream.engine import map_reduce

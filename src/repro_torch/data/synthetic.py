@@ -22,6 +22,7 @@ block at a time, the same seed giving the same rows and labels.
 from __future__ import annotations
 
 import math
+import threading
 
 import numpy as np
 import torch
@@ -101,17 +102,25 @@ def rings(seed: int, n: int, k: int = 3, noise: float = 0.05, gap: float = 2.0, 
 def _blocked_pair(make_block, n: int, d: int, block_rows: int):
     """Wrap a ``make_block(i) -> (X_block, y_block)`` generator as two
     BlockStores (features, labels) sharing a small per-block cache, so that
-    reading X and then y of one block generates it once."""
+    reading X and then y of one block generates it once. The cache is
+    locked: the sharded executors read one store from several threads, and
+    an unlocked clear between another thread's insert and its read raised
+    KeyError."""
     from repro_torch.stream.blockstore import BlockStore
 
     cache: dict[int, tuple] = {}
+    lock = threading.Lock()
 
     def cached(i):
-        if i not in cache:
-            if len(cache) > 2:  # keep at most a couple of blocks resident
-                cache.clear()
-            cache[i] = make_block(i)
-        return cache[i]
+        with lock:
+            block = cache.get(i)
+        if block is None:
+            block = make_block(i)
+            with lock:
+                if len(cache) > 2:  # keep at most a couple of blocks resident
+                    cache.clear()
+                cache[i] = block
+        return block
 
     X_store = BlockStore.from_generator(
         lambda i: cached(i)[0], n=n, d=d, block_rows=block_rows

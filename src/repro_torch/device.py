@@ -6,6 +6,8 @@ on the CPU. ``device="cpu"`` is the explicit opt-in the tests use.
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 
@@ -30,3 +32,9 @@ def resolve_device(device: "str | torch.device | None" = None) -> torch.device:
             "pass device='cpu' to run the plain PyTorch path on the CPU"
         )
     return dev
+
+
+def on_device(device: torch.device):
+    """``torch.cuda.device(device)`` for a card, a no-op context elsewhere: the
+    guard a thread that launches on ``device`` runs under."""
+    return torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()

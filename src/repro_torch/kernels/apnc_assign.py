@@ -120,14 +120,14 @@ def _check_inputs(Y, C, discrepancy) -> None:
 def _launch(Y: torch.Tensor, C: torch.Tensor, discrepancy: str):
     n, m = Y.shape
     k = C.shape[0]
-    out, ptrs, num_ctas, tiles_per_cta, stream = lloyd_step.step_outputs(
-        n, k, m, Y.device, _tile_rows(m), max_m=None)
-    if n == 0:
-        return out
-    err = _lib().apnc_assign_f32(
-        Y.data_ptr(), C.data_ptr(), *ptrs, n, m, k, int(discrepancy == "l1"),
-        num_ctas, tiles_per_cta, stream,
-    )
+    with lloyd_step.step_launch(n, k, m, Y.device, _tile_rows(m), max_m=None) as (
+            out, ptrs, num_ctas, tiles_per_cta, stream):
+        if n == 0:
+            return out
+        err = _lib().apnc_assign_f32(
+            Y.data_ptr(), C.data_ptr(), *ptrs, n, m, k, int(discrepancy == "l1"),
+            num_ctas, tiles_per_cta, stream,
+        )
     build.check(err, "apnc_assign launch")
     _count()
     return out

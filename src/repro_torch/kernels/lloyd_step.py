@@ -17,8 +17,10 @@ for CPU tensors it computes the same function with the plain PyTorch version.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import math
+import threading
 from typing import NamedTuple
 
 import torch
@@ -165,21 +167,33 @@ def launch_geometry(n: int, tile_rows: int) -> Geometry:
 
 #: The per-CTA (Z, g, cost) partials of the fused launches and of
 #: ``apnc_assign``: one buffer per (device, stream), grown as needed and kept.
-#: The launches on a stream run one after another, so one buffer serves them
-#: all. Allocated a launch, the
+#: Allocated a launch, the
 #: 21.5 MB of a 4,096-row block at k = 164, m = 256 made a pass of 309
 #: launches read 28-271 ms event-timed against 15-21 ms with this buffer, its
 #: device time 11 ms either way (chip_smoke.py timing, NVIDIA H100 80GB HBM3,
 #: 700.00 W).
+#:
+#: One C call enqueues two kernels on its stream: the main kernel writes the
+#: partials, the reduce kernel sums them. The stream orders kernels, not the
+#: pair, so two host threads on one stream (a pool worker still inside a
+#: block that was re-executed elsewhere, and the next pass's worker of the
+#: same shard) could enqueue A.main, B.main, A.reduce, B.reduce, and A would
+#: sum B's partials. `step_launch` therefore holds the buffer's lock from its
+#: get-then-grow until the call has enqueued both kernels.
 _SCRATCH: dict[tuple[int, int], torch.Tensor] = {}
+_SCRATCH_LOCKS: dict[tuple[int, int], threading.Lock] = {}
+_SCRATCH_LOCKS_GUARD = threading.Lock()
 
 
-def step_outputs(n: int, k: int, m: int, dev: torch.device, tile_rows: int,
-                 max_m: int | None = MAX_M):
-    """The outputs (Z, g, labels, cost) of one launch, the pointers the C entry
-    takes for them and for the per-CTA scratch (its three parts by offset in
+@contextlib.contextmanager
+def step_launch(n: int, k: int, m: int, dev: torch.device, tile_rows: int,
+                max_m: int | None = MAX_M):
+    """Under the lock of the current stream's scratch, yields the outputs
+    (Z, g, labels, cost) of one launch, the pointers the C entry takes for
+    them and for the per-CTA scratch (its three parts by offset in
     ``_SCRATCH``), the launch's CTA count and tiles per CTA, and the stream it
-    launches on. ``max_m``: the widest m the kernel's tile takes (None: any)."""
+    launches on. The caller makes its C call inside the block. ``max_m``: the
+    widest m the kernel's tile takes (None: any)."""
     if max_m is not None and m > max_m:
         raise NotImplementedError(
             f"the fused Lloyd step holds a ({tile_rows} x m) Y tile in shared memory and "
@@ -195,17 +209,20 @@ def step_outputs(n: int, k: int, m: int, dev: torch.device, tile_rows: int,
             t.zero_()
     geo = launch_geometry(n, tile_rows)
     stream = torch.cuda.current_stream(dev).cuda_stream
+    key = (dev.index, stream)
     need = sum(math.prod(shape) for shape in geo.scratch_shapes(k, m))
-    scratch = _SCRATCH.get((dev.index, stream))
-    if scratch is None or scratch.numel() < need:
-        scratch = _SCRATCH[dev.index, stream] = torch.empty((need,), dtype=torch.float32,
-                                                            device=dev)
-    Zp = scratch.data_ptr()
-    gp = Zp + 4 * geo.num_ctas * k * m
-    Z, g, labels, cost = out
-    ptrs = [Z.data_ptr(), g.data_ptr(), cost.data_ptr(), labels.data_ptr(),
-            Zp, gp, gp + 4 * geo.num_ctas * k]
-    return out, ptrs, geo.num_ctas, geo.tiles_per_cta, stream
+    with _SCRATCH_LOCKS_GUARD:
+        lock = _SCRATCH_LOCKS.setdefault(key, threading.Lock())
+    with lock:
+        scratch = _SCRATCH.get(key)
+        if scratch is None or scratch.numel() < need:
+            scratch = _SCRATCH[key] = torch.empty((need,), dtype=torch.float32, device=dev)
+        Zp = scratch.data_ptr()
+        gp = Zp + 4 * geo.num_ctas * k * m
+        Z, g, labels, cost = out
+        ptrs = [Z.data_ptr(), g.data_ptr(), cost.data_ptr(), labels.data_ptr(),
+                Zp, gp, gp + 4 * geo.num_ctas * k]
+        yield out, ptrs, geo.num_ctas, geo.tiles_per_cta, stream
 
 
 def fused_apnc_step(
@@ -229,15 +246,16 @@ def fused_apnc_step(
         raise ValueError(f"fused_apnc_step runs on cuda or cpu, not {X.device}")
     if kernel.name not in _KINDS:
         raise ValueError(f"unknown kernel {kernel.name!r}")
-    out, ptrs, num_ctas, tiles_per_cta, stream = step_outputs(n, k, m, X.device, TILE_ROWS["apnc"])
-    if n == 0:
-        return out
-    err = _lib().fused_apnc_step_f32(
-        X.data_ptr(), landmarks.data_ptr(), R.data_ptr(), C.data_ptr(), *ptrs,
-        n, d, l, m, k, int(discrepancy == "l1"), num_ctas, tiles_per_cta,
-        _KINDS[kernel.name], float(kernel.gamma), float(kernel.coef0),
-        float(kernel.scale), int(kernel.degree), stream,
-    )
+    with step_launch(n, k, m, X.device, TILE_ROWS["apnc"]) as (
+            out, ptrs, num_ctas, tiles_per_cta, stream):
+        if n == 0:
+            return out
+        err = _lib().fused_apnc_step_f32(
+            X.data_ptr(), landmarks.data_ptr(), R.data_ptr(), C.data_ptr(), *ptrs,
+            n, d, l, m, k, int(discrepancy == "l1"), num_ctas, tiles_per_cta,
+            _KINDS[kernel.name], float(kernel.gamma), float(kernel.coef0),
+            float(kernel.scale), int(kernel.degree), stream,
+        )
     build.check(err, "fused_apnc_step launch")
     _count("fused_apnc_step")
     return out
@@ -260,14 +278,15 @@ def fused_rff_step(
         return fused_rff_step_ref(X, W, C, scale, discrepancy)
     if X.device.type != "cuda":
         raise ValueError(f"fused_rff_step runs on cuda or cpu, not {X.device}")
-    out, ptrs, num_ctas, tiles_per_cta, stream = step_outputs(n, k, 2 * mh, X.device,
-                                                              TILE_ROWS["rff"])
-    if n == 0:
-        return out
-    err = _lib().fused_rff_step_f32(
-        X.data_ptr(), W.data_ptr(), C.data_ptr(), *ptrs,
-        n, d, mh, k, int(discrepancy == "l1"), float(scale), num_ctas, tiles_per_cta, stream,
-    )
+    with step_launch(n, k, 2 * mh, X.device, TILE_ROWS["rff"]) as (
+            out, ptrs, num_ctas, tiles_per_cta, stream):
+        if n == 0:
+            return out
+        err = _lib().fused_rff_step_f32(
+            X.data_ptr(), W.data_ptr(), C.data_ptr(), *ptrs,
+            n, d, mh, k, int(discrepancy == "l1"), float(scale), num_ctas, tiles_per_cta,
+            stream,
+        )
     build.check(err, "fused_rff_step launch")
     _count("fused_rff_step")
     return out
@@ -316,16 +335,16 @@ def fused_dequant_step(
         return fused_dequant_step_ref(Yq, scale, C, discrepancy)
     if Yq.device.type != "cuda":
         raise ValueError(f"fused_dequant_step runs on cuda or cpu, not {Yq.device}")
-    out, ptrs, num_ctas, tiles_per_cta, stream = step_outputs(n, k, m, Yq.device,
-                                                              TILE_ROWS["dequant"], DEQUANT_MAX_M)
-    if n == 0:
-        return out
     row = _scale_row(Yq, scale)
-    err = _dequant_lib().fused_dequant_step(
-        Yq.data_ptr(), int(row is None), None if row is None else row.data_ptr(),
-        C.data_ptr(), *ptrs,
-        n, m, k, int(discrepancy == "l1"), num_ctas, tiles_per_cta, stream,
-    )
+    with step_launch(n, k, m, Yq.device, TILE_ROWS["dequant"], DEQUANT_MAX_M) as (
+            out, ptrs, num_ctas, tiles_per_cta, stream):
+        if n == 0:
+            return out
+        err = _dequant_lib().fused_dequant_step(
+            Yq.data_ptr(), int(row is None), None if row is None else row.data_ptr(),
+            C.data_ptr(), *ptrs,
+            n, m, k, int(discrepancy == "l1"), num_ctas, tiles_per_cta, stream,
+        )
     build.check(err, "fused_dequant_step launch")
     _count("fused_dequant_step")
     return out

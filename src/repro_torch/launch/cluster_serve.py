@@ -28,9 +28,10 @@ Differences from the JAX package's launcher:
   passes ``key=PRNGKey(seed + 1)``;
 - ``--kernels {auto,on,off}`` in place of ``--use-pallas``:
   ``ComputePolicy(kernels=None | True | False)``;
-- ``--device``: the card by default, ``cpu`` for the plain path;
-- ``--backend stream_shard`` raises NotImplementedError: the sharded stream
-  is ROADMAP.md Queue 1 item 13.
+- ``--device``: the card by default, ``cpu`` for the plain path. With
+  ``--backend stream_shard`` the fit shards the stream across every visible
+  card (``stream.sharded.shard_devices``), or runs on ``[cpu]`` with
+  ``--device cpu``.
 """
 from __future__ import annotations
 
@@ -153,15 +154,11 @@ def main(argv=None):
                     help="print a rolling stats line every N requests (0 = off)")
     ap.add_argument(
         "--backend", default="stream",
-        help="clustering backend used when fitting; \"stream_shard\" (the "
-             "sharded stream) is not ported yet: ROADMAP.md Queue 1 item 13",
+        help="clustering backend used when fitting; \"stream_shard\" streams "
+             "the blocks across every visible card (or [cpu] with --device cpu)",
     )
     args = ap.parse_args(argv)
     get_embedding(args.method)  # unknown name -> fail with the registered list
-    if args.backend == "stream_shard":
-        raise NotImplementedError(
-            "backend 'stream_shard' (the sharded stream) is not ported yet; "
-            "see ROADMAP.md Queue 1 item 13")
     if args.backend != "auto":  # "auto" is estimator dispatch, not a registry key
         from repro_torch.api import get_backend
 

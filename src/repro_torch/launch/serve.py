@@ -122,7 +122,7 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if args.data_axis > 1 or args.model_axis > 1:
         raise NotImplementedError(
-            "a device mesh is not ported yet (ROADMAP.md Queue 1 item 13: multi-device)")
+            "the LM on a device mesh is not ported yet (ROADMAP.md Queue 1 item 20)")
 
     device = resolve_device(args.device)
     cfg = reduced(get_arch(args.arch))

@@ -40,11 +40,17 @@ of the `non_blocking` copies on the copy stream, not the copies (as the
 JAX package's times `jax.device_put`, which only starts one). `COUNTERS` and `PASS_COUNTS` are the older
 module-level views of the same numbers, kept in lockstep; `reset_counters()`
 zeroes all of them.
+
+Device placement: ``device=`` maps every block onto one device, and
+``name=`` keys its producer lane and per-device counter (default: the
+device's name). The sharded executor (`repro_torch.stream.sharded`) runs one
+`map_reduce` per shard, each on its own thread and CUDA stream, and names
+each by shard where a mesh repeats a device, so that eight logical shards on
+one ``cpu`` keep eight lanes and eight counters.
 """
 from __future__ import annotations
 
 import collections
-import contextlib
 import queue
 import threading
 import time
@@ -54,7 +60,7 @@ import numpy as np
 import torch
 
 from repro_torch import obs
-from repro_torch.device import resolve_device
+from repro_torch.device import on_device, resolve_device
 from repro_torch.obs.metrics import MetricsView
 from repro_torch.stream.blockstore import BlockStore, EncodedBlock, WritableBlockStore
 
@@ -79,7 +85,7 @@ COUNTERS = MetricsView(
 )
 
 
-def _count_pass(label: str) -> None:
+def count_pass(label: str) -> None:
     obs.counter(f"engine.passes.{label}").inc()
     with _PASS_LOCK:
         PASS_COUNTS[label] += 1
@@ -105,7 +111,7 @@ def reset_counters() -> None:
     obs.reset_metrics("cache.")
 
 
-def _device_name(device: torch.device) -> str:
+def device_name(device: torch.device) -> str:
     """``cuda:<index>`` for a card (the current one when unindexed), else
     the device's type: the producer lane's and per-device counter's key."""
     if device.type == "cuda" and device.index is None:
@@ -147,7 +153,7 @@ def host_tensor(a: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(a)
 
 
-class _Uploader:
+class Uploader:
     """Moves host blocks (arrays or `EncodedBlock`s) onto one device: on a
     card through its own copy stream and pinned memory, with one completion
     event per block; on the CPU as zero-copy tensors.
@@ -199,7 +205,7 @@ class _Uploader:
         return (EncodedBlock(*devs) if encoded else devs[0]), event
 
 
-def _adopt(dev, event):
+def adopt(dev, event):
     """Order the current stream after a block's copies and mark the block's
     tensors as used by it."""
     if event is not None:
@@ -209,10 +215,6 @@ def _adopt(dev, event):
         for t in tensors:
             t.record_stream(stream)
     return dev
-
-
-def _on_device(device: torch.device):
-    return torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
 
 
 def _offer(q: "queue.Queue", item, stop: threading.Event) -> bool:
@@ -237,8 +239,8 @@ def _producer(store: BlockStore, q: "queue.Queue", stop: threading.Event,
     obs.set_lane(lane)
     device_blocks = obs.counter(f"engine.device_blocks.{lane.split(':', 1)[-1]}")
     try:
-        with _on_device(device):
-            up = _Uploader(device, ring)
+        with on_device(device):
+            up = Uploader(device, ring)
             for i in range(store.num_blocks):
                 if stop.is_set():
                     return
@@ -258,19 +260,25 @@ def _producer(store: BlockStore, q: "queue.Queue", stop: threading.Event,
 class BlockPrefetcher:
     """Iterator of (local_i, device_block) over a store, in block order, with
     a background producer keeping a bounded queue of blocks whose copies to
-    ``device`` are already under way.
+    ``device`` are already under way. ``name`` keys the producer's lane
+    (``producer:<name>``) and its ``engine.device_blocks.<name>`` counter
+    (default: the device's name).
+
+    Blocks are ordered on the stream that is current where the iterator is
+    advanced (see `adopt`), so a shard thread iterates under its own stream.
 
     Always ``close()`` (or exhaust) the iterator: a dropped prefetcher would
     leave its producer thread blocked on the queue.
     """
 
-    def __init__(self, store: BlockStore, *, prefetch: int = 2, device=None):
+    def __init__(self, store: BlockStore, *, prefetch: int = 2, device=None,
+                 name: str | None = None):
         self.device = resolve_device(device)
         depth = max(1, prefetch)
         self._q: "queue.Queue" = queue.Queue(maxsize=depth)
         self._stop = threading.Event()
         self._done = False
-        self.lane = f"producer:{_device_name(self.device)}"
+        self.lane = f"producer:{name or device_name(self.device)}"
         self._t = threading.Thread(
             target=_producer, name=f"block-{self.lane}",
             args=(store, self._q, self._stop, self.device, depth + 1, self.lane), daemon=True,
@@ -302,7 +310,7 @@ class BlockPrefetcher:
         if err is not None:
             self._done = True
             raise err
-        return i, _adopt(dev, event)
+        return i, adopt(dev, event)
 
     def close(self) -> None:
         """Stop and join the producer; safe to call more than once.
@@ -337,6 +345,7 @@ def map_reduce(
     emit: Callable[[int, Any], None] | None = None,
     device=None,
     label: str = "map_reduce",
+    name: str | None = None,
 ) -> Any:
     """Fold ``combine_fn(acc, map_fn(block))`` over every block of ``store``.
 
@@ -348,19 +357,21 @@ def map_reduce(
 
     prefetch: depth of the producer queue; 0 is the synchronous baseline.
     label: each call adds one pass to ``engine.passes.<label>``.
+    name: the key of the producer lane and the per-device block counter
+    (default: the device's name).
     """
     dev = resolve_device(device)
-    _count_pass(label)
+    count_pass(label)
     acc = init
     with obs.span(f"pass.{label}", cat="pass", blocks=store.num_blocks, prefetch=prefetch):
         if prefetch <= 0:
-            with _on_device(dev):
-                device_blocks = obs.counter(f"engine.device_blocks.{_device_name(dev)}")
-                up = _Uploader(dev, 1)
+            with on_device(dev):
+                device_blocks = obs.counter(f"engine.device_blocks.{name or device_name(dev)}")
+                up = Uploader(dev, 1)
                 for i in range(store.num_blocks):
                     blk = fetch_block(store, i)
                     _count_block(blk, device_blocks)
-                    out = map_fn(_adopt(*up.put(blk)))
+                    out = map_fn(adopt(*up.put(blk)))
                     _DISPATCHES.inc()
                     if emit is not None:
                         emit(i, out)
@@ -369,7 +380,7 @@ def map_reduce(
                         torch.cuda.synchronize(dev)
             return acc
 
-        pf = BlockPrefetcher(store, prefetch=prefetch, device=dev)
+        pf = BlockPrefetcher(store, prefetch=prefetch, device=dev, name=name)
         try:
             for i, blk in pf:
                 out = map_fn(blk)
@@ -387,10 +398,12 @@ def cache_embedding(
     map_fn: Callable[[torch.Tensor], torch.Tensor],
     *,
     d_out: int,
+    out: WritableBlockStore | None = None,
     codec: str = "f32",
     prefetch: int = 2,
     device=None,
     label: str = "cache_embedding",
+    name: str | None = None,
 ) -> WritableBlockStore:
     """Materialize ``map_fn`` over every block of ``store`` into a staged host
     store, through the same pipelined prefetcher as any other pass: the
@@ -401,8 +414,11 @@ def cache_embedding(
     the ``cache.compression_ratio`` gauge is set to f32 bytes over staged
     bytes.
     The returned ``WritableBlockStore`` raises on any read of a block this
-    pass never produced."""
-    out = BlockStore.empty(n=store.n, d=d_out, block_rows=store.block_rows, codec=codec)
+    pass never produced. ``out=`` lets the D passes of a sharded embedding
+    (disjoint round-robin block subsets) fill one shared store; by default a
+    new one is made."""
+    if out is None:
+        out = BlockStore.empty(n=store.n, d=d_out, block_rows=store.block_rows, codec=codec)
 
     def emit(i, y):
         gid = store.block_id(i)
@@ -410,6 +426,6 @@ def cache_embedding(
         _BYTES_STAGED.inc(out.staged_nbytes(gid))
 
     map_reduce(store, map_fn, lambda acc, _: acc, None, prefetch=prefetch, emit=emit,
-               device=device, label=label)
+               device=device, label=label, name=name)
     _RATIO.set(out.n * out.d * 4 / max(out.nbytes_staged, 1))
     return out

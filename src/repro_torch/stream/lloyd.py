@@ -20,13 +20,17 @@ inside `fused_dequant_step`).
 
 Labels live on the host, (n,) int32: on a card each block's labels are
 copied into pinned memory without a sync, and the pass synchronizes once.
-These drivers back the "stream" and "minibatch" backends of
-`repro_torch.api.KernelKMeans`. They run on one device; `devices=` and
-`mesh=` raise `NotImplementedError` until the slice that ports the sharded
-stream. `checkpoint_dir=` saves the state after every iteration (epoch for
-minibatch) crash-atomically, and a refit with the same data, k and init
-resumes from it and reaches the uninterrupted fit's labels, iterations and
-inertia bit for bit.
+These drivers back the "stream", "stream_shard" and "minibatch" backends of
+`repro_torch.api.KernelKMeans`. ``devices=`` (a device list, entries may
+repeat) or ``mesh=`` (its data-axis devices) routes a run through
+`repro_torch.stream.sharded`: each shard streams a round-robin block subset
+through its own producer, thread and CUDA stream, and the per-shard (Z, g)
+are reduced once an iteration; ``scheduler="pool"`` runs the passes through
+the fault-tolerant `repro_torch.pool` plane instead. `checkpoint_dir=`
+saves the state after every iteration (epoch for minibatch)
+crash-atomically, and a refit with the same data, k and init resumes from
+it and reaches the uninterrupted fit's labels, iterations and inertia bit
+for bit.
 """
 from __future__ import annotations
 
@@ -65,10 +69,14 @@ class StreamLloydResult(NamedTuple):
 class _HostLabels:
     """(n,) int32 labels on the host. On a card the buffer is pinned and each
     block's labels are copied into it on the compute stream without a sync;
-    ``numpy()`` synchronizes once and returns a view of the buffer."""
+    ``numpy()`` synchronizes the current stream of ``device`` (of every card
+    in ``devices``, for the shards of a sharded run, whose streams the
+    current ones wait on) once and returns a view of the buffer. Shards write
+    disjoint rows, so they share one buffer."""
 
-    def __init__(self, n: int, device: torch.device):
-        self.device = device
+    def __init__(self, n: int, device: torch.device, devices=None):
+        self.devices = sorted({d for d in (devices or [device]) if d.type == "cuda"},
+                              key=str)
         self.buf = torch.full((n,), -1, dtype=torch.int32,
                               pin_memory=device.type == "cuda")
 
@@ -76,16 +84,25 @@ class _HostLabels:
         self.buf[lo:lo + labels.shape[0]].copy_(labels, non_blocking=True)
 
     def numpy(self) -> np.ndarray:
-        if self.device.type == "cuda":
-            torch.cuda.current_stream(self.device).synchronize()
+        for dev in self.devices:
+            torch.cuda.current_stream(dev).synchronize()
         return self.buf.numpy()
 
 
-def _not_ported(devices, mesh) -> None:
-    if devices is not None or mesh is not None:
-        raise NotImplementedError(
-            "devices=/mesh= (the sharded stream) is not ported yet; see "
-            "ROADMAP.md Queue 1 item 13")
+def _resolve_devices(devices, mesh):
+    """The sharded path's trigger: an explicit device list wins, a mesh gives
+    its data-axis devices, neither keeps the single-device driver."""
+    if devices is not None and mesh is not None:
+        raise ValueError("pass at most one of devices= and mesh=")
+    if devices is not None:
+        from repro_torch.launch.mesh import as_device
+
+        return [as_device(d) for d in devices]
+    if mesh is not None:
+        from repro_torch.stream.sharded import shard_devices
+
+        return shard_devices(mesh)
+    return None
 
 
 def _source(coeffs, discrepancy) -> str:
@@ -101,12 +118,21 @@ def stream_embed(
     policy: ComputePolicy | None = None,
     prefetch: int | None = None,
     device=None,
+    devices=None,
+    mesh=None,
 ) -> WritableBlockStore:
     """Algorithm 1 over a block stream: X blocks in, Y blocks staged to host
     memory under the policy's ``cache_dtype`` codec (O(n*m) host, O(block)
     device). Use when host memory holds Y and several Lloyd iterations will
-    reuse it."""
+    reuse it. ``devices=`` / ``mesh=`` shard the pass
+    (`stream.sharded.stream_embed_sharded`), every shard writing into the
+    one staged store."""
     pol = as_policy(policy)
+    devs = _resolve_devices(devices, mesh)
+    if devs is not None:
+        from repro_torch.stream.sharded import stream_embed_sharded
+
+        return stream_embed_sharded(store, coeffs, devices=devs, policy=pol, prefetch=prefetch)
     return cache_embedding(
         store, lambda x: ops.embed_block_map(x, coeffs, policy=pol), d_out=coeffs.m,
         codec=pol.cache_dtype, prefetch=pol.prefetch if prefetch is None else prefetch,
@@ -145,7 +171,9 @@ def ooc_lloyd(
     device=None,
     devices=None,
     mesh=None,
+    scheduler: str = "lockstep",
     checkpoint_dir=None,
+    lease_timeout: float = 60.0,
 ) -> StreamLloydResult:
     """Exact out-of-core Lloyd: the update rule of `core.lloyd.lloyd`, memory
     O(block) on ``device`` (default: the card; ``"cpu"`` for the plain path).
@@ -153,66 +181,32 @@ def ooc_lloyd(
     centroids. ``init`` centroids, or a CPU ``generator`` for a k-means++
     init on a reservoir sample of ``seed_sample`` rows. ``checkpoint_dir``
     saves the state after every iteration and resumes a refit of the same
-    data, k and init from the last one saved."""
-    _not_ported(devices, mesh)
+    data, k and init from the last one saved.
+
+    One driver runs every case (`stream.sharded.ooc_lloyd_sharded`): one
+    device is one shard, run inline on the caller's thread and stream.
+    ``devices=`` / ``mesh=`` shard the stream (the init is resolved on the
+    first shard's device): the same fixed point, O(block) a shard.
+    ``scheduler`` picks the sharded pass executor, ``"lockstep"`` (fixed
+    placement, one device reduction an iteration) or ``"pool"`` (the leased
+    tasks of `repro_torch.pool`, with ``lease_timeout`` seconds a lease);
+    ``"pool"`` without devices raises."""
     disc = _source(coeffs, discrepancy)
     pol = as_policy(policy)
     prefetch = pol.prefetch if prefetch is None else prefetch
-    dev = resolve_device(device)
-    cell = [_resolve_init(store, coeffs, disc, k, init, generator, seed_sample, dev, pol)]
-    m = int(cell[0].shape[1])
-    map_fn = ops.lloyd_step_plan(params=coeffs, discrepancy=disc, policy=pol).block_map(cell)
-    labels = _HostLabels(store.n, dev)
-    prev = labels.numpy().copy()
+    devs = _resolve_devices(devices, mesh)
+    if devs is None:
+        if scheduler != "lockstep":
+            raise ValueError(
+                f"scheduler={scheduler!r} needs devices=/mesh=: one device has no worker pool")
+        devs = [resolve_device(device)]
+    c0 = _resolve_init(store, coeffs, disc, k, init, generator, seed_sample, devs[0], pol)
+    from repro_torch.stream.sharded import ooc_lloyd_sharded
 
-    def emit(i, out):
-        labels.put(store.row_offset(i), out[2])
-
-    zero = (torch.zeros((k, m), device=dev), torch.zeros((k,), device=dev),
-            torch.zeros((), device=dev))
-    trajectory: list[float] = []
-    shifts: list[float] = []
-    it = 0
-    changed = True
-    fp = None
-    if checkpoint_dir is not None:
-        fp = ckpt.lloyd_fingerprint(kind="ooc", n=store.n, d=store.d, k=k, m=m, init=cell[0],
-                                    cache_dtype=getattr(store, "codec", "f32"))
-        state = resume_lloyd_state(checkpoint_dir, fingerprint=fp, devices_used=1)
-        if state is not None:
-            it, changed = state["step"], state["changed"]
-            labels.buf.copy_(torch.from_numpy(state["labels"]))
-            prev = state["labels"].copy()
-            trajectory, shifts = list(state["trajectory"]), list(state["shifts"])
-            cell[0] = torch.from_numpy(state["centroids"]).to(dev)
-    while it < iters and changed:
-        with obs.span("lloyd.iter", cat="lloyd", iter=it) as sp:
-            Z, g, cost = map_reduce(
-                store, map_fn,
-                lambda acc, out: (acc[0] + out[0], acc[1] + out[1], acc[2] + out[3]),
-                zero, prefetch=prefetch, emit=emit, device=dev,
-            )
-            new_c = centroid_update(Z, g, cell[0])
-            shifts.append(float(torch.linalg.norm(new_c - cell[0])))
-            trajectory.append(float(cost))
-            sp.set(inertia=trajectory[-1], shift=shifts[-1])
-            cell[0] = new_c
-        cur = labels.numpy()
-        changed = not np.array_equal(cur, prev)
-        prev = cur.copy()
-        it += 1
-        if checkpoint_dir is not None:
-            ckpt.save_lloyd_state(
-                checkpoint_dir, step=it, centroids=cell[0], labels=prev,
-                trajectory=trajectory, shifts=shifts, changed=changed, fingerprint=fp,
-                devices_used=1,
-            )
-
-    inertia = _final_assign(store, coeffs, disc, cell, labels, prefetch, dev, pol)
-    trajectory.append(inertia)
-    return StreamLloydResult(
-        labels.numpy().copy(), cell[0], inertia, it, (it + 1) * store.n,
-        tuple(trajectory), tuple(shifts),
+    return ooc_lloyd_sharded(
+        store, k, coeffs=coeffs, discrepancy=discrepancy, iters=iters, init=c0,
+        policy=pol, prefetch=prefetch, devices=devs, scheduler=scheduler,
+        checkpoint_dir=checkpoint_dir, lease_timeout=lease_timeout,
     )
 
 
@@ -258,13 +252,22 @@ def minibatch_lloyd(
     already clusters; decay < 1 forgets stale assignments.
     ``checkpoint_dir`` saves the state, (Z, g) included, after every epoch
     and resumes a refit of the same data, k, init and decay from the last
-    one saved."""
-    _not_ported(devices, mesh)
+    one saved. ``devices=`` / ``mesh=`` shard the stream: one block a shard
+    a round, one decayed update a round (`stream.sharded`)."""
     disc = _source(coeffs, discrepancy)
     pol = as_policy(policy)
     prefetch = pol.prefetch if prefetch is None else prefetch
-    dev = resolve_device(device)
+    devs = _resolve_devices(devices, mesh)
+    dev = devs[0] if devs is not None else resolve_device(device)
     cell = [_resolve_init(store, coeffs, disc, k, init, generator, seed_sample, dev, pol)]
+    if devs is not None:
+        from repro_torch.stream.sharded import minibatch_lloyd_sharded
+
+        return minibatch_lloyd_sharded(
+            store, k, coeffs=coeffs, discrepancy=discrepancy, decay=decay, epochs=epochs,
+            init=cell[0], policy=pol, prefetch=prefetch, devices=devs,
+            checkpoint_dir=checkpoint_dir,
+        )
     m = int(cell[0].shape[1])
     map_fn = ops.lloyd_step_plan(params=coeffs, discrepancy=disc, policy=pol).block_map(cell)
     labels = _HostLabels(store.n, dev)

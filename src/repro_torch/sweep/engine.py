@@ -11,7 +11,11 @@ feed every candidate from each engine pass:
     over a compressed cache, `apnc_assign` over f32);
   * `sweep_lloyd_local`: resident-Y candidates through `core.lloyd.lloyd`,
     the calls the local backend makes, minus its embedding;
-  * `sweep_lloyd_sharded`: not ported yet.
+  * `sweep_lloyd_sharded`: the same lattice across several devices: shard d
+    streams the round-robin Y shard ``y_store.shard(d, D)`` on its own thread
+    and stream, and every pass reduces the whole active lattice's (Z, g) in
+    ONE `cross_device_sum`, as `ooc_lloyd`'s sharded driver does for one
+    candidate.
 
 Each candidate's update sequence is the single-candidate driver's (the same
 per-block sums from the same zeros, the same centroid update, the same final
@@ -160,9 +164,94 @@ def sweep_lloyd_local(
     return SweepLloydOut(labels, cents, inertia, iters_run, int(iters_run.max()))
 
 
-def sweep_lloyd_sharded(*args, **kwargs) -> SweepLloydOut:
-    """The candidate lattice over several devices: not ported yet."""
-    raise NotImplementedError(
-        "sweep_lloyd_sharded (the sweep over a device mesh) is not ported yet; "
-        "it arrives with the sharded stream (ROADMAP.md, Queue 1 item 13)"
+def sweep_lloyd_sharded(
+    y_store: BlockStore,
+    inits: Sequence[torch.Tensor],
+    discrepancy: str,
+    *,
+    iters: int,
+    devices: Sequence,
+    policy: ComputePolicy | None = None,
+    prefetch: int | None = None,
+) -> SweepLloydOut:
+    """Exact multi-candidate Lloyd over cached Y blocks across ``devices``
+    (a device list, entries may repeat): per pass, shard d streams
+    ``y_store.shard(d, D)`` and steps every still-active candidate on each
+    of its blocks (`fused_dequant_step` over a compressed cache on a card);
+    the shards' statistics of the whole lattice are reduced once, and each
+    candidate's centroids update once on the first device. Labels, stopping
+    rule and final assignment are `sweep_lloyd`'s; a candidate's fixed point
+    is that of ``ooc_lloyd(devices=...)`` from its init."""
+    from repro_torch.launch.mesh import as_device
+    from repro_torch.stream.sharded import cross_device_sum, replicate, sharded_map_reduce
+
+    pol = as_policy(policy)
+    prefetch = pol.prefetch if prefetch is None else prefetch
+    devices = [as_device(d) for d in devices]
+    D = len(devices)
+    dev0 = devices[0]
+    shards = [y_store.shard(d, D) for d in range(D)]
+    plan = ops.lloyd_step_plan(discrepancy=discrepancy, policy=pol)
+    K = len(inits)
+    n = y_store.n
+    cents = [[c.to(dev0, torch.float32) for c in stack] for stack in inits]
+    R_of = [len(stack) for stack in cents]
+    labels = [[_HostLabels(n, dev0, devices) for _ in range(R_of[i])] for i in range(K)]
+    prev = [[labels[i][r].numpy().copy() for r in range(R_of[i])] for i in range(K)]
+    iters_run = np.zeros((K, max(R_of)), dtype=np.int64)
+    active = [(i, r) for i in range(K) for r in range(R_of[i])]
+
+    def emits_of(cands, index):
+        def make(shard):
+            def emit(b, outs):
+                lo = shard.row_offset(b)
+                for (i, r), out in zip(cands, outs):
+                    labels[i][r].put(lo, out[index])
+
+            return emit
+
+        return [make(s) for s in shards]
+
+    passes = 0
+    while passes < iters and active:
+        act = list(active)
+        local = {c: replicate(cents[c[0]][c[1]], devices) for c in act}
+        map_fns = [(lambda block, d=d: [plan.step(block, local[c][d]) for c in act])
+                   for d in range(D)]
+        zeros = [[(torch.zeros(cents[i][r].shape, device=dev),
+                   torch.zeros((cents[i][r].shape[0],), device=dev)) for i, r in act]
+                 for dev in devices]
+        accs = sharded_map_reduce(
+            shards, map_fns,
+            lambda acc, outs: [(a[0] + o[0], a[1] + o[1]) for a, o in zip(acc, outs)],
+            zeros, devices=devices, prefetch=prefetch, emits=emits_of(act, 2),
+            label="sweep_lloyd",
+        )
+        stats = cross_device_sum(accs, devices)
+        active = []
+        for (i, r), (Z, g) in zip(act, stats):
+            cents[i][r] = centroid_update(Z, g, cents[i][r])
+            iters_run[i, r] += 1
+            cur = labels[i][r].numpy()
+            if not np.array_equal(cur, prev[i][r]):
+                prev[i][r] = cur.copy()
+                active.append((i, r))
+        passes += 1
+
+    # Final pass under the final centroids: every candidate's labels, and its
+    # inertia as one partial cost a shard, summed on the host in shard order.
+    every = [(i, r) for i in range(K) for r in range(R_of[i])]
+    local = {c: replicate(cents[c[0]][c[1]], devices) for c in every}
+    costs = sharded_map_reduce(
+        shards,
+        [(lambda block, d=d: [plan.assign(block, local[c][d]) for c in every])
+         for d in range(D)],
+        lambda acc, outs: [a + o[1] for a, o in zip(acc, outs)],
+        [[torch.zeros((), device=dev) for _ in every] for dev in devices],
+        devices=devices, prefetch=prefetch, emits=emits_of(every, 0), label="sweep_lloyd",
     )
+    inertia = np.zeros((K, max(R_of)), dtype=np.float64)
+    for j, (i, r) in enumerate(every):
+        inertia[i, r] = sum(float(costs[d][j]) for d in range(D))
+    host = [[labels[i][r].numpy().copy() for r in range(R_of[i])] for i in range(K)]
+    return SweepLloydOut(host, [torch.stack(c) for c in cents], inertia, iters_run, passes)

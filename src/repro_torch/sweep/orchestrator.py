@@ -19,7 +19,8 @@ pay it R * |k_grid| * (iters + 1) times. `sweep_estimator` restructures that:
 
 Keystone: `sweep(k_grid=[k], restarts=1)` reaches the labels of `fit(k)` from
 the same seed, for every registered embedding member, on the local and
-stream backends.
+stream backends. On ``stream_shard`` the embedding pass and the Lloyd passes
+are sharded across the mesh's data devices (`sweep_lloyd_sharded`).
 """
 from __future__ import annotations
 
@@ -32,7 +33,6 @@ import torch
 from repro_torch import obs
 from repro_torch.api.backends import FitContext, ensure_embedding_cache
 from repro_torch.api.model import ClusterModel
-from repro_torch.device import resolve_device
 from repro_torch.stream.blockstore import BlockStore
 from repro_torch.sweep.engine import (
     SweepLloydOut,
@@ -44,8 +44,8 @@ from repro_torch.sweep.result import SweepResult
 from repro_torch.sweep.stage import load_embed_stage, save_embed_stage
 
 #: Backends a sweep can amortize one embedding across; minibatch's decayed
-#: trajectory has no embed-once counterpart, so `fit` stays its entry point.
-#: "stream_shard" raises until the sharded stream is ported.
+#: trajectory and shard_map's resident-mesh layout have no embed-once
+#: counterpart, so `fit` stays their entry point.
 SWEEP_BACKENDS = ("local", "stream", "stream_shard")
 
 
@@ -60,7 +60,8 @@ def run_sweep(ctx: FitContext, k_grid: tuple[int, ...], inits: list, *, backend:
         return sweep_lloyd(ctx.y_store, inits, disc, iters=ctx.iters, policy=ctx.policy,
                            device=ctx.device)
     if backend == "stream_shard":
-        return sweep_lloyd_sharded(ctx.y_store, inits, disc, devices=devices)
+        return sweep_lloyd_sharded(ctx.y_store, inits, disc, iters=ctx.iters,
+                                   policy=ctx.policy, devices=devices)
     raise ValueError(
         f"backend {backend!r} cannot run an embed-once sweep; supported: {SWEEP_BACKENDS}"
     )
@@ -78,11 +79,6 @@ def sweep_estimator(est, X, k_grid, *, restarts: int | None = None, seed: int | 
     if R < 1:
         raise ValueError(f"restarts must be >= 1, got {restarts}")
     backend = est._choose_backend(X)
-    if backend == "stream_shard":
-        raise NotImplementedError(
-            "backend 'stream_shard' is not ported yet; it arrives with the sharded "
-            "stream (ROADMAP.md, Queue 1 item 13)"
-        )
     if backend not in SWEEP_BACKENDS:
         raise ValueError(
             f"backend {backend!r} cannot run an embed-once sweep; supported: {SWEEP_BACKENDS}"
@@ -90,7 +86,12 @@ def sweep_estimator(est, X, k_grid, *, restarts: int | None = None, seed: int | 
     from repro_torch.api.registry import get_embedding
 
     get_embedding(est.method)  # reject typos before streaming any data
-    dev = resolve_device(est.device)
+    dev = est._device()
+    devices = None
+    if backend == "stream_shard":
+        from repro_torch.stream.sharded import shard_devices
+
+        devices = shard_devices(est.mesh, device=dev)
     seed = est.random_state if seed is None else seed
     input_shape = (X.n, X.d) if isinstance(X, BlockStore) else tuple(int(v) for v in X.shape)
 
@@ -108,7 +109,7 @@ def sweep_estimator(est, X, k_grid, *, restarts: int | None = None, seed: int | 
         ctx = FitContext(
             store=y_store, array=None, params=params, k=k_grid[0], inits=[],
             iters=est.iters, policy=est.policy, device=dev, decay=est.decay,
-            epochs=est.epochs, y_store=y_store,
+            epochs=est.epochs, y_store=y_store, mesh=est.mesh, scheduler=est.scheduler,
         )
         if backend == "local":
             ctx.y_store = None
@@ -120,10 +121,10 @@ def sweep_estimator(est, X, k_grid, *, restarts: int | None = None, seed: int | 
         ctx = FitContext(
             store=store, array=array, params=params, k=k_grid[0], inits=[],
             iters=est.iters, policy=est.policy, device=dev, decay=est.decay,
-            epochs=est.epochs,
+            epochs=est.epochs, mesh=est.mesh, scheduler=est.scheduler,
         )
         with est._phase("embed_cache", dev):
-            ensure_embedding_cache(ctx)
+            ensure_embedding_cache(ctx, devices=devices)
             if backend == "local" and ctx.y_array is None:
                 # local over a BlockStore: the resident driver takes the
                 # decoded staged blocks as one array.
@@ -142,7 +143,7 @@ def sweep_estimator(est, X, k_grid, *, restarts: int | None = None, seed: int | 
                  for k in k_grid]
     with est._phase("lloyd", dev), obs.span("sweep.lloyd", cat="sweep", backend=backend,
                                             candidates=len(k_grid) * R):
-        out = run_sweep(ctx, k_grid, inits, backend=backend)
+        out = run_sweep(ctx, k_grid, inits, backend=backend, devices=devices)
 
     n = ctx.y_store.n if ctx.y_store is not None else int(ctx.y_array.shape[0])
     models = []

@@ -158,8 +158,8 @@ def test_chip_smoke_cpu_rehearsal():
     lines = [json.loads(line) for line in out.stdout.splitlines() if line.startswith("{")]
     phases = [line.get("phase") for line in lines]
     assert phases == ["device", "data", "parity", "main", "agreement", "host_copy", "stream",
-                      "rff", "sweep", "persist", "baselines", "obs", "serve", "lm_serve",
-                      "timing", "done"]
+                      "rff", "sweep", "shard", "persist", "baselines", "obs", "serve",
+                      "lm_serve", "timing", "done"]
     assert not any(line.get("ok") for line in lines)
     main = lines[phases.index("main")]
     assert main["nmi"] > 0.9 and main["launches"] == {"apnc_embed": 0, "apnc_assign": 0}
@@ -177,6 +177,11 @@ def test_chip_smoke_cpu_rehearsal():
     flash = lines[phases.index("parity")]["flash_attention"]
     assert {(c["window"], c["dtype"]) for c in flash} == {
         (w, dt) for w in (0, 50, 4096) for dt in ("float32", "bfloat16")}
+    shard = lines[phases.index("shard")]
+    assert shard["cards"]["bitwise_phase_stream"] and shard["chaos"]["bitwise_fault_free"]
+    assert shard["equal_centroids"]["label_mismatches"] == 0 and shard["equal_centroids"]["g_equal"]
+    assert shard["chaos"]["worker_deaths"] >= 1 and not any(shard["launches"].values())
+    assert shard["lockstep"]["reductions"] == shard["lockstep"]["passes"] - 1
     persist = lines[phases.index("persist")]
     assert persist["temp_dir_removed"] and not any(persist["launches"].values())
     for name in ("local", "rff"):

@@ -107,9 +107,12 @@ def test_reference_checkpoint_is_served_with_the_references_labels(tmp_path, mon
     assert len(np.unique(want)) == 3
 
 
-def test_stream_shard_backend_names_its_item():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 13"):
-        cluster_serve.main(["--backend", "stream_shard", "--requests", "10", *SMALL])
+def test_stream_shard_backend_names_its_item(capsys):
+    """``--backend stream_shard --device cpu`` fits through the sharded
+    stream (one shard, ``[cpu]``) and serves with an exact replay."""
+    stats = cluster_serve.main(["--backend", "stream_shard", "--requests", "300", *SMALL])
+    assert stats["mismatches"] == 0
+    assert "backend=stream_shard" in capsys.readouterr().out
 
 
 def test_unknown_method_and_backend_fail_before_fitting():

@@ -1081,3 +1081,166 @@ def test_launch_counts_from_two_threads_on_the_card(cuda, served_models):
     assert not bad
     assert (t_embed.launches - before[0], t_rff.launches - before[1],
             t_assign.launches - before[2]) == (calls, calls, 2 * calls)
+
+
+# ------------------------------------------------------- the sharded stream
+
+
+@pytest.fixture(scope="module")
+def shard_state():
+    """Blobs in a pinned-free host store, Nystrom params and centroids on the
+    card: the sharded stream's inputs."""
+    from repro_torch.data.synthetic import gaussian_blobs_blocks
+    from repro_torch.stream import BlockStore
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the hand-written kernels have no CPU mode")
+    gen, _ = gaussian_blobs_blocks(0, 24_000, 48, 9, block_rows=1024, separation=4.0)
+    store = BlockStore.from_array(gen.materialize(), 1024)
+    X = torch.from_numpy(store.materialize())
+    params = fit_nystrom(1, X[:2000], Kernel("rbf", gamma=0.02), l=96, m=40).to("cuda")
+    C = ops.embed_block_map(X[:9].cuda(), params).contiguous()
+    return store, params, C
+
+
+@pytest.mark.gpu
+def test_two_logical_shards_bitwise_the_single_device_pass(cuda, shard_state):
+    """Two logical shards of one card, each on its own thread and stream, at
+    equal centroids: every block's (Z, g, labels, cost) is bitwise the
+    single-device pass's, so the labels and g are equal and the summed Z and
+    cost differ only by the order of the block sums, within 2 (B - 1) u
+    sum_b |partial_b| (u = 2^-24)."""
+    from repro_torch.stream.engine import map_reduce
+    from repro_torch.stream.sharded import cross_device_sum, sharded_map_reduce
+
+    store, params, C = shard_state
+    fn = ops.lloyd_step_plan(params=params).block_map([C])
+    blocks: dict = {}
+
+    def keep(key):
+        def emit(i, out):
+            blocks[key, i] = [t.clone() for t in out]
+        return emit
+
+    def combine(acc, out):
+        return acc[0] + out[0], acc[1] + out[1], acc[2] + out[3], acc[3] + out[0].abs()
+
+    def zeros():
+        k, m = C.shape
+        return (torch.zeros((k, m), device=cuda), torch.zeros((k,), device=cuda),
+                torch.zeros((), device=cuda), torch.zeros((k, m), device=cuda))
+
+    Z1, g1, c1, absZ = map_reduce(store, fn, combine, zeros(), emit=keep("one"), device=cuda)
+    devices = [torch.device("cuda", 0)] * 2
+    shards = [store.shard(d, 2) for d in range(2)]
+    accs = sharded_map_reduce(shards, [fn, fn], combine, [zeros(), zeros()], devices=devices,
+                              emits=[keep(("two", d)) for d in range(2)])
+    Z2, g2, c2, _ = cross_device_sum(accs, devices)
+    torch.cuda.synchronize()
+    for d, shard in enumerate(shards):
+        for i in range(shard.num_blocks):
+            gid = shard.block_id(i)
+            for a, b in zip(blocks["one", gid], blocks[("two", d), i]):
+                assert torch.equal(a, b), (d, i)
+    assert torch.equal(g1, g2)
+    B = store.num_blocks
+    assert bool(((Z1 - Z2).abs() <= 2 * (B - 1) * 2.0 ** -24 * absZ).all())
+    assert abs(float(c1) - float(c2)) <= 2 * (B - 1) * 2.0 ** -24 * abs(float(c1)) * 1.0001
+
+
+@pytest.mark.gpu
+def test_chaos_pool_fit_bitwise_the_fault_free_pool_fit_on_the_card(cuda, shard_state):
+    """The pool over two logical shards of one card: a run whose worker 1
+    dies after 5 blocks and whose worker 0 sleeps 1 ms a block returns the
+    fault-free run's labels, centroids, inertia and trajectory bit for bit,
+    and the lockstep run's labels."""
+    from repro_torch.pool import ChaosPlan, inject
+    from repro_torch.stream import ooc_lloyd
+
+    store, params, C = shard_state
+    devices = [torch.device("cuda", 0)] * 2
+    common = dict(coeffs=params, init=C, iters=8, devices=devices)
+    free = ooc_lloyd(store, 9, scheduler="pool", **common)
+    with inject(ChaosPlan().kill(1, after_blocks=5).delay(0, 0.001)):
+        chaos = ooc_lloyd(store, 9, scheduler="pool", **common)
+    assert np.array_equal(chaos.labels, free.labels)
+    assert torch.equal(chaos.centroids, free.centroids)
+    assert chaos.inertia == free.inertia and chaos.trajectory == free.trajectory
+    lock = ooc_lloyd(store, 9, **common)
+    assert np.array_equal(lock.labels, free.labels)
+
+
+@pytest.mark.gpu
+def test_fused_steps_from_two_threads_on_two_streams(cuda, shard_state):
+    """Two threads, each on its own stream, launching fused_apnc_step at once:
+    each stream gets its own per-stream scratch (`lloyd_step._SCRATCH`), and
+    every launch's outputs are bitwise the sequential launch's."""
+    import threading
+
+    from repro_torch.kernels import lloyd_step
+    from repro_torch.stream.sharded import shard_stream
+
+    store, params, C = shard_state
+    Xs = [torch.from_numpy(store.get(i)).cuda() for i in range(4)]
+    want = [ops.fused_lloyd_step(x, params, C) for x in Xs]
+    got: dict = {}
+
+    def run(d):
+        with torch.cuda.stream(shard_stream(torch.device("cuda", 0), d)):
+            for rep in range(20):
+                for i in range(d, 4, 2):
+                    got[d, rep, i] = ops.fused_lloyd_step(Xs[i], params, C)
+            torch.cuda.current_stream().synchronize()
+
+    threads = [threading.Thread(target=run, args=(d,)) for d in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert not any(t.is_alive() for t in threads) and len(got) == 80
+    for (d, rep, i), out in got.items():
+        for a, b in zip(out, want[i]):
+            assert torch.equal(a, b), (d, rep, i)
+    streams = {key[1] for key in lloyd_step._SCRATCH}
+    assert len(streams) >= 3  # the default stream's and one a shard stream
+
+
+@pytest.mark.gpu
+def test_fused_steps_from_two_threads_on_one_stream(cuda, shard_state):
+    """Two threads on ONE stream, each launching fused_apnc_step under its own
+    centroids 1,000 times a block: every launch's outputs are bitwise the
+    sequential launch's. A launch is two kernels on the stream (the main
+    kernel writes per-CTA partials into the stream's one scratch buffer, the
+    reduce kernel sums them); without the scratch lock
+    (`lloyd_step.step_launch`) the order A.main, B.main, A.reduce sums B's
+    partials into A's (Z, g, cost) while A's labels stay right."""
+    import threading
+
+    store, params, C = shard_state
+    Xs = [torch.from_numpy(store.get(i)[:256]).cuda() for i in range(4)]
+    Cs = [C, (1.5 * C).contiguous()]
+    want = [[ops.fused_lloyd_step(x, params, c) for x in Xs] for c in Cs]
+    for i in range(4):  # a mixed-up pair of launches would show
+        assert not torch.equal(want[0][i][0], want[1][i][0])
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    got: dict = {}
+    start = threading.Barrier(2)
+
+    def run(d):
+        with torch.cuda.stream(stream):
+            start.wait()
+            for rep in range(1000):
+                for i in range(4):
+                    got[d, rep, i] = ops.fused_lloyd_step(Xs[i], params, Cs[d])
+        stream.synchronize()
+
+    threads = [threading.Thread(target=run, args=(d,)) for d in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    assert not any(t.is_alive() for t in threads) and len(got) == 8000
+    bad = [key for key, out in got.items()
+           if not all(torch.equal(a, b) for a, b in zip(out, want[key[0]][key[2]]))]
+    assert not bad, f"{len(bad)} of 8000 launches differ, first {bad[:5]}"

@@ -405,5 +405,5 @@ def test_serve_main_on_cpu(capsys):
     out = serve.main(["--device", "cpu", "--batch", "2", "--prompt-len", "8", "--gen", "3"])
     assert out.shape == (2, 3) and t_flash.launches == before
     assert "[serve] qwen1.5-0.5b-smoke on cpu" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 20"):
         serve.main(["--device", "cpu", "--model-axis", "2"])

@@ -238,12 +238,25 @@ def test_y_mode_stream_matches_x_mode(data, member_state):
 
 
 def test_drivers_reject_what_is_not_ported(data, member_state):
+    """The sharded stream is ported: ``devices=`` and ``mesh=`` route
+    `ooc_lloyd` through it and reach the single-device labels; what the
+    drivers still reject is a bad call."""
+    from repro_torch.launch.mesh import make_mesh
+
     _, tparams, init = member_state
     store = BlockStore.from_array(data, 128)
-    for kw in (dict(devices=[CPU]), dict(mesh=object())):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 13"):
-            tstream.ooc_lloyd(store, 4, coeffs=tparams, init=torch.from_numpy(init),
-                              device=CPU, **kw)
+    single = tstream.ooc_lloyd(store, 4, coeffs=tparams, init=torch.from_numpy(init),
+                               device=CPU)
+    mesh = make_mesh((4, 1), ("data", "model"), devices=["cpu"] * 4)
+    for kw in (dict(devices=[CPU] * 4), dict(mesh=mesh)):
+        got = tstream.ooc_lloyd(store, 4, coeffs=tparams, init=torch.from_numpy(init), **kw)
+        np.testing.assert_array_equal(got.labels, single.labels)
+    with pytest.raises(ValueError, match="at most one of devices= and mesh="):
+        tstream.ooc_lloyd(store, 4, coeffs=tparams, init=torch.from_numpy(init),
+                          devices=[CPU], mesh=mesh)
+    with pytest.raises(ValueError, match="needs devices="):
+        tstream.ooc_lloyd(store, 4, coeffs=tparams, init=torch.from_numpy(init),
+                          device=CPU, scheduler="pool")
     with pytest.raises(ValueError, match="exactly one"):
         tstream.ooc_lloyd(store, 4, init=torch.from_numpy(init), device=CPU)
     got = tstream.ooc_lloyd(store, 4, coeffs=tparams, generator=torch.Generator().manual_seed(0),

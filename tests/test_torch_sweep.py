@@ -235,14 +235,35 @@ def test_bf16_transform_matches_jax(blobs):
 # ------------------------------------------------------------ not ported
 
 
-def test_what_is_not_ported_raises(blobs):
+def test_what_is_not_ported_raises(blobs, staged_y):
+    """What a sweep still rejects; the sharded sweep is ported and equals
+    `sweep_lloyd`: labels and iterations exactly, centroids and inertia
+    within rtol 1e-5 (only the grouping of the float sums differs)."""
+    from repro_torch.launch.mesh import make_host_mesh
+
     store = tbs.BlockStore.from_array(blobs, 64)
     with pytest.raises(ValueError, match="embed-once sweep"):
         _est("nystrom", "minibatch").sweep(store, k_grid=[3])
-    with pytest.raises(NotImplementedError, match="item 13"):
-        _est("nystrom", "stream_shard").sweep(store, k_grid=[3])
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tsweep.sweep_lloyd_sharded(store, [], "l2")
+    mesh = make_host_mesh(data=4, model=1)
+    shard = _est("nystrom", "stream_shard", mesh=mesh).sweep(store, k_grid=[3], restarts=2,
+                                                             seed=5)
+    single = _est("nystrom", "stream").sweep(store, k_grid=[3], restarts=2, seed=5)
+    assert shard.backend == "stream_shard"
+    for got, want in zip(shard.labels[0], single.labels[0]):
+        np.testing.assert_array_equal(got, want)
+    np.testing.assert_allclose(shard.inertia, single.inertia, rtol=1e-5)
+    Y, inits = staged_y
+    y_store = tbs.BlockStore.from_array(Y, 64)
+    t_inits = [torch.from_numpy(c) for c in inits]
+    want = tsweep.sweep_lloyd(y_store, t_inits, "l2", iters=12, device="cpu")
+    got = tsweep.sweep_lloyd_sharded(y_store, t_inits, "l2", iters=12, devices=["cpu"] * 4)
+    np.testing.assert_array_equal(got.iters, want.iters)
+    for i in range(len(inits)):
+        for r in range(2):
+            np.testing.assert_array_equal(got.labels[i][r], want.labels[i][r])
+        np.testing.assert_allclose(got.centroids[i].numpy(), want.centroids[i].numpy(),
+                                   rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got.inertia, want.inertia, rtol=1e-5)
     with pytest.raises(ValueError, match="at least one candidate"):
         _est("nystrom", "stream").sweep(store, k_grid=[])
     with pytest.raises(ValueError, match="restarts"):
