@@ -35,7 +35,17 @@ depth from a seeded random init (``repro_torch.launch.serve.generate``: a
 4 x 4,096-token prefill, every layer's attention in ``flash_attention_bhsd``,
 then 32 greedy decode steps over a bf16 KV cache), held against the plain
 attention, against a decode of the prompt's last token and against an int8
-cache. It holds ``apnc_assign_step`` (labels, Z, g and the block's cost in
+cache. Phase ``lm_train`` trains it: (a) 20 AdamW steps of qwen1.5-0.5b at
+full width and depth on 4 x 2,048 tokens a step (``make_train_step`` over
+``batch_iterator``; every attention forward in ``flash_attention_bhsd``
+through its ``autograd.Function``, the backward a recompute in ``torch``
+ops), with a traced step's split; (b) the Function's gradients against
+autograd through the plain attention at two full shapes, timed beside
+``scaled_dot_product_attention``'s backward; (c) one full-width step, kernel
+route against plain route, every attention projection with a non-zero
+gradient; (d) ``TrainLoop`` crashed by its fault hook and resumed from its
+checkpoint bit for bit; (e) qwen2-moe-a2.7b at full width, 2 layers:
+generate, decode against the full forward, 5 train steps. It holds ``apnc_assign_step`` (labels, Z, g and the block's cost in
 one launch) bit for bit against the three fused steps on the Y each one's
 un-fused chain makes. It times each kernel beside its bound, its plain
 version and a PyTorch library call (chain). Every phase prints
@@ -101,6 +111,17 @@ IMAGENET = dict(n=_IMAGENET.n, d=_IMAGENET.d, k=_IMAGENET.k, separation=_IMAGENE
                 parity_flash_gqa=((1, 2048, 32, 8, 128), (2, 257, 6, 3, 40)),
                 lm_arch="qwen1.5-0.5b", lm_reduced=False, lm_batch=4, lm_prompt=4096,
                 lm_gen=32,
+                # Phase lm_train: (a) qwen1.5-0.5b unreduced, batch x seq, steps; (b)
+                # the attention gradients at (B, S, H, Hkv, Dh): qwen1.5-0.5b's
+                # training heads, llama3-8b's grouped heads; (c) and (d) at
+                # step_layers of its layers, (d) crashed at crash_at and resumed
+                # from the checkpoint every resume_every; (e) qwen2-moe-a2.7b
+                # at moe_layers layers.
+                lm_train=dict(arch="qwen1.5-0.5b", reduced=False, batch=4, seq=2048, steps=20,
+                              lr=3e-3, grad_shapes=((4, 2048, 16, 16, 64), (1, 4096, 32, 8, 128)),
+                              step_layers=2, resume_steps=20, resume_every=10, crash_at=12,
+                              moe_arch="qwen2-moe-a2.7b", moe_layers=2, moe_batch=2, moe_seq=2048,
+                              moe_gen=16, moe_steps=5),
                 # Table 2 on the card: the imagenet-50k stand-in (50,000 rows,
                 # the ImageNet d, k and separation, warped), 10,000 more rows
                 # of its mixture held out; `small_n` rows for card vs CPU.
@@ -121,6 +142,11 @@ REHEARSAL = dict(n=4_000, d=32, k=8, separation=3.0, l=64, m=16, iters=20,
                  parity_flash=((2, 32, 2, 16), (1, 77, 2, 40)),
                  parity_flash_gqa=((1, 77, 4, 2, 16),),
                  lm_arch="qwen1.5-0.5b", lm_reduced=True, lm_batch=4, lm_prompt=64, lm_gen=8,
+                 lm_train=dict(arch="qwen1.5-0.5b", reduced=True, batch=2, seq=64, steps=20,
+                               lr=3e-3, grad_shapes=((2, 64, 4, 4, 16), (1, 96, 4, 2, 32)),
+                               step_layers=2, resume_steps=20, resume_every=10, crash_at=12,
+                               moe_arch="qwen2-moe-a2.7b", moe_layers=2, moe_batch=2, moe_seq=64,
+                               moe_gen=4, moe_steps=5),
                  baselines=dict(dataset=None, n=1_500, held_out=300, l=64, m=16, rff_m=16,
                                 iters=20, small_n=400),
                  serve=dict(requests=2_000, micro_batch=64, max_delay_ms=2.0, open_rate=0.5,
@@ -2408,6 +2434,539 @@ def phase_lm_serve(cfg, device, seed) -> dict:
     )
 
 
+# ---------------------------------------------------------------- LM training
+
+#: Tolerance of the attention gradients against autograd through the plain
+#: version, a multiple of each gradient's max |g|. Both sides do the same f32
+#: arithmetic (the Function's backward does not read the kernel's output);
+#: they differ only in the order of their sums, over at most S = 4,096 terms:
+#: about sqrt(S) u = 3.8e-6 for rounding of random sign, S u = 2.4e-4 at worst
+#: (u = 2^-24). 1e-4 sits between.
+ATTN_GRAD_RTOL = 1e-4
+#: One full-width step, attention through the Function against the plain
+#: version under autograd: the loss within rtol 2e-4 and each gradient leaf
+#: within 2e-3 * its max |g|. The forward attention differs by up to the
+#: reference's kernel tolerance (rtol 2e-4, FLASH_TOL), and a gradient's
+#: relative error carries that of every activation on its path: ten times it.
+STEP_LOSS_RTOL = 2e-4
+STEP_GRAD_RTOL = 2e-3
+#: The reference's decode-vs-full bound for an MoE arch (tests/test_models_smoke.py).
+MOE_DECODE_TOL = 5e-2
+
+
+def _flash():
+    from repro_torch.kernels import flash_attention
+
+    return flash_attention
+
+
+def train_parts(mcfg, lr, total, seed, device):
+    """A seeded model at ``mcfg``, its AdamW state (f32 moments unless the
+    arch says otherwise) and ``make_train_step`` with warmup_cosine(warmup=2,
+    total=total), f32 params and math."""
+    from repro_torch.models import model as lm
+    from repro_torch.models.common import TEST_POLICY
+    from repro_torch.optim import adamw
+    from repro_torch.optim.schedule import warmup_cosine
+    from repro_torch.train.step import make_train_step
+
+    model = lm.init(torch.Generator(device=device).manual_seed(seed), mcfg, TEST_POLICY, device)
+    opt_cfg = adamw.AdamWConfig(lr=lr, moments_dtype=mcfg.moments_dtype)
+    step = make_train_step(mcfg, TEST_POLICY, opt_cfg,
+                           lambda s: warmup_cosine(s, warmup=2, total=total))
+    return model, adamw.init(model, opt_cfg), step
+
+
+def train_steps(step_fn, model, opt, data, steps, device) -> tuple[list, list, list]:
+    """``steps`` train steps over ``data``; each step's host time ends on a
+    device sync. Returns (losses, seconds, metrics)."""
+    losses, times, metrics = [], [], []
+    for _ in range(steps):
+        batch = next(data)
+        t0 = time.perf_counter()
+        model, opt, m = step_fn(model, opt, batch)
+        sync(device)
+        times.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+        metrics.append({k: float(v) for k, v in m.items()})
+    return losses, times, metrics
+
+
+def train_step_split(run, vocab) -> dict:
+    """One traced train step: wall ms, device busy share, and the device ms
+    split between attention forward (the flash kernel), attention backward
+    (everything under the Function's backward node), the optimizer (under an
+    ``lm_train.optimizer`` range), cross-entropy (kernels of ops with a
+    vocab-wide operand: the head product, logsumexp, gather and their
+    gradients), the other GEMMs, and the rest (norms, RoPE, SwiGLU,
+    residuals, the embedding). Each kernel is attributed through the op that
+    launched it and that op's parents."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.optim import adamw
+
+    update = adamw.update
+
+    def traced_update(*a, **kw):
+        with torch.profiler.record_function("lm_train.optimizer"):
+            return update(*a, **kw)
+
+    torch.cuda.synchronize()
+    with patched(adamw, "update", traced_update), profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], record_shapes=True) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    split = dict(gemm=0.0, attention_forward=0.0, attention_backward=0.0, cross_entropy=0.0,
+                 optimizer=0.0, other=0.0)
+    for evt in prof.events():
+        kernels = getattr(evt, "kernels", None) or []
+        if not kernels:
+            continue
+        names, e = [], evt
+        while e is not None:
+            names.append(e.name)
+            e = e.cpu_parent
+        shapes = [s for s in (evt.input_shapes or []) if isinstance(s, (list, tuple))]
+        for kern in kernels:
+            kname = kern.name.lower()
+            if any("FlashAttentionBackward" in n for n in names):
+                part = "attention_backward"
+            elif "flash_kernel" in kname:
+                part = "attention_forward"
+            elif "lm_train.optimizer" in names:
+                part = "optimizer"
+            elif any(vocab in s for s in shapes) and "embedding" not in evt.name:
+                part = "cross_entropy"
+            elif any(w in kname for w in ("gemm", "cutlass", "xmma", "sm90")):
+                part = "gemm"
+            else:
+                part = "other"
+            split[part] += kern.duration / 1e3
+    busy = sum(split.values())
+    if not busy:
+        return dict(wall_ms=wall * 1e3, split_ms="not measured",
+                    note="the profiler linked no kernel to the op that launched it")
+    return dict(wall_ms=wall * 1e3, device_busy_ms=busy, device_busy_share=busy / (wall * 1e3),
+                idle_share=1 - busy / (wall * 1e3), split_ms=split,
+                split_share={k: v / (wall * 1e3) for k, v in split.items()})
+
+
+def dense_training(cfg, device, seed) -> dict:
+    """(a) qwen1.5-0.5b unreduced (24 layers, d_model 1,024, vocab 151,936,
+    remat full), f32 params, moments and math, AdamW lr 3e-3 with
+    warmup_cosine(2, 20), batch 4 x 2,048 from ``batch_iterator``, 20 steps
+    through ``make_train_step``; the flash launch count zeroed just before and
+    read just after. Gates: finite losses, the last below the first, and two
+    flash launches a layer a step on the card (the forward and the group's
+    recompute under remat), no other route."""
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.data.tokens import batch_iterator
+    from repro_torch.models import model as lm
+
+    t = cfg["lm_train"]
+    arch = get_arch(t["arch"])
+    mcfg = reduced(arch) if t["reduced"] else arch
+    B, S, steps = t["batch"], t["seq"], t["steps"]
+    t0 = time.perf_counter()
+    model, opt, step_fn = train_parts(mcfg, t["lr"], steps, seed, device)
+    sync(device)
+    init_s = time.perf_counter() - t0
+    n_params = lm.param_count(model)
+    data = batch_iterator(mcfg, B, S, 0, device)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    flash = _flash()
+    flash.launches = 0
+    losses, times, metrics = train_steps(step_fn, model, opt, data, steps, device)
+    launches = flash.launches
+    peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else None
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"dense training: losses {losses}")
+    per_step = 2 * mcfg.num_layers if mcfg.remat == "full" else mcfg.num_layers
+    if device.type == "cuda" and launches != per_step * steps:
+        raise AssertionError(f"flash_attention_bhsd ran {launches} times in {steps} steps of "
+                             f"{mcfg.num_layers} layers (remat {mcfg.remat})")
+    step_s = float(np.median(times[2:]))
+    flops = 6.0 * n_params * B * S
+    bound_s = flops / PEAK_F32_FLOPS
+    split = None
+    if device.type == "cuda":
+        split = train_step_split(lambda: step_fn(model, opt, next(data)), mcfg.vocab_size)
+        if "device_busy_ms" in split:  # the profiler stretches the traced step's wall
+            split["idle_share_of_an_untraced_step"] = 1 - split["device_busy_ms"] / (step_s * 1e3)
+    del model, opt
+    return dict(arch=mcfg.name, layers=mcfg.num_layers, d_model=mcfg.d_model,
+                vocab=mcfg.vocab_size, remat=mcfg.remat, params=n_params, batch=B, seq=S,
+                steps=steps, lr=t["lr"], schedule="warmup_cosine(warmup=2, total=20)",
+                init_s=init_s, step_s_median_3_to_20=step_s, step_s=times,
+                tokens_per_s=B * S / step_s, peak_device_bytes=peak,
+                loss_first=losses[0], loss_last=losses[-1], losses=losses,
+                grad_norm=[m["grad_norm"] for m in metrics],
+                flash_launches=launches, flash_launches_per_step=launches / steps,
+                f32_bound=dict(flops_per_step=flops, what="6 N T at 67 TFLOP/s f32, before remat",
+                               seconds=bound_s, step_share=bound_s / step_s),
+                profiled_step=split)
+
+
+def attention_gradients(cfg, device) -> list:
+    """(b) The Function's (out, dq, dk, dv) against autograd through
+    ``flash_attention_ref`` on the same inputs: out within FLASH_TOL (f32),
+    each gradient within ATTN_GRAD_RTOL * max|g|. On the card also the
+    backward's time (``attention_backward``), the plain version's backward,
+    ``scaled_dot_product_attention``'s backward and the bound (5 products of
+    2 Dh FLOPs a causal pair and head; q, k, v, dO read and dq, dk, dv
+    written once)."""
+    from repro_torch.kernels import ref
+
+    flash = _flash()
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rows = []
+    for B, S, H, Hkv, Dh in cfg["lm_train"]["grad_shapes"]:
+        g = torch.Generator(device=device).manual_seed(31)
+        q = torch.randn((B, S, H, Dh), generator=g, device=device)
+        k, v = (torch.randn((B, S, Hkv, Dh), generator=g, device=device) for _ in range(2))
+        dout = torch.randn((B, S, H, Dh), generator=g, device=device)
+        mine = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        out = flash.flash_attention(*mine)
+        got = torch.autograd.grad(out, mine, dout)
+        plain = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        out_ref = ref.flash_attention_ref(*plain)
+        want = torch.autograd.grad(out_ref, plain, dout, retain_graph=True)
+        rtol, atol = FLASH_TOL[torch.float32]
+        label = f"attention gradients {(B, S, H, Hkv, Dh)}"
+        row = dict(shape=dict(B=B, S=S, H=H, Hkv=Hkv, Dh=Dh),
+                   out_max_abs_err=check_close(label + " out", out.detach(), out_ref.detach(),
+                                               rtol, atol),
+                   out_tolerance=dict(rtol=rtol, atol=atol), grads={})
+        for name, a, b in zip(("dq", "dk", "dv"), got, want):
+            err, scale = float((a - b).abs().max()), float(b.abs().max())
+            if not (bool(torch.isfinite(a).all()) and err <= ATTN_GRAD_RTOL * scale):
+                raise AssertionError(f"{label} {name}: max |d| {err} against "
+                                     f"{ATTN_GRAD_RTOL} * {scale}")
+            row["grads"][name] = dict(max_abs_err=err, max_abs=scale, rel=err / scale,
+                                      limit=ATTN_GRAD_RTOL * scale)
+        if device.type == "cuda":
+            pairs = S * (S + 1) / 2
+            flops = 10.0 * Dh * pairs * B * H
+            b_ms, b_by = bound(flops, 4.0 * (3 * B * S * H * Dh + 4 * B * S * Hkv * Dh))
+            qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True) for t in (q, k, v))
+            kw = dict(enable_gqa=True) if Hkv != H else {}
+            o = sdpa(qt, kt, vt, is_causal=True, **kw)
+            dot = dout.transpose(1, 2).contiguous()
+            row.update(
+                backward_ms=cuda_ms(lambda: flash.attention_backward(q, k, v, dout), 5),
+                forward_ms=cuda_ms(lambda: flash.flash_attention_bhsd(q, k, v), 5),
+                plain_backward_ms=cuda_ms(lambda: torch.autograd.grad(
+                    out_ref, plain, dout, retain_graph=True), 3, warmup=1),
+                sdpa_backward_ms=cuda_ms(lambda: torch.autograd.grad(
+                    o, (qt, kt, vt), dot, retain_graph=True), 5),
+                sdpa_backend=sdpa_backend(qt, kt, vt, **kw), backward_bound_ms=b_ms,
+                backward_bound_by=b_by, backward_flops=flops,
+                backward_chunk=flash.BWD_CHUNK)
+            row["backward_roofline_share"] = b_ms / row["backward_ms"]
+            del qt, kt, vt, o, dot
+        rows.append(row)
+        del q, k, v, dout, mine, out, got, plain, out_ref, want
+    return rows
+
+
+def kernel_vs_plain_step(cfg, device, seed) -> dict:
+    """(c) One full-width step of qwen1.5-0.5b at ``step_layers`` layers: the
+    loss and every parameter's gradient with attention through the Function
+    (the kernel) against attention through the plain version under autograd.
+    Gates: loss within STEP_LOSS_RTOL, each leaf within STEP_GRAD_RTOL *
+    max|g|, and every layer's wq, wk, wv, bq, bk and bv with a finite,
+    non-zero gradient on the kernel route (the launch records no autograd
+    history of its own)."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.data.tokens import batch_iterator
+    from repro_torch.models import model as lm
+    from repro_torch.models.common import TEST_POLICY
+
+    t = cfg["lm_train"]
+    arch = get_arch(t["arch"])
+    mcfg = dataclasses.replace(reduced(arch) if t["reduced"] else arch,
+                               num_layers=t["step_layers"])
+    model = lm.init(torch.Generator(device=device).manual_seed(seed), mcfg, TEST_POLICY, device)
+    batch = next(batch_iterator(mcfg, t["batch"], t["seq"], 0, device))
+    named = dict(model.named_parameters())
+    for p in named.values():
+        p.requires_grad_(True)
+    flash = _flash()
+    flash.launches = 0
+    loss_k, _ = lm.forward_train(model, mcfg, TEST_POLICY, batch)
+    g_k = dict(zip(named, torch.autograd.grad(loss_k, list(named.values()))))
+    kernel_launches = flash.launches
+    with plain_attention():
+        loss_p, _ = lm.forward_train(model, mcfg, TEST_POLICY, batch)
+        g_p = dict(zip(named, torch.autograd.grad(loss_p, list(named.values()))))
+    plain_launches = flash.launches - kernel_launches
+    loss_k, loss_p = float(loss_k.detach()), float(loss_p.detach())
+    if device.type == "cuda" and (kernel_launches < mcfg.num_layers or plain_launches):
+        raise AssertionError(f"kernel route {kernel_launches} launches, plain {plain_launches}")
+    if not abs(loss_k - loss_p) <= STEP_LOSS_RTOL * abs(loss_p):
+        raise AssertionError(f"kernel vs plain loss {loss_k} vs {loss_p}")
+    worst, zero = {}, []
+    for name, a in g_k.items():
+        b = g_p[name]
+        err, scale = float((a - b).abs().max()), float(b.abs().max())
+        worst[name] = err / scale if scale else err
+        if not (bool(torch.isfinite(a).all()) and err <= STEP_GRAD_RTOL * scale):
+            raise AssertionError(f"kernel vs plain gradient of {name}: {err} against "
+                                 f"{STEP_GRAD_RTOL} * {scale}")
+        if name.split(".")[-1] in ("wq", "wk", "wv", "bq", "bk", "bv") and not bool((a != 0).any()):
+            zero.append(name)
+    projections = [n for n in g_k if n.split(".")[-1] in ("wq", "wk", "wv", "bq", "bk", "bv")]
+    if zero or len(projections) != 6 * mcfg.num_layers:
+        raise AssertionError(f"attention projections without a gradient: {zero}")
+    top = sorted(worst.items(), key=lambda kv: -kv[1])[:5]
+    del model, g_k, g_p
+    return dict(layers=mcfg.num_layers, d_model=mcfg.d_model, batch=t["batch"], seq=t["seq"],
+                loss_kernel=loss_k, loss_plain=loss_p,
+                loss_rel_diff=abs(loss_k - loss_p) / abs(loss_p), loss_rtol=STEP_LOSS_RTOL,
+                grad_rtol=STEP_GRAD_RTOL, worst_grad_rel_diff=dict(top),
+                projections_with_nonzero_grad=len(projections),
+                kernel_launches=kernel_launches, plain_launches=plain_launches)
+
+
+def crash_and_resume_training(cfg, device, seed) -> dict:
+    """(d) qwen1.5-0.5b at full width, ``step_layers`` layers: 20 steps through
+    ``TrainLoop`` with a checkpoint every 10, and the same run crashed by
+    ``fault_hook`` at step 12 and restarted with a fresh model. Under
+    ``torch.use_deterministic_algorithms`` the restarted run's params and
+    moments after step 20 are the uninterrupted run's bit for bit. The
+    saves' seconds and bytes are printed; the directory is removed."""
+    import dataclasses
+    import shutil
+    import tempfile
+    import warnings
+
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.data.tokens import batch_iterator
+    from repro_torch.distributed import checkpoint as ckpt_lib
+    from repro_torch.train.loop import LoopConfig, TrainLoop
+
+    t = cfg["lm_train"]
+    arch = get_arch(t["arch"])
+    mcfg = dataclasses.replace(reduced(arch) if t["reduced"] else arch,
+                               num_layers=t["step_layers"])
+    steps, every, crash_at = t["resume_steps"], t["resume_every"], t["crash_at"]
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_train_"))
+    saves, snapshots = [], []
+    save, async_save = ckpt_lib.save, ckpt_lib.AsyncCheckpointer.save
+
+    def timed_save(*a, **kw):
+        t0 = time.perf_counter()
+        out = save(*a, **kw)
+        saves.append(dict(seconds=time.perf_counter() - t0, bytes=dir_bytes(out), step=a[1]))
+        return out
+
+    def timed_snapshot(self, *a, **kw):
+        t0 = time.perf_counter()
+        async_save(self, *a, **kw)
+        snapshots.append(time.perf_counter() - t0)
+
+    class Crash(RuntimeError):
+        pass
+
+    def crash(step):
+        if step == crash_at and not (root / "crashed").exists():
+            (root / "crashed").write_text("x")
+            raise Crash()
+
+    def run(path, fault_hook=None):
+        model, opt, step_fn = train_parts(mcfg, t["lr"], steps, seed, device)
+        loop = TrainLoop(step_fn, lambda s: batch_iterator(mcfg, t["batch"], t["seq"], s, device),
+                         path, LoopConfig(total_steps=steps, checkpoint_every=every, log_every=1),
+                         fault_hook=fault_hook)
+        return loop.run(model, opt)
+
+    # One CUDA stream and the same shapes in both runs keep cuBLAS's bits
+    # fixed; the variable only satisfies PyTorch's check for the mode.
+    workspace = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    was = torch.are_deterministic_algorithms_enabled()
+    flash = _flash()
+    flash.launches = 0
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            with patched(ckpt_lib, "save", timed_save), \
+                    patched(ckpt_lib.AsyncCheckpointer, "save", timed_snapshot):
+                p_ref, o_ref, _ = run(root / "a")
+                crashed = False
+                try:
+                    run(root / "b", crash)
+                except Crash:
+                    crashed = True
+                p, o, history = run(root / "b", crash)
+        finally:
+            torch.use_deterministic_algorithms(was)
+            if workspace is None:
+                del os.environ["CUBLAS_WORKSPACE_CONFIG"]
+    launches = flash.launches
+    not_deterministic = sorted({str(w.message)[:160] for w in caught
+                                if "deterministic" in str(w.message)})
+    ref_params = dict(p_ref.named_parameters())
+    differ = [n for n, x in p.named_parameters() if not torch.equal(x, ref_params[n])]
+    differ += [f"mu.{n}" for n in o.mu if not torch.equal(o.mu[n], o_ref.mu[n])]
+    differ += [f"nu.{n}" for n in o.nu if not torch.equal(o.nu[n], o_ref.nu[n])]
+    shutil.rmtree(root)
+    if not crashed or differ or int(o.step) != steps or [r["step"] for r in history] != list(
+            range(every, steps)):
+        raise AssertionError(f"crash and resume: crashed={crashed}, differ={differ[:5]}, "
+                             f"step={int(o.step)}, resumed steps {[r['step'] for r in history]}")
+    del p_ref, o_ref, p, o
+    return dict(layers=mcfg.num_layers, steps=steps, checkpoint_every=every, crash_at=crash_at,
+                bitwise_equal=True, deterministic_mode=True,
+                ops_without_a_deterministic_version=not_deterministic,
+                saves=saves, async_snapshot_s=snapshots,
+                save_bytes=max(s["bytes"] for s in saves), flash_launches=launches,
+                temp_dir_removed=not root.exists())
+
+
+def route_spy(counts):
+    """``moe.route`` that adds each call's dropped and routed (token, choice)
+    pairs to ``counts`` (device tensors: no sync), inside the block."""
+    from repro_torch.models import moe
+
+    route = moe.route
+
+    def spy(*a, **kw):
+        r = route(*a, **kw)
+        counts["dropped"] = counts["dropped"] + (~r.keep).sum()
+        counts["pairs"] += r.keep.numel()
+        return r
+
+    return patched(moe, "route", spy)
+
+
+def moe_training(cfg, device, seed) -> dict:
+    """(e) qwen2-moe-a2.7b at full width (d_model 2,048, 16 x 128 heads, 60
+    routed experts top-4 of d_ff 1,408, 4 shared, untied vocab 151,936),
+    ``moe_layers`` of its 24 layers: a 2 x 2,048 prefill and 16 greedy decode
+    steps (``serve.generate``), then ``moe_steps`` train steps from
+    ``batch_iterator``. Decode is held against the full forward at 2 x 128
+    tokens: a prefill of 2 x 112 and 16 teacher-forced decode steps, each
+    step's logits against a full prefill over the same tokens. (The MoE
+    groups take min(256, B S) tokens and must divide B S; at 2 x 2,048 a
+    full forward over the prompt and the decoded tokens would not.) A
+    decode step routes its 2 tokens in one group of capacity 1, the full
+    forward up to 256 in one group of capacity 21, where the last tokens'
+    later choices overflow: the two drop different (token, choice) pairs by
+    construction, and at 60 experts top-4 the gap outgrows the reference's
+    bound, in the reference too (6.4e-2 at d_model 256, both packages
+    alike). So the gap is printed at the arch's capacity factor and gated
+    at the reference's bound with the factor raised to E / k for both
+    sides, where nothing is dropped. Gates: finite, tokens in range, that
+    bound, aux > 0, finite losses, one flash launch a layer in the
+    prefill."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.data.tokens import batch_iterator, synthetic_batch
+    from repro_torch.launch import serve
+    from repro_torch.models import model as lm
+    from repro_torch.models import moe
+    from repro_torch.models.common import TEST_POLICY
+
+    t = cfg["lm_train"]
+    arch = get_arch(t["moe_arch"])
+    mcfg = dataclasses.replace(reduced(arch) if t["reduced"] else arch,
+                               num_layers=t["moe_layers"])
+    B, S, gen = t["moe_batch"], t["moe_seq"], t["moe_gen"]
+    model, opt, step_fn = train_parts(mcfg, t["lr"], t["moe_steps"], seed, device)
+    n_params = lm.param_count(model)
+    prompt = torch.as_tensor(synthetic_batch(mcfg, 0, B, S)["tokens"], device=device)
+    flash = _flash()
+    flash.launches = 0
+    res = serve.generate(model, mcfg, TEST_POLICY, {"tokens": prompt}, gen)
+    serve_launches = flash.launches
+    if not bool(torch.isfinite(res.logits).all()) or int(res.tokens.min()) < 0 \
+            or int(res.tokens.max()) >= mcfg.vocab_size:
+        raise AssertionError("MoE generate: non-finite logits or tokens out of range")
+    if device.type == "cuda" and serve_launches != mcfg.num_layers:
+        raise AssertionError(f"MoE prefill launched flash_attention_bhsd {serve_launches} times")
+
+    short = prompt[:, :128]
+    P = short.shape[1] - gen
+
+    def decode_vs_full() -> float:
+        forced = teacher_forced(model, mcfg, TEST_POLICY, short[:, :P], short[:, P:])
+        with torch.inference_mode():
+            return max(float((forced[i + 1] - lm.forward_prefill(
+                model, mcfg, TEST_POLICY, {"tokens": short[:, :P + i + 1]})[0]).abs().max())
+                for i in range(gen))
+
+    raw_gap = decode_vs_full()
+    with patched(moe, "CAPACITY_FACTOR", mcfg.moe.num_experts / mcfg.moe.top_k):
+        decode_err = decode_vs_full()
+    if not decode_err < MOE_DECODE_TOL:
+        raise AssertionError(f"MoE decode vs full forward, no drops: {decode_err}")
+
+    counts = dict(dropped=torch.zeros((), dtype=torch.int64, device=device), pairs=0)
+    data = batch_iterator(mcfg, B, S, 0, device)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    flash.launches = 0
+    with route_spy(counts):
+        losses, times, metrics = train_steps(step_fn, model, opt, data, t["moe_steps"], device)
+    train_launches = flash.launches
+    peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else None
+    aux = [m["aux"] for m in metrics]
+    if not all(np.isfinite(losses)) or not all(a > 0 and np.isfinite(a) for a in aux):
+        raise AssertionError(f"MoE training: losses {losses}, aux {aux}")
+    del model, opt
+    return dict(arch=mcfg.name, layers=mcfg.num_layers, d_model=mcfg.d_model,
+                experts=mcfg.moe.num_experts, top_k=mcfg.moe.top_k, shared=mcfg.moe.num_shared,
+                vocab=mcfg.vocab_size, params=n_params, batch=B, seq=S, gen=gen,
+                prefill_s=res.prefill_s, decode_ms_per_step=res.decode_s / gen * 1e3,
+                decode_vs_full=dict(no_drops_max_abs_diff=decode_err, limit=MOE_DECODE_TOL,
+                                    capacity_factor_no_drops=mcfg.moe.num_experts / mcfg.moe.top_k,
+                                    max_abs_diff_at_capacity_factor=raw_gap,
+                                    capacity_factor=moe.CAPACITY_FACTOR,
+                                    tokens=[B, short.shape[1]], prefill=P),
+                train_steps=t["moe_steps"], step_s=times,
+                step_s_median=float(np.median(times[1:])), losses=losses, aux=aux,
+                dropped_share=float(counts["dropped"]) / max(counts["pairs"], 1),
+                routed_pairs=counts["pairs"], peak_device_bytes=peak,
+                flash_launches=dict(prefill=serve_launches, train=train_launches))
+
+
+def phase_lm_train(cfg, device, seed) -> dict:
+    """The LM's training path: (a) dense training at full width and depth,
+    (b) the attention gradients at full shapes, (c) one full-width step,
+    kernel route against plain route, (d) crash and resume bit for bit, (e)
+    the MoE arch at full width. TF32 stays off."""
+    if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
+        raise AssertionError("TF32 is on: training must be f32 as in the reference")
+    info = dict(phase="lm_train")
+    for key, part in (("a_dense", dense_training), ("b_attention_gradients", attention_gradients),
+                      ("c_kernel_vs_plain_step", kernel_vs_plain_step),
+                      ("d_crash_and_resume", crash_and_resume_training),
+                      ("e_moe", moe_training)):
+        t0 = time.perf_counter()
+        try:
+            info[key] = part(cfg, device, seed) if part is not attention_gradients \
+                else part(cfg, device)
+        except BaseException:
+            print(json.dumps(info), file=sys.stderr, flush=True)  # the parts that passed
+            raise
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        info[f"{key}_s"] = time.perf_counter() - t0
+    info["flash_launches"] = (info["a_dense"]["flash_launches"]
+                              + info["d_crash_and_resume"]["flash_launches"]
+                              + info["e_moe"]["flash_launches"]["prefill"]
+                              + info["e_moe"]["flash_launches"]["train"])
+    return info
+
+
 def profile_serve(model, cfg, policy, prompt, tokens, steps=4) -> dict:
     """Where serving time goes: one prefill (with the cache set-up) and
     ``steps`` decode steps after it, each traced (device busy share, the
@@ -3062,6 +3621,8 @@ def main(argv=None) -> int:
     emit(serve_info)
     lm_info = phase_lm_serve(cfg, device, args.seed)
     emit(lm_info)
+    train_info = phase_lm_train(cfg, device, args.seed)
+    emit(train_info)
 
     if rehearsal:
         emit(dict(phase="timing", skipped="cpu rehearsal: no device times"))
@@ -3071,6 +3632,13 @@ def main(argv=None) -> int:
                                   sweep_data, lm_info["flash_attention_launches"],
                                   serve_info["launches"], shard_info["launches"], cfg)
         emit(info)
+        for r in rows:  # phase lm_train's launches count with the main path's
+            if r["name"] == "flash_attention_bhsd":
+                r["train_launches"] = train_info["flash_launches"]
+                r["launches"] += r["train_launches"]
+                r["backward"] = [dict(shape=g["shape"], **{k: g[k] for k in (
+                    "backward_ms", "plain_backward_ms", "sdpa_backward_ms", "backward_bound_ms",
+                    "backward_bound_by")}) for g in train_info["b_attention_gradients"]]
 
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith("jax.") or m == "repro"

@@ -2,8 +2,9 @@
 
 A copy of the JAX package's pure-data configs (field for field; its
 ``input_specs`` are not ported). The arch docstrings describe each model as
-the JAX package runs it; the port serves the dense attention archs and
-raises ``NotImplementedError`` on MoE, Mamba, RWKV6 and the frontends.
+the JAX package runs it; the port serves and trains the attention archs,
+dense and MoE, and raises ``NotImplementedError`` on Mamba, RWKV6 and the
+frontends.
 """
 from repro_torch.configs.base import (  # noqa: F401
     SHAPES, ArchConfig, LayerSpec, MoEConfig, ShapeSpec, get_arch, list_archs,

@@ -1,15 +1,18 @@
 """LM token pipeline: a deterministic synthetic corpus (numpy).
 
 The corpus is a reproducible PRNG stream with a Zipf-ish skew, keyed by
-(seed, step), so a batch is the same in both packages. The reference's
-``batch_iterator`` places batches on a JAX mesh and is not ported; move a
-batch to a device with ``torch.as_tensor(..., device=...)``.
+(seed, step), so a batch is the same in both packages and a run resumes
+exactly at a checkpointed step (``batch_iterator(..., start_step)``).
 """
 from __future__ import annotations
 
+from typing import Iterator
+
 import numpy as np
+import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.device import resolve_device
 
 
 def synthetic_batch(cfg: ArchConfig, step: int, batch: int, seq: int, seed: int = 17) -> dict:
@@ -42,3 +45,20 @@ def synthetic_batch(cfg: ArchConfig, step: int, batch: int, seq: int, seed: int 
     else:
         out["tokens"] = (toks % V).astype(np.int32)
     return out
+
+
+def batch_iterator(cfg: ArchConfig, batch: int, seq: int, start_step: int = 0,
+                   device=None, seed: int = 17) -> Iterator[dict]:
+    """Infinite iterator of ``synthetic_batch`` tensors on ``device`` (the card
+    unless ``device="cpu"``), from ``start_step`` on. On a card each host
+    array goes through a pinned buffer and a ``non_blocking`` copy."""
+    dev = resolve_device(device)
+    step = start_step
+    while True:
+        host = {k: torch.from_numpy(v) for k, v in synthetic_batch(cfg, step, batch, seq,
+                                                                    seed).items()}
+        if dev.type == "cuda":
+            yield {k: v.pin_memory().to(dev, non_blocking=True) for k, v in host.items()}
+        else:
+            yield {k: v.to(dev) for k, v in host.items()}
+        step += 1

@@ -18,6 +18,19 @@ column indices as positions.
 ``flash_attention_bhsd`` launches the kernel for CUDA tensors and raises if
 it cannot; for CPU tensors it computes the same function with the plain
 PyTorch version. ``launches`` counts kernel launches, and nothing else.
+
+The gradient. The launch goes through ``ctypes`` on raw pointers and records
+no autograd history, so ``flash_attention_bhsd`` raises when it is called
+under grad mode with a CUDA input that requires grad: a training call must
+never get an answer without a gradient. Training reaches the kernel through
+``FlashAttention``, an ``autograd.Function`` (``flash_attention`` applies
+it): its forward launches the kernel and saves q, k, v; its backward,
+``attention_backward``, recomputes the attention with ``torch`` ops in
+chunks of ``BWD_CHUNK`` query rows and takes its gradient, so the live
+memory is one (chunk x keys) tile a head and never the (S, S) scores. The
+JAX package has no backward kernel either: it differentiates its ``jnp``
+scan (``src/repro/models/attention.py::_flash_attention``), and so this
+backward is plain PyTorch, not a hand-written kernel.
 """
 from __future__ import annotations
 
@@ -98,13 +111,19 @@ def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     1 <= Dh <= 256, the head dim contiguous (any other strides).
     Position of row i is i; key j is seen by query i iff j <= i and, with
     ``window`` > 0, i - j < window. f32 arithmetic; returns (B, S, H, Dh) in
-    q's dtype. Anything outside these limits raises, on either device.
+    q's dtype. Anything outside these limits raises, on either device; on
+    a card so does a call under grad mode with an input that requires grad
+    (``flash_attention`` is the differentiable route).
     """
     _check_inputs(q, k, v, window)
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, window)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_bhsd runs on cuda or cpu, not {q.device}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError(
+            "flash_attention_bhsd's launch records no gradient, and an input requires "
+            "grad: call flash_attention (the autograd Function), or ops.flash_attention")
     B, S, H, Dh = q.shape
     Hkv = k.shape[2]
     out = torch.empty((B, S, H, Dh), dtype=q.dtype, device=q.device)
@@ -119,3 +138,92 @@ def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     build.check(err, "flash_attention launch")
     _count()
     return out
+
+
+#: Query rows one step of ``attention_backward`` recomputes: its live scores
+#: are (B, H, BWD_CHUNK, keys) f32.
+BWD_CHUNK = 512
+
+
+def attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, dout: torch.Tensor,
+                       window: int = 0, chunk: int | None = None):
+    """(dq, dk, dv) of ``flash_attention_bhsd(q, k, v, window=window)`` against
+    ``dout`` (B, S, H, Dh), in plain ``torch`` ops on the inputs' device.
+
+    The inputs are copied once to a (B, heads, S, Dh) f32 layout, the
+    queries pre-scaled by Dh^-0.5. Query rows then go ``chunk`` (default
+    ``BWD_CHUNK``) at a time, the G query heads of a KV head stacked as
+    G * chunk rows of one batched product against that head's keys. Each
+    chunk recomputes its scores against the keys its rows can see (up to
+    its last row; with a window, from its first row's window on), the
+    softmax over whole rows, O = P V, and dP = dO V^T,
+    dS = P (dP - rowsum(dO O)), dQ = dS K Dh^-0.5, dK += dS^T Q Dh^-0.5,
+    dV += P^T dO, so dk and dv sum over the query heads that share a KV
+    head. Each gradient comes back in its input's dtype and layout."""
+    chunk = chunk or BWD_CHUNK
+    B, S, H, Dh = q.shape
+    Hkv = k.shape[2]
+    G = H // Hkv
+    scale = Dh ** -0.5
+
+    def heads(x):  # (B, S, h, Dh) -> (B, h, S, Dh) f32
+        return x.to(torch.float32).transpose(1, 2).contiguous()
+
+    qg = (heads(q) * scale).view(B, Hkv, G, S, Dh)
+    dog = heads(dout).view(B, Hkv, G, S, Dh)
+    kh, vh = heads(k), heads(v)
+    dq = torch.empty_like(qg)
+    dk, dv = torch.zeros_like(kh), torch.zeros_like(vh)
+    pos = torch.arange(S, device=q.device)
+    for i0 in range(0, S, chunk):
+        i1 = min(S, i0 + chunk)
+        j0 = max(0, i0 - window + 1) if window else 0
+        c, T = i1 - i0, i1 - j0
+        qc = qg[:, :, :, i0:i1].reshape(B, Hkv, G * c, Dh)
+        doc = dog[:, :, :, i0:i1].reshape(B, Hkv, G * c, Dh)
+        kc, vc = kh[:, :, j0:i1], vh[:, :, j0:i1]  # (B, Hkv, T, Dh)
+        rel = pos[i0:i1, None] - pos[None, j0:i1]  # (c, T): query - key
+        hidden = rel < 0
+        if window:
+            hidden = hidden | (rel >= window)
+        s = torch.matmul(qc, kc.transpose(-1, -2))  # (B, Hkv, G * c, T)
+        s.view(B, Hkv, G, c, T).masked_fill_(hidden, -torch.inf)
+        p = torch.softmax(s, dim=-1)
+        del s
+        dv[:, :, j0:i1] += torch.matmul(p.transpose(-1, -2), doc)
+        delta = torch.sum(doc * torch.matmul(p, vc), dim=-1, keepdim=True)  # rowsum(P dP)
+        ds = torch.matmul(doc, vc.transpose(-1, -2)).sub_(delta).mul_(p)
+        del p
+        dq[:, :, :, i0:i1] = torch.matmul(ds, kc).view(B, Hkv, G, c, Dh) * scale
+        dk[:, :, j0:i1] += torch.matmul(ds.transpose(-1, -2), qc)
+        del ds
+
+    def back(x, like):  # (B, h, S, Dh) -> like's layout and dtype
+        return x.reshape(B, -1, S, Dh).transpose(1, 2).contiguous().to(like.dtype)
+
+    return back(dq, q), back(dk, k), back(dv, v)
+
+
+class FlashAttention(torch.autograd.Function):
+    """``flash_attention_bhsd`` with a gradient: the forward launches the
+    kernel (the plain version on the CPU) and saves q, k, v; the backward
+    is ``attention_backward``'s recompute."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, window):
+        ctx.window = window
+        ctx.save_for_backward(q, k, v)
+        return flash_attention_bhsd(q, k, v, window=window)  # grad mode is off here
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v = ctx.saved_tensors
+        dq, dk, dv = attention_backward(q, k, v, dout, ctx.window)
+        return dq, dk, dv, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    window: int = 0) -> torch.Tensor:
+    """``flash_attention_bhsd`` under autograd (``FlashAttention``): the
+    training route to the kernel."""
+    return FlashAttention.apply(q, k, v, window)

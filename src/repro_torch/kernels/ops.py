@@ -72,10 +72,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     (B, S, H, Dh).
 
     On a CUDA tensor the hand-written ``flash_attention_bhsd`` kernel, on a
-    CPU tensor its plain version ``ref.flash_attention_ref``. Limits, on
-    both: all float32 or all bfloat16, 1 <= Dh <= 256, the head dim
-    contiguous; outside them it raises. Positions are the row indices.
+    CPU tensor its plain version ``ref.flash_attention_ref`` (under autograd
+    when an input requires grad). On a card under grad mode with an input
+    that requires grad, the kernel through its ``autograd.Function``, whose
+    backward recomputes the attention in ``torch`` ops. Limits, on both: all
+    float32 or all bfloat16, 1 <= Dh <= 256, the head dim contiguous;
+    outside them it raises. Positions are the row indices.
     """
+    if (q.device.type == "cuda" and torch.is_grad_enabled()
+            and any(t.requires_grad for t in (q, k, v))):
+        return _flash.flash_attention(q, k, v, window=window)
     return _flash.flash_attention_bhsd(q, k, v, window=window)
 
 

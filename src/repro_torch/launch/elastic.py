@@ -13,8 +13,9 @@ loads in another, on whatever device count it has:
     ``pool.elastic_resumes`` (`repro_torch.obs` counters;
     ``distributed.checkpoint.COUNTERS`` views them).
 
-`reshard_restore`, the LM training half's restore onto a new mesh, is not
-ported yet.
+`reshard_restore`, the LM train state's restore onto a new mesh, waits for
+the LM on a device mesh (ROADMAP.md Queue 1 item 20); a train checkpoint
+restores on one device through `train.loop.TrainLoop`.
 """
 from __future__ import annotations
 
@@ -28,8 +29,8 @@ from repro_torch.distributed import checkpoint as ckpt_lib
 def reshard_restore(ckpt_dir: str | Path, cfg, policy, opt_cfg, mesh):
     """The LM train state restored onto ``mesh``: not ported yet."""
     raise NotImplementedError(
-        "reshard_restore needs the LM training stack (train loop, optimizer, "
-        "sharding rules), which is not ported yet (ROADMAP.md Queue 1 item 15)"
+        "reshard_restore needs the LM's tensor-parallel sharding rules on a device mesh, "
+        "which are not ported yet (ROADMAP.md Queue 1 item 20)"
     )
 
 

@@ -1,7 +1,8 @@
-"""The LM model: embeddings -> layer groups -> head, for serving.
+"""The LM model: embeddings -> layer groups -> head.
 
 Entry points:
     init(generator, cfg, policy, device=None)          -> LM (an nn.Module)
+    forward_train(params, cfg, policy, batch)          -> (loss, {"ce", "aux"})
     forward_prefill(params, cfg, policy, batch)        -> (last_logits (B, V), cache)
     forward_decode(params, cfg, policy, batch, cache, cache_len)
                                                        -> (logits (B, V), cache)
@@ -12,19 +13,30 @@ params tree (``embed``, ``head``, ``final_norm``,
 ``groups.<g>.layer<i>.{norm1,norm2,mixer.*,ffn.*}``), with the groups an
 ``nn.ModuleList`` instead of a stacked leading axis. A cache is a list with
 one dict per group, ``{"layer<i>": {"k", "v"[, "k_scale", "v_scale"]}}``,
-each tensor (B, T, KV, Dh). The training half of the reference
-(``forward_train`` and its chunked cross-entropy) waits for a later slice
-(ROADMAP.md Queue 1 item 15), as do the audio and vision frontends.
+each tensor (B, T, KV, Dh).
+
+Parameters are built with ``requires_grad=False``, for serving; the
+training entry points (``train.step``) turn gradients on. Training memory:
+with ``cfg.remat == "full"`` each layer group runs under
+``torch.utils.checkpoint`` (the counterpart of the reference's
+``jax.checkpoint`` on its scan body), so only the groups' inputs are kept;
+the cross-entropy is chunked over the sequence, ``LOSS_CHUNK`` positions a
+chunk, each under ``checkpoint``, so the (B, S, V) logits never
+materialize. The audio and vision frontends wait for a later slice
+(ROADMAP.md Queue 1 item 15).
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer
 from repro_torch.models.common import Policy, normal_init, rms_norm, sinusoidal_positions
+
+LOSS_CHUNK = 512
 
 _FRONTENDS = ("the {} frontend is not ported yet (ROADMAP.md Queue 1 item 15: the "
               "LM substrate's frontends)")
@@ -45,6 +57,7 @@ class LM(nn.Module):
             self.head = nn.Parameter(torch.empty((d, V), **kw), requires_grad=False)
         self.final_norm = nn.Parameter(torch.ones((d,), **kw), requires_grad=False)
         self.groups = nn.ModuleList(groups)
+        self.cfg = cfg
 
 
 def build(cfg: ArchConfig, policy: Policy, device=None) -> LM:
@@ -99,6 +112,69 @@ def _head_logits(params: LM, cfg: ArchConfig, policy: Policy, x: torch.Tensor) -
     """x (B, S, d) -> logits (B, S, V)."""
     w = policy.cast(params.embed.T if cfg.tie_embeddings else params.head)
     return x @ w
+
+
+def _labels(cfg: ArchConfig, batch: dict) -> torch.Tensor:
+    """Token ids aligned with the model sequence."""
+    if cfg.frontend != "none":
+        raise NotImplementedError(_FRONTENDS.format(cfg.frontend))
+    return batch["tokens"]
+
+
+def _ce_chunk(params: LM, cfg: ArchConfig, policy: Policy, x_chunk: torch.Tensor,
+              labels_chunk: torch.Tensor, mask_chunk: torch.Tensor):
+    """Cross-entropy sum and mask count of one sequence chunk; its logits live
+    only inside this function."""
+    logits = _head_logits(params, cfg, policy, x_chunk).to(torch.float32)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels_chunk[..., None].long())[..., 0]
+    nll = (logz - gold) * mask_chunk
+    return torch.sum(nll), torch.sum(mask_chunk)
+
+
+def _chunked_ce(params: LM, cfg: ArchConfig, policy: Policy, x: torch.Tensor,
+                labels: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Next-token CE, LOSS_CHUNK positions at a time, each chunk under
+    ``checkpoint`` (its logits are recomputed in the backward), so the
+    (B, S, V) logits never materialize. Position i predicts label i + 1; the
+    last chunk may be shorter (the ragged tail)."""
+    x_in, y, m = x[:, :-1], labels[:, 1:], mask[:, 1:]
+    Sm = x_in.shape[1]
+    chunk = min(LOSS_CHUNK, Sm)
+    tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c0 in range(0, Sm, chunk):
+        c1 = min(Sm, c0 + chunk)
+        s, c = checkpoint(_ce_chunk, params, cfg, policy, x_in[:, c0:c1], y[:, c0:c1],
+                          m[:, c0:c1], use_reentrant=False)
+        tot, cnt = tot + s, cnt + c
+    return tot / torch.clamp(cnt, min=1.0)
+
+
+def forward_train(params: LM, cfg: ArchConfig, policy: Policy,
+                  batch: dict) -> tuple[torch.Tensor, dict]:
+    """Returns (loss, {"ce", "aux"}): the next-token CE over ``batch["tokens"]``
+    (B, S) weighted by ``batch["loss_mask"]`` (B, S) (all ones if absent),
+    plus the MoE layers' aux loss. Differentiable in the parameters that
+    require grad."""
+    x = embed_inputs(params, cfg, policy, batch)
+    B, S, _ = x.shape
+    positions = torch.arange(S, device=x.device).expand(B, S)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for group in params.groups:
+        if cfg.remat == "full":
+            x, aux_g = checkpoint(transformer.apply_group_full, group, cfg, policy, x,
+                                  positions, use_reentrant=False)
+        else:
+            x, aux_g = transformer.apply_group_full(group, cfg, policy, x, positions)
+        aux = aux + aux_g
+    x = rms_norm(x, params.final_norm, cfg.norm_eps)
+    mask = batch.get("loss_mask")
+    if mask is None:
+        mask = torch.ones((B, S), dtype=x.dtype, device=x.device)
+    ce = _chunked_ce(params, cfg, policy, x, _labels(cfg, batch), mask.to(torch.float32))
+    loss = ce + aux
+    return loss, {"ce": ce, "aux": aux}
 
 
 def forward_prefill(params: LM, cfg: ArchConfig, policy: Policy,

@@ -1,1 +1,1 @@
-"""Step builders of the port's LM (serving steps only so far)."""
+"""Step builders and the fault-tolerant training loop of the port's LM."""

@@ -1,13 +1,83 @@
-"""Serving step builders: one prefill step and one decode step over the LM.
+"""Train and serve step builders.
 
-The reference's ``make_train_step`` (gradient accumulation, AdamW) waits for
-the training slice (ROADMAP.md Queue 1 item 15).
+``make_train_step`` returns ``train_step(params, opt_state, batch) ->
+(params, opt_state, metrics)``, the reference's signature, so
+``train.loop.TrainLoop`` takes either package's step. It turns gradients on
+for the model's parameters, computes them with ``torch.autograd.grad``
+(microbatch accumulation into f32 buffers when ``accum_steps`` > 1), and
+applies AdamW with the schedule's multiplier at ``opt_state.step``. The
+parameters and moments are updated in place.
 """
 from __future__ import annotations
+
+from typing import Callable
+
+import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import model
 from repro_torch.models.common import Policy
+from repro_torch.optim import adamw
+from repro_torch.optim.adamw import AdamWConfig, AdamWState
+
+
+def loss_fn(params, cfg: ArchConfig, policy: Policy, batch: dict):
+    loss, metrics = model.forward_train(params, cfg, policy, batch)
+    return loss, metrics
+
+
+def _split_microbatches(batch: dict, accum: int) -> list[dict]:
+    """Every batch leaf (B, ...) cut into ``accum`` equal microbatches."""
+    def split(x):
+        B = x.shape[0]
+        if B % accum:
+            raise ValueError(f"batch {B} does not split into {accum} equal microbatches")
+        return torch.chunk(x, accum, dim=0)
+
+    parts = {k: split(v) for k, v in batch.items()}
+    return [{k: v[i] for k, v in parts.items()} for i in range(accum)]
+
+
+def _grads(params: dict, loss: torch.Tensor) -> dict:
+    return dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
+
+
+def make_train_step(
+    cfg: ArchConfig,
+    policy: Policy,
+    opt_cfg: AdamWConfig,
+    schedule_fn: Callable[[int], float],
+    accum_steps: int = 1,
+):
+    """Returns train_step(params, opt_state, batch) -> (params, opt_state, metrics)."""
+
+    def train_step(params, opt_state: AdamWState, batch: dict):
+        named = adamw.named(params)
+        for p in named.values():
+            p.requires_grad_(True)
+        if accum_steps == 1:
+            loss, metrics = loss_fn(params, cfg, policy, batch)
+            grads = _grads(named, loss)
+            loss, metrics = loss.detach(), {k: v.detach() for k, v in metrics.items()}
+        else:
+            grads = {n: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+                     for n, p in named.items()}
+            loss = None
+            for mb in _split_microbatches(batch, accum_steps):
+                l, _ = loss_fn(params, cfg, policy, mb)
+                for n, g in _grads(named, l).items():
+                    grads[n] += g.to(torch.float32)
+                loss = l.detach() if loss is None else loss + l.detach()
+            grads = {n: g / accum_steps for n, g in grads.items()}
+            loss = loss / accum_steps  # mean of the microbatch means
+            metrics = {}
+
+        lr_scale = schedule_fn(int(opt_state.step))
+        params, opt_state, opt_metrics = adamw.update(params, grads, opt_state, opt_cfg,
+                                                      lr_scale)
+        return params, opt_state, {"loss": loss, **metrics, **opt_metrics}
+
+    return train_step
 
 
 def make_prefill_step(cfg: ArchConfig, policy: Policy):

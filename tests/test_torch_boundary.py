@@ -40,6 +40,9 @@ def test_port_imports_neither_jax_nor_repro():
             "repro_torch.serving.registry", "repro_torch.serving.server",
             "repro_torch.serving.loadgen", "repro_torch.stream.microbatch",
             "repro_torch.launch.cluster_serve"} <= set(modules)
+    assert {"repro_torch.optim", "repro_torch.optim.adamw", "repro_torch.optim.schedule",
+            "repro_torch.models.moe", "repro_torch.train.loop", "repro_torch.train.step",
+            "repro_torch.launch.train"} <= set(modules)
     code = (
         "import importlib, sys\n"
         f"for name in {modules!r}:\n"
@@ -59,7 +62,8 @@ def test_port_imports_neither_jax_nor_repro():
                                    "map_reduce", "stream_predict", "sweep", "serve", "lm_init",
                                    "legacy_fit_predict", "legacy_predict",
                                    "stream_fit_predict", "synthetic", "make_process_fn",
-                                   "registry_register", "cluster_serve"])
+                                   "registry_register", "cluster_serve", "train",
+                                   "batch_iterator"])
 def test_entry_points_default_to_the_card(entry):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is valid here")
@@ -127,6 +131,15 @@ def test_entry_points_default_to_the_card(entry):
 
             cluster_serve.main(["--requests", "10", "--n-fit", "200", "--l", "16",
                                 "--m", "8", "--iters", "2"])
+        elif entry == "train":
+            from repro_torch.launch import train
+
+            train.main(["--arch", "qwen1.5-0.5b", "--steps", "1"])
+        elif entry == "batch_iterator":
+            from repro_torch.configs import get_arch, reduced
+            from repro_torch.data.tokens import batch_iterator
+
+            next(batch_iterator(reduced(get_arch("qwen1.5-0.5b")), 2, 8))
         elif entry == "stream_predict":
             est = KernelKMeans(3, l=16, m=8, backend="stream", device="cpu").fit(store)
             est.device = None
@@ -159,8 +172,16 @@ def test_chip_smoke_cpu_rehearsal():
     phases = [line.get("phase") for line in lines]
     assert phases == ["device", "data", "parity", "main", "agreement", "host_copy", "stream",
                       "rff", "sweep", "shard", "persist", "baselines", "obs", "serve",
-                      "lm_serve", "timing", "done"]
+                      "lm_serve", "lm_train", "timing", "done"]
     assert not any(line.get("ok") for line in lines)
+    train = lines[phases.index("lm_train")]
+    assert train["a_dense"]["loss_last"] < train["a_dense"]["loss_first"]
+    assert all(g["grads"][n]["rel"] <= 1e-4 for g in train["b_attention_gradients"]
+               for n in ("dq", "dk", "dv"))
+    assert train["c_kernel_vs_plain_step"]["projections_with_nonzero_grad"] == 12
+    assert train["d_crash_and_resume"]["bitwise_equal"]
+    assert train["d_crash_and_resume"]["temp_dir_removed"]
+    assert min(train["e_moe"]["aux"]) > 0 and train["flash_launches"] == 0
     main = lines[phases.index("main")]
     assert main["nmi"] > 0.9 and main["launches"] == {"apnc_embed": 0, "apnc_assign": 0}
     stream = lines[phases.index("stream")]

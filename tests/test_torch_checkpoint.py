@@ -424,5 +424,5 @@ def test_mismatched_fingerprint_is_ignored_and_resumes_are_counted(tmp_path):
 
 
 def test_reshard_restore_names_its_item():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 15"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 20"):
         elastic.reshard_restore("ckpt", None, None, None, None)

@@ -155,3 +155,80 @@ def test_flash_attention_rejects_kv_heads_that_do_not_divide(kv_heads):
     k = v = torch.zeros((1, 8, kv_heads, 16))
     with pytest.raises(ValueError):
         tops.flash_attention(q, k, v)
+
+
+# ------------------------------------------------------------------ gradients
+
+#: (B, S, H, Hkv, Dh, window, chunk): a chunk that splits S raggedly, a window
+#: shorter than a chunk, grouped KV heads, and one chunk covering S.
+GRAD_CASES = [(2, 37, 4, 4, 16, 0, 8), (1, 50, 6, 3, 16, 9, 16), (2, 33, 4, 1, 8, 0, 512),
+              (1, 64, 2, 2, 40, 20, 7)]
+
+
+def _jax_grads(q, k, v, dout, window):
+    """(dq, dk, dv) of the reference's model-side scan, the function the JAX
+    package differentiates in training, k and v repeated to the query heads
+    as its fwd_full does."""
+    import jax
+
+    reps = q.shape[2] // k.shape[2]
+    pos = jnp.arange(q.shape[1])
+
+    def f(q, k, v):
+        return jattention._flash_attention(q, jattention._repeat_kv(k, reps),
+                                           jattention._repeat_kv(v, reps), pos, pos, window,
+                                           q_chunk=q.shape[1], kv_chunk=q.shape[1])
+
+    _, vjp = jax.vjp(f, *(jnp.asarray(a) for a in (q, k, v)))
+    return [np.asarray(g) for g in vjp(jnp.asarray(dout))]
+
+
+@pytest.mark.parametrize("B,S,H,Hkv,Dh,window,chunk", GRAD_CASES)
+def test_attention_backward_matches_the_references_gradient(B, S, H, Hkv, Dh, window, chunk):
+    """``attention_backward`` (the Function's backward) against jax.vjp of the
+    reference's scan: each gradient within 1e-5 max|g| + 1e-7 (f32 sums in
+    another order)."""
+    rng = np.random.default_rng(S)
+    q = rng.standard_normal((B, S, H, Dh)).astype(np.float32)
+    k, v = (rng.standard_normal((B, S, Hkv, Dh)).astype(np.float32) for _ in range(2))
+    dout = rng.standard_normal((B, S, H, Dh)).astype(np.float32)
+    want = _jax_grads(q, k, v, dout, window)
+    got = t_flash.attention_backward(*(torch.from_numpy(a) for a in (q, k, v, dout)),
+                                     window=window, chunk=chunk)
+    for name, g, w in zip("qkv", got, want):
+        assert g.shape == w.shape and g.dtype == torch.float32
+        assert np.abs(g.numpy() - w).max() <= 1e-5 * np.abs(w).max() + 1e-7, name
+
+
+@pytest.mark.parametrize("B,S,H,Hkv,Dh,window,chunk", GRAD_CASES)
+def test_flash_function_on_the_cpu_matches_autograd_through_the_plain_version(
+        B, S, H, Hkv, Dh, window, chunk, monkeypatch):
+    """The Function on CPU tensors (its forward the plain version, its
+    backward the recompute) against autograd through
+    ``ref.flash_attention_ref``; ``ops.flash_attention`` on the CPU stays the
+    plain version under autograd."""
+    monkeypatch.setattr(t_flash, "BWD_CHUNK", chunk)
+    g = torch.Generator().manual_seed(S)
+    q = torch.randn((B, S, H, Dh), generator=g, requires_grad=True)
+    k, v = (torch.randn((B, S, Hkv, Dh), generator=g, requires_grad=True) for _ in range(2))
+    dout = torch.randn((B, S, H, Dh), generator=g)
+    want_out = tref.flash_attention_ref(q, k, v, window)
+    want = torch.autograd.grad(want_out, (q, k, v), dout)
+    out = t_flash.flash_attention(q, k, v, window=window)
+    assert out.grad_fn is not None and torch.equal(out, want_out)
+    got = torch.autograd.grad(out, (q, k, v), dout)
+    for name, a, b in zip("qkv", got, want):
+        assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max()) + 1e-7, name
+    plain = tops.flash_attention(q, k, v, window=window)
+    assert "Flash" not in type(plain.grad_fn).__name__ and torch.equal(plain, want_out)
+
+
+def test_attention_backward_bf16_inputs_give_bf16_gradients():
+    rng = np.random.default_rng(0)
+    q, k, v, dout = (rng.standard_normal((1, 40, 2, 16)).astype(np.float32) for _ in range(4))
+    want = _jax_grads(q, k, v, dout, 0)
+    got = t_flash.attention_backward(*(torch.from_numpy(a).to(torch.bfloat16)
+                                       for a in (q, k, v, dout)), chunk=16)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16
+        np.testing.assert_allclose(g.float().numpy(), w, **TOL["bf16"])

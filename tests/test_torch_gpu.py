@@ -407,6 +407,97 @@ def test_lm_serve_on_card_matches_cpu(cuda):
                                    rtol=1e-4, atol=1e-5)
 
 
+#: (B, S, H, Hkv, Dh), window: a ragged S, grouped KV heads, head dims 40 to
+#: 128, windows shorter and longer than S, S past one backward chunk.
+FLASH_GRAD_CASES = [((2, 300, 4, 4, 64), 0), ((1, 1000, 8, 2, 128), 0),
+                    ((2, 257, 6, 3, 40), 50), ((1, 700, 4, 4, 64), 4096)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,window", FLASH_GRAD_CASES,
+                         ids=lambda c: "x".join(map(str, c)) if isinstance(c, tuple) else str(c))
+def test_flash_function_gradients_match_plain(cuda, shape, window):
+    """Under grad mode ``ops.flash_attention`` takes the kernel through its
+    autograd.Function: out within the f32 kernel tolerance of autograd
+    through the plain version, dq, dk, dv within 1e-4 * max|g| (the same
+    f32 arithmetic summed in another order)."""
+    from repro_torch.kernels import flash_attention as t_flash
+
+    B, S, H, Hkv, Dh = shape
+    g = torch.Generator().manual_seed(13)
+    q = torch.randn((B, S, H, Dh), generator=g).to(cuda)
+    k, v = (torch.randn((B, S, Hkv, Dh), generator=g).to(cuda) for _ in range(2))
+    dout = torch.randn((B, S, H, Dh), generator=g).to(cuda)
+    mine = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    before = t_flash.launches
+    out = ops.flash_attention(*mine, window=window)
+    assert t_flash.launches == before + 1
+    assert type(out.grad_fn).__name__ == "FlashAttentionBackward"
+    got = torch.autograd.grad(out, mine, dout)
+    plain = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    want_out = ref.flash_attention_ref(*plain, window)
+    want = torch.autograd.grad(want_out, plain, dout)
+    torch.testing.assert_close(out.detach(), want_out.detach(), rtol=2e-4, atol=2e-5)
+    for name, a, b in zip("qkv", got, want):
+        assert a.shape == b.shape and bool(torch.isfinite(a).all())
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max()), name
+
+
+@pytest.mark.gpu
+def test_flash_wrapper_raises_on_an_input_that_requires_grad(cuda):
+    """The launch records no autograd history: under grad mode with an input
+    that requires grad the wrapper raises rather than answer without a
+    gradient; without grad mode, or with no input requiring grad, it runs."""
+    from repro_torch.kernels import flash_attention as t_flash
+
+    g = torch.Generator().manual_seed(14)
+    q, k, v = (torch.randn((1, 64, 2, 16), generator=g).to(cuda) for _ in range(3))
+    for i in range(3):
+        args = [q, k, v]
+        args[i] = args[i].clone().requires_grad_(True)
+        with pytest.raises(RuntimeError, match="records no gradient"):
+            t_flash.flash_attention_bhsd(*args)
+        with torch.no_grad():
+            t_flash.flash_attention_bhsd(*args)
+    out = t_flash.flash_attention_bhsd(q, k, v)
+    assert out.grad_fn is None
+
+
+@pytest.mark.gpu
+def test_train_gradients_on_card_match_cpu(cuda):
+    """forward_train and its gradients on the card (the kernel through the
+    Function, twice a layer under remat) against the same model on the CPU
+    (the plain attention under autograd), reduced qwen1.5-0.5b: the loss
+    within rtol 2e-4, each gradient within 2e-3 * max|g| (chip_smoke.py's
+    kernel-vs-plain step bounds)."""
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.data.tokens import synthetic_batch
+    from repro_torch.kernels import flash_attention as t_flash
+    from repro_torch.models import model as lm
+    from repro_torch.models.common import TEST_POLICY
+
+    cfg = reduced(get_arch("qwen1.5-0.5b"))
+    cpu_model = lm.init(torch.Generator().manual_seed(0), cfg, TEST_POLICY, device="cpu")
+    gpu_model = lm.build(cfg, TEST_POLICY, cuda)
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    host = {k: torch.from_numpy(v) for k, v in synthetic_batch(cfg, 0, 2, 96).items()}
+    result = {}
+    for name, model, dev in (("cpu", cpu_model, "cpu"), ("card", gpu_model, cuda)):
+        params = dict(model.named_parameters())
+        for p in params.values():
+            p.requires_grad_(True)
+        before = t_flash.launches
+        loss, _ = lm.forward_train(model, cfg, TEST_POLICY, {k: v.to(dev) for k, v in host.items()})
+        grads = torch.autograd.grad(loss, list(params.values()))
+        result[name] = (float(loss.detach()), {n: gr.cpu() for n, gr in zip(params, grads)},
+                        t_flash.launches - before)
+    assert result["cpu"][2] == 0 and result["card"][2] == 2 * cfg.num_layers
+    assert abs(result["card"][0] - result["cpu"][0]) <= 2e-4 * abs(result["cpu"][0])
+    for n, want in result["cpu"][1].items():
+        got = result["card"][1][n]
+        assert float((got - want).abs().max()) <= 2e-3 * float(want.abs().max()), n
+
+
 def _landmark_params(X_pool, l, m, seed):
     """Landmarks drawn from the pool and a random (m, l) R: the equalities
     below hold for any L and R, so no fit is needed (m may exceed l)."""
