@@ -45,7 +45,12 @@ autograd through the plain attention at two full shapes, timed beside
 route against plain route, every attention projection with a non-zero
 gradient; (d) ``TrainLoop`` crashed by its fault hook and resumed from its
 checkpoint bit for bit; (e) qwen2-moe-a2.7b at full width, 2 layers:
-generate, decode against the full forward, 5 train steps. It holds ``apnc_assign_step`` (labels, Z, g and the block's cost in
+generate, decode against the full forward, 5 train steps. Phase ``lm_ssm``
+serves the SSM and frontend archs at their published widths through
+``serve.generate``: (a) rwkv6-3b whole, (b) one jamba-1.5-large-398b group
+(bf16, 4 of its 16 experts), (c) musicgen-large whole, (d) llava-next-34b
+on 2 layers, each also reduced, card against CPU and decode against the
+full forward. It holds ``apnc_assign_step`` (labels, Z, g and the block's cost in
 one launch) bit for bit against the three fused steps on the Y each one's
 un-fused chain makes. It times each kernel beside its bound, its plain
 version and a PyTorch library call (chain). Every phase prints
@@ -107,8 +112,9 @@ IMAGENET = dict(n=_IMAGENET.n, d=_IMAGENET.d, k=_IMAGENET.k, separation=_IMAGENE
                 parity_dequant=((4096, 67, 24), (1003, 9, 256), (4096, 164, 256),
                                 (1003, 67, 800), (1003, 9, 900)),
                 parity_flash=((4, 32, 16, 64), (1, 1000, 8, 128), (2, 257, 3, 40),
-                              (1, 4096, 16, 64), (1, 2048, 32, 128)),
-                parity_flash_gqa=((1, 2048, 32, 8, 128), (2, 257, 6, 3, 40)),
+                              (1, 4096, 16, 64), (1, 2048, 32, 128), (4, 1024, 32, 64)),
+                parity_flash_gqa=((1, 2048, 32, 8, 128), (2, 257, 6, 3, 40),
+                                  (2, 1024, 64, 8, 128), (1, 3008, 64, 8, 128)),
                 lm_arch="qwen1.5-0.5b", lm_reduced=False, lm_batch=4, lm_prompt=4096,
                 lm_gen=32,
                 # Phase lm_train: (a) qwen1.5-0.5b unreduced, batch x seq, steps; (b)
@@ -122,6 +128,19 @@ IMAGENET = dict(n=_IMAGENET.n, d=_IMAGENET.d, k=_IMAGENET.k, separation=_IMAGENE
                               step_layers=2, resume_steps=20, resume_every=10, crash_at=12,
                               moe_arch="qwen2-moe-a2.7b", moe_layers=2, moe_batch=2, moe_seq=2048,
                               moe_gen=16, moe_steps=5),
+                # Phase lm_ssm: each part's arch at its published widths, the
+                # depth (layers) and experts cut where given, its prompt of
+                # `prompt` model positions (llava: 2,880 patches + 128 tokens)
+                # and `gen` greedy decode steps; `check`: the reduced models'
+                # card vs CPU and decode vs full gates, batch x prompt, steps.
+                lm_ssm=dict(reduced=False,
+                            rwkv=dict(arch="rwkv6-3b", batch=4, prompt=1024, gen=16),
+                            jamba=dict(arch="jamba-1.5-large-398b", layers=8, experts=4,
+                                       dtype="bfloat16", batch=2, prompt=1024, gen=16),
+                            musicgen=dict(arch="musicgen-large", batch=4, prompt=1024, gen=16),
+                            llava=dict(arch="llava-next-34b", layers=2, batch=1, prompt=3008,
+                                       gen=16),
+                            check=dict(batch=2, prompt=16, steps=4)),
                 # Table 2 on the card: the imagenet-50k stand-in (50,000 rows,
                 # the ImageNet d, k and separation, warped), 10,000 more rows
                 # of its mixture held out; `small_n` rows for card vs CPU.
@@ -147,6 +166,14 @@ REHEARSAL = dict(n=4_000, d=32, k=8, separation=3.0, l=64, m=16, iters=20,
                                step_layers=2, resume_steps=20, resume_every=10, crash_at=12,
                                moe_arch="qwen2-moe-a2.7b", moe_layers=2, moe_batch=2, moe_seq=64,
                                moe_gen=4, moe_steps=5),
+                 lm_ssm=dict(reduced=True,
+                             rwkv=dict(arch="rwkv6-3b", batch=2, prompt=16, gen=4),
+                             jamba=dict(arch="jamba-1.5-large-398b", layers=8, experts=4,
+                                        dtype="bfloat16", batch=2, prompt=16, gen=4),
+                             musicgen=dict(arch="musicgen-large", batch=2, prompt=16, gen=4),
+                             llava=dict(arch="llava-next-34b", layers=2, batch=1, prompt=16,
+                                        gen=4),
+                             check=dict(batch=2, prompt=16, steps=4)),
                  baselines=dict(dataset=None, n=1_500, held_out=300, l=64, m=16, rff_m=16,
                                 iters=20, small_n=400),
                  serve=dict(requests=2_000, micro_batch=64, max_delay_ms=2.0, open_rate=0.5,
@@ -667,8 +694,9 @@ def check_flash(what, q, k, v, window) -> float:
 
 def parity_flash(device, cfg) -> list:
     """flash_attention_bhsd against its plain version: (B, S, H, Dh) from the
-    launcher's default prompt to 4,096 tokens, ragged S, Dh 40 to 128, every
-    window of FLASH_WINDOWS, f32 and bf16."""
+    launcher's default prompt to 4,096 tokens, ragged S, Dh 40 to 128,
+    musicgen-large's prefill in phase lm_ssm, every window of FLASH_WINDOWS,
+    f32 and bf16."""
     out = []
     g = torch.Generator().manual_seed(23)
     for shape in cfg["parity_flash"]:
@@ -685,7 +713,9 @@ def parity_flash(device, cfg) -> list:
 
 def parity_flash_gqa(device, cfg) -> list:
     """flash_attention_bhsd with grouped KV heads (k, v with Hkv < H heads,
-    read by head index in the kernel) against its plain version."""
+    read by head index in the kernel) against its plain version, at
+    llama3-8b's heads and phase lm_ssm's jamba and llava prefills (8:1
+    groups; llava's 3,008 positions, 2,880 patches and 128 tokens)."""
     out = []
     g = torch.Generator().manual_seed(29)
     for B, S, H, Hkv, Dh in cfg["parity_flash_gqa"]:
@@ -2288,36 +2318,36 @@ def f32_cache():
     return patched(transformer, "_attn_prefill", prefill)
 
 
-def teacher_forced(model, cfg, policy, prompt, tokens, kv_int8=False):
-    """Logits (gen + 1, B, V) of a prefill over ``prompt`` and one decode step
-    per column of ``tokens`` (B, gen), fed those tokens whatever the logits
-    say."""
+def _step_key(cfg) -> str:
+    return "codes" if cfg.frontend == "audio_codes" else "tokens"
+
+
+def teacher_forced(model, cfg, policy, prompt: dict, tokens, kv_int8=False):
+    """Logits (gen + 1, B, ...) of a prefill over the ``prompt`` batch and
+    one decode step per position of ``tokens`` (B, gen), or codes (B, K,
+    gen), fed those whatever the logits say."""
     from repro_torch.launch import serve
     from repro_torch.models import model as lm
 
+    key = _step_key(cfg)
     with torch.inference_mode():
-        S, gen = prompt.shape[1], tokens.shape[1]
-        logits, cache = serve.prefill(model, cfg, policy, {"tokens": prompt}, S + gen,
-                                      kv_int8=kv_int8)
+        S, gen = serve.prompt_length(cfg, prompt), tokens.shape[-1]
+        logits, cache = serve.prefill(model, cfg, policy, prompt, S + gen, kv_int8=kv_int8)
         steps = [logits]
         for i in range(gen):
-            logits, cache = lm.forward_decode(model, cfg, policy, {"tokens": tokens[:, i:i + 1]},
+            logits, cache = lm.forward_decode(model, cfg, policy, {key: tokens[..., i:i + 1]},
                                               cache, S + i)
             steps.append(logits)
     return torch.stack(steps)
 
 
-def decode_vs_prefill(model, cfg, policy, prompt, full_last) -> float:
-    """max |decode of the prompt's last token over a prefill of the rest -
+def decode_vs_full(model, cfg, policy, batch: dict, full_last) -> float:
+    """max |decode of the batch's last position over a prefill of the rest -
     the full prefill's last logits|."""
-    from repro_torch.launch import serve
-    from repro_torch.models import model as lm
-
-    S = prompt.shape[1]
-    with torch.inference_mode():
-        _, cache = serve.prefill(model, cfg, policy, {"tokens": prompt[:, :-1]}, S)
-        step, _ = lm.forward_decode(model, cfg, policy, {"tokens": prompt[:, -1:]}, cache, S - 1)
-    return float((step - full_last).abs().max())
+    key = _step_key(cfg)
+    rest = dict(batch, **{key: batch[key][..., :-1]})
+    step = teacher_forced(model, cfg, policy, rest, batch[key][..., -1:])[1]
+    return float((step.float() - full_last.float()).abs().max())
 
 
 def phase_lm_serve(cfg, device, seed) -> dict:
@@ -2382,24 +2412,24 @@ def phase_lm_serve(cfg, device, seed) -> dict:
 
     t1 = time.perf_counter()
     with plain_attention():
-        plain = teacher_forced(model, mcfg, policy, prompt, res.tokens)
+        plain = teacher_forced(model, mcfg, policy, {"tokens": prompt}, res.tokens)
     sync(device)
     plain_s = time.perf_counter() - t1
     scale = float(logits.abs().max())
     vs_plain = float((logits - plain).abs().max())
     plain_tokens = plain[:-1].argmax(dim=-1).T
-    dvp = dict(bf16_cache=decode_vs_prefill(model, mcfg, policy, prompt, logits[0]))
+    dvp = dict(bf16_cache=decode_vs_full(model, mcfg, policy, {"tokens": prompt}, logits[0]))
     with f32_cache():
-        dvp["f32_cache"] = decode_vs_prefill(model, mcfg, policy, prompt, logits[0])
+        dvp["f32_cache"] = decode_vs_full(model, mcfg, policy, {"tokens": prompt}, logits[0])
     small = reduced(arch)
     small_model = lm.init(torch.Generator(device=device).manual_seed(seed), small, policy, device)
     small_prompt = torch.as_tensor(synthetic_batch(small, 0, 2, 16)["tokens"], device=device)
     with torch.inference_mode():
         small_full, _ = lm.forward_prefill(small_model, small, policy, {"tokens": small_prompt})
-    dvp["reduced_bf16_cache"] = decode_vs_prefill(small_model, small, policy, small_prompt,
+    dvp["reduced_bf16_cache"] = decode_vs_full(small_model, small, policy, {"tokens": small_prompt},
                                                   small_full)
     dvp_limits = dict(bf16_cache=2e-2, f32_cache=2e-3, reduced_bf16_cache=2e-3)
-    int8 = teacher_forced(model, mcfg, policy, prompt, res.tokens, kv_int8=True)
+    int8 = teacher_forced(model, mcfg, policy, {"tokens": prompt}, res.tokens, kv_int8=True)
     int8_vs_bf16 = float((int8 - logits).abs().max())
     profile = profile_serve(model, mcfg, policy, prompt, res.tokens) \
         if device.type == "cuda" else None
@@ -2896,16 +2926,16 @@ def moe_training(cfg, device, seed) -> dict:
     short = prompt[:, :128]
     P = short.shape[1] - gen
 
-    def decode_vs_full() -> float:
-        forced = teacher_forced(model, mcfg, TEST_POLICY, short[:, :P], short[:, P:])
+    def forced_gap() -> float:
+        forced = teacher_forced(model, mcfg, TEST_POLICY, {"tokens": short[:, :P]}, short[:, P:])
         with torch.inference_mode():
             return max(float((forced[i + 1] - lm.forward_prefill(
                 model, mcfg, TEST_POLICY, {"tokens": short[:, :P + i + 1]})[0]).abs().max())
                 for i in range(gen))
 
-    raw_gap = decode_vs_full()
+    raw_gap = forced_gap()
     with patched(moe, "CAPACITY_FACTOR", mcfg.moe.num_experts / mcfg.moe.top_k):
-        decode_err = decode_vs_full()
+        decode_err = forced_gap()
     if not decode_err < MOE_DECODE_TOL:
         raise AssertionError(f"MoE decode vs full forward, no drops: {decode_err}")
 
@@ -2964,6 +2994,209 @@ def phase_lm_train(cfg, device, seed) -> dict:
                               + info["d_crash_and_resume"]["flash_launches"]
                               + info["e_moe"]["flash_launches"]["prefill"]
                               + info["e_moe"]["flash_launches"]["train"])
+    return info
+
+
+# ------------------------------------------------------ LM: SSM and frontends
+
+#: The card's logits against the port's CPU path from the same parameters,
+#: on a reduced model: the reference's flash-attention tolerance (FLASH_TOL
+#: f32, rtol 2e-4 and atol 2e-5), the rtol taken of max |logits|. Both sides
+#: are f32; they differ in cuBLAS's and the CPU's sums and the attention
+#: kernel's against the plain softmax.
+SSM_CARD_RTOL, SSM_CARD_ATOL = 2e-4, 2e-5
+#: The reference's decode-vs-full bars on a reduced model
+#: (tests/test_models_smoke.py): 2e-3, 5e-2 with MoE.
+DECODE_TOL, DECODE_TOL_MOE = 2e-3, 5e-2
+
+
+def f32_states():
+    """Prefill keeps the SSM layers' bf16 states (Mamba's conv window,
+    RWKV6's x_tmix and x_cmix) in f32 inside the block."""
+    from repro_torch.models import mamba, rwkv6
+
+    stack = contextlib.ExitStack()
+    for mod in (mamba, rwkv6):
+        stack.enter_context(patched(mod, "CACHE_DTYPE", torch.float32))
+    return stack
+
+
+def lm_inputs(mcfg, B, S, device) -> dict:
+    """``synthetic_batch`` of S model positions on the card, without its mask:
+    tokens, codes (B, K, S), or P patch embeddings and S - P tokens."""
+    from repro_torch.data.tokens import synthetic_batch
+
+    return {k: torch.as_tensor(v, device=device)
+            for k, v in synthetic_batch(mcfg, 0, B, S).items() if k != "loss_mask"}
+
+
+def reduced_checks(arch, device, seed, check) -> dict:
+    """The arch's reduced model (f32) drawn on the card and copied to the CPU:
+    a prefill and ``steps`` teacher-forced decode steps on both, within
+    SSM_CARD_RTOL * max|logits| + SSM_CARD_ATOL; and decode against the full
+    forward on the card at the reference's bar."""
+    import copy
+
+    from repro_torch.configs import reduced
+    from repro_torch.models import model as lm
+    from repro_torch.models.common import TEST_POLICY
+
+    small = reduced(arch)
+    model = lm.init(torch.Generator(device=device).manual_seed(seed), small, TEST_POLICY, device)
+    cpu_model = copy.deepcopy(model).to("cpu")
+    batch = lm_inputs(small, check["batch"], check["prompt"], device)
+    key, n = _step_key(small), check["steps"]
+    prompt = dict(batch, **{key: batch[key][..., :-n]})
+    card = teacher_forced(model, small, TEST_POLICY, prompt, batch[key][..., -n:]).cpu()
+    host = teacher_forced(cpu_model, small, TEST_POLICY,
+                          {k: v.cpu() for k, v in prompt.items()}, batch[key][..., -n:].cpu())
+    scale = float(host.abs().max())
+    diff = float((card - host).abs().max())
+    limit = SSM_CARD_RTOL * scale + SSM_CARD_ATOL
+    if not diff <= limit:
+        raise AssertionError(f"{small.name}: card vs CPU logits differ by {diff} (limit {limit})")
+    with torch.inference_mode():
+        full, _ = lm.forward_prefill(model, small, TEST_POLICY, batch)
+    dvf = decode_vs_full(model, small, TEST_POLICY, batch, full)
+    bar = DECODE_TOL_MOE if small.moe is not None else DECODE_TOL
+    if not dvf < bar:
+        raise AssertionError(f"{small.name}: decode vs full forward {dvf} (bar {bar})")
+    return dict(arch=small.name, tokens=[check["batch"], check["prompt"]],
+                card_vs_cpu=dict(max_abs_diff=diff, limit=limit, logits_abs_max=scale,
+                                 steps=check["steps"]),
+                decode_vs_full=dict(max_abs_diff=dvf, limit=bar))
+
+
+def scan_ms(part, model, mcfg, batch, device) -> dict | None:
+    """Device ms of the selective scan / WKV recurrence of one layer at this
+    part's full shape (plain ``torch`` loops, the lax.scan's counterpart),
+    inputs drawn at the shapes the layer gives it, and its bound: the inputs
+    read and the outputs written once, at the card's memory rate."""
+    from repro_torch.models import mamba, rwkv6
+
+    if part not in ("rwkv", "jamba"):
+        return None
+    B, S = batch["tokens"].shape
+    g = torch.Generator(device=device).manual_seed(0)
+    if part == "rwkv":
+        Hp, hs = mcfg.phys_heads, mcfg.rwkv_head_size
+        r, k, v = (torch.randn((B, S, Hp, hs), generator=g, device=device) for _ in range(3))
+        w = torch.rand((B, S, Hp, hs), generator=g, device=device)
+        u = model.groups[0].layer0.mixer.u
+        run = lambda: rwkv6._wkv_scan(r, k, v, w, u)  # noqa: E731
+        nbytes = 5 * r.numel() * 4 + B * Hp * hs * hs * 4
+        what = "wkv6 recurrence"
+    else:
+        di, N = mcfg.ssm_d_inner, mcfg.ssm_state
+        xc, dt = (torch.rand((B, S, di), generator=g, device=device) * 0.1 for _ in range(2))
+        Bm, Cm = (torch.randn((B, S, N), generator=g, device=device) for _ in range(2))
+        A = -torch.exp(model.groups[0].layer0.mixer.A_log)
+        run = lambda: mamba._scan(mcfg, xc, dt, Bm, Cm, A)  # noqa: E731
+        nbytes = (3 * xc.numel() + 2 * Bm.numel()) * 4 + B * di * N * 4
+        what = "selective scan"
+    with torch.inference_mode():
+        ms = cuda_ms(run, iters=2, warmup=1)
+    return dict(what=what, shape=[B, S], ms=ms, bound_ms=nbytes / PEAK_BYTES_PER_S * 1e3,
+                bound_by="bytes", per_token_us=ms * 1e3 / S)
+
+
+def ssm_part(part, spec, cfg, device, seed) -> dict:
+    """One arch at its published widths (depth and experts as ``spec`` cuts
+    them) from a seeded random init: ``serve.generate`` over ``spec``'s
+    prompt and greedy decode steps, the flash launch count zeroed just
+    before and read just after (one a prefill per attention layer, none in
+    decode, where attention is ``torch`` ops); then the reduced model's
+    gates (``reduced_checks``)."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.launch import serve
+    from repro_torch.models import model as lm
+    from repro_torch.models.common import TEST_POLICY, Policy
+
+    t = cfg["lm_ssm"]
+    arch = get_arch(spec["arch"])
+    mcfg = reduced(arch) if t["reduced"] else arch
+    cuts = {}
+    if spec.get("layers"):
+        cuts["num_layers"] = spec["layers"]
+    if spec.get("experts") and mcfg.moe is not None:
+        cuts["moe"] = dataclasses.replace(mcfg.moe, num_experts=min(spec["experts"],
+                                                                    mcfg.moe.num_experts))
+    mcfg = dataclasses.replace(mcfg, **cuts)
+    policy = (Policy(torch.bfloat16, torch.bfloat16) if spec.get("dtype") == "bfloat16"
+              else TEST_POLICY)
+    B, S, gen = spec["batch"], spec["prompt"], spec["gen"]
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    model = lm.init(torch.Generator(device=device).manual_seed(seed), mcfg, policy, device)
+    batch = lm_inputs(mcfg, B, S, device)
+    sync(device)
+    init_s = time.perf_counter() - t0
+    flash = _flash()
+    flash.launches = 0
+    res = serve.generate(model, mcfg, policy, batch, gen)
+    launches = flash.launches
+    peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else None
+    attn_layers = sum(s.mixer == "attn" for s in mcfg.layer_pattern()) * mcfg.num_groups
+    if not bool(torch.isfinite(res.logits).all()):
+        raise AssertionError(f"{mcfg.name}: non-finite logits")
+    if int(res.tokens.min()) < 0 or int(res.tokens.max()) >= mcfg.vocab_size:
+        raise AssertionError(f"{mcfg.name}: generated tokens out of range")
+    if device.type == "cuda" and launches != attn_layers:
+        raise AssertionError(f"{mcfg.name}: flash_attention_bhsd ran {launches} times for "
+                             f"{attn_layers} attention layers")
+    out = dict(arch=mcfg.name, layers=mcfg.num_layers, d_model=mcfg.d_model,
+               pattern=[f"{s.mixer}+{s.ffn}" for s in mcfg.layer_pattern()],
+               experts=None if mcfg.moe is None else [mcfg.moe.num_experts, mcfg.moe.top_k],
+               cuts=dict(layers=[arch.num_layers, mcfg.num_layers],
+                         experts=None if arch.moe is None else [arch.moe.num_experts,
+                                                                mcfg.moe.num_experts]),
+               dtype=str(policy.param_dtype).replace("torch.", ""),
+               params=lm.param_count(model),
+               param_bytes=sum(p.numel() * p.element_size() for p in model.parameters()),
+               batch=B, prompt=S, gen=gen, init_s=init_s, prefill_s=res.prefill_s,
+               decode_ms_per_step=res.decode_s / gen * 1e3,
+               decode_tokens_per_s=B * gen / res.decode_s, peak_device_bytes=peak,
+               flash_launches=launches, attention_layers=attn_layers,
+               first_tokens=res.tokens[..., :4].tolist()[:2])
+    if part == "rwkv":  # decode against the full prefill, as phase lm_serve gates it
+        dvp = dict(bf16_states=decode_vs_full(model, mcfg, policy, batch, res.logits[0]))
+        with f32_states():
+            dvp["f32_states"] = decode_vs_full(model, mcfg, policy, batch, res.logits[0])
+        limits = dict(bf16_states=2e-2, f32_states=2e-3)
+        if any(dvp[k] > lim for k, lim in limits.items()):
+            raise AssertionError(f"{mcfg.name}: decode vs prefill {dvp} (limits {limits})")
+        out["decode_vs_prefill"] = dict(max_abs_diff=dvp, limit=limits)
+    if device.type == "cuda":
+        out["scan"] = scan_ms(part, model, mcfg, batch, device)
+    del model, res
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    out["reduced"] = reduced_checks(arch, device, seed, t["check"])
+    return out
+
+
+def phase_lm_ssm(cfg, device, seed) -> dict:
+    """The SSM mixers and the frontends: (a) rwkv6-3b at full width and
+    depth, (b) one jamba-1.5-large-398b group at full width (bf16, its 16
+    experts cut to 4), (c) musicgen-large at full width and depth, (d)
+    llava-next-34b at full width on 2 layers. TF32 stays off."""
+    if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
+        raise AssertionError("TF32 is on: the projections must be f32 as in the reference")
+    info = dict(phase="lm_ssm")
+    for key, part in (("a_rwkv6", "rwkv"), ("b_jamba", "jamba"), ("c_musicgen", "musicgen"),
+                      ("d_llava", "llava")):
+        t0 = time.perf_counter()
+        try:
+            info[key] = ssm_part(part, cfg["lm_ssm"][part], cfg, device, seed)
+        except BaseException:
+            print(json.dumps(info), file=sys.stderr, flush=True)  # the parts that passed
+            raise
+        info[f"{key}_s"] = time.perf_counter() - t0
+    info["flash_launches"] = sum(info[k]["flash_launches"]
+                                 for k in ("a_rwkv6", "b_jamba", "c_musicgen", "d_llava"))
     return info
 
 
@@ -3623,6 +3856,8 @@ def main(argv=None) -> int:
     emit(lm_info)
     train_info = phase_lm_train(cfg, device, args.seed)
     emit(train_info)
+    ssm_info = phase_lm_ssm(cfg, device, args.seed)
+    emit(ssm_info)
 
     if rehearsal:
         emit(dict(phase="timing", skipped="cpu rehearsal: no device times"))
@@ -3632,10 +3867,11 @@ def main(argv=None) -> int:
                                   sweep_data, lm_info["flash_attention_launches"],
                                   serve_info["launches"], shard_info["launches"], cfg)
         emit(info)
-        for r in rows:  # phase lm_train's launches count with the main path's
+        for r in rows:  # phases lm_train's and lm_ssm's launches count with the main path's
             if r["name"] == "flash_attention_bhsd":
                 r["train_launches"] = train_info["flash_launches"]
-                r["launches"] += r["train_launches"]
+                r["ssm_launches"] = ssm_info["flash_launches"]
+                r["launches"] += r["train_launches"] + r["ssm_launches"]
                 r["backward"] = [dict(shape=g["shape"], **{k: g[k] for k in (
                     "backward_ms", "plain_backward_ms", "sdpa_backward_ms", "backward_bound_ms",
                     "backward_bound_by")}) for g in train_info["b_attention_gradients"]]

@@ -60,7 +60,17 @@ class APNCCoefficients:
 def embed_block(
     X: torch.Tensor, landmarks_b: torch.Tensor, R_b: torch.Tensor, kernel: Kernel
 ) -> torch.Tensor:
-    """One block of Algorithm 1: X (n, d), L_b (l_b, d), R_b (m_b, l_b) -> (n, m_b)."""
+    """One block of Algorithm 1: X (n, d), L_b (l_b, d), R_b (m_b, l_b) -> (n, m_b).
+
+    On the CPU an f32 block is computed in f64 and rounded once: the f32
+    GEMMs' rounding there changes with the BLAS kernel that the thread count
+    selects, and R's large entries (Lambda^-1/2 of a gram with small
+    eigenvalues) carry it into Y (1.7e-4 at |Y| = 6 for sd / poly at 4
+    threads). On a card the f32 GEMMs stay, as the kernels' yardstick.
+    """
+    if X.device.type == "cpu" and X.dtype == torch.float32:
+        f64 = torch.float64
+        return (kernel.gram(X.to(f64), landmarks_b.to(f64)) @ R_b.to(f64).T).to(X.dtype)
     return kernel.gram(X, landmarks_b) @ R_b.T
 
 
@@ -79,12 +89,21 @@ def pairwise_discrepancy(
     """e(y_i, c_j) for all pairs: Y (n, m), C (k, m) -> (n, k).
 
     l2 is the sqrt'd inner-product expansion; l1 goes per centroid to keep the
-    footprint at O(n * m) instead of O(n * m * k).
+    footprint at O(n * m) instead of O(n * m * k). On the CPU the l2 cross
+    term is one matrix-vector product per centroid, each against a fresh
+    copy of it, so a column's values do not depend on where the centroid
+    sits in C: a GEMM's rounding does (a k-column product rounds its edge
+    columns otherwise), and with it the inertia of one partition under two
+    numberings. On a card the GEMM stays.
     """
     if discrepancy == "l2":
         yy = torch.sum(Y * Y, dim=-1, keepdim=True)  # (n, 1)
         cc = torch.sum(C * C, dim=-1)[None, :]  # (1, k)
-        return torch.sqrt(torch.clamp(yy - 2.0 * (Y @ C.T) + cc, min=0.0))
+        if Y.device.type == "cpu":
+            yc = torch.stack([torch.mv(Y, c.clone()) for c in C], dim=1)
+        else:
+            yc = Y @ C.T
+        return torch.sqrt(torch.clamp(yy - 2.0 * yc + cc, min=0.0))
     if discrepancy == "l1":
         cols = [torch.sum(torch.abs(Y - c[None, :]), dim=-1) for c in C]
         return torch.stack(cols, dim=1)
@@ -99,6 +118,18 @@ def assign(Y: torch.Tensor, C: torch.Tensor, discrepancy: Discrepancy) -> torch.
 def sufficient_stats(
     Y: torch.Tensor, labels: torch.Tensor, k: int
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """The paper's (Z, g): per-cluster embedding sums (k, m) and counts (k,)."""
-    onehot = torch.nn.functional.one_hot(labels.long(), k).to(Y.dtype)  # (n, k)
+    """The paper's (Z, g): per-cluster embedding sums (k, m) and counts (k,).
+
+    On the CPU ``index_add_`` adds each cluster's rows in row order, so Z[c]
+    does not depend on the index c the cluster carries: the one-hot GEMM's
+    rounding does (by the column a cluster lands in), and with it the
+    inertia of one partition under two numberings, which decides between
+    restarts that reach it. On a card the one-hot GEMM stays, as the
+    kernels' yardstick.
+    """
+    labels = labels.long()
+    if Y.device.type == "cpu":
+        Z = torch.zeros((k, Y.shape[1]), dtype=Y.dtype).index_add_(0, labels, Y)
+        return Z, torch.bincount(labels, minlength=k).to(Y.dtype)
+    onehot = torch.nn.functional.one_hot(labels, k).to(Y.dtype)  # (n, k)
     return onehot.T @ Y, torch.sum(onehot, dim=0)

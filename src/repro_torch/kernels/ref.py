@@ -10,7 +10,8 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.apnc import Discrepancy, pairwise_discrepancy
+from repro_torch.core.apnc import (Discrepancy, embed_block, pairwise_discrepancy,
+                                   sufficient_stats)
 from repro_torch.core.kernels_fn import Kernel
 from repro_torch.core.lloyd import block_cost
 
@@ -24,7 +25,7 @@ def apnc_embed_ref(
     """
     Xf = X.to(torch.float32)
     parts = [
-        kernel.gram(Xf, landmarks[b].to(torch.float32)) @ R[b].to(torch.float32).T
+        embed_block(Xf, landmarks[b].to(torch.float32), R[b].to(torch.float32), kernel)
         for b in range(landmarks.shape[0])
     ]
     return torch.cat(parts, dim=-1)
@@ -40,8 +41,8 @@ def apnc_assign_ref(
     Yf = Y.to(torch.float32)
     Cf = C.to(torch.float32)
     labels = torch.argmin(pairwise_discrepancy(Yf, Cf, discrepancy), dim=-1)
-    onehot = torch.nn.functional.one_hot(labels, C.shape[0]).to(torch.float32)
-    return onehot.T @ Yf, torch.sum(onehot, dim=0), labels.to(torch.int32)
+    Z, g = sufficient_stats(Yf, labels, C.shape[0])
+    return Z, g, labels.to(torch.int32)
 
 
 def rff_embed_ref(X: torch.Tensor, W: torch.Tensor, scale: float) -> torch.Tensor:

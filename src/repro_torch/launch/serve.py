@@ -5,8 +5,10 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu   # plain path, CPU
 
 As the reference launcher, it serves ``reduced(get_arch(arch))`` from a
-random init; ``generate`` runs any config, the full-width one included
-(``chip_smoke.py`` serves qwen1.5-0.5b at full width through it).
+random init, any of the ten archs, the prompt from ``data.tokens`` (codes for
+musicgen, patch embeddings ahead of the text for llava); ``generate`` runs
+any config, the full-width one included (``chip_smoke.py`` serves
+qwen1.5-0.5b, rwkv6-3b, musicgen-large and more at full width through it).
 """
 from __future__ import annotations
 
@@ -27,8 +29,9 @@ from repro_torch.train import step as step_lib
 
 
 class Generation(NamedTuple):
-    tokens: torch.Tensor     # (B, gen) int64, the sampled tokens
-    logits: torch.Tensor     # (gen + 1, B, V): prefill's last position, then each decode step
+    tokens: torch.Tensor     # (B, gen) int64, the sampled tokens; audio codes (B, K, gen)
+    logits: torch.Tensor     # (gen + 1, B, V) or (gen + 1, B, K, V): prefill's last
+                             # position, then each decode step
     prefill_s: float         # prefill + cache set-up, ended by a device sync
     decode_s: float          # the gen decode steps, ended by a device sync
 
@@ -46,17 +49,23 @@ def sample(logits: torch.Tensor, generator: torch.Generator | None,
 
 def grow_cache(cache: list[dict], max_len: int) -> list[dict]:
     """Each attention layer's (B, S, KV, Dh) k, v copied into zeros of length
-    max_len, so decode has room (the reference pads the same way)."""
-    def grow(c):
-        out = {}
-        for name, x in c.items():
-            buf = torch.zeros((x.shape[0], max_len, *x.shape[2:]), dtype=x.dtype,
-                              device=x.device)
-            buf[:, :x.shape[1]] = x
-            out[name] = buf
-        return out
+    max_len, so decode has room (the reference pads the same way). The SSM
+    layers' states (Mamba's h, conv; RWKV6's S, x_tmix, x_cmix) have no
+    sequence axis and stay as they are."""
+    def grow(name, x):
+        if name not in ("k", "v"):
+            return x
+        buf = torch.zeros((x.shape[0], max_len, *x.shape[2:]), dtype=x.dtype, device=x.device)
+        buf[:, :x.shape[1]] = x
+        return buf
 
-    return [{layer: grow(c) for layer, c in group.items()} for group in cache]
+    return [{layer: {name: grow(name, x) for name, x in c.items()} for layer, c in group.items()}
+            for group in cache]
+
+
+def _quantize(c: dict) -> dict:
+    """An attention layer's cache as int8 codes + scales; an SSM state as it is."""
+    return attention.quantize_cache(c) if "k" in c else c
 
 
 def prefill(model, cfg, policy: Policy, batch: dict, max_len: int, *,
@@ -66,9 +75,17 @@ def prefill(model, cfg, policy: Policy, batch: dict, max_len: int, *,
     logits, cache = step_lib.make_prefill_step(cfg, policy)(model, batch)
     cache = grow_cache(cache, max_len)
     if kv_int8:
-        cache = [{layer: attention.quantize_cache(c) for layer, c in group.items()}
-                 for group in cache]
+        cache = [{layer: _quantize(c) for layer, c in group.items()} for group in cache]
     return logits, cache
+
+
+def prompt_length(cfg, batch: dict) -> int:
+    """The model positions a prefill of ``batch`` fills: S of the tokens or
+    codes, plus P patch embeddings ahead of the text."""
+    if cfg.frontend == "audio_codes":
+        return batch["codes"].shape[2]
+    prefix = batch["patch_embeds"].shape[1] if "patch_embeds" in batch else 0
+    return batch["tokens"].shape[1] + prefix
 
 
 def _sync(device: torch.device) -> None:
@@ -79,30 +96,37 @@ def _sync(device: torch.device) -> None:
 @torch.inference_mode()
 def generate(model, cfg, policy: Policy, batch: dict, gen: int, *, temperature: float = 0.0,
              kv_int8: bool = False, generator: torch.Generator | None = None) -> Generation:
-    """Prefill ``batch["tokens"]`` (B, S), then ``gen`` decode steps, each
-    feeding the token sampled from the previous logits (argmax when
-    ``temperature`` is 0). The cache holds S + gen positions, bf16 or, with
-    ``kv_int8``, int8."""
-    tokens = batch["tokens"]
-    device = tokens.device
-    prompt = tokens.shape[1]
+    """Prefill ``batch`` (``tokens`` (B, S); ``codes`` (B, K, S) for audio;
+    ``patch_embeds`` (B, P, d) ahead of the text for vision), then ``gen``
+    decode steps, each feeding the token sampled from the previous logits
+    (argmax when ``temperature`` is 0; audio codes always argmax, one code a
+    codebook, as the reference launcher). The attention caches hold
+    ``prompt_length`` + gen positions, bf16 or, with ``kv_int8``, int8."""
+    audio = cfg.frontend == "audio_codes"
+    first = batch["codes" if audio else "tokens"]
+    device = first.device
+    prompt = prompt_length(cfg, batch)
     decode = step_lib.make_decode_step(cfg, policy)
     t0 = time.perf_counter()
     logits, cache = prefill(model, cfg, policy, batch, prompt + gen, kv_int8=kv_int8)
     _sync(device)
     t_prefill = time.perf_counter() - t0
 
+    def pick(logits):
+        return torch.argmax(logits, dim=-1) if audio else sample(logits, generator, temperature)
+
     steps, toks = [logits], []
-    nxt = sample(logits, generator, temperature)
+    nxt = pick(logits)
     t1 = time.perf_counter()
     for i in range(gen):
         toks.append(nxt)
-        logits, cache = decode(model, {"tokens": nxt[:, None]}, cache, prompt + i)
+        step = {"codes": nxt[:, :, None]} if audio else {"tokens": nxt[:, None]}
+        logits, cache = decode(model, step, cache, prompt + i)
         steps.append(logits)
-        nxt = sample(logits, generator, temperature)
+        nxt = pick(logits)
     _sync(device)
     t_decode = time.perf_counter() - t1
-    out = torch.stack(toks, dim=-1) if toks else tokens.new_zeros((tokens.shape[0], 0))
+    out = torch.stack(toks, dim=-1) if toks else first.new_zeros((*nxt.shape, 0))
     return Generation(out, torch.stack(steps), t_prefill, t_decode)
 
 
@@ -129,8 +153,9 @@ def main(argv=None):
     policy = Policy()
     model = model_lib.init(torch.Generator(device=device).manual_seed(0), cfg, policy, device)
     batch = tok_lib.synthetic_batch(cfg, 0, args.batch, args.prompt_len)
-    tokens = torch.as_tensor(np.asarray(batch["tokens"]), device=device)
-    res = generate(model, cfg, policy, {"tokens": tokens}, args.gen,
+    batch = {k: torch.as_tensor(np.asarray(v), device=device) for k, v in batch.items()
+             if k != "loss_mask"}
+    res = generate(model, cfg, policy, batch, args.gen,
                    temperature=args.temperature, kv_int8=args.kv_int8,
                    generator=torch.Generator(device=device).manual_seed(1))
     print(f"[serve] {cfg.name} on {device}: prefill {args.batch}x{args.prompt_len} in "

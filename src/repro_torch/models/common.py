@@ -43,6 +43,19 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
     return (y * scale.to(torch.float32)).to(x.dtype)
 
 
+def group_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, num_groups: int,
+               eps: float) -> torch.Tensor:
+    """GroupNorm over the channel dim (RWKV6 wkv output norm). x: (..., C).
+    Statistics in f32, the variance biased (jnp.var's), output in x's dtype."""
+    *lead, C = x.shape
+    xf = x.to(torch.float32).reshape(*lead, num_groups, C // num_groups)
+    mean = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.var(xf, dim=-1, keepdim=True, correction=0)
+    y = (xf - mean) * torch.rsqrt(var + eps)
+    y = y.reshape(*lead, C)
+    return (y * scale.to(torch.float32) + bias.to(torch.float32)).to(x.dtype)
+
+
 def sinusoidal_positions(positions: torch.Tensor, dim: int,
                          max_scale: float = 10_000.0) -> torch.Tensor:
     """Classic transformer sin/cos table evaluated at `positions` (any int shape).

@@ -1,19 +1,26 @@
-"""The LM model: embeddings -> layer groups -> head.
+"""The LM model: embeddings (and the frontends) -> layer groups -> head(s).
 
 Entry points:
     init(generator, cfg, policy, device=None)          -> LM (an nn.Module)
     forward_train(params, cfg, policy, batch)          -> (loss, {"ce", "aux"})
-    forward_prefill(params, cfg, policy, batch)        -> (last_logits (B, V), cache)
+    forward_prefill(params, cfg, policy, batch)        -> (last_logits, cache)
     forward_decode(params, cfg, policy, batch, cache, cache_len)
-                                                       -> (logits (B, V), cache)
+                                                       -> (logits, cache)
     init_cache(cfg, batch, max_len, dtype, device)     -> cache
+
+A batch holds ``tokens`` (B, S); with the ``audio_codes`` frontend
+(musicgen) ``codes`` (B, K, S) instead, embedded per codebook and summed,
+with one head per codebook, the logits (B, K, V); with ``vision_prefix``
+(llava) also ``patch_embeds`` (B, P, d) at prefill and training,
+concatenated ahead of the token embeddings (decode steps are text-only).
 
 ``params`` is the ``LM`` module; its parameter names follow the reference's
 params tree (``embed``, ``head``, ``final_norm``,
 ``groups.<g>.layer<i>.{norm1,norm2,mixer.*,ffn.*}``), with the groups an
 ``nn.ModuleList`` instead of a stacked leading axis. A cache is a list with
-one dict per group, ``{"layer<i>": {"k", "v"[, "k_scale", "v_scale"]}}``,
-each tensor (B, T, KV, Dh).
+one dict per group, ``{"layer<i>": state}``: an attention layer's ``{"k",
+"v"[, "k_scale", "v_scale"]}``, each (B, T, KV, Dh); a Mamba layer's ``{"h",
+"conv"}``; an RWKV6 layer's ``{"S", "x_tmix", "x_cmix"}``.
 
 Parameters are built with ``requires_grad=False``, for serving; the
 training entry points (``train.step``) turn gradients on. Training memory:
@@ -22,12 +29,12 @@ with ``cfg.remat == "full"`` each layer group runs under
 ``jax.checkpoint`` on its scan body), so only the groups' inputs are kept;
 the cross-entropy is chunked over the sequence, ``LOSS_CHUNK`` positions a
 chunk, each under ``checkpoint``, so the (B, S, V) logits never
-materialize. The audio and vision frontends wait for a later slice
-(ROADMAP.md Queue 1 item 15).
+materialize.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
@@ -38,24 +45,28 @@ from repro_torch.models.common import Policy, normal_init, rms_norm, sinusoidal_
 
 LOSS_CHUNK = 512
 
-_FRONTENDS = ("the {} frontend is not ported yet (ROADMAP.md Queue 1 item 15: the "
-              "LM substrate's frontends)")
+
+def _embed_shapes(cfg: ArchConfig) -> tuple[tuple, tuple]:
+    """(embed, head) shapes: (V, d), (d, V); (K, V, d), (K, d, V) for audio codes."""
+    V, d, K = cfg.vocab_size, cfg.d_model, cfg.num_codebooks
+    if cfg.frontend == "audio_codes":
+        return (K, V, d), (K, d, V)
+    return (V, d), (d, V)
 
 
 class LM(nn.Module):
     """``embed`` (V, d), ``head`` (d, V) unless tied, ``final_norm`` (d,) and
-    ``groups``, one ``transformer.Group`` per repetition of the layer pattern."""
+    ``groups``, one ``transformer.Group`` per repetition of the layer
+    pattern; with audio codes ``embed`` (K, V, d) and ``head`` (K, d, V)."""
 
     def __init__(self, cfg: ArchConfig, policy: Policy, groups: list, device=None):
         super().__init__()
-        if cfg.frontend == "audio_codes":  # K codebook embeddings and heads
-            raise NotImplementedError(_FRONTENDS.format(cfg.frontend))
-        V, d = cfg.vocab_size, cfg.d_model
+        embed, head = _embed_shapes(cfg)
         kw = dict(dtype=policy.param_dtype, device=device)
-        self.embed = nn.Parameter(torch.empty((V, d), **kw), requires_grad=False)
+        self.embed = nn.Parameter(torch.empty(embed, **kw), requires_grad=False)
         if not cfg.tie_embeddings:
-            self.head = nn.Parameter(torch.empty((d, V), **kw), requires_grad=False)
-        self.final_norm = nn.Parameter(torch.ones((d,), **kw), requires_grad=False)
+            self.head = nn.Parameter(torch.empty(head, **kw), requires_grad=False)
+        self.final_norm = nn.Parameter(torch.ones((cfg.d_model,), **kw), requires_grad=False)
         self.groups = nn.ModuleList(groups)
         self.cfg = cfg
 
@@ -73,9 +84,9 @@ def init(generator: torch.Generator, cfg: ArchConfig, policy: Policy, device=Non
     draw comes from ``generator``, on its own device; the draws differ from
     ``jax.random``'s by construction."""
     dev = resolve_device(device)
-    V, d, dt = cfg.vocab_size, cfg.d_model, policy.param_dtype
-    embed = normal_init(generator, (V, d), dt)
-    head = None if cfg.tie_embeddings else normal_init(generator, (d, V), dt)
+    embed_shape, head_shape = _embed_shapes(cfg)
+    embed = normal_init(generator, embed_shape, policy.param_dtype)
+    head = None if cfg.tie_embeddings else normal_init(generator, head_shape, policy.param_dtype)
     groups = [transformer.init_group(generator, cfg, policy, dev)
               for _ in range(cfg.num_groups)]
     model = LM(cfg, policy, groups, dev)
@@ -96,28 +107,46 @@ def param_count(params: nn.Module) -> int:
     return sum(p.numel() for p in params.parameters())
 
 
-def embed_inputs(params: LM, cfg: ArchConfig, policy: Policy, batch: dict,
-                 position_offset: int = 0) -> torch.Tensor:
-    """Returns x (B, S, d) in compute dtype, from ``batch["tokens"]`` (B, S)."""
-    if cfg.frontend != "none":
-        raise NotImplementedError(_FRONTENDS.format(cfg.frontend))
-    x = torch.nn.functional.embedding(batch["tokens"], policy.cast(params.embed))
+def embed_inputs(params: LM, cfg: ArchConfig, policy: Policy, batch: dict) -> torch.Tensor:
+    """Returns x (B, S, d) in compute dtype (the reference's stub frontends):
+    audio codes, the sum of the K codebooks' embeddings of ``batch["codes"]``
+    (B, K, S); vision, ``batch["patch_embeds"]`` (B, P, d), where present,
+    ahead of the embeddings of ``batch["tokens"]``; else ``batch["tokens"]``
+    (B, S). Sinusoidal positions from 0."""
+    emb = policy.cast(params.embed)
+    if cfg.frontend == "audio_codes":
+        codes = batch["codes"]
+        x = F.embedding(codes[:, 0], emb[0])
+        for k in range(1, cfg.num_codebooks):
+            x = x + F.embedding(codes[:, k], emb[k])
+    else:
+        x = F.embedding(batch["tokens"], emb)
+        if cfg.frontend == "vision_prefix" and "patch_embeds" in batch:
+            x = torch.cat([policy.cast(batch["patch_embeds"]), x], dim=1)
     if cfg.pos_emb == "sinusoidal":
-        pos = torch.arange(x.shape[1], device=x.device) + position_offset
+        pos = torch.arange(x.shape[1], device=x.device)
         x = x + sinusoidal_positions(pos, cfg.d_model).to(x.dtype)
     return x
 
 
 def _head_logits(params: LM, cfg: ArchConfig, policy: Policy, x: torch.Tensor) -> torch.Tensor:
-    """x (B, S, d) -> logits (B, S, V)."""
+    """x (B, S, d) -> logits (B, S, V); audio codes (B, K, S, V)."""
+    if cfg.frontend == "audio_codes":
+        return torch.einsum("bsd,kdv->bksv", x, policy.cast(params.head))
     w = policy.cast(params.embed.T if cfg.tie_embeddings else params.head)
     return x @ w
 
 
 def _labels(cfg: ArchConfig, batch: dict) -> torch.Tensor:
-    """Token ids aligned with the model sequence."""
-    if cfg.frontend != "none":
-        raise NotImplementedError(_FRONTENDS.format(cfg.frontend))
+    """Token ids aligned with the model sequence: the codes (B, K, S) for
+    audio; for vision zeros at the P prefix positions, then the tokens."""
+    if cfg.frontend == "audio_codes":
+        return batch["codes"]
+    if cfg.frontend == "vision_prefix":
+        B, P = batch["patch_embeds"].shape[:2]
+        tokens = batch["tokens"]
+        pad = torch.zeros((B, P), dtype=tokens.dtype, device=tokens.device)
+        return torch.cat([pad, tokens], dim=1)
     return batch["tokens"]
 
 
@@ -128,7 +157,10 @@ def _ce_chunk(params: LM, cfg: ArchConfig, policy: Policy, x_chunk: torch.Tensor
     logits = _head_logits(params, cfg, policy, x_chunk).to(torch.float32)
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels_chunk[..., None].long())[..., 0]
-    nll = (logz - gold) * mask_chunk
+    if cfg.frontend == "audio_codes":  # logits (B, K, Sc, V), labels (B, K, Sc)
+        nll = (logz - gold) * mask_chunk[:, None, :]
+    else:
+        nll = (logz - gold) * mask_chunk
     return torch.sum(nll), torch.sum(mask_chunk)
 
 
@@ -138,14 +170,14 @@ def _chunked_ce(params: LM, cfg: ArchConfig, policy: Policy, x: torch.Tensor,
     ``checkpoint`` (its logits are recomputed in the backward), so the
     (B, S, V) logits never materialize. Position i predicts label i + 1; the
     last chunk may be shorter (the ragged tail)."""
-    x_in, y, m = x[:, :-1], labels[:, 1:], mask[:, 1:]
+    x_in, y, m = x[:, :-1], labels[..., 1:], mask[:, 1:]
     Sm = x_in.shape[1]
     chunk = min(LOSS_CHUNK, Sm)
     tot = torch.zeros((), dtype=torch.float32, device=x.device)
     cnt = torch.zeros((), dtype=torch.float32, device=x.device)
     for c0 in range(0, Sm, chunk):
         c1 = min(Sm, c0 + chunk)
-        s, c = checkpoint(_ce_chunk, params, cfg, policy, x_in[:, c0:c1], y[:, c0:c1],
+        s, c = checkpoint(_ce_chunk, params, cfg, policy, x_in[:, c0:c1], y[..., c0:c1],
                           m[:, c0:c1], use_reentrant=False)
         tot, cnt = tot + s, cnt + c
     return tot / torch.clamp(cnt, min=1.0)
@@ -153,10 +185,11 @@ def _chunked_ce(params: LM, cfg: ArchConfig, policy: Policy, x: torch.Tensor,
 
 def forward_train(params: LM, cfg: ArchConfig, policy: Policy,
                   batch: dict) -> tuple[torch.Tensor, dict]:
-    """Returns (loss, {"ce", "aux"}): the next-token CE over ``batch["tokens"]``
-    (B, S) weighted by ``batch["loss_mask"]`` (B, S) (all ones if absent),
-    plus the MoE layers' aux loss. Differentiable in the parameters that
-    require grad."""
+    """Returns (loss, {"ce", "aux"}): the next-token CE over the batch's
+    labels (``_labels``: the tokens, the codes of every codebook, or zeros
+    at a vision prefix) weighted by ``batch["loss_mask"]`` (B, S) (all ones
+    if absent; the prefix's positions zero in ``data.tokens``), plus the MoE
+    layers' aux loss. Differentiable in the parameters that require grad."""
     x = embed_inputs(params, cfg, policy, batch)
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device).expand(B, S)
@@ -180,7 +213,8 @@ def forward_train(params: LM, cfg: ArchConfig, policy: Policy,
 def forward_prefill(params: LM, cfg: ArchConfig, policy: Policy,
                     batch: dict) -> tuple[torch.Tensor, list[dict]]:
     """Full-sequence forward that also builds the decode cache (bf16 k, v of
-    length S). Returns (logits of the last position (B, V), cache)."""
+    length S; the SSM layers' states). Returns (logits of the last position
+    (B, V), or (B, K, V) for audio codes, cache)."""
     x = embed_inputs(params, cfg, policy, batch)
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device).expand(B, S)
@@ -189,15 +223,27 @@ def forward_prefill(params: LM, cfg: ArchConfig, policy: Policy,
         x, cache_g = transformer.apply_group_prefill(group, cfg, policy, x, positions)
         cache.append(cache_g)
     x = rms_norm(x, params.final_norm, cfg.norm_eps)
-    return _head_logits(params, cfg, policy, x[:, -1:])[:, 0], cache
+    return _last(cfg, _head_logits(params, cfg, policy, x[:, -1:])), cache
+
+
+def _last(cfg: ArchConfig, logits: torch.Tensor) -> torch.Tensor:
+    """The one position of (B, 1, V) or, for audio codes, (B, K, 1, V) logits."""
+    return logits[:, :, 0] if cfg.frontend == "audio_codes" else logits[:, 0]
 
 
 def forward_decode(params: LM, cfg: ArchConfig, policy: Policy, batch: dict,
                    cache: list[dict], cache_len: int) -> tuple[torch.Tensor, list[dict]]:
-    """One token for every sequence in the batch, written into the cache at
-    ``cache_len`` in place. Returns (logits (B, V), cache)."""
-    x = embed_inputs(params, cfg, policy, batch, position_offset=cache_len)  # (B, 1, d)
+    """One token for every sequence in the batch (``tokens`` (B, 1), or
+    ``codes`` (B, K, 1)), written into the cache at ``cache_len``: the
+    attention caches in place, the SSM states replaced in the cache's dicts.
+    Returns (logits (B, V) or (B, K, V), cache)."""
+    x = embed_inputs(params, cfg, policy, batch)  # (B, 1, d)
+    if cfg.pos_emb == "sinusoidal":
+        # the step's position, the reference's way: embed_inputs added position 0
+        pos = torch.tensor([0, cache_len], device=x.device)
+        table = sinusoidal_positions(pos, cfg.d_model).to(x.dtype)
+        x = x - table[:1] + table[1:]
     for group, cache_g in zip(params.groups, cache):
         x, _ = transformer.apply_group_decode(group, cfg, policy, x, cache_g, cache_len)
     x = rms_norm(x, params.final_norm, cfg.norm_eps)
-    return _head_logits(params, cfg, policy, x)[:, 0], cache
+    return _last(cfg, _head_logits(params, cfg, policy, x)), cache

@@ -42,7 +42,8 @@ def test_port_imports_neither_jax_nor_repro():
             "repro_torch.launch.cluster_serve"} <= set(modules)
     assert {"repro_torch.optim", "repro_torch.optim.adamw", "repro_torch.optim.schedule",
             "repro_torch.models.moe", "repro_torch.train.loop", "repro_torch.train.step",
-            "repro_torch.launch.train"} <= set(modules)
+            "repro_torch.launch.train", "repro_torch.models.mamba",
+            "repro_torch.models.rwkv6"} <= set(modules)
     code = (
         "import importlib, sys\n"
         f"for name in {modules!r}:\n"
@@ -63,7 +64,7 @@ def test_port_imports_neither_jax_nor_repro():
                                    "legacy_fit_predict", "legacy_predict",
                                    "stream_fit_predict", "synthetic", "make_process_fn",
                                    "registry_register", "cluster_serve", "train",
-                                   "batch_iterator"])
+                                   "batch_iterator", "lm_init_cache"])
 def test_entry_points_default_to_the_card(entry):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is valid here")
@@ -100,6 +101,11 @@ def test_entry_points_default_to_the_card(entry):
 
             lm.init(torch.Generator().manual_seed(0), reduced(get_arch("qwen1.5-0.5b")),
                     TEST_POLICY)
+        elif entry == "lm_init_cache":
+            from repro_torch.configs import get_arch, reduced
+            from repro_torch.models import model as lm
+
+            lm.init_cache(reduced(get_arch("jamba-1.5-large-398b")), 1, 4)
         elif entry in ("legacy_fit_predict", "legacy_predict"):
             from repro_torch.core import kkmeans
             from repro_torch.core.kernels_fn import Kernel
@@ -172,7 +178,7 @@ def test_chip_smoke_cpu_rehearsal():
     phases = [line.get("phase") for line in lines]
     assert phases == ["device", "data", "parity", "main", "agreement", "host_copy", "stream",
                       "rff", "sweep", "shard", "persist", "baselines", "obs", "serve",
-                      "lm_serve", "lm_train", "timing", "done"]
+                      "lm_serve", "lm_train", "lm_ssm", "timing", "done"]
     assert not any(line.get("ok") for line in lines)
     train = lines[phases.index("lm_train")]
     assert train["a_dense"]["loss_last"] < train["a_dense"]["loss_first"]

@@ -358,27 +358,6 @@ def test_synthetic_batch_bitwise(arch):
             np.testing.assert_array_equal(got[key], want[key])
 
 
-# ------------------------------------------------------------ not yet ported
-
-
-@pytest.mark.parametrize("arch", ["jamba-1.5-large-398b", "rwkv6-3b", "musicgen-large"])
-def test_unported_layers_raise(arch):
-    cfg = reduced(get_arch(arch))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 15"):
-        tmodel.init(torch.Generator().manual_seed(0), cfg, TEST_POLICY, device="cpu")
-    if cfg.layer_pattern()[0].mixer != "attn" or cfg.moe is not None:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 15"):
-            tmodel.init_cache(cfg, 1, 8, device="cpu")
-
-
-def test_vision_frontend_raises():
-    cfg = reduced(get_arch("llava-next-34b"))
-    m = tmodel.init(torch.Generator().manual_seed(0), cfg, TEST_POLICY, device="cpu")
-    with pytest.raises(NotImplementedError, match="vision_prefix"):
-        tmodel.forward_prefill(m, cfg, TEST_POLICY,
-                               {"tokens": torch.zeros((1, 4), dtype=torch.int32)})
-
-
 def test_lm_params_from_numpy_checks_the_tree():
     jcfg, tcfg = _cfgs("qwen1.5-0.5b")
     tree = jax.tree.map(np.asarray, jmodel.init(jax.random.PRNGKey(0), jcfg, JPOLICY))

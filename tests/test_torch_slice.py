@@ -62,6 +62,42 @@ def test_fit_local_matches_jax_from_same_state(blobs, method):
                                rtol=1e-4, atol=1e-4)
 
 
+@pytest.mark.parametrize("method", ["nystrom", "sd"])
+def test_inertia_of_a_partition_does_not_depend_on_its_numbering(blobs, method):
+    """The restart selection compares inertias, and restarts that reach one
+    partition number its clusters differently: a converged restart's
+    centroids, permuted, give the port's inertia and the reference's bit for
+    bit, and the partition's (Z, g) under renumbered labels are the same
+    rows, renumbered."""
+    from repro.core.lloyd import block_cost as j_block_cost
+    from repro.core.lloyd import lloyd as j_lloyd
+    from repro_torch.core.apnc import sufficient_stats
+    from repro_torch.core.lloyd import block_cost, lloyd
+
+    X, _ = blobs
+    est = JKernelKMeans(6, kernel="rbf", l=128, m=64, n_init=4, backend="local",
+                        method=method)
+    ctx = est._prepare(X, jax.random.PRNGKey(0), "local")
+    params = _jax_params_numpy(ctx.params)
+    disc = params.discrepancy
+    Y = embed.transform(params, torch.from_numpy(X))
+    res = lloyd(Y, 6, discrepancy=disc, iters=ctx.iters,
+                init=torch.from_numpy(np.array(ctx.inits[0])))
+    Yj = jax.numpy.asarray(Y.numpy())
+    jres = j_lloyd(Yj, 6, discrepancy=disc, iters=ctx.iters, init=jax.numpy.asarray(ctx.inits[0]))
+    perms = [list(range(5, -1, -1)), [1, 2, 3, 4, 5, 0],
+             np.random.default_rng(3).permutation(6).tolist()]
+    for perm in perms:
+        assert float(block_cost(Y, res.centroids[perm], disc)) == float(res.inertia)
+        assert float(j_block_cost(Yj, jres.centroids[np.array(perm)], disc)) == float(
+            j_block_cost(Yj, jres.centroids, disc))
+        rename = torch.empty(6, dtype=torch.long)
+        rename[perm] = torch.arange(6)  # cluster perm[i] becomes cluster i
+        Z, g = sufficient_stats(Y, res.labels, 6)
+        Zp, gp = sufficient_stats(Y, rename[res.labels.long()], 6)
+        assert torch.equal(Zp, Z[perm]) and torch.equal(gp, g[perm])
+
+
 def test_converted_model_predicts_like_jax(blobs):
     X, _ = blobs
     est = JKernelKMeans(6, kernel="rbf", l=128, m=64, n_init=2, backend="local").fit(X)
