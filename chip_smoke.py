@@ -50,7 +50,14 @@ serves the SSM and frontend archs at their published widths through
 ``serve.generate``: (a) rwkv6-3b whole, (b) one jamba-1.5-large-398b group
 (bf16, 4 of its 16 experts), (c) musicgen-large whole, (d) llava-next-34b
 on 2 layers, each also reduced, card against CPU and decode against the
-full forward. It holds ``apnc_assign_step`` (labels, Z, g and the block's cost in
+full forward. Phase ``lm_mesh`` runs qwen1.5-0.5b at full width and depth
+on device meshes of logical shards of the card (``distributed.parallel``,
+placed by ``distributed.sharding``'s rules): (a) 5 AdamW steps on (1, 2),
+(2, 1) and (2, 2) against one device, (b) prefill and greedy decode on
+(1, 2), (c) the sequence-sharded decode against a 32,768-position cache on
+(2, 1), (d) int8 error-feedback DDP on (8, 1), (e) the GPipe pipeline on a
+(4, 1) pipe axis, (f) the (2, 2) state restored onto (1, 2) and (1, 1) bit
+for bit. It holds ``apnc_assign_step`` (labels, Z, g and the block's cost in
 one launch) bit for bit against the three fused steps on the Y each one's
 un-fused chain makes. It times each kernel beside its bound, its plain
 version and a PyTorch library call (chain). Every phase prints
@@ -141,6 +148,18 @@ IMAGENET = dict(n=_IMAGENET.n, d=_IMAGENET.d, k=_IMAGENET.k, separation=_IMAGENE
                             llava=dict(arch="llava-next-34b", layers=2, batch=1, prompt=3008,
                                        gen=16),
                             check=dict(batch=2, prompt=16, steps=4)),
+                # Phase lm_mesh, on logical shards of the card: (a) `steps`
+                # AdamW steps of lm_train (a)'s model and batches on one device
+                # and on each (data, model) mesh; (b) serving on serve_mesh;
+                # (c) the sequence-sharded decode against a seq_cache-position
+                # bf16 cache on seq_mesh; (d) int8 DDP on ddp_mesh; (e) the
+                # pipeline on 4 stages; (f) (a)'s elastic_from state restored
+                # onto each elastic_to mesh.
+                lm_mesh=dict(arch="qwen1.5-0.5b", reduced=False, batch=4, seq=2048, steps=5,
+                             lr=3e-3, meshes=((1, 2), (2, 1), (2, 2)), serve_mesh=(1, 2),
+                             serve_batch=4, serve_prompt=4096, serve_gen=32, seq_mesh=(2, 1),
+                             seq_cache=32_768, ddp_mesh=(8, 1), ddp_steps=150,
+                             elastic_from=(2, 2), elastic_to=((1, 2), (1, 1))),
                 # Table 2 on the card: the imagenet-50k stand-in (50,000 rows,
                 # the ImageNet d, k and separation, warped), 10,000 more rows
                 # of its mixture held out; `small_n` rows for card vs CPU.
@@ -174,6 +193,11 @@ REHEARSAL = dict(n=4_000, d=32, k=8, separation=3.0, l=64, m=16, iters=20,
                              llava=dict(arch="llava-next-34b", layers=2, batch=1, prompt=16,
                                         gen=4),
                              check=dict(batch=2, prompt=16, steps=4)),
+                 lm_mesh=dict(arch="qwen1.5-0.5b", reduced=True, batch=4, seq=64, steps=3,
+                              lr=3e-3, meshes=((1, 2), (2, 1), (2, 2)), serve_mesh=(1, 2),
+                              serve_batch=4, serve_prompt=32, serve_gen=4, seq_mesh=(2, 1),
+                              seq_cache=64, ddp_mesh=(8, 1), ddp_steps=150,
+                              elastic_from=(2, 2), elastic_to=((1, 2), (1, 1))),
                  baselines=dict(dataset=None, n=1_500, held_out=300, l=64, m=16, rff_m=16,
                                 iters=20, small_n=400),
                  serve=dict(requests=2_000, micro_batch=64, max_delay_ms=2.0, open_rate=0.5,
@@ -692,14 +716,36 @@ def check_flash(what, q, k, v, window) -> float:
     return check_close(what, got.float(), want.float(), rtol, atol)
 
 
+def mesh_flash_shapes(cfg) -> list:
+    """(B, S, H, Dh) of each model shard's flash_attention_bhsd calls in
+    phase lm_mesh: (a)'s training batch on each mesh and (b)'s prefill, the
+    batch split over the data shards (replicated when smaller) and the
+    heads over the model shards."""
+    from repro_torch.configs import get_arch, reduced
+
+    c = cfg["lm_mesh"]
+    arch = reduced(get_arch(c["arch"])) if c["reduced"] else get_arch(c["arch"])
+    H, Dh = arch.phys_heads, arch.resolved_head_dim
+    cases = [(c["batch"], c["seq"], mesh) for mesh in c["meshes"]]
+    cases.append((c["serve_batch"], c["serve_prompt"], c["serve_mesh"]))
+    out = []
+    for B, S, (D, M) in cases:
+        shape = (B if B < D else B // D, S, H // M, Dh)
+        if shape not in out:
+            out.append(shape)
+    return out
+
+
 def parity_flash(device, cfg) -> list:
     """flash_attention_bhsd against its plain version: (B, S, H, Dh) from the
     launcher's default prompt to 4,096 tokens, ragged S, Dh 40 to 128,
-    musicgen-large's prefill in phase lm_ssm, every window of FLASH_WINDOWS,
+    musicgen-large's prefill in phase lm_ssm, each model shard's calls in
+    phase lm_mesh (``mesh_flash_shapes``), every window of FLASH_WINDOWS,
     f32 and bf16."""
     out = []
     g = torch.Generator().manual_seed(23)
-    for shape in cfg["parity_flash"]:
+    mesh = [s for s in mesh_flash_shapes(cfg) if s not in cfg["parity_flash"]]
+    for shape in list(cfg["parity_flash"]) + mesh:
         q32, k32, v32 = (torch.randn(shape, generator=g).to(device) for _ in range(3))
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v = (t.to(dtype) for t in (q32, k32, v32))
@@ -707,7 +753,8 @@ def parity_flash(device, cfg) -> list:
                 err = check_flash(f"flash_attention {shape} w={window} {dtype}", q, k, v, window)
                 out.append(dict(shape=list(shape), window=window, dtype=str(dtype)[6:],
                                 max_abs_err=err, rtol=FLASH_TOL[dtype][0],
-                                atol=FLASH_TOL[dtype][1], deterministic=True))
+                                atol=FLASH_TOL[dtype][1], deterministic=True,
+                                lm_mesh_shard=shape in mesh))
     return out
 
 
@@ -2306,16 +2353,16 @@ def plain_attention():
 def f32_cache():
     """Prefill keeps its k, v in f32 for the cache (the reference and the port
     store bf16) inside the block."""
-    from repro_torch.models import attention, transformer
+    from repro_torch.models import attention
 
-    bf16_prefill = transformer._attn_prefill
+    bf16_prefill = attention.fwd_prefill
 
-    def prefill(p, cfg, policy, h, positions):
+    def prefill(p, cfg, policy, h, positions, heads=None):
         _, k, v = attention._project_qkv(p, cfg, policy, h, positions)
-        y, _ = bf16_prefill(p, cfg, policy, h, positions)
+        y, _ = bf16_prefill(p, cfg, policy, h, positions, heads)
         return y, {"k": k, "v": v}
 
-    return patched(transformer, "_attn_prefill", prefill)
+    return patched(attention, "fwd_prefill", prefill)
 
 
 def _step_key(cfg) -> str:
@@ -2327,16 +2374,16 @@ def teacher_forced(model, cfg, policy, prompt: dict, tokens, kv_int8=False):
     one decode step per position of ``tokens`` (B, gen), or codes (B, K,
     gen), fed those whatever the logits say."""
     from repro_torch.launch import serve
-    from repro_torch.models import model as lm
+    from repro_torch.train.step import make_decode_step
 
     key = _step_key(cfg)
+    decode = make_decode_step(cfg, policy)  # one device or a mesh (a MeshLM)
     with torch.inference_mode():
         S, gen = serve.prompt_length(cfg, prompt), tokens.shape[-1]
         logits, cache = serve.prefill(model, cfg, policy, prompt, S + gen, kv_int8=kv_int8)
         steps = [logits]
         for i in range(gen):
-            logits, cache = lm.forward_decode(model, cfg, policy, {key: tokens[..., i:i + 1]},
-                                              cache, S + i)
+            logits, cache = decode(model, {key: tokens[..., i:i + 1]}, cache, S + i)
             steps.append(logits)
     return torch.stack(steps)
 
@@ -3200,6 +3247,341 @@ def phase_lm_ssm(cfg, device, seed) -> dict:
     return info
 
 
+# ------------------------------------------------------------ LM on a device mesh
+
+#: Phase lm_mesh's bars against the one-device run from the same seed, batches
+#: and init. Training: the loss within rtol 1e-4 and the gradient norm within
+#: rtol 1e-3 on each step. Both sides do the same f32 arithmetic; they differ
+#: in the order of the cross-shard sums and in cuBLAS's sums over other
+#: operand shapes (a few ulps a product), which Adam's first steps magnify
+#: where |g| is near eps (an element can move by up to 2 lr). Serving: the
+#: prefill and the teacher-forced decode logits within 1e-4 * max|logits|,
+#: the kernel-vs-plain bar of phase lm_serve (the bf16 cache rounds the same
+#: k, v but for a last f32 place). The sequence-sharded decode: 2e-3, the
+#: reference's bar (tests/test_distributed_subprocess.py); the int8 DDP and
+#: the pipeline: the reference's bars (final loss < 1e-2, parameter error
+#: < 0.05; output < 1e-5, gradient < 1e-4).
+MESH_LOSS_RTOL, MESH_GNORM_RTOL, MESH_SERVE_RTOL = 1e-4, 1e-3, 1e-4
+
+
+def mesh_of(shape, device):
+    from repro_torch.launch.mesh import make_host_mesh
+
+    return make_host_mesh(*shape, device)
+
+
+def mesh_training(c, mcfg, device, seed) -> tuple[dict, object]:
+    """(a) ``c["steps"]`` AdamW steps on ``batch`` x ``seq`` tokens from
+    phase lm_train (a)'s seeded init and batches, on one device and on each
+    mesh of logical shards of the device (``make_host_mesh``): the loss and
+    the gradient norm of every step against one device's, s a step, peak
+    bytes, flash launches (two a layer a coordinate a step under remat).
+    Returns the info and the last mesh's (params, opt_state, opt_cfg)."""
+    from repro_torch.data.tokens import batch_iterator
+    from repro_torch.distributed import parallel
+    from repro_torch.optim import adamw
+
+    flash = _flash()
+    runs, kept = {}, None
+    for shape in [None, *c["meshes"]]:
+        model, opt, step_fn = train_parts(mcfg, c["lr"], c["steps"], seed, device)
+        if shape is not None:
+            model = parallel.shard_model(mesh_of(shape, device), model)
+            opt = parallel.shard_opt_state(model, opt)
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(device)
+        data = batch_iterator(mcfg, c["batch"], c["seq"], 0, device)
+        flash.launches = 0
+        losses, times, metrics = [], [], []
+        for _ in range(c["steps"]):
+            batch = next(data)
+            t0 = time.perf_counter()
+            model, opt, m = step_fn(model, opt, batch)
+            sync(device)
+            times.append(time.perf_counter() - t0)
+            losses.append(float(m["loss"]))
+            metrics.append({k: float(v) for k, v in m.items()})
+        name = "one_device" if shape is None else f"{shape[0]}x{shape[1]}"
+        D, M = shape or (1, 1)
+        per_step = (2 if mcfg.remat == "full" else 1) * mcfg.num_layers * D * M
+        runs[name] = dict(losses=losses, grad_norm=[m["grad_norm"] for m in metrics],
+                          step_s=times, step_s_median=float(np.median(times[1:])),
+                          peak_device_bytes=torch.cuda.max_memory_allocated(device)
+                          if device.type == "cuda" else None,
+                          flash_launches=flash.launches, flash_launches_expected=per_step
+                          * c["steps"])
+        if device.type == "cuda" and flash.launches != per_step * c["steps"]:
+            raise AssertionError(f"{name}: flash_attention_bhsd ran {flash.launches} times, "
+                                 f"expected {per_step * c['steps']}")
+        if shape is not None:
+            one = runs["one_device"]
+            dl = [abs(a - b) / abs(b) for a, b in zip(losses, one["losses"])]
+            dg = [abs(a - b) / abs(b) for a, b in zip(runs[name]["grad_norm"], one["grad_norm"])]
+            runs[name].update(loss_rel_diff=dl, grad_norm_rel_diff=dg)
+            if max(dl) > MESH_LOSS_RTOL or max(dg) > MESH_GNORM_RTOL:
+                raise AssertionError(f"{name} vs one device: loss {dl}, grad norm {dg}")
+        if shape == tuple(c["elastic_from"]):
+            kept = (model, opt, adamw.AdamWConfig(lr=c["lr"], moments_dtype=mcfg.moments_dtype))
+        else:
+            del model, opt
+    if not all(np.isfinite(runs["one_device"]["losses"])):
+        raise AssertionError(f"one device: losses {runs['one_device']['losses']}")
+    return dict(batch=c["batch"], seq=c["seq"], steps=c["steps"], lr=c["lr"],
+                limits=dict(loss_rtol=MESH_LOSS_RTOL, grad_norm_rtol=MESH_GNORM_RTOL),
+                runs=runs), kept
+
+
+def mesh_serving(c, mcfg, device, seed) -> tuple[dict, object]:
+    """(b) ``serve.generate`` of a ``serve_batch`` x ``serve_prompt`` prompt
+    and ``serve_gen`` greedy steps on one device and on a ``serve_mesh``
+    mesh; the mesh's prefill logits and its decode logits teacher-forced on
+    the one-device tokens against the one-device logits. Returns the info
+    and the one-device model."""
+    from repro_torch.data.tokens import synthetic_batch
+    from repro_torch.distributed import parallel
+    from repro_torch.launch import serve
+    from repro_torch.models import model as lm
+    from repro_torch.models.common import TEST_POLICY
+
+    flash = _flash()
+    model = lm.init(torch.Generator(device=device).manual_seed(seed), mcfg, TEST_POLICY, device)
+    prompt = {"tokens": torch.as_tensor(
+        synthetic_batch(mcfg, 0, c["serve_batch"], c["serve_prompt"])["tokens"], device=device)}
+    one = serve.generate(model, mcfg, TEST_POLICY, prompt, c["serve_gen"])
+    mesh = parallel.shard_model(mesh_of(c["serve_mesh"], device), model)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    flash.launches = 0
+    res = serve.generate(mesh, mcfg, TEST_POLICY, prompt, c["serve_gen"])
+    launches = flash.launches
+    peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else None
+    forced = teacher_forced(mesh, mcfg, TEST_POLICY, prompt, one.tokens)
+    del mesh
+    scale = float(one.logits.abs().max())
+    prefill_diff = float((res.logits[0] - one.logits[0]).abs().max())
+    forced_diff = float((forced - one.logits).abs().max())
+    D, M = c["serve_mesh"]
+    if device.type == "cuda" and launches != mcfg.num_layers * D * M:
+        raise AssertionError(f"mesh prefill: flash_attention_bhsd ran {launches} times")
+    if max(prefill_diff, forced_diff) > MESH_SERVE_RTOL * scale:
+        raise AssertionError(f"mesh serving vs one device: prefill {prefill_diff}, "
+                             f"teacher-forced decode {forced_diff} (max |logit| {scale})")
+    return dict(mesh=list(c["serve_mesh"]), batch=c["serve_batch"], prompt=c["serve_prompt"],
+                gen=c["serve_gen"], one_device=dict(prefill_s=one.prefill_s,
+                                                    decode_ms_per_step=one.decode_s
+                                                    / c["serve_gen"] * 1e3),
+                on_mesh=dict(prefill_s=res.prefill_s,
+                             decode_ms_per_step=res.decode_s / c["serve_gen"] * 1e3,
+                             peak_device_bytes=peak),
+                flash_launches=launches, logits_abs_max=scale,
+                prefill_max_abs_diff=prefill_diff, teacher_forced_max_abs_diff=forced_diff,
+                limit=MESH_SERVE_RTOL * scale,
+                greedy_agreement=float((res.tokens == one.tokens).float().mean())), model
+
+
+def mesh_seq_decode(c, mcfg, model, device, seed) -> dict:
+    """(c) batch 1 against a ``seq_cache``-position bf16 cache filled with
+    0.1 N(0, 1) (the reference's check_seq_sharded_decode_matches), the
+    token at the last position: one device against a ``seq_mesh`` mesh whose
+    data shards keep T / D positions each."""
+    from repro_torch.distributed import parallel
+    from repro_torch.models import model as lm
+    from repro_torch.models.common import TEST_POLICY
+
+    T = c["seq_cache"]
+    gen = torch.Generator(device=device).manual_seed(seed + 5)
+    cache = lm.init_cache(mcfg, 1, T, torch.bfloat16, device)
+    for group in cache:
+        for state in group.values():
+            for x in state.values():
+                x.copy_(torch.randn(x.shape, generator=gen, device=device) * 0.1)
+    nbytes = sum(x.numel() * x.element_size() for g in cache for s in g.values()
+                 for x in s.values())
+    p = parallel.shard_model(mesh_of(c["seq_mesh"], device), model)
+    mc = parallel.place_cache(p, cache, True)  # its blocks are copies
+    step = {"tokens": torch.tensor([[17]], device=device)}
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        got, _ = parallel.forward_decode(p, TEST_POLICY, step, mc, T - 1)
+        sync(device)
+        mesh_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        want, _ = lm.forward_decode(model, mcfg, TEST_POLICY, step, cache, T - 1)
+        sync(device)
+        one_s = time.perf_counter() - t0
+    del p, mc, cache
+    diff = float((got - want).abs().max())
+    if not diff < 2e-3:
+        raise AssertionError(f"sequence-sharded decode vs one device: {diff}")
+    return dict(mesh=list(c["seq_mesh"]), cache_positions=T, cache_bytes=nbytes,
+                positions_a_shard=T // c["seq_mesh"][0], max_abs_diff=diff, limit=2e-3,
+                mesh_decode_s=mesh_s, one_device_decode_s=one_s)
+
+
+def mesh_ddp(c, device) -> dict:
+    """(d) the reference's check_compressed_ddp_converges on a ``ddp_mesh``
+    of logical shards: int8 error-feedback gradients, ``ddp_steps`` steps."""
+    from repro_torch.distributed import compression
+
+    mesh = mesh_of(c["ddp_mesh"], device)
+    target = torch.arange(8.0, device=device)
+
+    def loss_fn(params, batch):
+        return torch.mean((batch @ params - batch @ target.to(batch.device)) ** 2)
+
+    def opt_update(params, grads, opt_state):
+        return params - 0.05 * grads.to(params.device), opt_state
+
+    step = compression.make_ddp_compressed_step(mesh, loss_fn, opt_update, axes=("data",))
+    params = torch.zeros(8, device=device)
+    err = compression.init_error_state(params)
+    rng = np.random.default_rng(0)
+    t0 = time.perf_counter()
+    for _ in range(c["ddp_steps"]):
+        batch = torch.from_numpy(rng.standard_normal((64, 8)).astype(np.float32)).to(device)
+        params, _, err, loss = step(params, None, err, batch)
+    sync(device)
+    secs = time.perf_counter() - t0
+    final, perr = float(loss), float((params - target).abs().max())
+    if not (final < 1e-2 and perr < 0.05):
+        raise AssertionError(f"int8 DDP: final loss {final}, parameter error {perr}")
+    shards = c["ddp_mesh"][0]
+    return dict(mesh=list(c["ddp_mesh"]), steps=c["ddp_steps"], final_loss=final,
+                param_error=perr, limits=dict(final_loss=1e-2, param_error=0.05),
+                s_per_step=secs / c["ddp_steps"],
+                payload_bytes_per_step=dict(int8=shards * (8 * 1 + 4), f32=shards * 8 * 4))
+
+
+def mesh_pipeline(c, device) -> dict:
+    """(e) the reference's check_pipeline_matches_unpipelined: 4 tanh stages
+    on the ``pipe`` axis of a (4, 1) mesh of logical shards, 6 microbatches."""
+    from repro_torch.distributed.pipeline import pipelined_apply
+    from repro_torch.launch.mesh import make_mesh
+
+    mesh = make_mesh((4, 1), ("pipe", "model"), devices=[device] * 4)
+    rng = np.random.default_rng(7)
+    Ws = torch.from_numpy((rng.standard_normal((4, 16, 16)) * 0.3).astype(np.float32)).to(device)
+    x = torch.from_numpy(rng.standard_normal((6, 8, 16)).astype(np.float32)).to(device)
+
+    def stage_fn(W, h):
+        return torch.tanh(h @ W)
+
+    def chain(W):
+        h = x
+        for s in range(4):
+            h = stage_fn(W[s], h)
+        return h
+
+    W1, W2 = Ws.clone().requires_grad_(True), Ws.clone().requires_grad_(True)
+    out = pipelined_apply(mesh, stage_fn, W1, x)
+    (g,) = torch.autograd.grad(torch.sum(out ** 2), W1)
+    want = chain(W2)
+    (g_ref,) = torch.autograd.grad(torch.sum(want ** 2), W2)
+    err, gerr = float((out - want).abs().max()), float((g - g_ref).abs().max())
+    if not (err < 1e-5 and gerr < 1e-4):
+        raise AssertionError(f"pipeline: output {err}, gradient {gerr}")
+    return dict(stages=4, microbatches=6, max_err=err, grad_err=gerr,
+                limits=dict(max_err=1e-5, grad_err=1e-4))
+
+
+def mesh_elastic(c, mcfg, kept, device) -> dict:
+    """(f) the (a) run's state on its ``elastic_from`` mesh saved as
+    ``TrainLoop`` saves it (the gathered trees, the reference's layout), then
+    ``reshard_restore`` onto each ``elastic_to`` mesh: every parameter and
+    moment bit for bit."""
+    import shutil
+    import tempfile
+
+    from repro_torch import convert
+    from repro_torch.distributed import checkpoint as ckpt_lib
+    from repro_torch.launch import elastic
+    from repro_torch.models.common import TEST_POLICY
+    from repro_torch.optim.adamw import AdamWState
+
+    params, opt, opt_cfg = kept
+    root = Path(tempfile.mkdtemp(prefix="lm_mesh_"))
+    try:
+        t0 = time.perf_counter()
+        gathered = AdamWState(opt.step, {n: s.gather("cpu") for n, s in opt.mu.items()},
+                              {n: s.gather("cpu") for n, s in opt.nu.items()})
+        trees = convert.lm_train_state_to_numpy(params.gather("cpu"), gathered, mcfg)
+        del params, opt, gathered
+        ckpt_lib.save(root, int(trees["opt_state"].step), trees)
+        save_s = time.perf_counter() - t0
+        saved = dict(params=convert._by_name(trees["params"], mcfg),
+                     mu=convert._by_name(trees["opt_state"].mu, mcfg),
+                     nu=convert._by_name(trees["opt_state"].nu, mcfg))
+        out = dict(mesh_from=list(c["elastic_from"]), bytes=dir_bytes(root), save_s=save_s,
+                   restores={})
+        for shape in c["elastic_to"]:
+            t0 = time.perf_counter()
+            step, p, o = elastic.reshard_restore(root, mcfg, TEST_POLICY, opt_cfg,
+                                                 mesh_of(shape, device))
+            sync(device)
+            restore_s = time.perf_counter() - t0
+            equal = all(np.array_equal(src[n].gather("cpu").numpy(), want)
+                        for src, key in ((p.params, "params"), (o.mu, "mu"), (o.nu, "nu"))
+                        for n, want in saved[key].items())
+            out["restores"][f"{shape[0]}x{shape[1]}"] = dict(
+                restore_s=restore_s, step=step, bitwise_equal=equal)
+            del p, o
+            if not equal or step != int(trees["opt_state"].step):
+                raise AssertionError(f"elastic restore onto {shape}: not bit for bit")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["temp_dir_removed"] = not root.exists()
+    return out
+
+
+def phase_lm_mesh(cfg, device, seed) -> dict:
+    """The LM on a device mesh (``distributed.parallel``) over logical shards
+    of the one device (``make_host_mesh(data, model, device)``): qwen1.5-0.5b
+    at full width and depth on the card (reduced in the rehearsal), (a)
+    training on three meshes, (b) serving on (1, 2), (c) the
+    sequence-sharded decode on (2, 1), (d) int8 error-feedback DDP on (8, 1),
+    (e) the GPipe pipeline on a (4, 1) pipe axis, (f) the elastic restore
+    from (2, 2) onto (1, 2) and (1, 1). TF32 stays off."""
+    from repro_torch.configs import get_arch, reduced
+
+    if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
+        raise AssertionError("TF32 is on: the mesh is held against one device in f32")
+    c = cfg["lm_mesh"]
+    arch = get_arch(c["arch"])
+    mcfg = reduced(arch) if c["reduced"] else arch
+    info = dict(phase="lm_mesh", arch=mcfg.name, layers=mcfg.num_layers, d_model=mcfg.d_model,
+                heads=mcfg.num_heads, remat=mcfg.remat, device_entries="logical shards of one "
+                "device" if device.type == "cuda" else "cpu")
+    kept, model = None, None
+    parts = (("a_training", lambda: mesh_training(c, mcfg, device, seed)),
+             ("b_serving", lambda: mesh_serving(c, mcfg, device, seed)),
+             ("c_seq_sharded_decode", lambda: mesh_seq_decode(c, mcfg, model, device, seed)),
+             ("d_int8_ddp", lambda: mesh_ddp(c, device)),
+             ("e_pipeline", lambda: mesh_pipeline(c, device)),
+             ("f_elastic", lambda: mesh_elastic(c, mcfg, kept, device)))
+    for key, part in parts:
+        t0 = time.perf_counter()
+        try:
+            res = part()
+        except BaseException:
+            print(json.dumps(info), file=sys.stderr, flush=True)  # the parts that passed
+            raise
+        if key == "a_training":
+            res, kept = res
+        elif key == "b_serving":
+            res, model = res
+        elif key == "f_elastic":
+            kept = None
+        info[key] = res
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        info[f"{key}_s"] = time.perf_counter() - t0
+    del model
+    info["flash_launches"] = (sum(r["flash_launches"] for r in info["a_training"]["runs"].values())
+                              + info["b_serving"]["flash_launches"])
+    return info
+
+
 def profile_serve(model, cfg, policy, prompt, tokens, steps=4) -> dict:
     """Where serving time goes: one prefill (with the cache set-up) and
     ``steps`` decode steps after it, each traced (device busy share, the
@@ -3858,6 +4240,8 @@ def main(argv=None) -> int:
     emit(train_info)
     ssm_info = phase_lm_ssm(cfg, device, args.seed)
     emit(ssm_info)
+    mesh_info = phase_lm_mesh(cfg, device, args.seed)
+    emit(mesh_info)
 
     if rehearsal:
         emit(dict(phase="timing", skipped="cpu rehearsal: no device times"))
@@ -3867,11 +4251,12 @@ def main(argv=None) -> int:
                                   sweep_data, lm_info["flash_attention_launches"],
                                   serve_info["launches"], shard_info["launches"], cfg)
         emit(info)
-        for r in rows:  # phases lm_train's and lm_ssm's launches count with the main path's
+        for r in rows:  # phases lm_train's, lm_ssm's and lm_mesh's launches count too
             if r["name"] == "flash_attention_bhsd":
                 r["train_launches"] = train_info["flash_launches"]
                 r["ssm_launches"] = ssm_info["flash_launches"]
-                r["launches"] += r["train_launches"] + r["ssm_launches"]
+                r["mesh_launches"] = mesh_info["flash_launches"]
+                r["launches"] += r["train_launches"] + r["ssm_launches"] + r["mesh_launches"]
                 r["backward"] = [dict(shape=g["shape"], **{k: g[k] for k in (
                     "backward_ms", "plain_backward_ms", "sdpa_backward_ms", "backward_bound_ms",
                     "backward_bound_by")}) for g in train_info["b_attention_gradients"]]

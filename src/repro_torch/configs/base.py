@@ -1,14 +1,17 @@
-"""Architecture + shape configuration system (pure data, no JAX).
+"""Architecture + shape configuration system (no JAX).
 
 Every assigned architecture is a frozen ``ArchConfig`` registered under its id
 (``--arch <id>``). A config fully determines the model: layer pattern (attention /
-Mamba / RWKV6 mixers; dense / MoE FFNs), head layout and frontend stubs. The
-fields are those of the JAX package's configs, one for one; the
-``input_specs`` of its allocation-free dry-run are not ported.
+Mamba / RWKV6 mixers; dense / MoE FFNs), head layout, frontend stubs, and the
+input specs for each assigned input shape. The fields are those of the JAX
+package's configs, one for one; ``input_specs`` gives ``meta``-device tensors,
+torch's allocation-free stand-in for ``jax.ShapeDtypeStruct``.
 """
 from __future__ import annotations
 
 import dataclasses
+
+import torch
 
 # ---------------------------------------------------------------------------
 # Shapes (assigned set; identical across LM archs)
@@ -142,6 +145,45 @@ class ArchConfig:
                 continue  # full-attention arch: skip per assignment sheet
             out.append(s.name)
         return out
+
+    # ------------------------------------------------------------------
+    def input_specs(self, shape_name: str, dtype=torch.bfloat16) -> dict:
+        """``meta``-device stand-ins for every model input of a given shape:
+        the reference's keys, shapes and dtypes (tokens and codes int32,
+        ``loss_mask`` and ``patch_embeds`` in ``dtype``), allocation-free."""
+        s = SHAPES[shape_name]
+        B, S = s.batch, s.seq_len
+
+        def spec(*shape, dt=torch.int32):
+            return torch.empty(shape, dtype=dt, device="meta")
+
+        if s.kind == "train":
+            specs: dict = {}
+            if self.frontend == "audio_codes":
+                specs["codes"] = spec(B, self.num_codebooks, S)
+            elif self.frontend == "vision_prefix":
+                P = self.num_prefix_tokens
+                specs["tokens"] = spec(B, S - P)
+                specs["patch_embeds"] = spec(B, P, self.d_model, dt=dtype)
+            else:
+                specs["tokens"] = spec(B, S)
+            specs["loss_mask"] = spec(B, S, dt=dtype)
+            return specs
+        if s.kind == "prefill":
+            if self.frontend == "audio_codes":
+                return {"codes": spec(B, self.num_codebooks, S)}
+            if self.frontend == "vision_prefix":
+                P = self.num_prefix_tokens
+                return {"tokens": spec(B, S - P),
+                        "patch_embeds": spec(B, P, self.d_model, dt=dtype)}
+            return {"tokens": spec(B, S)}
+        if s.kind == "decode":
+            # one new token against a cache of length seq_len (the cache is the
+            # caller's, from model.init_cache); here only the per-step inputs
+            if self.frontend == "audio_codes":
+                return {"codes": spec(B, self.num_codebooks, 1)}
+            return {"tokens": spec(B, 1)}
+        raise ValueError(s.kind)
 
 
 # ---------------------------------------------------------------------------

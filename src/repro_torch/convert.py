@@ -173,10 +173,16 @@ def lm_params_from_numpy(tree: dict, cfg, *, device=None):
     return load_lm_params(lm.build(cfg, Policy(), device), tree, cfg)
 
 
+def _named_params(model) -> dict:
+    """An LM module's parameters by name, or the dict of them as given."""
+    return dict(model.named_parameters()) if hasattr(model, "named_parameters") else dict(model)
+
+
 def lm_params_to_numpy(model, cfg) -> dict:
     """The inverse of ``lm_params_from_numpy``: the reference's params tree,
-    nested dicts of host numpy arrays with the groups stacked on axis 0."""
-    return _numpy_tree(dict(model.named_parameters()), cfg)
+    nested dicts of host numpy arrays with the groups stacked on axis 0.
+    ``model`` is the LM or its parameters by name."""
+    return _numpy_tree(_named_params(model), cfg)
 
 
 def adamw_state_to_numpy(state, cfg):
@@ -216,7 +222,7 @@ def lm_train_state_templates(model, state, cfg) -> dict:
     from repro_torch.optim.adamw import AdamWState
 
     step = torch.empty((), dtype=torch.int32, device="meta")
-    return {"params": _meta_tree(dict(model.named_parameters()), cfg),
+    return {"params": _meta_tree(_named_params(model), cfg),
             "opt_state": AdamWState(step, _meta_tree(state.mu, cfg), _meta_tree(state.nu, cfg))}
 
 

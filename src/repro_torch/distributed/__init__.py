@@ -1,5 +1,7 @@
-"""Persistence of the port: crash-safe checkpoints in the JAX package's
-format (``checkpoint``). The sharding, compression and pipeline modules of
-the JAX package's ``distributed`` arrive with the LM training and LM-mesh
-slices (ROADMAP.md, Queue 1 items 15 and 20)."""
-from repro_torch.distributed import checkpoint  # noqa: F401
+"""The port's distributed layer: crash-safe checkpoints in the JAX package's
+format (``checkpoint``), the LM's sharding rules and placement
+(``sharding``), the LM over a device mesh (``parallel``), int8
+error-feedback gradient compression (``compression``) and the GPipe
+pipeline (``pipeline``)."""
+from repro_torch.distributed import sharding  # noqa: F401
+from repro_torch.distributed import checkpoint, compression, pipeline  # noqa: F401

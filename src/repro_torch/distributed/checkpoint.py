@@ -41,6 +41,7 @@ import torch
 
 from repro_torch import obs
 from repro_torch.device import resolve_device
+from repro_torch.distributed import sharding
 from repro_torch.obs.metrics import MetricsView
 
 _SEP = "/"
@@ -212,24 +213,37 @@ def restore(
     *,
     step: int | None = None,
     device=None,
+    shardings: dict[str, Any] | None = None,
 ) -> tuple[int, dict[str, Any]]:
     """Restore trees shaped like ``templates``: the same containers, whose
     leaves are tensors or arrays (or ``torch.empty(shape, dtype=...,
     device="meta")``) giving each leaf's shape and dtype. Returns (step,
-    trees) with every leaf a tensor on ``device`` (default: the card)."""
-    dev = resolve_device(device)
+    trees) with every leaf a tensor on ``device`` (default: the card).
+
+    ``shardings`` maps a tree's name to a tree of the same containers whose
+    leaves are ``sharding.NamedSharding`` (``sharding.to_shardings``): each
+    of its leaves is read on the host and placed by its spec over its mesh
+    (a `sharding.Sharded`), whatever mesh wrote the checkpoint — the
+    elastic re-shard on restore."""
     ckpt_dir = Path(ckpt_dir)
     step, d = _step_dir(ckpt_dir, step)
     manifest = json.loads((d / "manifest.json").read_text())
+    shardings = shardings or {}
+    dev = None if set(templates) <= set(shardings) else resolve_device(device)
     out: dict[str, Any] = {}
     for name, template in templates.items():
+        where = [s for _, s in _leaves(shardings[name])] if name in shardings else None
         with np.load(d / f"{name}.npz") as data:
             leaves = []
-            for key, t in _leaves(template):
+            for n, (key, t) in enumerate(_leaves(template)):
                 arr = data[key]
                 if tuple(arr.shape) != tuple(t.shape):
                     raise ValueError(f"{name}/{key}: shape {arr.shape} != {tuple(t.shape)}")
-                leaves.append(torch.from_numpy(arr).to(dev, _torch_dtype(t.dtype)))
+                x = torch.from_numpy(arr).to(dtype=_torch_dtype(t.dtype))
+                if where is None:
+                    leaves.append(x.to(dev))
+                else:
+                    leaves.append(sharding.place_leaf(where[n].mesh, x, where[n].spec, key))
         out[name] = _rebuild(template, iter(leaves))
     return manifest["step"], out
 

@@ -13,9 +13,10 @@ loads in another, on whatever device count it has:
     ``pool.elastic_resumes`` (`repro_torch.obs` counters;
     ``distributed.checkpoint.COUNTERS`` views them).
 
-`reshard_restore`, the LM train state's restore onto a new mesh, waits for
-the LM on a device mesh (ROADMAP.md Queue 1 item 20); a train checkpoint
-restores on one device through `train.loop.TrainLoop`.
+`reshard_restore` is the LM train state's: the same rules
+(`distributed.sharding`) place it on whatever mesh the resuming run has
+(e.g. a lost node: from (4, 2) to (2, 2)), since a train checkpoint holds
+the gathered trees in the reference's layout.
 """
 from __future__ import annotations
 
@@ -27,11 +28,29 @@ from repro_torch.distributed import checkpoint as ckpt_lib
 
 
 def reshard_restore(ckpt_dir: str | Path, cfg, policy, opt_cfg, mesh):
-    """The LM train state restored onto ``mesh``: not ported yet."""
-    raise NotImplementedError(
-        "reshard_restore needs the LM's tensor-parallel sharding rules on a device mesh, "
-        "which are not ported yet (ROADMAP.md Queue 1 item 20)"
-    )
+    """Returns (step, params, opt_state) placed on ``mesh`` regardless of the
+    mesh the checkpoint was written under: params a
+    `distributed.parallel.MeshLM`, opt_state an ``AdamWState`` whose moments
+    are `Sharded` like the params and whose step is a CPU int32 tensor."""
+    from repro_torch import convert
+    from repro_torch.distributed import parallel
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models import model as model_lib
+    from repro_torch.optim import adamw
+
+    model_t = model_lib.build(cfg, policy, "meta")
+    opt_t = adamw.init(model_t, opt_cfg)
+    specs = shd.stacked(cfg, shd.param_pspecs(cfg, model_t))
+    opt_specs = adamw.AdamWState(shd.Spec(), specs, specs)
+    step, trees = ckpt_lib.restore(
+        ckpt_dir, convert.lm_train_state_templates(model_t, opt_t, cfg),
+        shardings={"params": shd.to_shardings(mesh, specs),
+                   "opt_state": shd.to_shardings(mesh, opt_specs)})
+    params = parallel.MeshLM(cfg, mesh, convert._by_name(trees["params"], cfg))
+    saved = trees["opt_state"]
+    opt_state = adamw.AdamWState(saved.step.gather("cpu"), convert._by_name(saved.mu, cfg),
+                                 convert._by_name(saved.nu, cfg))
+    return step, params, opt_state
 
 
 def restore_cluster_model(ckpt_dir: str | Path, *, step: int | None = None, device=None):

@@ -3,12 +3,19 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b --batch 4 \\
         --prompt-len 32 --gen 16                       # on the card
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu   # plain path, CPU
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --data-axis 2 \\
+        --model-axis 2                                 # a (2, 2) mesh of CPU shards
 
 As the reference launcher, it serves ``reduced(get_arch(arch))`` from a
 random init, any of the ten archs, the prompt from ``data.tokens`` (codes for
 musicgen, patch embeddings ahead of the text for llava); ``generate`` runs
 any config, the full-width one included (``chip_smoke.py`` serves
 qwen1.5-0.5b, rwkv6-3b, musicgen-large and more at full width through it).
+``--data-axis`` / ``--model-axis`` above 1 serve it on a (data, model)
+device mesh through ``distributed.parallel`` (the sharded prefill and
+decode; a batch smaller than the data degree decodes against a
+sequence-sharded cache): over the visible cards, or with ``--device`` over
+logical shards of that device.
 """
 from __future__ import annotations
 
@@ -22,6 +29,8 @@ import torch
 from repro_torch.configs import get_arch, reduced
 from repro_torch.data import tokens as tok_lib
 from repro_torch.device import resolve_device
+from repro_torch.distributed import parallel
+from repro_torch.launch.mesh import make_host_mesh, make_mesh
 from repro_torch.models import attention
 from repro_torch.models import model as model_lib
 from repro_torch.models.common import Policy
@@ -47,11 +56,16 @@ def sample(logits: torch.Tensor, generator: torch.Generator | None,
     return torch.multinomial(probs, 1, generator=generator)[:, 0]
 
 
-def grow_cache(cache: list[dict], max_len: int) -> list[dict]:
+def grow_cache(cache, max_len: int):
     """Each attention layer's (B, S, KV, Dh) k, v copied into zeros of length
     max_len, so decode has room (the reference pads the same way). The SSM
     layers' states (Mamba's h, conv; RWKV6's S, x_tmix, x_cmix) have no
-    sequence axis and stay as they are."""
+    sequence axis and stay as they are. A mesh's cache grows on every
+    coordinate, then (a batch smaller than the data degree) is cut over
+    its positions."""
+    if isinstance(cache, parallel.MeshCache):
+        return cache.map(lambda c: grow_cache(c, max_len)).seq_split()
+
     def grow(name, x):
         if name not in ("k", "v"):
             return x
@@ -75,7 +89,9 @@ def prefill(model, cfg, policy: Policy, batch: dict, max_len: int, *,
     logits, cache = step_lib.make_prefill_step(cfg, policy)(model, batch)
     cache = grow_cache(cache, max_len)
     if kv_int8:
-        cache = [{layer: _quantize(c) for layer, c in group.items()} for group in cache]
+        def quantize(cache):
+            return [{layer: _quantize(c) for layer, c in group.items()} for group in cache]
+        cache = cache.map(quantize) if isinstance(cache, parallel.MeshCache) else quantize(cache)
     return logits, cache
 
 
@@ -144,21 +160,27 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="the card by default; 'cpu' runs the plain path on the CPU")
     args = ap.parse_args(argv)
-    if args.data_axis > 1 or args.model_axis > 1:
-        raise NotImplementedError(
-            "the LM on a device mesh is not ported yet (ROADMAP.md Queue 1 item 20)")
 
-    device = resolve_device(args.device)
+    mesh = None
+    if args.data_axis > 1 or args.model_axis > 1:
+        shape = (args.data_axis, args.model_axis)
+        mesh = (make_mesh(shape, ("data", "model")) if args.device is None
+                else make_host_mesh(*shape, resolve_device(args.device)))
+    device = mesh.devices.flat[0] if mesh is not None else resolve_device(args.device)
     cfg = reduced(get_arch(args.arch))
     policy = Policy()
     model = model_lib.init(torch.Generator(device=device).manual_seed(0), cfg, policy, device)
+    if mesh is not None:
+        model = parallel.shard_model(mesh, model)
     batch = tok_lib.synthetic_batch(cfg, 0, args.batch, args.prompt_len)
     batch = {k: torch.as_tensor(np.asarray(v), device=device) for k, v in batch.items()
              if k != "loss_mask"}
     res = generate(model, cfg, policy, batch, args.gen,
                    temperature=args.temperature, kv_int8=args.kv_int8,
                    generator=torch.Generator(device=device).manual_seed(1))
-    print(f"[serve] {cfg.name} on {device}: prefill {args.batch}x{args.prompt_len} in "
+    where = f"a {args.data_axis} x {args.model_axis} mesh of {device}" if mesh is not None \
+        else str(device)
+    print(f"[serve] {cfg.name} on {where}: prefill {args.batch}x{args.prompt_len} in "
           f"{res.prefill_s*1e3:.1f}ms; {args.gen} decode steps in {res.decode_s*1e3:.1f}ms "
           f"({args.gen*args.batch/max(res.decode_s, 1e-9):.1f} tok/s)")
     print("[serve] sample token ids:", res.tokens[:2, :10].tolist())

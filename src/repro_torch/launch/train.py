@@ -4,14 +4,19 @@
         --batch 8 --seq 256 --ckpt run1                  # reduced arch, on the card
     PYTHONPATH=src python -m repro_torch.launch.train --full --arch qwen1.5-0.5b
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu --steps 4 --seq 32
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen1.5-0.5b \
+        --data-axis 2 --model-axis 2 --device cpu      # a (2, 2) mesh of CPU shards
 
 Runs the training loop (synthetic corpus, AdamW with warmup + cosine,
-async checkpoints, resume from the latest one) on one device, with the train
-step and checkpoints of ``repro_torch.train``. ``--reduced`` (the default)
-shrinks the arch and turns remat off, as the reference's host-scale runs do;
+async checkpoints, resume from the latest one) with the train step and
+checkpoints of ``repro_torch.train``. ``--reduced`` (the default) shrinks
+the arch and turns remat off, as the reference's host-scale runs do;
 ``--full`` keeps the arch's width and its remat. ``--data-axis`` or
-``--model-axis`` above 1 ask for a device mesh, which the LM does not have yet
-(ROADMAP.md Queue 1 item 20).
+``--model-axis`` above 1 run it on a (data, model) device mesh, the params
+and optimizer state placed by ``distributed.sharding``'s rules: over the
+visible cards (``make_mesh``, which raises when there are too few), or, with
+``--device`` given, over logical shards of that one device
+(``make_host_mesh``).
 """
 from __future__ import annotations
 
@@ -25,6 +30,8 @@ import torch
 from repro_torch.configs import get_arch, reduced
 from repro_torch.data import tokens
 from repro_torch.device import resolve_device
+from repro_torch.distributed import parallel
+from repro_torch.launch.mesh import make_host_mesh, make_mesh
 from repro_torch.models import model as model_lib
 from repro_torch.models.common import Policy
 from repro_torch.optim import adamw
@@ -53,11 +60,13 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="the card by default; 'cpu' runs the plain path on the CPU")
     args = ap.parse_args(argv)
-    if args.data_axis > 1 or args.model_axis > 1:
-        raise NotImplementedError(
-            "the LM on a device mesh is not ported yet (ROADMAP.md Queue 1 item 20)")
 
-    device = resolve_device(args.device)
+    mesh = None
+    if args.data_axis > 1 or args.model_axis > 1:
+        shape = (args.data_axis, args.model_axis)
+        mesh = (make_mesh(shape, ("data", "model")) if args.device is None
+                else make_host_mesh(*shape, resolve_device(args.device)))
+    device = mesh.devices.flat[0] if mesh is not None else resolve_device(args.device)
     cfg = get_arch(args.arch)
     if args.reduced:
         over = {}
@@ -71,6 +80,9 @@ def main(argv=None):
     opt_cfg = AdamWConfig(lr=args.lr, moments_dtype=cfg.moments_dtype)
     params = model_lib.init(torch.Generator(device=device).manual_seed(0), cfg, policy, device)
     opt_state = adamw.init(params, opt_cfg)
+    if mesh is not None:
+        params = parallel.shard_model(mesh, params)
+        opt_state = parallel.shard_opt_state(params, opt_state)
 
     def schedule(s):
         return warmup_cosine(s, warmup=max(2, args.steps // 10), total=args.steps)
@@ -87,7 +99,8 @@ def main(argv=None):
     )
     params, opt_state, history = loop.run(params, opt_state)
     first, last = history[0], history[-1]
-    print(f"[train] {cfg.name}: step {first['step']} loss {first['loss']:.4f} -> "
+    where = f" on a {args.data_axis} x {args.model_axis} mesh" if mesh is not None else ""
+    print(f"[train] {cfg.name}{where}: step {first['step']} loss {first['loss']:.4f} -> "
           f"step {last['step']} loss {last['loss']:.4f}")
     if loop.straggler_events:
         print(f"[train] straggler events: {len(loop.straggler_events)}")

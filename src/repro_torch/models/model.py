@@ -107,26 +107,57 @@ def param_count(params: nn.Module) -> int:
     return sum(p.numel() for p in params.parameters())
 
 
+def token_embeds(emb: torch.Tensor, cfg: ArchConfig, batch: dict, v0: int = 0) -> torch.Tensor:
+    """The embeddings (B, S, d) of ``batch["tokens"]`` from ``emb`` (V', d)
+    or, for audio codes, the sum over the K codebooks of ``batch["codes"]``
+    (B, K, S) from ``emb`` (K, V', d). ``emb`` may hold only the vocab rows
+    [v0, v0 + V') (a vocab shard's, ``distributed.parallel``): an id
+    outside them embeds to zero."""
+
+    def lookup(ids, table):
+        V = table.shape[0]
+        if V == cfg.vocab_size:
+            return F.embedding(ids, table)
+        inr = (ids >= v0) & (ids < v0 + V)
+        return F.embedding((ids - v0).clamp(0, V - 1), table) * inr[..., None].to(table.dtype)
+
+    if cfg.frontend == "audio_codes":
+        codes = batch["codes"]
+        x = lookup(codes[:, 0], emb[0])
+        for k in range(1, cfg.num_codebooks):
+            x = x + lookup(codes[:, k], emb[k])
+        return x
+    return lookup(batch["tokens"], emb)
+
+
+def frontend(cfg: ArchConfig, policy: Policy, batch: dict, x: torch.Tensor) -> torch.Tensor:
+    """The token embeddings x with, for vision, ``batch["patch_embeds"]``
+    ahead of them where present, and sinusoidal positions from 0."""
+    if cfg.frontend == "vision_prefix" and "patch_embeds" in batch:
+        x = torch.cat([policy.cast(batch["patch_embeds"]), x], dim=1)
+    if cfg.pos_emb == "sinusoidal":
+        pos = torch.arange(x.shape[1], device=x.device)
+        x = x + sinusoidal_positions(pos, cfg.d_model).to(x.dtype)
+    return x
+
+
 def embed_inputs(params: LM, cfg: ArchConfig, policy: Policy, batch: dict) -> torch.Tensor:
     """Returns x (B, S, d) in compute dtype (the reference's stub frontends):
     audio codes, the sum of the K codebooks' embeddings of ``batch["codes"]``
     (B, K, S); vision, ``batch["patch_embeds"]`` (B, P, d), where present,
     ahead of the embeddings of ``batch["tokens"]``; else ``batch["tokens"]``
     (B, S). Sinusoidal positions from 0."""
-    emb = policy.cast(params.embed)
-    if cfg.frontend == "audio_codes":
-        codes = batch["codes"]
-        x = F.embedding(codes[:, 0], emb[0])
-        for k in range(1, cfg.num_codebooks):
-            x = x + F.embedding(codes[:, k], emb[k])
-    else:
-        x = F.embedding(batch["tokens"], emb)
-        if cfg.frontend == "vision_prefix" and "patch_embeds" in batch:
-            x = torch.cat([policy.cast(batch["patch_embeds"]), x], dim=1)
-    if cfg.pos_emb == "sinusoidal":
-        pos = torch.arange(x.shape[1], device=x.device)
-        x = x + sinusoidal_positions(pos, cfg.d_model).to(x.dtype)
-    return x
+    return frontend(cfg, policy, batch, token_embeds(policy.cast(params.embed), cfg, batch))
+
+
+def at_position(cfg: ArchConfig, x: torch.Tensor, cache_len: int) -> torch.Tensor:
+    """A decode step's embeddings moved to position ``cache_len``, the
+    reference's way: ``embed_inputs`` added position 0's sinusoid."""
+    if cfg.pos_emb != "sinusoidal":
+        return x
+    table = sinusoidal_positions(torch.tensor([0, cache_len], device=x.device),
+                                 cfg.d_model).to(x.dtype)
+    return x - table[:1] + table[1:]
 
 
 def _head_logits(params: LM, cfg: ArchConfig, policy: Policy, x: torch.Tensor) -> torch.Tensor:
@@ -150,36 +181,53 @@ def _labels(cfg: ArchConfig, batch: dict) -> torch.Tensor:
     return batch["tokens"]
 
 
-def _ce_chunk(params: LM, cfg: ArchConfig, policy: Policy, x_chunk: torch.Tensor,
-              labels_chunk: torch.Tensor, mask_chunk: torch.Tensor):
-    """Cross-entropy sum and mask count of one sequence chunk; its logits live
-    only inside this function."""
+def ce_stats(params, cfg: ArchConfig, policy: Policy, x_chunk: torch.Tensor,
+             labels_chunk: torch.Tensor, v0: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
+    """(logsumexp, gold logit) of one sequence chunk's logits; they live
+    only inside this function. ``params``' head may hold only the vocab rows
+    [v0, v0 + V') (a vocab shard's): then the logsumexp is over those, and
+    a label outside them scores 0."""
     logits = _head_logits(params, cfg, policy, x_chunk).to(torch.float32)
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels_chunk[..., None].long())[..., 0]
-    if cfg.frontend == "audio_codes":  # logits (B, K, Sc, V), labels (B, K, Sc)
-        nll = (logz - gold) * mask_chunk[:, None, :]
+    V = logits.shape[-1]
+    if V == cfg.vocab_size:
+        gold = torch.gather(logits, -1, labels_chunk[..., None].long())[..., 0]
     else:
-        nll = (logz - gold) * mask_chunk
-    return torch.sum(nll), torch.sum(mask_chunk)
+        inr = (labels_chunk >= v0) & (labels_chunk < v0 + V)
+        idx = (labels_chunk - v0).clamp(0, V - 1)
+        gold = torch.gather(logits, -1, idx[..., None].long())[..., 0] * inr.to(torch.float32)
+    return torch.logsumexp(logits, dim=-1), gold
+
+
+def ce_sums(cfg: ArchConfig, labels: torch.Tensor, mask: torch.Tensor,
+            stats) -> tuple[torch.Tensor, torch.Tensor]:
+    """The sums of the masked next-token CE and of the mask, LOSS_CHUNK
+    positions at a time (the last chunk may be shorter, the ragged tail).
+    Position i predicts label i + 1; ``stats(c0, c1, y)`` gives the
+    (logsumexp, gold logit) of the positions [c0, c1) for their labels y."""
+    y, m = labels[..., 1:], mask[:, 1:]
+    Sm = m.shape[1]
+    chunk = min(LOSS_CHUNK, Sm)
+    tot = torch.zeros((), dtype=torch.float32, device=m.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=m.device)
+    for c0 in range(0, Sm, chunk):
+        c1 = min(Sm, c0 + chunk)
+        logz, gold = stats(c0, c1, y[..., c0:c1])
+        mc = m[:, c0:c1]
+        # audio codes: logz, gold (B, K, Sc) against the mask (B, Sc)
+        nll = (logz - gold) * (mc[:, None, :] if cfg.frontend == "audio_codes" else mc)
+        tot, cnt = tot + torch.sum(nll), cnt + torch.sum(mc)
+    return tot, cnt
 
 
 def _chunked_ce(params: LM, cfg: ArchConfig, policy: Policy, x: torch.Tensor,
                 labels: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """Next-token CE, LOSS_CHUNK positions at a time, each chunk under
-    ``checkpoint`` (its logits are recomputed in the backward), so the
-    (B, S, V) logits never materialize. Position i predicts label i + 1; the
-    last chunk may be shorter (the ragged tail)."""
-    x_in, y, m = x[:, :-1], labels[..., 1:], mask[:, 1:]
-    Sm = x_in.shape[1]
-    chunk = min(LOSS_CHUNK, Sm)
-    tot = torch.zeros((), dtype=torch.float32, device=x.device)
-    cnt = torch.zeros((), dtype=torch.float32, device=x.device)
-    for c0 in range(0, Sm, chunk):
-        c1 = min(Sm, c0 + chunk)
-        s, c = checkpoint(_ce_chunk, params, cfg, policy, x_in[:, c0:c1], y[..., c0:c1],
-                          m[:, c0:c1], use_reentrant=False)
-        tot, cnt = tot + s, cnt + c
+    """Next-token CE, each chunk's logits under ``checkpoint`` (recomputed in
+    the backward), so the (B, S, V) logits never materialize."""
+
+    def stats(c0, c1, y):
+        return checkpoint(ce_stats, params, cfg, policy, x[:, c0:c1], y, use_reentrant=False)
+
+    tot, cnt = ce_sums(cfg, labels, mask, stats)
     return tot / torch.clamp(cnt, min=1.0)
 
 
@@ -237,12 +285,7 @@ def forward_decode(params: LM, cfg: ArchConfig, policy: Policy, batch: dict,
     ``codes`` (B, K, 1)), written into the cache at ``cache_len``: the
     attention caches in place, the SSM states replaced in the cache's dicts.
     Returns (logits (B, V) or (B, K, V), cache)."""
-    x = embed_inputs(params, cfg, policy, batch)  # (B, 1, d)
-    if cfg.pos_emb == "sinusoidal":
-        # the step's position, the reference's way: embed_inputs added position 0
-        pos = torch.tensor([0, cache_len], device=x.device)
-        table = sinusoidal_positions(pos, cfg.d_model).to(x.dtype)
-        x = x - table[:1] + table[1:]
+    x = at_position(cfg, embed_inputs(params, cfg, policy, batch), cache_len)  # (B, 1, d)
     for group, cache_g in zip(params.groups, cache):
         x, _ = transformer.apply_group_decode(group, cfg, policy, x, cache_g, cache_len)
     x = rms_norm(x, params.final_norm, cfg.norm_eps)

@@ -98,9 +98,26 @@ def route(p: MoE, cfg: ArchConfig, policy: Policy, xg: torch.Tensor) -> Routing:
     return Routing(probs, gates, ids, pos, pos < C, C)
 
 
+def aux_loss(cfg: ArchConfig, frac: torch.Tensor, mean_p: torch.Tensor) -> torch.Tensor:
+    """The Switch load-balancing loss from each expert's share of first
+    choices ``frac`` (E,) and its mean router probability ``mean_p`` (E,)."""
+    E = cfg.moe.num_experts
+    return cfg.moe.aux_loss_weight * E * torch.sum(frac * mean_p)
+
+
 def apply(p: MoE, cfg: ArchConfig, policy: Policy,
           x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """x (B, S, d) -> (out (B, S, d), aux_loss () f32)."""
+    out, frac, mean_p = apply_stats(p, cfg, policy, x)
+    return out, aux_loss(cfg, frac, mean_p)
+
+
+def apply_stats(p: MoE, cfg: ArchConfig, policy: Policy, x: torch.Tensor):
+    """x (B, S, d) -> (out (B, S, d), frac (E,), mean_p (E,)): ``apply`` with
+    the aux loss's two factors in its place, so that a data-parallel caller
+    can average them over its shards before their product. The experts'
+    ``wi`` / ``wo`` may be a tensor-parallel shard's columns / rows (the
+    gate and up halves of each), and ``out`` is then that shard's partial sum."""
     moe = cfg.moe
     B, S, d = x.shape
     E = moe.num_experts
@@ -126,11 +143,10 @@ def apply(p: MoE, cfg: ArchConfig, policy: Policy,
 
     frac = torch.mean(F.one_hot(r.ids[:, :, 0], E).to(torch.float32), dim=(0, 1))  # (E,)
     mean_p = torch.mean(r.probs, dim=(0, 1))
-    aux = moe.aux_loss_weight * E * torch.sum(frac * mean_p)
 
     if moe.num_shared:
         g, u = torch.chunk(x @ policy.cast(p.shared_wi), 2, dim=-1)
         shared = (silu(g) * u) @ policy.cast(p.shared_wo)
         sg = torch.sigmoid((x @ policy.cast(p.shared_gate)).to(torch.float32))
         out = out + shared * sg.to(out.dtype)
-    return out, aux
+    return out, frac, mean_p

@@ -10,6 +10,11 @@ The MoE FFN's aux loss is summed on the training path and dropped by
 prefill and decode, as the reference does. A layer's decode cache is the
 attention's {k, v}, Mamba's {h, conv} or RWKV6's {S, x_tmix, x_cmix}, the
 last shared by the layer's time-mix and channel-mix.
+
+The per-layer steps (``mixer_full`` / ``_prefill`` / ``_decode``,
+``ffn_full`` / ``_decode``, ``cmix_state``) are also the mesh's:
+``distributed.parallel`` runs them on each coordinate's blocks and sums
+the model shards' deltas.
 """
 from __future__ import annotations
 
@@ -127,15 +132,78 @@ def _layers(params: Group, cfg: ArchConfig):
         yield f"layer{i}", spec, getattr(params, f"layer{i}")
 
 
-def _apply_ffn(lp: Layer, spec: LayerSpec, cfg: ArchConfig, policy: Policy,
-               x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor | float]:
-    """Returns (delta, aux), aux 0.0 but for an MoE."""
+def mixer_full(lp: Layer, spec: LayerSpec, cfg: ArchConfig, policy: Policy, x: torch.Tensor,
+               positions: torch.Tensor, heads: attention.Heads | None = None) -> torch.Tensor:
+    """The layer's mixer on norm1(x): its delta to x, or with ``heads`` a
+    tensor-parallel shard's part of it (``attention.Heads``)."""
+    h = rms_norm(x, lp.norm1, cfg.norm_eps)
+    if spec.mixer == "attn":
+        return attention.fwd_full(lp.mixer, cfg, policy, h, positions, heads)
+    if spec.mixer == "mamba":
+        return mamba.fwd_full(lp.mixer, cfg, policy, h)
+    return rwkv6.fwd_tmix_full(lp.mixer, cfg, policy, h)
+
+
+def mixer_prefill(lp: Layer, spec: LayerSpec, cfg: ArchConfig, policy: Policy, x: torch.Tensor,
+                  positions: torch.Tensor,
+                  heads: attention.Heads | None = None) -> tuple[torch.Tensor, dict]:
+    """``mixer_full`` and the layer's decode cache: the attention's bf16 k,
+    v, Mamba's {h, conv}, RWKV6's {S, x_tmix, x_cmix} (x_cmix set by
+    ``cmix_state``); h and S f32, the rest bf16, as the reference keeps them."""
+    h = rms_norm(x, lp.norm1, cfg.norm_eps)
+    if spec.mixer == "attn":
+        return attention.fwd_prefill(lp.mixer, cfg, policy, h, positions, heads)
+    if spec.mixer == "mamba":
+        return mamba.fwd_prefill(lp.mixer, cfg, policy, h)
+    return rwkv6.fwd_tmix_prefill(lp.mixer, cfg, policy, h)
+
+
+def mixer_decode(lp: Layer, spec: LayerSpec, cfg: ArchConfig, policy: Policy, x: torch.Tensor,
+                 cache: dict, cache_len: int,
+                 heads: attention.Heads | None = None) -> tuple[torch.Tensor, dict]:
+    """One decode step of the mixer: (delta, cache), the attention cache
+    updated in place, an SSM state replaced."""
+    h = rms_norm(x, lp.norm1, cfg.norm_eps)
+    if spec.mixer == "attn":
+        return attention.fwd_decode(lp.mixer, cfg, policy, h, cache, cache_len, heads)
+    if spec.mixer == "mamba":
+        return mamba.fwd_decode(lp.mixer, cfg, policy, h, cache)
+    return rwkv6.fwd_tmix_decode(lp.mixer, cfg, policy, h, cache)
+
+
+def ffn_full(lp: Layer, spec: LayerSpec, cfg: ArchConfig, policy: Policy,
+             x: torch.Tensor) -> tuple[torch.Tensor, tuple | None]:
+    """The layer's FFN on norm2(x): (delta, the MoE's aux-loss factors
+    (frac, mean_p), else None). The delta is a tensor-parallel shard's part
+    when ``lp.ffn`` holds the shard's columns of ``wi`` and rows of ``wo``."""
     h = rms_norm(x, lp.norm2, cfg.norm_eps)
     if spec.ffn == "moe":
-        return moe.apply(lp.ffn, cfg, policy, h)
+        out, frac, mean_p = moe.apply_stats(lp.ffn, cfg, policy, h)
+        return out, (frac, mean_p)
     if spec.ffn == "rwkv_cmix":
-        return rwkv6.fwd_cmix_full(lp.ffn, cfg, policy, h), 0.0
-    return mlp.apply(lp.ffn, cfg, policy, h), 0.0
+        return rwkv6.fwd_cmix_full(lp.ffn, cfg, policy, h), None
+    return mlp.apply(lp.ffn, cfg, policy, h), None
+
+
+def ffn_decode(lp: Layer, spec: LayerSpec, cfg: ArchConfig, policy: Policy, x: torch.Tensor,
+               cache: dict) -> tuple[torch.Tensor, dict]:
+    """One decode step of the FFN: (delta, cache), RWKV6's channel-mix
+    state replaced; the MoE's aux loss dropped, as the reference does."""
+    h = rms_norm(x, lp.norm2, cfg.norm_eps)
+    if spec.ffn == "moe":
+        return moe.apply_stats(lp.ffn, cfg, policy, h)[0], cache
+    if spec.ffn == "rwkv_cmix":
+        return rwkv6.fwd_cmix_decode(lp.ffn, cfg, policy, h, cache)
+    return mlp.apply(lp.ffn, cfg, policy, h), cache
+
+
+def cmix_state(lp: Layer, spec: LayerSpec, cfg: ArchConfig, x: torch.Tensor,
+               cache: dict) -> None:
+    """Prefill: an RWKV6 layer's channel-mix state, norm2(x) at the last
+    position, into its cache; nothing for another layer."""
+    if spec.ffn == "rwkv_cmix":
+        hn = rms_norm(x, lp.norm2, cfg.norm_eps)
+        cache["x_cmix"] = hn[:, -1:, :].to(cache["x_cmix"].dtype)
 
 
 def apply_group_full(params: Group, cfg: ArchConfig, policy: Policy, x: torch.Tensor,
@@ -144,51 +212,23 @@ def apply_group_full(params: Group, cfg: ArchConfig, policy: Policy, x: torch.Te
     aux loss 0 without MoE."""
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for _, spec, lp in _layers(params, cfg):
-        h = rms_norm(x, lp.norm1, cfg.norm_eps)
-        if spec.mixer == "attn":
-            x = x + attention.fwd_full(lp.mixer, cfg, policy, h, positions)
-        elif spec.mixer == "mamba":
-            x = x + mamba.fwd_full(lp.mixer, cfg, policy, h)
-        else:
-            x = x + rwkv6.fwd_tmix_full(lp.mixer, cfg, policy, h)
-        delta, aux = _apply_ffn(lp, spec, cfg, policy, x)
+        x = x + mixer_full(lp, spec, cfg, policy, x, positions)
+        delta, stats = ffn_full(lp, spec, cfg, policy, x)
         x = x + delta
-        aux_total = aux_total + aux
+        if stats is not None:
+            aux_total = aux_total + moe.aux_loss(cfg, *stats)
     return x, aux_total
-
-
-def _attn_prefill(p: attention.Attention, cfg: ArchConfig, policy: Policy, h: torch.Tensor,
-                  positions: torch.Tensor) -> tuple[torch.Tensor, dict]:
-    q, k, v = attention._project_qkv(p, cfg, policy, h, positions)
-    reps = cfg.phys_heads // cfg.num_kv_heads
-    out = attention._flash_attention(
-        q, attention._repeat_kv(k, reps), attention._repeat_kv(v, reps), cfg.sliding_window)
-    mask = attention._head_mask(cfg, out.dtype, out.device)
-    if mask is not None:
-        out = out * mask[None, None, :, None]
-    y = attention._out_proj(out, policy.cast(p.wo))
-    # the cache is bf16 whatever the policy, as the reference keeps it
-    return y, {"k": k.to(torch.bfloat16), "v": v.to(torch.bfloat16)}
 
 
 def apply_group_prefill(params: Group, cfg: ArchConfig, policy: Policy, x: torch.Tensor,
                         positions: torch.Tensor) -> tuple[torch.Tensor, dict]:
-    """Like full, but collects the decode cache for each layer (the SSM
-    states in bf16 but h and S, f32, as the reference keeps them)."""
+    """Like full, but collects the decode cache for each layer."""
     cache = {}
     for name, spec, lp in _layers(params, cfg):
-        h = rms_norm(x, lp.norm1, cfg.norm_eps)
-        if spec.mixer == "attn":
-            y, c = _attn_prefill(lp.mixer, cfg, policy, h, positions)
-        elif spec.mixer == "mamba":
-            y, c = mamba.fwd_prefill(lp.mixer, cfg, policy, h)
-        else:
-            y, c = rwkv6.fwd_tmix_prefill(lp.mixer, cfg, policy, h)
+        y, c = mixer_prefill(lp, spec, cfg, policy, x, positions)
         x = x + y
-        delta, _ = _apply_ffn(lp, spec, cfg, policy, x)
-        if spec.ffn == "rwkv_cmix":
-            hn = rms_norm(x, lp.norm2, cfg.norm_eps)
-            c["x_cmix"] = hn[:, -1:, :].to(c["x_cmix"].dtype)
+        delta, _ = ffn_full(lp, spec, cfg, policy, x)
+        cmix_state(lp, spec, cfg, x, c)
         x = x + delta
         cache[name] = c
     return x, cache
@@ -199,22 +239,9 @@ def apply_group_decode(params: Group, cfg: ArchConfig, policy: Policy, x: torch.
     """One decode step through the group. x (B, 1, d); the attention caches
     are updated in place, each SSM layer's state replaced in ``cache``."""
     for name, spec, lp in _layers(params, cfg):
-        c = cache[name]
-        h = rms_norm(x, lp.norm1, cfg.norm_eps)
-        if spec.mixer == "attn":
-            y, c = attention.fwd_decode(lp.mixer, cfg, policy, h, c, cache_len)
-        elif spec.mixer == "mamba":
-            y, c = mamba.fwd_decode(lp.mixer, cfg, policy, h, c)
-        else:
-            y, c = rwkv6.fwd_tmix_decode(lp.mixer, cfg, policy, h, c)
+        y, c = mixer_decode(lp, spec, cfg, policy, x, cache[name], cache_len)
         x = x + y
-        h2 = rms_norm(x, lp.norm2, cfg.norm_eps)
-        if spec.ffn == "moe":
-            x = x + moe.apply(lp.ffn, cfg, policy, h2)[0]
-        elif spec.ffn == "rwkv_cmix":
-            delta, c = rwkv6.fwd_cmix_decode(lp.ffn, cfg, policy, h2, c)
-            x = x + delta
-        else:
-            x = x + mlp.apply(lp.ffn, cfg, policy, h2)
+        delta, c = ffn_decode(lp, spec, cfg, policy, x, c)
+        x = x + delta
         cache[name] = c
     return x, cache

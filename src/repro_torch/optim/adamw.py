@@ -74,8 +74,11 @@ def init(params, cfg: AdamWConfig) -> AdamWState:
 
 
 def global_norm(tree: dict) -> torch.Tensor:
+    """The norm of every leaf together, on the first leaf's device (the
+    leaves of a device mesh's blocks may lie on several)."""
     leaves = [torch.sum(torch.square(x.to(torch.float32))) for x in tree.values()]
-    return torch.sqrt(torch.sum(torch.stack(leaves)))
+    dev = leaves[0].device
+    return torch.sqrt(torch.sum(torch.stack([x.to(dev) for x in leaves])))
 
 
 @torch.no_grad()
@@ -97,7 +100,8 @@ def update(params, grads: dict, state: AdamWState, cfg: AdamWConfig,
 
     for name, p in named(params).items():
         mu, nu = state.mu[name], state.nu[name]
-        g32 = grads[name].to(torch.float32) * clip
+        c = clip.to(p.device) if isinstance(clip, torch.Tensor) else clip
+        g32 = grads[name].to(torch.float32) * c
         mu32 = b1 * mu.to(torch.float32) + (1 - b1) * g32
         nu32 = b2 * nu.to(torch.float32) + (1 - b2) * g32 * g32
         upd = (mu32 / bc1) / (torch.sqrt(nu32 / bc2) + cfg.eps)

@@ -15,8 +15,10 @@ A step's time ends on a sync of its loss, the counterpart of the
 reference's ``block_until_ready``. The checkpoints are the JAX package's:
 an ``LM`` is saved as the reference's params tree (groups stacked on axis
 0) and its ``AdamWState`` with the same leaf names, so a run saved by
-either package resumes in the other (``convert.lm_train_state_*``); any
-other params and optimizer state are saved as the trees they are.
+either package resumes in the other (``convert.lm_train_state_*``); an
+LM on a device mesh (`distributed.parallel.MeshLM`) is gathered and saved
+the same way, and resumes in place; any other params and optimizer state
+are saved as the trees they are.
 """
 from __future__ import annotations
 
@@ -31,6 +33,7 @@ import torch
 
 from repro_torch import convert
 from repro_torch.distributed import checkpoint as ckpt_lib
+from repro_torch.distributed.parallel import MeshLM
 from repro_torch.models.model import LM
 
 
@@ -55,7 +58,19 @@ def _trees(params, opt_state) -> dict:
     """What a checkpoint holds: the reference's trees for an LM."""
     if isinstance(params, LM):
         return convert.lm_train_state_to_numpy(params, opt_state, params.cfg)
+    if isinstance(params, MeshLM):
+        return convert.lm_train_state_to_numpy(
+            params.gather(), type(opt_state)(opt_state.step, _gathered(opt_state.mu),
+                                             _gathered(opt_state.nu)), params.cfg)
     return {"params": params, "opt_state": opt_state}
+
+
+def _gathered(tree: dict) -> dict:
+    return {n: sh.gather("cpu") for n, sh in tree.items()}
+
+
+def _meta(tree: dict) -> dict:
+    return {n: torch.empty(sh.shape, dtype=sh.dtype, device="meta") for n, sh in tree.items()}
 
 
 def _restore(ckpt_dir: Path, params, opt_state):
@@ -66,6 +81,18 @@ def _restore(ckpt_dir: Path, params, opt_state):
         step, trees = ckpt_lib.restore(ckpt_dir, templates, device="cpu")
         params, opt_state = convert.load_lm_train_state(params, opt_state, trees, params.cfg)
         return step, params, opt_state
+    if isinstance(params, MeshLM):
+        templates = convert.lm_train_state_templates(
+            _meta(params.params), type(opt_state)(opt_state.step, _meta(opt_state.mu),
+                                                  _meta(opt_state.nu)), params.cfg)
+        step, trees = ckpt_lib.restore(ckpt_dir, templates, device="cpu")
+        cfg = params.cfg
+        for mine, tree in ((params.params, trees["params"]), (opt_state.mu, trees["opt_state"].mu),
+                           (opt_state.nu, trees["opt_state"].nu)):
+            for name, arr in convert._by_name(tree, cfg).items():
+                mine[name].copy_(torch.as_tensor(arr))
+        saved = torch.tensor(int(trees["opt_state"].step), dtype=torch.int32)
+        return step, params, type(opt_state)(saved, opt_state.mu, opt_state.nu)
     leaves = [t for _, t in ckpt_lib._leaves({"p": params, "o": opt_state})
               if isinstance(t, torch.Tensor)]
     device = leaves[0].device if leaves else "cpu"

@@ -44,6 +44,9 @@ def test_port_imports_neither_jax_nor_repro():
             "repro_torch.models.moe", "repro_torch.train.loop", "repro_torch.train.step",
             "repro_torch.launch.train", "repro_torch.models.mamba",
             "repro_torch.models.rwkv6"} <= set(modules)
+    assert {"repro_torch.distributed.sharding", "repro_torch.distributed.parallel",
+            "repro_torch.distributed.compression", "repro_torch.distributed.pipeline",
+            "repro_torch.launch.elastic"} <= set(modules)
     code = (
         "import importlib, sys\n"
         f"for name in {modules!r}:\n"
@@ -178,7 +181,7 @@ def test_chip_smoke_cpu_rehearsal():
     phases = [line.get("phase") for line in lines]
     assert phases == ["device", "data", "parity", "main", "agreement", "host_copy", "stream",
                       "rff", "sweep", "shard", "persist", "baselines", "obs", "serve",
-                      "lm_serve", "lm_train", "lm_ssm", "timing", "done"]
+                      "lm_serve", "lm_train", "lm_ssm", "lm_mesh", "timing", "done"]
     assert not any(line.get("ok") for line in lines)
     train = lines[phases.index("lm_train")]
     assert train["a_dense"]["loss_last"] < train["a_dense"]["loss_first"]
@@ -188,6 +191,15 @@ def test_chip_smoke_cpu_rehearsal():
     assert train["d_crash_and_resume"]["bitwise_equal"]
     assert train["d_crash_and_resume"]["temp_dir_removed"]
     assert min(train["e_moe"]["aux"]) > 0 and train["flash_launches"] == 0
+    mesh = lines[phases.index("lm_mesh")]
+    assert set(mesh["a_training"]["runs"]) == {"one_device", "1x2", "2x1", "2x2"}
+    assert all(max(r["loss_rel_diff"]) <= 1e-4 for k, r in mesh["a_training"]["runs"].items()
+               if k != "one_device")
+    assert mesh["b_serving"]["teacher_forced_max_abs_diff"] <= mesh["b_serving"]["limit"]
+    assert mesh["c_seq_sharded_decode"]["max_abs_diff"] < 2e-3
+    assert mesh["d_int8_ddp"]["final_loss"] < 1e-2 and mesh["e_pipeline"]["grad_err"] < 1e-4
+    assert all(r["bitwise_equal"] for r in mesh["f_elastic"]["restores"].values())
+    assert mesh["f_elastic"]["temp_dir_removed"] and mesh["flash_launches"] == 0
     main = lines[phases.index("main")]
     assert main["nmi"] > 0.9 and main["launches"] == {"apnc_embed": 0, "apnc_assign": 0}
     stream = lines[phases.index("stream")]
@@ -204,6 +216,11 @@ def test_chip_smoke_cpu_rehearsal():
     flash = lines[phases.index("parity")]["flash_attention"]
     assert {(c["window"], c["dtype"]) for c in flash} == {
         (w, dt) for w in (0, 50, 4096) for dt in ("float32", "bfloat16")}
+    # each model shard's attention of phase lm_mesh (reduced: one or two heads
+    # a shard), at every window and dtype
+    mesh_shapes = {tuple(c["shape"]) for c in flash if c["lm_mesh_shard"]}
+    assert mesh_shapes == {(4, 64, 1, 16), (2, 64, 2, 16), (2, 64, 1, 16), (4, 32, 1, 16)}
+    assert sum(c["lm_mesh_shard"] for c in flash) == len(mesh_shapes) * 6
     shard = lines[phases.index("shard")]
     assert shard["cards"]["bitwise_phase_stream"] and shard["chaos"]["bitwise_fault_free"]
     assert shard["equal_centroids"]["label_mismatches"] == 0 and shard["equal_centroids"]["g_equal"]

@@ -423,6 +423,28 @@ def test_mismatched_fingerprint_is_ignored_and_resumes_are_counted(tmp_path):
         "step_00000003", "step_00000004"]
 
 
-def test_reshard_restore_names_its_item():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 20"):
-        elastic.reshard_restore("ckpt", None, None, None, None)
+def test_reshard_restore_names_its_item(tmp_path):
+    """``reshard_restore`` (once a stub naming its ROADMAP item) restores a
+    train checkpoint saved on one device onto a (2, 2) mesh of CPU shards:
+    every parameter and moment bit for bit, the step as saved."""
+    from repro_torch import convert
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import model as lm
+    from repro_torch.models.common import TEST_POLICY
+    from repro_torch.optim import adamw
+
+    cfg = reduced(get_arch("qwen1.5-0.5b"))
+    model = lm.init(torch.Generator().manual_seed(0), cfg, TEST_POLICY, "cpu")
+    opt_cfg = adamw.AdamWConfig()
+    state = adamw.init(model, opt_cfg)
+    for i, m in enumerate(state.mu.values()):
+        m.fill_(float(i))
+    ck.save(tmp_path, 3, convert.lm_train_state_to_numpy(model, state._replace(
+        step=torch.tensor(3, dtype=torch.int32)), cfg))
+    step, params, opt = elastic.reshard_restore(tmp_path, cfg, TEST_POLICY, opt_cfg,
+                                                make_host_mesh(2, 2))
+    assert step == 3 and int(opt.step) == 3
+    for name, p in model.named_parameters():
+        assert torch.equal(params.params[name].gather("cpu"), p), name
+        assert torch.equal(opt.mu[name].gather("cpu"), state.mu[name]), name

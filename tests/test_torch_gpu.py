@@ -1335,3 +1335,65 @@ def test_fused_steps_from_two_threads_on_one_stream(cuda, shard_state):
     bad = [key for key, out in got.items()
            if not all(torch.equal(a, b) for a, b in zip(out, want[key[0]][key[2]]))]
     assert not bad, f"{len(bad)} of 8000 launches differ, first {bad[:5]}"
+
+
+@pytest.mark.gpu
+def test_mesh_train_on_logical_shards_matches_the_cpu_mesh(cuda):
+    """forward_train and its gradients over a (2, 2) mesh of logical shards
+    of the card (each shard's attention in the kernel, through the Function
+    under remat: two launches a layer a shard) against the same mesh of CPU
+    shards (the plain attention), reduced qwen1.5-0.5b: the loss within
+    rtol 2e-4, each gradient within 2e-3 * max|g| (the card-vs-CPU bars of
+    test_train_gradients_on_card_match_cpu)."""
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.data.tokens import synthetic_batch
+    from repro_torch.distributed import parallel
+    from repro_torch.kernels import flash_attention as t_flash
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import model as lm
+    from repro_torch.models.common import TEST_POLICY
+
+    cfg = reduced(get_arch("qwen1.5-0.5b"))
+    model = lm.init(torch.Generator().manual_seed(0), cfg, TEST_POLICY, device="cpu")
+    host = {k: torch.from_numpy(v) for k, v in synthetic_batch(cfg, 0, 4, 96).items()}
+    result = {}
+    for name, dev in (("cpu", torch.device("cpu")), ("card", cuda)):
+        p = parallel.shard_model(make_host_mesh(2, 2, dev), model)
+        leaves = p.leaves()
+        for t in leaves.values():
+            t.requires_grad_(True)
+        before = t_flash.launches
+        loss, _ = parallel.forward_train(p, TEST_POLICY, {k: v.to(dev) for k, v in host.items()})
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+        g = {n: sh.gather("cpu") for n, sh in p.unflat(dict(zip(leaves, grads))).items()}
+        result[name] = (float(loss.detach()), g, t_flash.launches - before)
+    assert result["cpu"][2] == 0 and result["card"][2] == 2 * cfg.num_layers * 4
+    assert abs(result["card"][0] - result["cpu"][0]) <= 2e-4 * abs(result["cpu"][0])
+    for n, want in result["cpu"][1].items():
+        got = result["card"][1][n]
+        assert float((got - want).abs().max()) <= 2e-3 * float(want.abs().max()), n
+
+
+@pytest.mark.gpu
+def test_mesh_generate_on_logical_shards_matches_the_cpu_mesh(cuda):
+    """``serve.generate`` over a (1, 2) mesh of logical shards of the card:
+    one kernel launch a layer a model shard in the prefill, none in decode;
+    the logits within lm_serve's card-vs-CPU bar of the CPU mesh's."""
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.distributed import parallel
+    from repro_torch.kernels import flash_attention as t_flash
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import model as lm
+    from repro_torch.models.common import TEST_POLICY
+
+    cfg = reduced(get_arch("qwen3-4b"))
+    model = lm.init(torch.Generator().manual_seed(0), cfg, TEST_POLICY, device="cpu")
+    toks = torch.randint(1, cfg.vocab_size, (2, 70), generator=torch.Generator().manual_seed(1))
+    on_cpu = serve.generate(parallel.shard_model(make_host_mesh(1, 2), model), cfg, TEST_POLICY,
+                            {"tokens": toks}, 4)
+    before = t_flash.launches
+    on_card = serve.generate(parallel.shard_model(make_host_mesh(1, 2, cuda), model), cfg,
+                             TEST_POLICY, {"tokens": toks.to(cuda)}, 4)
+    assert t_flash.launches == before + 2 * cfg.num_layers
+    torch.testing.assert_close(on_card.logits[0].cpu(), on_cpu.logits[0], rtol=1e-4, atol=1e-5)

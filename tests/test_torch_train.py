@@ -477,7 +477,15 @@ def test_train_main_on_cpu(tmp_path, capsys):
     out = capsys.readouterr().out
     assert "[train] qwen1.5-0.5b-smoke: step 0 loss" in out and "-> step 3 loss" in out
     assert (tmp_path / "step_00000004" / "params.npz").exists()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 20"):
-        ttrain.main(["--device", "cpu", "--arch", "qwen1.5-0.5b", "--data-axis", "2"])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 20"):
-        ttrain.main(["--device", "cpu", "--arch", "qwen1.5-0.5b", "--model-axis", "2"])
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)  # a mesh's many tiny ops; see tests/test_torch_mesh_lm.py
+    try:
+        for axis in ("--data-axis", "--model-axis"):  # a (2, 1) and a (1, 2) mesh
+            mesh = ttrain.main(["--device", "cpu", "--arch", "qwen1.5-0.5b", "--steps", "4",
+                                "--batch", "2", "--seq", "16", "--ckpt", str(tmp_path / axis),
+                                "--ckpt-every", "2", axis, "2"])
+            np.testing.assert_allclose([r["loss"] for r in mesh], [r["loss"] for r in hist],
+                                       rtol=1e-5, err_msg=axis)
+            assert (tmp_path / axis / "step_00000004" / "params.npz").exists()
+    finally:
+        torch.set_num_threads(threads)
