@@ -57,7 +57,14 @@ placed by ``distributed.sharding``'s rules): (a) 5 AdamW steps on (1, 2),
 (1, 2), (c) the sequence-sharded decode against a 32,768-position cache on
 (2, 1), (d) int8 error-feedback DDP on (8, 1), (e) the GPipe pipeline on a
 (4, 1) pipe axis, (f) the (2, 2) state restored onto (1, 2) and (1, 1) bit
-for bit. It holds ``apnc_assign_step`` (labels, Z, g and the block's cost in
+for bit. Phase ``lm_mesh_ssm`` puts the Mamba and RWKV6 layers under a
+model axis: (g) rwkv6-3b whole on (1, 2) and (2, 2), (h) one jamba group
+in bf16 and two of its layers in f32 on (1, 2), served against one device,
+(i) a train step of each on 2 layers. Phase ``dryrun`` holds the dry-run's
+count of a (1, 2) train step on ``meta`` devices against the same step on
+the card (each coordinate's bytes, the GEMM flops), and reads seven
+dry-run cells that ran on ``meta`` in low-priority worker processes beside
+the LM phases. It holds ``apnc_assign_step`` (labels, Z, g and the block's cost in
 one launch) bit for bit against the three fused steps on the Y each one's
 un-fused chain makes. It times each kernel beside its bound, its plain
 version and a PyTorch library call (chain). Every phase prints
@@ -121,7 +128,8 @@ IMAGENET = dict(n=_IMAGENET.n, d=_IMAGENET.d, k=_IMAGENET.k, separation=_IMAGENE
                 parity_flash=((4, 32, 16, 64), (1, 1000, 8, 128), (2, 257, 3, 40),
                               (1, 4096, 16, 64), (1, 2048, 32, 128), (4, 1024, 32, 64)),
                 parity_flash_gqa=((1, 2048, 32, 8, 128), (2, 257, 6, 3, 40),
-                                  (2, 1024, 64, 8, 128), (1, 3008, 64, 8, 128)),
+                                  (2, 1024, 64, 8, 128), (1, 3008, 64, 8, 128),
+                                  (2, 1024, 32, 4, 128)),
                 lm_arch="qwen1.5-0.5b", lm_reduced=False, lm_batch=4, lm_prompt=4096,
                 lm_gen=32,
                 # Phase lm_train: (a) qwen1.5-0.5b unreduced, batch x seq, steps; (b)
@@ -160,6 +168,35 @@ IMAGENET = dict(n=_IMAGENET.n, d=_IMAGENET.d, k=_IMAGENET.k, separation=_IMAGENE
                              serve_batch=4, serve_prompt=4096, serve_gen=32, seq_mesh=(2, 1),
                              seq_cache=32_768, ddp_mesh=(8, 1), ddp_steps=150,
                              elastic_from=(2, 2), elastic_to=((1, 2), (1, 1))),
+                # Phase lm_mesh_ssm, on logical shards of the card: (g) rwkv6-3b
+                # whole and (h) one jamba group (its lm_ssm cell) served on
+                # each of their meshes against one device; (i) one train step
+                # of `layers` layers, batch x seq tokens, on each of `meshes`
+                # (jamba at `jamba_width`: full-width training is ROADMAP item
+                # 21).
+                lm_mesh_ssm=dict(reduced=False,
+                                 rwkv=dict(arch="rwkv6-3b", batch=4, prompt=1024, gen=16,
+                                           meshes=((1, 2), (2, 2))),
+                                 jamba=dict(arch="jamba-1.5-large-398b", layers=8, experts=4,
+                                            dtype="bfloat16", batch=2, prompt=1024, gen=16,
+                                            meshes=((1, 2),)),
+                                 jamba_f32=dict(experts=4, batch=2, prompt=1024, gen=16,
+                                                meshes=((1, 2),)),
+                                 train=dict(layers=2, batch=2, seq=256, lr=3e-3,
+                                            meshes=((1, 2), (2, 2)), jamba_width=2048,
+                                            jamba_experts=4)),
+                # Phase dryrun: lm_mesh (a)'s cell (arch, batch x seq, one train
+                # step, f32) counted on a `mesh` of meta devices and run on the
+                # same mesh of logical shards of the card; then `cells` of the
+                # dry-run on meta, `jobs` at a time.
+                dryrun=dict(arch="qwen1.5-0.5b", reduced=False, batch=4, seq=2048, mesh=(1, 2),
+                            cells=(("qwen1.5-0.5b", "train_4k", False),
+                                   ("qwen1.5-0.5b", "prefill_32k", False),
+                                   ("qwen1.5-0.5b", "decode_32k", False),
+                                   ("qwen1.5-0.5b", "long_500k", False),
+                                   ("qwen1.5-0.5b", "decode_32k", True),
+                                   ("jamba-1.5-large-398b", "decode_32k", False),
+                                   ("rwkv6-3b", "decode_32k", False)), jobs=4),
                 # Table 2 on the card: the imagenet-50k stand-in (50,000 rows,
                 # the ImageNet d, k and separation, warped), 10,000 more rows
                 # of its mixture held out; `small_n` rows for card vs CPU.
@@ -178,7 +215,7 @@ REHEARSAL = dict(n=4_000, d=32, k=8, separation=3.0, l=64, m=16, iters=20,
                  parity_blobs=((515, 13, 40, 24, 7), (203, 9, 24, 12, 5)),
                  parity_dequant=((515, 7, 24), (203, 5, 40)),
                  parity_flash=((2, 32, 2, 16), (1, 77, 2, 40)),
-                 parity_flash_gqa=((1, 77, 4, 2, 16),),
+                 parity_flash_gqa=((1, 77, 4, 2, 16), (2, 16, 4, 1, 16)),
                  lm_arch="qwen1.5-0.5b", lm_reduced=True, lm_batch=4, lm_prompt=64, lm_gen=8,
                  lm_train=dict(arch="qwen1.5-0.5b", reduced=True, batch=2, seq=64, steps=20,
                                lr=3e-3, grad_shapes=((2, 64, 4, 4, 16), (1, 96, 4, 2, 32)),
@@ -198,6 +235,19 @@ REHEARSAL = dict(n=4_000, d=32, k=8, separation=3.0, l=64, m=16, iters=20,
                               serve_batch=4, serve_prompt=32, serve_gen=4, seq_mesh=(2, 1),
                               seq_cache=64, ddp_mesh=(8, 1), ddp_steps=150,
                               elastic_from=(2, 2), elastic_to=((1, 2), (1, 1))),
+                 lm_mesh_ssm=dict(reduced=True,
+                                  rwkv=dict(arch="rwkv6-3b", batch=2, prompt=16, gen=4,
+                                            meshes=((1, 2), (2, 2)), padded_heads=6),
+                                  jamba=dict(arch="jamba-1.5-large-398b", layers=8, experts=4,
+                                             dtype="bfloat16", batch=2, prompt=16, gen=4,
+                                             meshes=((1, 2),)),
+                                  jamba_f32=dict(experts=4, batch=2, prompt=16, gen=4,
+                                                 meshes=((1, 2),)),
+                                  train=dict(layers=2, batch=2, seq=16, lr=3e-3,
+                                             meshes=((1, 2), (2, 2)), jamba_width=64,
+                                             jamba_experts=4, padded_heads=6)),
+                 dryrun=dict(arch="qwen1.5-0.5b", reduced=True, batch=4, seq=64, mesh=(1, 2),
+                             cells=(), jobs=1),
                  baselines=dict(dataset=None, n=1_500, held_out=300, l=64, m=16, rff_m=16,
                                 iters=20, small_n=400),
                  serve=dict(requests=2_000, micro_batch=64, max_delay_ms=2.0, open_rate=0.5,
@@ -762,7 +812,8 @@ def parity_flash_gqa(device, cfg) -> list:
     """flash_attention_bhsd with grouped KV heads (k, v with Hkv < H heads,
     read by head index in the kernel) against its plain version, at
     llama3-8b's heads and phase lm_ssm's jamba and llava prefills (8:1
-    groups; llava's 3,008 positions, 2,880 patches and 128 tokens)."""
+    groups; llava's 3,008 positions, 2,880 patches and 128 tokens) and a
+    model shard's half of jamba's heads in phase lm_mesh_ssm (h)."""
     out = []
     g = torch.Generator().manual_seed(29)
     for B, S, H, Hkv, Dh in cfg["parity_flash_gqa"]:
@@ -3147,6 +3198,25 @@ def scan_ms(part, model, mcfg, batch, device) -> dict | None:
                 bound_by="bytes", per_token_us=ms * 1e3 / S)
 
 
+def cut_arch(arch_name, spec, reduced_run, **over):
+    """A part's config: the arch (reduced in the rehearsal), its depth,
+    experts and padded heads cut as ``spec`` sets them, and ``over``."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch, reduced
+
+    mcfg = reduced(get_arch(arch_name)) if reduced_run else get_arch(arch_name)
+    cuts = dict(over)
+    if spec.get("layers") and "num_layers" not in cuts:
+        cuts["num_layers"] = spec["layers"]
+    if spec.get("experts") and mcfg.moe is not None:
+        cuts["moe"] = dataclasses.replace(mcfg.moe, num_experts=min(spec["experts"],
+                                                                    mcfg.moe.num_experts))
+    if spec.get("padded_heads"):
+        cuts["padded_heads"] = spec["padded_heads"]
+    return dataclasses.replace(mcfg, **cuts)
+
+
 def ssm_part(part, spec, cfg, device, seed) -> dict:
     """One arch at its published widths (depth and experts as ``spec`` cuts
     them) from a seeded random init: ``serve.generate`` over ``spec``'s
@@ -3154,23 +3224,14 @@ def ssm_part(part, spec, cfg, device, seed) -> dict:
     before and read just after (one a prefill per attention layer, none in
     decode, where attention is ``torch`` ops); then the reduced model's
     gates (``reduced_checks``)."""
-    import dataclasses
-
-    from repro_torch.configs import get_arch, reduced
+    from repro_torch.configs import get_arch
     from repro_torch.launch import serve
     from repro_torch.models import model as lm
     from repro_torch.models.common import TEST_POLICY, Policy
 
     t = cfg["lm_ssm"]
     arch = get_arch(spec["arch"])
-    mcfg = reduced(arch) if t["reduced"] else arch
-    cuts = {}
-    if spec.get("layers"):
-        cuts["num_layers"] = spec["layers"]
-    if spec.get("experts") and mcfg.moe is not None:
-        cuts["moe"] = dataclasses.replace(mcfg.moe, num_experts=min(spec["experts"],
-                                                                    mcfg.moe.num_experts))
-    mcfg = dataclasses.replace(mcfg, **cuts)
+    mcfg = cut_arch(spec["arch"], spec, t["reduced"])
     policy = (Policy(torch.bfloat16, torch.bfloat16) if spec.get("dtype") == "bfloat16"
               else TEST_POLICY)
     B, S, gen = spec["batch"], spec["prompt"], spec["gen"]
@@ -3580,6 +3641,407 @@ def phase_lm_mesh(cfg, device, seed) -> dict:
     info["flash_launches"] = (sum(r["flash_launches"] for r in info["a_training"]["runs"].values())
                               + info["b_serving"]["flash_launches"])
     return info
+
+
+# ------------------------------------------------------------ SSM layers on a device mesh
+
+#: Phase lm_mesh_ssm's serving bars against one device, on the prefill
+#: logits and every teacher-forced decode step: f32 (g) as lm_mesh (b),
+#: 1e-4 * max|logits|, with the SSM states and the attention's k, v cached
+#: in f32 on both sides (``f32_states``, ``f32_cache``): a shard's GEMMs of
+#: another width move the residual stream and k, v in their last f32 place,
+#: which the default bf16 x_tmix, x_cmix and k, v can round one bf16 ulp
+#: apart (on the card, rwkv6's decode logits 1.0e-3 of 5.2 apart against a
+#: 1.8e-4 prefill; jamba's f32 layers 3.5e-3 of 10.4 against 8.1e-5), as
+#: the KV-heads case of tests/test_torch_mesh_lm.py keeps its cache f32. The jamba group in bf16
+#: (h) is held to no tolerance: its logits are bf16 (one ulp at the largest
+#: is 3.9e-3 of it), a model shard's partial sums round to bf16 before their
+#: sum as the reference's all-reduce does, and a last-ulp change of a router
+#: logit flips a near-tie top-2 choice (on the first card run the prefill
+#: logits differed by 0.95 of 8.94, greedy tokens agreed on 3 %). Its diffs
+#: are reported, unpinned and with one device's routing replayed on the
+#: mesh; jamba's Mamba + MoE and attention + dense layers at full width in
+#: f32 (h, f32) carry the 1e-4 bar.
+
+
+def shard_freeing(mesh, model):
+    """``parallel.shard_model``, each of the model's parameters freed once
+    its blocks are placed: one copy of the weights on the card at a time."""
+    from repro_torch.distributed import parallel
+    from repro_torch.distributed import sharding as shd
+
+    named = dict(model.named_parameters())
+    specs = shd.param_pspecs(model.cfg, named)
+    placed = {}
+    for name, x in named.items():
+        placed[name] = shd.place_leaf(mesh, x, specs[name], name)
+        x.data = torch.empty(0, dtype=x.dtype, device=x.device)
+    return parallel.MeshLM(model.cfg, mesh, placed)
+
+
+def peak_bytes(device):
+    return torch.cuda.max_memory_allocated(device) if device.type == "cuda" else None
+
+
+def fresh_peak(device) -> None:
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+
+
+def mesh_ssm_serving(spec, mcfg, device, seed) -> dict:
+    """(g) / (h): ``serve.generate`` of ``batch`` x ``prompt`` + ``gen`` greedy
+    steps on one device, its logits kept on the host and the model freed;
+    then, for each mesh, the model drawn again from the seed and placed leaf
+    by leaf (``shard_freeing``), ``generate`` timed, and its prefill logits
+    and the decode logits teacher-forced on the one-device tokens held
+    against one device's. Flash launches counted on each run: one a prefill
+    per attention layer and coordinate."""
+    from repro_torch.models.common import TEST_POLICY, Policy
+
+    bf16 = spec.get("dtype") == "bfloat16"
+    policy = Policy(torch.bfloat16, torch.bfloat16) if bf16 else TEST_POLICY
+    with contextlib.ExitStack() as stack:
+        if not bf16:  # the caches f32 on both sides (MESH_SERVE_RTOL's note above)
+            stack.enter_context(f32_states())
+            stack.enter_context(f32_cache())
+        return _mesh_ssm_serving(spec, mcfg, policy, None if bf16 else MESH_SERVE_RTOL,
+                                 device, seed)
+
+
+@contextlib.contextmanager
+def routing(record=None, replay=None, calls_per_route=1):
+    """``moe.route`` inside the block: each call's ``Routing`` appended to
+    ``record``, or the ``replay`` list's entries returned in order, one for
+    every ``calls_per_route`` calls (a mesh's coordinates route a layer's
+    tokens once each, the same tokens when the data axis is 1)."""
+    from repro_torch.models import moe
+
+    route, n = moe.route, [0]
+
+    def wrapped(*a, **kw):
+        if replay is not None:
+            r = replay[n[0] // calls_per_route]
+            n[0] += 1
+            return r
+        r = route(*a, **kw)
+        record.append(r)
+        return r
+
+    with patched(moe, "route", wrapped):
+        yield
+
+
+def _mesh_ssm_serving(spec, mcfg, policy, rtol, device, seed) -> dict:
+    from repro_torch.launch import serve
+    from repro_torch.models import model as lm
+
+    flash = _flash()
+    B, S, gen = spec["batch"], spec["prompt"], spec["gen"]
+    attn_layers = sum(s.mixer == "attn" for s in mcfg.layer_pattern()) * mcfg.num_groups
+
+    def draw():
+        return lm.init(torch.Generator(device=device).manual_seed(seed), mcfg, policy, device)
+
+    batch = lm_inputs(mcfg, B, S, device)
+    fresh_peak(device)
+    model = draw()
+    params = lm.param_count(model)
+    flash.launches = 0
+    routes: list = []
+    with routing(record=routes):
+        one = serve.generate(model, mcfg, policy, batch, gen)
+    out = dict(arch=mcfg.name, layers=mcfg.num_layers, d_model=mcfg.d_model,
+               experts=None if mcfg.moe is None else mcfg.moe.num_experts,
+               dtype=str(policy.param_dtype).replace("torch.", ""), batch=B, prompt=S, gen=gen,
+               cache_dtypes="f32" if policy.compute_dtype == torch.float32 else "default",
+               params=params,
+               one_device=dict(prefill_s=one.prefill_s, decode_ms_per_step=one.decode_s / gen * 1e3,
+                               flash_launches=flash.launches, peak_device_bytes=peak_bytes(device)),
+               meshes={})
+    logits, tokens = one.logits.float().cpu(), one.tokens
+    scale = float(logits.abs().max())
+    del model, one
+    for shape in spec["meshes"]:
+        fresh_peak(device)
+        p = shard_freeing(mesh_of(shape, device), draw())
+        flash.launches = 0
+        res = serve.generate(p, mcfg, policy, batch, gen)
+        launches = flash.launches
+        forced = teacher_forced(p, mcfg, policy, batch, tokens).float().cpu()
+        run = dict(prefill_s=res.prefill_s, decode_ms_per_step=res.decode_s / gen * 1e3,
+                   flash_launches=launches, peak_device_bytes=peak_bytes(device),
+                   prefill_max_abs_diff=float((res.logits[0].float().cpu() - logits[0])
+                                              .abs().max()),
+                   teacher_forced_max_abs_diff=float((forced - logits).abs().max()),
+                   greedy_agreement=float((res.tokens == tokens).float().mean()))
+        D, M = shape
+        if routes and D == 1:  # the mesh's MoE fed one device's routing
+            with routing(replay=routes, calls_per_route=M):
+                pinned = teacher_forced(p, mcfg, policy, batch, tokens).float().cpu()
+            run["routing_replayed"] = dict(
+                prefill_max_abs_diff=float((pinned[0] - logits[0]).abs().max()),
+                teacher_forced_max_abs_diff=float((pinned - logits).abs().max()))
+            del pinned
+        del p, res, forced
+        out["meshes"][f"{D}x{M}"] = run
+        if device.type == "cuda" and launches != attn_layers * D * M:
+            raise AssertionError(f"{mcfg.name} on {shape}: flash_attention_bhsd ran {launches} "
+                                 f"times, expected {attn_layers * D * M}")
+        if not (np.isfinite(run["prefill_max_abs_diff"])
+                and np.isfinite(run["teacher_forced_max_abs_diff"])):
+            raise AssertionError(f"{mcfg.name} on {shape}: non-finite logits")
+        if rtol is not None and max(run["prefill_max_abs_diff"],
+                                    run["teacher_forced_max_abs_diff"]) > rtol * scale:
+            raise AssertionError(f"{mcfg.name} on {shape} vs one device: {run} "
+                                 f"(max |logit| {scale}, rtol {rtol})")
+    out.update(logits_abs_max=scale, rtol=rtol, limit=None if rtol is None else rtol * scale,
+               bf16_ulp_at_max=scale * 2.0 ** -8)
+    return out
+
+
+def mesh_ssm_training(t, name, mcfg, device, seed) -> dict:
+    """(i): one AdamW step of ``mcfg`` on ``batch`` x ``seq`` tokens on one
+    device, then on each mesh from the same seed and batch: the loss and the
+    gradient norm against one device's at lm_mesh (a)'s bars."""
+    from repro_torch.data.tokens import batch_iterator
+    from repro_torch.distributed import parallel
+
+    batch = next(batch_iterator(mcfg, t["batch"], t["seq"], 0, device))
+    runs = {}
+    for shape in [None, *t["meshes"]]:
+        fresh_peak(device)
+        model, opt, step_fn = train_parts(mcfg, t["lr"], 1, seed, device)
+        if shape is not None:
+            model = parallel.shard_model(mesh_of(shape, device), model)
+            opt = parallel.shard_opt_state(model, opt)
+        t0 = time.perf_counter()
+        _, _, m = step_fn(model, opt, batch)
+        sync(device)
+        run = dict(step_s=time.perf_counter() - t0, loss=float(m["loss"]),
+                   grad_norm=float(m["grad_norm"]), peak_device_bytes=peak_bytes(device))
+        del model, opt, m
+        key = "one_device" if shape is None else f"{shape[0]}x{shape[1]}"
+        if shape is not None:
+            one = runs["one_device"]
+            run.update(loss_rel_diff=abs(run["loss"] - one["loss"]) / abs(one["loss"]),
+                       grad_norm_rel_diff=abs(run["grad_norm"] - one["grad_norm"])
+                       / abs(one["grad_norm"]))
+            if run["loss_rel_diff"] > MESH_LOSS_RTOL or run["grad_norm_rel_diff"] > MESH_GNORM_RTOL:
+                raise AssertionError(f"{name} on {shape} vs one device: {run}")
+        elif not np.isfinite(run["loss"]):
+            raise AssertionError(f"{name}: loss {run['loss']}")
+        runs[key] = run
+    return dict(arch=mcfg.name, layers=mcfg.num_layers, d_model=mcfg.d_model,
+                pattern=[f"{s.mixer}+{s.ffn}" for s in mcfg.layer_pattern()],
+                batch=t["batch"], seq=t["seq"], runs=runs,
+                limits=dict(loss_rtol=MESH_LOSS_RTOL, grad_norm_rtol=MESH_GNORM_RTOL))
+
+
+def phase_lm_mesh_ssm(cfg, device, seed) -> dict:
+    """Mamba and RWKV6 layers under a model axis, on logical shards of the
+    one device: (g) rwkv6-3b whole (f32) served on (1, 2) and (2, 2), (h)
+    one jamba-1.5-large-398b group (bf16, 4 of 16 experts) on (1, 2), and
+    its layers 3 and 4 (Mamba + MoE, attention + dense) at full width in f32
+    on (1, 2), each against one device; (i) one train step of each arch on 2 layers, on
+    (1, 2) and (2, 2) against one device (rwkv6 at full width, jamba's first
+    two layers, a Mamba + dense and a Mamba + MoE, at a quarter of its
+    width). TF32 stays off."""
+    import dataclasses
+
+    from repro_torch.configs.base import LayerSpec
+
+    if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
+        raise AssertionError("TF32 is on: the mesh is held against one device in f32")
+    c = cfg["lm_mesh_ssm"]
+    t = c["train"]
+    rwkv = cut_arch("rwkv6-3b", c["rwkv"], c["reduced"])
+    jamba = cut_arch("jamba-1.5-large-398b", c["jamba"], c["reduced"])
+    jamba_f32 = cut_arch("jamba-1.5-large-398b", c["jamba_f32"], c["reduced"],
+                             num_layers=2, pattern=(LayerSpec("mamba", "moe"),
+                                                    LayerSpec("attn", "dense")))
+    rwkv_train = cut_arch("rwkv6-3b", t, c["reduced"], num_layers=t["layers"])
+    width = t["jamba_width"]
+    jamba_train = cut_arch(
+        "jamba-1.5-large-398b", dict(t, experts=t["jamba_experts"]), c["reduced"],
+        num_layers=t["layers"], d_model=width, d_ff=3 * width,
+        pattern=(LayerSpec("mamba", "dense"), LayerSpec("mamba", "moe")))
+    jamba_train = dataclasses.replace(jamba_train, moe=dataclasses.replace(
+        jamba_train.moe, d_ff_expert=3 * width))
+    info = dict(phase="lm_mesh_ssm", device_entries="logical shards of one device"
+                if device.type == "cuda" else "cpu")
+    parts = (("g_rwkv6", lambda: mesh_ssm_serving(c["rwkv"], rwkv, device, seed)),
+             ("h_jamba", lambda: mesh_ssm_serving(c["jamba"], jamba, device, seed)),
+             ("h_jamba_f32", lambda: mesh_ssm_serving(c["jamba_f32"], jamba_f32, device, seed)),
+             ("i_training", lambda: {"rwkv6": mesh_ssm_training(t, "rwkv6", rwkv_train,
+                                                                device, seed),
+                                     "jamba": mesh_ssm_training(t, "jamba", jamba_train,
+                                                                device, seed)}))
+    for key, part in parts:
+        t0 = time.perf_counter()
+        try:
+            info[key] = part()
+        except BaseException:
+            print(json.dumps(info), file=sys.stderr, flush=True)  # the parts that passed
+            raise
+        info[f"{key}_s"] = time.perf_counter() - t0
+    info["flash_launches"] = sum(
+        info[k]["one_device"]["flash_launches"] + sum(r["flash_launches"]
+                                                      for r in info[k]["meshes"].values())
+        for k in ("g_rwkv6", "h_jamba", "h_jamba_f32"))
+    return info
+
+
+# ------------------------------------------------------------ the dry-run
+
+
+def card_route(device):
+    """On the CPU (the rehearsal), the attention through the card's route
+    inside the block: the op the dry-run counts in place of the launch,
+    ``FlashAttention`` under grad; on a card, nothing changes."""
+    from repro_torch.kernels import flash_attention as flash
+    from repro_torch.kernels import ops
+
+    stack = contextlib.ExitStack()
+    if device.type == "cpu":
+        def bhsd(q, k, v, *, window=0):
+            return torch.ops.repro_torch.flash_attention(q, k, v, window)
+
+        def routed(q, k, v, *, window=0):
+            if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+                return flash.FlashAttention.apply(q, k, v, window)
+            return bhsd(q, k, v, window=window)
+
+        stack.enter_context(patched(flash, "flash_attention_bhsd", bhsd))
+        stack.enter_context(patched(ops, "flash_attention", routed))
+    return stack
+
+
+def phase_dryrun(cfg, device, seed, background=None) -> dict:
+    """The dry-run's count of lm_mesh (a)'s cell held against the card: one
+    AdamW step of qwen1.5-0.5b (f32, the card's policy) on ``batch`` x
+    ``seq`` tokens on a ``mesh`` of ``meta`` devices, counted by
+    ``launch.dryrun.count``, and the same step on the same mesh of logical
+    shards of the card under ``FlopCounterMode``. Gated: each coordinate's
+    parameter and optimizer bytes from the specs equal the bytes of the
+    blocks the card run holds there, and the GEMM flops (``aten.mm``,
+    ``bmm``, ``addmm``) are equal. Printed: the step's time beside the
+    record's roofline terms. Then ``cells`` of the dry-run itself on
+    ``meta`` (production meshes): status and wall s each, from the workers ``start_dryrun_cells`` started (``background``)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.distributed import parallel
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import model as lm
+    from repro_torch.models.common import TEST_POLICY
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.roofline import analysis
+
+    c = cfg["dryrun"]
+    arch = reduced(get_arch(c["arch"])) if c["reduced"] else get_arch(c["arch"])
+    opt_cfg = AdamWConfig(moments_dtype=arch.moments_dtype)
+    D, M = c["mesh"]
+    axes = ("data", "model")
+    from repro_torch.data.tokens import batch_iterator
+
+    batch = next(batch_iterator(arch, c["batch"], c["seq"], 0, device))
+    meta_mesh = make_mesh((D, M), axes, devices=["meta"] * (D * M))
+    p_meta = parallel.shard_model(meta_mesh, lm.build(arch, TEST_POLICY, device="meta"))
+    counted = dryrun.count(dryrun.prepare_step(
+        arch, TEST_POLICY, opt_cfg, p_meta, "train",
+        {k: torch.empty_like(v, device="meta") for k, v in batch.items()}))
+    spec_param, spec_opt = dryrun.state_bytes(arch, TEST_POLICY, opt_cfg, meta_mesh)
+    del p_meta
+
+    fresh_peak(device)
+    model = lm.init(torch.Generator(device=device).manual_seed(seed), arch, TEST_POLICY, device)
+    card_mesh = make_mesh((D, M), axes, devices=[device] * (D * M))
+    p = parallel.shard_model(card_mesh, model)
+    del model
+    coords = [tuple(int(i) for i in ix) for ix in np.ndindex(D, M)]
+    blocks = {}
+    state = dryrun.opt_state_like(p, opt_cfg)
+    for at in coords:
+        blocks[str(at)] = dict(param=dryrun.block_bytes(p.params, at),
+                               opt_state=4 + dryrun.block_bytes(state.mu, at)
+                               + dryrun.block_bytes(state.nu, at))
+    del state
+    bad = {k: v for k, v in blocks.items()
+           if v != dict(param=spec_param, opt_state=spec_opt)}
+    if bad:
+        raise AssertionError(f"dry-run bytes from the specs ({spec_param}, {spec_opt}) differ "
+                             f"from the card's blocks at {bad}")
+    step = dryrun.prepare_step(arch, TEST_POLICY, opt_cfg, p, "train", batch)
+    with FlopCounterMode(display=False) as fc, card_route(device):
+        step()
+    card_ops = {str(k): int(v) for k, v in fc.get_flop_counts()["Global"].items()}
+    card_gemm = sum(v for k, v in card_ops.items() if k in ("aten.mm", "aten.bmm", "aten.addmm"))
+    if card_gemm != counted["gemm_flops"]:
+        raise AssertionError(f"GEMM flops: meta {counted['gemm_flops']}, card {card_gemm} "
+                             f"({counted['flops_by_op']} against {card_ops})")
+    times = []
+    for _ in range(3):
+        sync(device)
+        t0 = time.perf_counter()
+        step()
+        sync(device)
+        times.append(time.perf_counter() - t0)
+    peak = peak_bytes(device)
+    del p, step
+    n = D * M
+    terms = analysis.roofline_terms(flops=counted["flops"], bytes_hbm=counted["hbm_bytes"],
+                                    collective_bytes=0.0, peak_flops=analysis.PEAK_FLOPS)
+    gate = dict(arch=arch.name, policy="float32", batch=c["batch"], seq=c["seq"], mesh=[D, M],
+                per_coordinate_bytes=dict(spec=dict(param=spec_param, opt_state=spec_opt),
+                                          card_blocks=blocks),
+                gemm_flops=dict(meta=counted["gemm_flops"], card=card_gemm),
+                flops_by_op=dict(meta=counted["flops_by_op"], card=card_ops),
+                meta_count_s=counted["wall_s"],
+                record_per_device=dict(flops=counted["flops"] / n,
+                                       hbm_bytes=counted["hbm_bytes"] / n,
+                                       collective_bytes=counted["collective_bytes"] / n),
+                whole_mesh_on_one_card=dict(t_compute_s=terms["t_compute_s"],
+                                            t_memory_s=terms["t_memory_s"],
+                                            peak="f32 67 TFLOP/s, 3.35 TB/s"),
+                step_s=times, step_s_median=float(np.median(times)), peak_device_bytes=peak)
+    info = dict(phase="dryrun", a_card_vs_meta=gate)
+    if background is not None:
+        pool, jobs, started = background
+        cells = []
+        for (a, s, mp), fut in jobs:
+            rec, tb = fut.result()
+            if rec["status"] == "fail":
+                raise AssertionError(f"dry-run {a} x {s} x {mp}: {rec['error']}\n{tb}")
+            if rec["status"] == "skipped" and s in get_arch(a).runnable_shapes():
+                raise AssertionError(f"dry-run {a} x {s}: skipped")
+            cells.append(dict(arch=a, shape=s, multi_pod=mp, status=rec["status"],
+                              wall_s=rec.get("wall_s"), flops=rec.get("flops"),
+                              collective_bytes=rec.get("collective_bytes")))
+        pool.shutdown()
+        info.update(b_cells=cells, b_cells_since_start_s=time.perf_counter() - started)
+    return info
+
+
+def start_dryrun_cells(cfg):
+    """Phase dryrun's ``cells`` of the dry-run on ``meta``, started in
+    ``jobs`` worker processes at the lowest CPU priority, so that they run
+    beside the card's phases that follow: (pool, [((arch, shape,
+    multi_pod), future)], start time), or None when there are none."""
+    import concurrent.futures
+    import multiprocessing
+
+    from repro_torch.launch import dryrun
+
+    c = cfg["dryrun"]
+    if not c["cells"]:
+        return None
+    pool = concurrent.futures.ProcessPoolExecutor(
+        c["jobs"], mp_context=multiprocessing.get_context("spawn"), initializer=os.nice,
+        initargs=(19,))
+    return pool, [(cell, pool.submit(dryrun._cell, (*cell, ()))) for cell in c["cells"]], \
+        time.perf_counter()
 
 
 def profile_serve(model, cfg, policy, prompt, tokens, steps=4) -> dict:
@@ -4236,12 +4698,20 @@ def main(argv=None) -> int:
     emit(serve_info)
     lm_info = phase_lm_serve(cfg, device, args.seed)
     emit(lm_info)
-    train_info = phase_lm_train(cfg, device, args.seed)
-    emit(train_info)
-    ssm_info = phase_lm_ssm(cfg, device, args.seed)
-    emit(ssm_info)
-    mesh_info = phase_lm_mesh(cfg, device, args.seed)
-    emit(mesh_info)
+    background = start_dryrun_cells(cfg)
+    try:
+        train_info = phase_lm_train(cfg, device, args.seed)
+        emit(train_info)
+        ssm_info = phase_lm_ssm(cfg, device, args.seed)
+        emit(ssm_info)
+        mesh_info = phase_lm_mesh(cfg, device, args.seed)
+        emit(mesh_info)
+        mesh_ssm_info = phase_lm_mesh_ssm(cfg, device, args.seed)
+        emit(mesh_ssm_info)
+        emit(phase_dryrun(cfg, device, args.seed, background))
+    finally:
+        if background is not None:  # after a failure, the cells still running end first
+            background[0].shutdown(cancel_futures=True)
 
     if rehearsal:
         emit(dict(phase="timing", skipped="cpu rehearsal: no device times"))
@@ -4256,7 +4726,9 @@ def main(argv=None) -> int:
                 r["train_launches"] = train_info["flash_launches"]
                 r["ssm_launches"] = ssm_info["flash_launches"]
                 r["mesh_launches"] = mesh_info["flash_launches"]
-                r["launches"] += r["train_launches"] + r["ssm_launches"] + r["mesh_launches"]
+                r["mesh_ssm_launches"] = mesh_ssm_info["flash_launches"]
+                r["launches"] += (r["train_launches"] + r["ssm_launches"] + r["mesh_launches"]
+                                  + r["mesh_ssm_launches"])
                 r["backward"] = [dict(shape=g["shape"], **{k: g[k] for k in (
                     "backward_ms", "plain_backward_ms", "sdpa_backward_ms", "backward_bound_ms",
                     "backward_bound_by")}) for g in train_info["b_attention_gradients"]]

@@ -125,9 +125,19 @@ def _tree(named: dict, cfg, leaf, stack) -> dict:
 
 
 def _numpy_tree(named: dict, cfg) -> dict:
+    """Host numpy leaves; a bf16 leaf as its bits (``checkpoint.host_array``)."""
+    from repro_torch.distributed.checkpoint import host_array
+
     with torch.no_grad():
-        return _tree(named, cfg, lambda x: x.detach().cpu().numpy(),
-                     lambda xs: torch.stack(xs).detach().cpu().numpy())
+        return _tree(named, cfg, host_array, lambda xs: host_array(torch.stack(xs)))
+
+
+def _host_tensor(a) -> torch.Tensor:
+    """A leaf of a reference tree (a tensor, or an array whose bf16 leaves
+    are 2-byte records) as a tensor."""
+    from repro_torch.distributed.checkpoint import from_host
+
+    return a if isinstance(a, torch.Tensor) else from_host(a)
 
 
 def _meta_tree(named: dict, cfg) -> dict:
@@ -153,7 +163,7 @@ def load_lm_params(module, tree: dict, cfg):
         for name, param in want.items():
             if tuple(got[name].shape) != tuple(param.shape):
                 raise ValueError(f"{name}: {tuple(got[name].shape)} != {tuple(param.shape)}")
-            param.copy_(torch.from_numpy(np.array(got[name], dtype=np.float32)))
+            param.copy_(_host_tensor(got[name]))
     return module
 
 
@@ -203,7 +213,7 @@ def adamw_state_from_numpy(state, cfg, *, device=None):
     dev = resolve_device(device)
 
     def moments(tree):
-        return {n: torch.from_numpy(np.array(a)).to(dev)
+        return {n: _host_tensor(np.array(a)).to(dev)
                 for n, a in _by_name(tree, cfg).items()}
 
     step = torch.tensor(int(np.asarray(state.step)), dtype=torch.int32)
@@ -240,6 +250,6 @@ def load_lm_train_state(model, state, trees: dict, cfg):
                 raise ValueError(f"moments do not match {cfg.name}: "
                                  f"{sorted(set(got) ^ set(mine))}")
             for name, m in mine.items():
-                m.copy_(torch.as_tensor(got[name]))
+                m.copy_(_host_tensor(got[name]))
     step = torch.tensor(int(saved.step), dtype=torch.int32)
     return model, AdamWState(step, state.mu, state.nu)

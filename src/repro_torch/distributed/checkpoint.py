@@ -95,12 +95,43 @@ def fsync_json(path: str | Path, obj: Any) -> None:
         os.fsync(f.fileno())
 
 
+#: numpy has no bfloat16. A bf16 leaf crosses the host as its bits in 2-byte
+#: void records (``V2``), the layout ``np.savez`` gives the JAX package's
+#: ml_dtypes bfloat16 arrays; the manifest names its dtype ``bfloat16``.
+_BF16_BITS = np.dtype("V2")
+
+
+def _is_bf16_bits(arr: np.ndarray) -> bool:
+    """A 2-byte void dtype: ``V2`` records, or ml_dtypes' bfloat16."""
+    return arr.dtype.kind == "V" and arr.dtype.itemsize == 2
+
+
 def host_array(x) -> np.ndarray:
     """A tensor or array-like as a host numpy array (a tensor on the card is
-    copied to the host; the copy is synchronous)."""
+    copied to the host; the copy is synchronous); a bf16 tensor as its bits,
+    ``V2`` records."""
     if isinstance(x, torch.Tensor):
-        return x.detach().cpu().numpy()
+        x = x.detach().cpu()
+        if x.dtype == torch.bfloat16:
+            return x.view(torch.int16).numpy().view(_BF16_BITS)
+        return x.numpy()
     return np.asarray(x)
+
+
+def from_host(arr) -> torch.Tensor:
+    """``host_array``'s inverse: a CPU tensor of the array, 2-byte void records
+    (bf16 bits, as either package writes them) as bfloat16, bit for bit."""
+    arr = np.asarray(arr)
+    if not arr.flags.writeable:
+        arr = arr.copy()
+    if _is_bf16_bits(arr):
+        return torch.from_numpy(np.ascontiguousarray(arr).view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
+
+
+def dtype_name(arr: np.ndarray) -> str:
+    """The manifest's name of a host array's dtype: ``bfloat16`` for bf16 bits."""
+    return "bfloat16" if _is_bf16_bits(arr) else str(arr.dtype)
 
 
 def _is_namedtuple(x) -> bool:
@@ -133,6 +164,8 @@ def _flatten(tree: Any) -> dict[str, np.ndarray]:
 def _torch_dtype(dtype) -> torch.dtype:
     if isinstance(dtype, torch.dtype):
         return dtype
+    if str(dtype) == "bfloat16":
+        return torch.bfloat16
     return torch.from_numpy(np.empty(0, dtype=np.dtype(dtype))).dtype
 
 
@@ -169,7 +202,7 @@ def save(
             flat = _flatten(tree)
             np.savez(tmp / f"{name}.npz", **flat)
             manifest["trees"][name] = {
-                k: {"shape": list(v.shape), "dtype": str(v.dtype)} for k, v in flat.items()
+                k: {"shape": list(v.shape), "dtype": dtype_name(v)} for k, v in flat.items()
             }
         fsync_json(tmp / "manifest.json", manifest)
     # `latest` is written last: readers never see a partial checkpoint
@@ -239,7 +272,7 @@ def restore(
                 arr = data[key]
                 if tuple(arr.shape) != tuple(t.shape):
                     raise ValueError(f"{name}/{key}: shape {arr.shape} != {tuple(t.shape)}")
-                x = torch.from_numpy(arr).to(dtype=_torch_dtype(t.dtype))
+                x = from_host(arr).to(dtype=_torch_dtype(t.dtype))
                 if where is None:
                     leaves.append(x.to(dev))
                 else:

@@ -29,6 +29,21 @@ is where their partial outputs are summed:
     on every model shard. Its groups are a data shard's own: they equal the
     one-device groups when (B / D) * S is a multiple of ``GROUP_SIZE``;
     the aux loss averages its two factors over the data shards first;
+  * Mamba: ``in_proj`` (its x and z halves each), the conv, ``dt_proj``,
+    ``dt_bias``, ``A_log`` and ``D`` split over d_inner, ``x_proj`` and
+    ``out_proj`` by rows. ``x_proj`` contracts over d_inner, so each shard's
+    (dt, B, C) projection is a partial sum: the layer runs in two halves
+    (``transformer.mamba_in`` / ``mamba_out``) around its sum over
+    ``model``, and the partial outputs of ``out_proj`` are summed as
+    attention's are. The scan, its state h and the conv window are a
+    shard's own slice of d_inner;
+  * RWKV6 time-mix: ``wr``, ``wk``, ``wv``, ``wg``, ``w0``, ``wB``, ``u``
+    and the group norm split by heads (the query heads' slices), ``wo`` by
+    rows, the partial outputs summed; the token-shift LoRA and ``wA`` stay
+    whole. The recurrence, its state S and the per-head norm are local, and
+    padded heads stay masked by their global index. The channel-mix splits
+    ``wk`` by columns and ``wv`` by rows; each shard gates its partial
+    ``wv`` output by sigmoid(r) (``wr`` whole) before the sum;
   * embed and head: split by vocab rows; each shard embeds the ids in its
     range and the results are summed; the chunked cross-entropy combines
     each shard's logsumexp and gold logit, so no shard holds all of a
@@ -42,9 +57,8 @@ is where their partial outputs are summed:
     [i T / D, (i + 1) T / D), the new token's k, v go to the shard that owns
     ``cache_len``, and each shard's (max, sum, accumulator) are merged on
     the first device of their model shard in shard order (flash decoding).
-
-Mamba and RWKV6 layers run on a mesh whose model axis is 1 (data
-parallel); above 1 they raise (ROADMAP.md Queue 1 item 22).
+    The SSM states have no positions: they are replicated over the data
+    shards, which all step them alike.
 """
 from __future__ import annotations
 
@@ -63,9 +77,6 @@ from repro_torch.models import model as lm
 from repro_torch.models import transformer as tf
 from repro_torch.models.common import Policy, rms_norm
 from repro_torch.optim.adamw import AdamWState
-
-ITEM_22 = "ROADMAP.md Queue 1 item 22"
-
 
 # ------------------------------------------------------------------ layout
 
@@ -90,13 +101,6 @@ class Grid:
                 yield i, j
 
 
-def _check_arch(cfg: ArchConfig, M: int) -> None:
-    if M > 1 and any(s.mixer != "attn" or s.ffn == "rwkv_cmix" for s in cfg.layer_pattern()):
-        raise NotImplementedError(
-            f"{cfg.name}: Mamba and RWKV6 layers under a model axis above 1 are not ported "
-            f"yet ({ITEM_22}); a mesh whose model axis is 1 runs them data-parallel")
-
-
 def _key(name: str, index: tuple) -> str:
     return f"{name}@{','.join(map(str, index))}"
 
@@ -108,7 +112,6 @@ class MeshLM:
     def __init__(self, cfg: ArchConfig, mesh, params: dict[str, Sharded]):
         self.cfg, self.mesh, self.params = cfg, mesh, params
         self.grid = Grid(mesh)
-        _check_arch(cfg, self.grid.M)
         self.heads = attention.head_shards(cfg, self.grid.M)
         self._parts: dict[tuple, list] = {}  # (group, layer, part) -> [(leaf, Sharded)]
         for name, sh in params.items():
@@ -138,12 +141,28 @@ class MeshLM:
 
     def _ranges(self, kind: str, leaf: str, shape, j: int) -> tuple:
         M, hs = self.grid.M, self.heads[j]
-        if M == 1 or kind == "other":
+        if M == 1:
             return ()
         if kind == "attn":
             heads, kv = [(hs.h0, hs.h1)], [(hs.k0, hs.k1)]
             return {"wq": (None, heads), "wk": (None, kv), "wv": (None, kv), "wo": (heads,),
                     "bq": (heads,), "bk": (kv,), "bv": (kv,)}.get(leaf, ())
+        if kind == "mamba":
+            di = self.cfg.ssm_d_inner
+            s = di // M
+            r = [(j * s, (j + 1) * s)]
+            if leaf == "in_proj":  # the x half and the z half
+                return (None, r + [(di + j * s, di + (j + 1) * s)])
+            return {"conv_w": (None, r), "dt_proj": (None, r)}.get(leaf, (r,))
+        if kind == "rwkv6":
+            a = [(hs.h0 * self.cfg.rwkv_head_size, hs.h1 * self.cfg.rwkv_head_size)]
+            cols = {"wr", "wk", "wv", "wg", "wB"}
+            rows = {"w0": a, "ln_scale": a, "ln_bias": a, "wo": a, "u": [(hs.h0, hs.h1)]}
+            return (None, a) if leaf in cols else ((rows[leaf],) if leaf in rows else ())
+        if kind == "rwkv_cmix":
+            s = self.cfg.d_ff // M
+            r = [(j * s, (j + 1) * s)]
+            return {"wk": (None, r), "wv": (r,)}.get(leaf, ())
         nd = len(shape)
         if leaf in ("wi", "shared_wi"):
             W = shape[-1]
@@ -163,31 +182,35 @@ class MeshLM:
         s = self.cfg.vocab_size // self.grid.M
         return j * s, (j + 1) * s
 
-    def top_view(self, j: int, device) -> SimpleNamespace:
-        """embed (and head) rows / columns of j's vocab range, final_norm."""
+    def top_view(self, i: int, j: int) -> SimpleNamespace:
+        """Coordinate (i, j)'s embed (and head) rows / columns of j's vocab
+        range and final_norm, on its device."""
         vr = [self._vocab(j)] if self.grid.M > 1 else None
+        dev, at = self.grid.dev(i, j), self.grid.coords[i][j]
         emb = self.params["embed"]
         out = SimpleNamespace(
-            embed=emb.take(device, (None, vr) if emb.ndim == 3 else (vr,)),
-            final_norm=self.params["final_norm"].take(device, ()))
+            embed=emb.take(dev, (None, vr) if emb.ndim == 3 else (vr,), at),
+            final_norm=self.params["final_norm"].take(dev, (), at))
         if "head" in self.params:
             head = self.params["head"]
-            out.head = head.take(device, (None, None, vr) if head.ndim == 3 else (None, vr))
+            out.head = head.take(dev, (None, None, vr) if head.ndim == 3 else (None, vr), at)
         return out
 
-    def group_view(self, g: int, j: int, device) -> SimpleNamespace:
+    def group_view(self, g: int, i: int, j: int) -> SimpleNamespace:
+        """Group g's layers as coordinate (i, j) holds them, on its device:
+        model shard j's slices, gathered over the data axes (FSDP)."""
+        dev, at = self.grid.dev(i, j), self.grid.coords[i][j]
         group = SimpleNamespace()
         for li, spec in enumerate(self.cfg.layer_pattern()):
             pre = f"groups.{g}.layer{li}."
-            lp = SimpleNamespace(norm1=self.params[pre + "norm1"].take(device, ()),
-                                 norm2=self.params[pre + "norm2"].take(device, ()),
+            lp = SimpleNamespace(norm1=self.params[pre + "norm1"].take(dev, (), at),
+                                 norm2=self.params[pre + "norm2"].take(dev, (), at),
                                  mixer=SimpleNamespace(), ffn=SimpleNamespace())
-            kinds = {"mixer": "attn" if spec.mixer == "attn" else "other",
-                     "ffn": spec.ffn if spec.ffn in ("dense", "moe") else "other"}
+            kinds = {"mixer": spec.mixer, "ffn": spec.ffn}
             for part, kind in kinds.items():
                 for leaf, sh in self._parts.get((g, f"layer{li}", part), []):
                     setattr(getattr(lp, part), leaf,
-                            sh.take(device, self._ranges(kind, leaf, sh.shape, j)))
+                            sh.take(dev, self._ranges(kind, leaf, sh.shape, j), at))
             setattr(group, f"layer{li}", lp)
         return group
 
@@ -195,7 +218,6 @@ class MeshLM:
 def shard_model(mesh, model) -> MeshLM:
     """The one-device LM ``model`` placed on ``mesh`` by ``param_pspecs``."""
     cfg = model.cfg
-    _check_arch(cfg, Grid(mesh).M)
     named = dict(model.named_parameters())
     return MeshLM(cfg, mesh, shd.place(mesh, named, shd.param_pspecs(cfg, named)))
 
@@ -239,11 +261,8 @@ def _embed(p: MeshLM, policy: Policy, bs: list, tops: list) -> list:
 
 def _add_sum(grid: Grid, xs: list, ys: list) -> list:
     """x += the sum over model shards of the partial outputs ys, per data shard."""
-    out = []
-    for i in range(grid.D):
-        tot = cross_device_sum(ys[i], grid.row(i))
-        out.append([xs[i][j] + tot.to(grid.dev(i, j)) for j in range(grid.M)])
-    return out
+    tot = _sum_over_model(grid, ys)
+    return [[xs[i][j] + tot[i][j] for j in range(grid.M)] for i in range(grid.D)]
 
 
 def _firsts(outs: list) -> list:
@@ -259,7 +278,7 @@ def _moe_aux(grid: Grid, cfg, stats: list) -> torch.Tensor:
 
 def _views(p: MeshLM, g: int) -> list:
     """Group g's layers on each coordinate's blocks: [layer][i][j]."""
-    groups = [[p.group_view(g, j, p.grid.dev(i, j)) for j in range(p.grid.M)]
+    groups = [[p.group_view(g, i, j) for j in range(p.grid.M)]
               for i in range(p.grid.D)]
     return [[[getattr(v, f"layer{li}") for v in row] for row in groups]
             for li in range(len(p.cfg.layer_pattern()))]
@@ -268,13 +287,46 @@ def _views(p: MeshLM, g: int) -> list:
 # ------------------------------------------------------------------ training
 
 
+def _sum_over_model(grid: Grid, ys: list) -> list:
+    """The sum over model shards of the partial outputs ys, per data shard,
+    on every coordinate: [i][j]."""
+    out = []
+    for i in range(grid.D):
+        tot = cross_device_sum(ys[i], grid.row(i))
+        out.append([tot.to(grid.dev(i, j)) for j in range(grid.M)])
+    return out
+
+
+def _mixers(p: MeshLM, policy: Policy, spec, lps: list, xs: list, *, positions=None,
+            prefill: bool = False, caches=None, cache_len: int = 0) -> list:
+    """Each coordinate's mixer: [i][j] -> (partial delta, its cache or None),
+    the training step (``positions``), prefill (``prefill``) or one decode
+    step (``caches``). A Mamba layer runs in two halves around the sum over
+    ``model`` of its ``x_proj`` output."""
+    cfg, grid = p.cfg, p.grid
+    rows, cols = range(grid.D), range(grid.M)
+    if spec.mixer == "mamba":
+        c = [[None if caches is None else caches[i][j] for j in cols] for i in rows]
+        ins = [[tf.mamba_in(lps[i][j], cfg, policy, xs[i][j], c[i][j]) for j in cols]
+               for i in rows]
+        proj = _sum_over_model(grid, [[pr for _, pr in row] for row in ins])
+        return [[tf.mamba_out(lps[i][j], cfg, policy, ins[i][j][0], proj[i][j], c[i][j])
+                 for j in cols] for i in rows]
+    if caches is not None:
+        return [[tf.mixer_decode(lps[i][j], spec, cfg, policy, xs[i][j], caches[i][j],
+                                 cache_len, p.heads[j]) for j in cols] for i in rows]
+    if prefill:
+        return [[tf.mixer_prefill(lps[i][j], spec, cfg, policy, xs[i][j], positions[i][j],
+                                  p.heads[j]) for j in cols] for i in rows]
+    return [[(tf.mixer_full(lps[i][j], spec, cfg, policy, xs[i][j], positions[i][j],
+                            p.heads[j]), None) for j in cols] for i in rows]
+
+
 def _group_full(p: MeshLM, policy: Policy, g: int, xs: list, positions: list):
     cfg, grid = p.cfg, p.grid
     aux = torch.zeros((), dtype=torch.float32, device=grid.dev(0, 0))
     for spec, lps in zip(cfg.layer_pattern(), _views(p, g)):
-        ys = [[tf.mixer_full(lps[i][j], spec, cfg, policy, xs[i][j], positions[i][j], p.heads[j])
-               for j in range(grid.M)] for i in range(grid.D)]
-        xs = _add_sum(grid, xs, ys)
+        xs = _add_sum(grid, xs, _firsts(_mixers(p, policy, spec, lps, xs, positions=positions)))
         outs = [[tf.ffn_full(lps[i][j], spec, cfg, policy, xs[i][j]) for j in range(grid.M)]
                 for i in range(grid.D)]
         xs = _add_sum(grid, xs, _firsts(outs))
@@ -315,7 +367,7 @@ def _final(p: MeshLM, xs: list, tops: list) -> list:
 
 
 def _tops(p: MeshLM) -> list:
-    return [[p.top_view(j, p.grid.dev(i, j)) for j in range(p.grid.M)] for i in range(p.grid.D)]
+    return [[p.top_view(i, j) for j in range(p.grid.M)] for i in range(p.grid.D)]
 
 
 def _positions(grid: Grid, xs: list) -> list:
@@ -419,8 +471,7 @@ def _group_prefill(p: MeshLM, policy: Policy, g: int, xs: list, positions: list)
     cfg, grid = p.cfg, p.grid
     caches = [[{} for _ in range(grid.M)] for _ in range(grid.D)]
     for li, (spec, lps) in enumerate(zip(cfg.layer_pattern(), _views(p, g))):
-        outs = [[tf.mixer_prefill(lps[i][j], spec, cfg, policy, xs[i][j], positions[i][j],
-                                  p.heads[j]) for j in range(grid.M)] for i in range(grid.D)]
+        outs = _mixers(p, policy, spec, lps, xs, positions=positions, prefill=True)
         xs = _add_sum(grid, xs, _firsts(outs))
         ys = [[tf.ffn_full(lps[i][j], spec, cfg, policy, xs[i][j])[0] for j in range(grid.M)]
               for i in range(grid.D)]
@@ -521,9 +572,7 @@ def _group_decode(p: MeshLM, policy: Policy, g: int, xs: list, mc: MeshCache, ca
         if spec.mixer == "attn" and mc.seq_sharded:
             xs = _seq_sharded_attn(p, policy, lps, xs, caches, cache_len)
         else:
-            outs = [[tf.mixer_decode(lps[i][j], spec, cfg, policy, xs[i][j], caches[i][j],
-                                     cache_len, p.heads[j]) for j in range(grid.M)]
-                    for i in range(grid.D)]
+            outs = _mixers(p, policy, spec, lps, xs, caches=caches, cache_len=cache_len)
             caches = [[o[1] for o in row] for row in outs]
             xs = _add_sum(grid, xs, _firsts(outs))
         outs = [[tf.ffn_decode(lps[i][j], spec, cfg, policy, xs[i][j], caches[i][j])

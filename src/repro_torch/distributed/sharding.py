@@ -293,11 +293,17 @@ class Sharded:
         """The block of ``coord`` on that coordinate's device."""
         return self.blocks[self.index(coord)].to(self.mesh.devices[coord])
 
-    def take(self, device, ranges) -> torch.Tensor:
+    def take(self, device, ranges, coord: tuple | None = None) -> torch.Tensor:
         """The part of the global tensor that ``ranges`` names, on ``device``:
         one entry a dimension, ``None`` for all of it or a list of
         (start, stop) index ranges, concatenated in order. Each overlapping
-        block is sliced on its owner's device, then copied."""
+        block is sliced on its owner's device, then copied. With the mesh
+        coordinate ``coord`` taking it, the bytes read from blocks that the
+        coordinate does not hold by the spec are a gather
+        (``launch.mesh.note_transfer``)."""
+        from repro_torch.launch.mesh import _WATCHERS, note_transfer
+
+        own = self.index(coord) if coord is not None and _WATCHERS else None
         ranges = list(ranges) + [None] * (self.ndim - len(ranges))
         sizes = [n // k for n, k in zip(self.shape, self.splits())]
         pieces = []
@@ -308,14 +314,18 @@ class Sharded:
                     dim.append((b, max(lo, b * size) - b * size, min(hi, (b + 1) * size) - b * size))
             pieces.append(dim)
 
-        def build(d: int, prefix: tuple, local: tuple) -> torch.Tensor:
-            if d == self.ndim:
-                blk = self.blocks[prefix]
-                return blk[tuple(slice(a, b) for a, b in local)].to(device)
-            parts = [build(d + 1, prefix + (b,), local + ((a, c),)) for b, a, c in pieces[d]]
-            return parts[0] if len(parts) == 1 else torch.cat(parts, dim=d)
-
-        return build(0, (), ())
+        parts, remote = [], 0
+        for combo in itertools.product(*pieces):  # row-major over the dims' pieces
+            index = tuple(b for b, _, _ in combo)
+            piece = self.blocks[index]
+            if any(lo or hi != n for (_, lo, hi), n in zip(combo, piece.shape)):
+                piece = piece[tuple(slice(lo, hi) for _, lo, hi in combo)]
+            if own is not None and index != own:
+                remote += piece.numel() * piece.element_size()
+            parts.append(piece.to(device))
+        if remote:
+            note_transfer("all-gather", remote, 1)
+        return _join(parts, [len(p) for p in pieces])
 
     def gather(self, device=None) -> torch.Tensor:
         """The whole tensor on ``device`` (default: the mesh's first device),
@@ -345,6 +355,18 @@ class Sharded:
     def __repr__(self) -> str:
         return (f"Sharded({tuple(self.shape)}, {self.dtype}, {self.spec}, "
                 f"{len(self.blocks)} blocks)")
+
+
+def _join(parts: list, counts: list) -> torch.Tensor:
+    """Row-major ``parts`` of a grid with ``counts`` pieces along each
+    dimension, concatenated into one tensor."""
+    multi = [d for d, c in enumerate(counts) if c > 1]
+    if len(multi) <= 1:
+        return torch.cat(parts, dim=multi[0]) if multi else parts[0]
+    d = multi[0]
+    step = len(parts) // counts[d]
+    return torch.cat([_join(parts[i * step:(i + 1) * step], [1] * (d + 1) + counts[d + 1:])
+                      for i in range(counts[d])], dim=d)
 
 
 def _block_slices(index, shape, splits) -> tuple:

@@ -31,12 +31,21 @@ memory is one (chunk x keys) tile a head and never the (S, S) scores. The
 JAX package has no backward kernel either: it differentiates its ``jnp``
 scan (``src/repro/models/attention.py::_flash_attention``), and so this
 backward is plain PyTorch, not a hand-written kernel.
+
+On ``meta`` tensors (the dry-run, ``launch.dryrun``) the launch is the op
+``torch.ops.repro_torch.flash_attention``: its fake implementation gives
+the output's shape and its flop formula counts the kernel's own work, the
+causal lower triangle within the window, 4 Dh flops a live (query, key)
+pair a head (``causal_pairs``); ``FlashAttention`` wraps it as it wraps the
+launch, so a gradient on ``meta`` runs ``attention_backward``'s recompute
+as the card does. The card's route is untouched by it.
 """
 from __future__ import annotations
 
 import ctypes
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import flash_attention_ref
@@ -102,6 +111,32 @@ def _check_inputs(q, k, v, window) -> None:
         raise ValueError(f"window must be an int >= 0 (0: none), got {window!r}")
 
 
+def causal_pairs(S: int, window: int = 0) -> int:
+    """The (query, key) pairs a causal attention over S rows reads: key j
+    for query i when j <= i and, with a window, i - j < window."""
+    if not window or window >= S:
+        return S * (S + 1) // 2
+    return window * (window + 1) // 2 + (S - window) * window
+
+
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=())
+def _flash_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int) -> torch.Tensor:
+    """The kernel's function as an op, for counting: the plain version on the
+    CPU; on ``meta`` its fake output."""
+    return flash_attention_ref(q, k, v, window)
+
+
+@_flash_op.register_fake
+def _(q, k, v, window):
+    return torch.empty_like(q)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention)
+def _flash_flops(q_shape, k_shape, v_shape, window, *args, out_shape=None, **kwargs) -> int:
+    B, S, H, Dh = q_shape
+    return 4 * B * H * Dh * causal_pairs(S, window)
+
+
 def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          window: int = 0) -> torch.Tensor:
     """Causal (+ sliding window) softmax(q k^T Dh^-0.5) v.
@@ -118,12 +153,14 @@ def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     _check_inputs(q, k, v, window)
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, window)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention_bhsd runs on cuda or cpu, not {q.device}")
+    if q.device.type not in ("cuda", "meta"):
+        raise ValueError(f"flash_attention_bhsd runs on cuda, cpu or meta, not {q.device}")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         raise RuntimeError(
             "flash_attention_bhsd's launch records no gradient, and an input requires "
             "grad: call flash_attention (the autograd Function), or ops.flash_attention")
+    if q.device.type == "meta":
+        return _flash_op(q, k, v, window)
     B, S, H, Dh = q.shape
     Hkv = k.shape[2]
     out = torch.empty((B, S, H, Dh), dtype=q.dtype, device=q.device)

@@ -77,9 +77,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     that requires grad, the kernel through its ``autograd.Function``, whose
     backward recomputes the attention in ``torch`` ops. Limits, on both: all
     float32 or all bfloat16, 1 <= Dh <= 256, the head dim contiguous;
-    outside them it raises. Positions are the row indices.
+    outside them it raises. Positions are the row indices. ``meta`` tensors
+    (the dry-run) take the card's route, the launch replaced by the op that
+    counts it (``flash_attention.causal_pairs``).
     """
-    if (q.device.type == "cuda" and torch.is_grad_enabled()
+    if (q.device.type in ("cuda", "meta") and torch.is_grad_enabled()
             and any(t.requires_grad for t in (q, k, v))):
         return _flash.flash_attention(q, k, v, window=window)
     return _flash.flash_attention_bhsd(q, k, v, window=window)

@@ -18,6 +18,7 @@ sweep), this module also holds what they share across its devices:
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Any, Sequence
@@ -29,6 +30,35 @@ from repro_torch import obs
 from repro_torch.device import resolve_device
 
 _REDUCTIONS = obs.counter("reduce.cross_device")
+
+_WATCHERS: list = []
+
+
+@contextlib.contextmanager
+def watch_transfers(fn):
+    """Within the block, ``fn(kind, nbytes, shards)`` is called for each
+    cross-device transfer a sharded step makes, whatever the devices (a mesh
+    of ``meta`` devices moves no bytes, and the dry-run counts them this
+    way): ``("all-reduce", s, n)`` for a `cross_device_sum` of n shards of s
+    bytes each, ``("all-gather", s, 1)`` for s bytes that
+    `distributed.sharding.Sharded.take` reads from blocks its coordinate
+    does not hold."""
+    _WATCHERS.append(fn)
+    try:
+        yield
+    finally:
+        _WATCHERS.remove(fn)
+
+
+def note_transfer(kind: str, nbytes: int, shards: int) -> None:
+    for fn in _WATCHERS:
+        fn(kind, nbytes, shards)
+
+
+def _nbytes(tree) -> int:
+    if isinstance(tree, torch.Tensor):
+        return tree.numel() * tree.element_size()
+    return sum(_nbytes(t) for t in tree)
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -146,6 +176,8 @@ def cross_device_sum(accs: Sequence, devices: Sequence) -> Any:
     if len(devices) == 1:
         return accs[0]
     dev0 = as_device(devices[0])
+    if _WATCHERS:
+        note_transfer("all-reduce", _nbytes(accs[0]), len(devices))
     with obs.span("reduce.cross_device", cat="reduce", devices=len(devices)):
         _REDUCTIONS.inc()
         total = _tree_map(lambda t: t.to(dev0, non_blocking=True), accs[0])

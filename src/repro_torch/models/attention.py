@@ -30,7 +30,7 @@ from torch import nn
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops
-from repro_torch.models.common import Policy, normal_init, rms_norm
+from repro_torch.models.common import Policy, normal_init, repeated, rms_norm
 from repro_torch.models.rope import apply_rope, rope_angles
 
 _NEG = -1e30
@@ -159,20 +159,43 @@ def _repeat_kv(x: torch.Tensor, reps: int) -> torch.Tensor:
     return x[:, :, :, None, :].expand(B, T, KV, reps, Dh).reshape(B, T, KV * reps, Dh)
 
 
+#: The reference's ``CAUSAL_SKIP`` (off there too): self-attention off the
+#: card runs ``_flash_attention_triangle`` in tiles of ``CAUSAL_SKIP_CHUNK``
+#: rows (the reference's ``Q_CHUNK``). The dry-run's ``--opt causal_skip``
+#: sets it. A card keeps its kernel, which already skips the tiles above
+#: the diagonal and outside the window.
+CAUSAL_SKIP = False
+CAUSAL_SKIP_CHUNK = 256
+
+
+def _triangle_tile(acc, mm, ll, qc, kc, vc, pq, pk, window: int, scale: float):
+    """One (q chunk, kv chunk) tile of ``_flash_attention_triangle``: the
+    running (acc, max, sum) of the q chunk's rows after its keys."""
+    s = torch.einsum("bqhd,bthd->bhqt", qc.float(), kc.float()) * scale
+    mask = pq[:, None] >= pk[None, :]
+    if window:
+        mask &= pq[:, None] - pk[None, :] < window
+    s = torch.where(mask[None, None], s, -torch.inf)
+    m_new = torch.maximum(mm, torch.amax(s, dim=-1))
+    p = torch.exp(s - m_new[..., None])
+    alpha = torch.exp(mm - m_new)
+    ll = ll * alpha + torch.sum(p, dim=-1)
+    pv = torch.einsum("bhqt,bthd->bhqd", p.to(vc.dtype).float(), vc.float())
+    return acc * alpha[..., None] + pv, m_new, ll
+
+
 def _flash_attention_triangle(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                               pos: torch.Tensor, window: int, chunk: int) -> torch.Tensor:
     """Causal-skip flash attention for self-attention with monotone positions
-    (the reference's ``CAUSAL_SKIP`` route). Nothing dispatches it yet: the
-    flag comes with its one consumer, the dry-run (ROADMAP.md Queue 1 item
-    15). On a card it would change nothing: ``flash_attention_bhsd`` already
-    skips the tiles above the diagonal and outside the window.
+    (the reference's ``CAUSAL_SKIP`` route).
 
     q, k, v (B, S, H, Dh), pos (S,). One loop over the static list of
     lower-triangle (q chunk, kv chunk) tile pairs (within the sliding
     window, when set): the masked-out upper triangle is never computed. Each
     row of tiles keeps a running max that only goes up (a fully masked tile
     would otherwise lower it and blow exp(m - m_new) up), a running sum and
-    an f32 accumulator; the row's last tile writes its output.
+    an f32 accumulator; the row's last tile writes its output. On ``meta``
+    (the dry-run) one tile stands for all of them (``common.repeated``).
     """
     B, S, H, Dh = q.shape
     c = min(chunk, S)
@@ -181,28 +204,28 @@ def _flash_attention_triangle(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     n = S // c
     scale = Dh ** -0.5
     wc = n if not window else min(n, -(-window // c) + 1)  # kv chunks per row
+
+    def tile(acc, mm, ll, qc, kc, vc, pq, pk):
+        return _triangle_tile(acc, mm, ll, qc, kc, vc, pq, pk, window, scale)
+
+    def fresh():
+        return (torch.zeros((B, H, c, Dh), dtype=torch.float32, device=q.device),
+                torch.full((B, H, c), _NEG, dtype=torch.float32, device=q.device),
+                torch.zeros((B, H, c), dtype=torch.float32, device=q.device))
+
+    if q.device.type == "meta":
+        tiles = sum(min(i + 1, wc) for i in range(n))
+        acc, _, ll = repeated(tiles, tile, *fresh(), q[:, :c], k[:, :c], v[:, :c], pos[:c],
+                              pos[:c])
+        row = acc / torch.clamp(ll, min=1e-30)[..., None]
+        return row.transpose(1, 2).to(q.dtype).repeat(1, n, 1, 1)
     out = torch.empty_like(q)
-    acc = mm = ll = None
     for i in range(n):
+        acc, mm, ll = fresh()
         for j in range(max(0, i - wc + 1), i + 1):
-            if j == max(0, i - wc + 1):
-                acc = torch.zeros((B, H, c, Dh), dtype=torch.float32, device=q.device)
-                mm = torch.full((B, H, c), _NEG, dtype=torch.float32, device=q.device)
-                ll = torch.zeros((B, H, c), dtype=torch.float32, device=q.device)
-            qc, kc, vc = q[:, i * c:(i + 1) * c], k[:, j * c:(j + 1) * c], v[:, j * c:(j + 1) * c]
-            pq, pk = pos[i * c:(i + 1) * c], pos[j * c:(j + 1) * c]
-            s = torch.einsum("bqhd,bthd->bhqt", qc.float(), kc.float()) * scale
-            mask = pq[:, None] >= pk[None, :]
-            if window:
-                mask &= pq[:, None] - pk[None, :] < window
-            s = torch.where(mask[None, None], s, -torch.inf)
-            m_new = torch.maximum(mm, torch.amax(s, dim=-1))
-            p = torch.exp(s - m_new[..., None])
-            alpha = torch.exp(mm - m_new)
-            ll = ll * alpha + torch.sum(p, dim=-1)
-            pv = torch.einsum("bhqt,bthd->bhqd", p.to(vc.dtype).float(), vc.float())
-            acc = acc * alpha[..., None] + pv
-            mm = m_new
+            acc, mm, ll = tile(acc, mm, ll, q[:, i * c:(i + 1) * c], k[:, j * c:(j + 1) * c],
+                               v[:, j * c:(j + 1) * c], pos[i * c:(i + 1) * c],
+                               pos[j * c:(j + 1) * c])
         row = acc / torch.clamp(ll, min=1e-30)[..., None]
         out[:, i * c:(i + 1) * c] = row.transpose(1, 2).to(q.dtype)
     return out
@@ -217,8 +240,14 @@ def _flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     positions are the row indices 0..S-1, which is what every caller has
     (``forward_prefill`` uses arange(S)); the reference's scan takes them as
     arguments. Routed by device through ``ops.flash_attention``: the CUDA
-    kernel on a card, the plain direct softmax on the CPU.
+    kernel on a card, the plain direct softmax on the CPU. With
+    ``CAUSAL_SKIP`` off the card, ``_flash_attention_triangle``.
     """
+    if CAUSAL_SKIP and q.device.type != "cuda":
+        reps = q.shape[2] // k.shape[2]
+        return _flash_attention_triangle(q, _repeat_kv(k, reps), _repeat_kv(v, reps),
+                                         torch.arange(q.shape[1], device=q.device), window,
+                                         CAUSAL_SKIP_CHUNK)
     return ops.flash_attention(q, k, v, window=window)
 
 

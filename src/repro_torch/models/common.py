@@ -9,6 +9,7 @@ not ported.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import torch
@@ -70,3 +71,58 @@ def sinusoidal_positions(positions: torch.Tensor, dim: int,
 
 def silu(x: torch.Tensor) -> torch.Tensor:
     return x * torch.sigmoid(x)
+
+
+# ------------------------------------------------- loops on ``meta`` tensors
+
+_TRIPS = [1]
+
+
+def trip_factor() -> int:
+    """How many runs the op executing now stands for: the product of the
+    enclosing ``repeated`` counts, 1 outside them. A counting mode (the
+    dry-run's, ``launch.dryrun``) multiplies each op's flops and bytes by it."""
+    return _TRIPS[-1]
+
+
+@contextlib.contextmanager
+def _trips(n: int):
+    _TRIPS.append(_TRIPS[-1] * n)
+    try:
+        yield
+    finally:
+        _TRIPS.pop()
+
+
+class _Repeated(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, n, fn, *inputs):
+        ctx.n, ctx.fn = n, fn
+        ctx.save_for_backward(*inputs)
+        with _trips(n):
+            return fn(*inputs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        xs = [x.detach().requires_grad_(need)
+              for x, need in zip(ctx.saved_tensors, ctx.needs_input_grad[2:])]
+        want = [x for x in xs if x.requires_grad]
+        with torch.enable_grad(), _trips(0):  # the graph again, not counted
+            pairs = [(o, g) for o, g in zip(ctx.fn(*xs), grads)
+                     if g is not None and o.requires_grad]
+        with _trips(ctx.n):
+            got = iter(torch.autograd.grad([o for o, _ in pairs], want,
+                                           [g for _, g in pairs], allow_unused=True)
+                       if pairs and want else [None] * len(want))
+        return (None, None, *(next(got) if x.requires_grad else None for x in xs))
+
+
+def repeated(n: int, fn, *inputs) -> tuple:
+    """``fn(*inputs)`` (a tuple of tensors) run once and counted as ``n`` runs
+    of a loop body by a mode that reads ``trip_factor``: the counterpart of
+    an XLA while loop's known trip count, for the per-token loops of the
+    SSM layers on ``meta`` tensors, which hold no values to loop over. Under
+    autograd its vector-Jacobian product is counted ``n`` times too (the
+    backward rebuilds ``fn``'s graph first, which counts nothing: the loop's
+    own backward keeps its forward's graph)."""
+    return _Repeated.apply(n, fn, *inputs)

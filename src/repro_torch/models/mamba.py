@@ -10,7 +10,9 @@
   * decode carries (conv window, ssm state h): O(1) per token.
 
 State layout: h (B, d_inner, N) f32; conv window (B, conv_w - 1, d_inner)
-in the cache dtype. On a card the loop runs as plain ``torch`` ops, a few
+in the cache dtype. ``mix_in`` / ``mix_out`` are the block's two halves
+around its one sum over d_inner (``x_proj``), where a device mesh sums its
+model shards' parts. On a card the loop runs as plain ``torch`` ops, a few
 small launches a token (ROADMAP.md Queue 2 B14 holds the scan kernel).
 """
 from __future__ import annotations
@@ -20,7 +22,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models.common import Policy, normal_init, silu
+from repro_torch.models.common import Policy, normal_init, repeated, silu
 
 #: The dtype prefill leaves the conv window in, as the reference's cache holds it.
 CACHE_DTYPE = torch.bfloat16
@@ -80,8 +82,12 @@ def _conv_full(p: Mamba, cfg: ArchConfig, policy: Policy, xb: torch.Tensor) -> t
 
 def _ssm_inputs(p: Mamba, cfg: ArchConfig, policy: Policy, xc: torch.Tensor):
     """xc (B, S, di) post-conv -> dt (B, S, di) f32, Bm, Cm (B, S, N) f32."""
+    return _dt_bc(p, cfg, policy, xc @ policy.cast(p.x_proj))
+
+
+def _dt_bc(p: Mamba, cfg: ArchConfig, policy: Policy, proj: torch.Tensor):
+    """``_ssm_inputs`` from the x_proj output proj (B, S, r + 2N)."""
     N, r = cfg.ssm_state, cfg.resolved_dt_rank
-    proj = xc @ policy.cast(p.x_proj)  # (B, S, r + 2N)
     dt_low, Bm, Cm = torch.split(proj, [r, N, N], dim=-1)
     dt = F.softplus((dt_low @ policy.cast(p.dt_proj)).to(torch.float32)
                     + p.dt_bias.to(torch.float32))
@@ -94,15 +100,25 @@ def _step(h, A, xt, dtt, Bt):
     return dA * h + (dtt * xt)[..., None] * Bt[:, None, :]
 
 
+def _scan_step(h, A, xt, dtt, Bt, Ct):
+    h = _step(h, A, xt, dtt, Bt)
+    return torch.einsum("bdn,bn->bd", h, Ct), h
+
+
 def _scan(cfg: ArchConfig, xc, dt, Bm, Cm, A) -> tuple[torch.Tensor, torch.Tensor]:
-    """The selective scan from h = 0: ys (B, S, di) f32 and the final h."""
-    B, S, _ = xc.shape
-    h = torch.zeros((B, cfg.ssm_d_inner, cfg.ssm_state), dtype=torch.float32, device=xc.device)
+    """The selective scan from h = 0: ys (B, S, di) f32 and the final h. On
+    ``meta`` (the dry-run) one step stands for all S, counted S times
+    (``common.repeated``)."""
+    B, S, di = xc.shape
+    h = torch.zeros((B, di, cfg.ssm_state), dtype=torch.float32, device=xc.device)
     xf = xc.to(torch.float32)
+    if xc.device.type == "meta":
+        y, h = repeated(S, _scan_step, h, A, xf[:, 0], dt[:, 0], Bm[:, 0], Cm[:, 0])
+        return y[:, None].expand(B, S, di).contiguous(), h  # the layout of the loop's stack
     ys = []
     for t in range(S):
-        h = _step(h, A, xf[:, t], dt[:, t], Bm[:, t])
-        ys.append(torch.einsum("bdn,bn->bd", h, Cm[:, t]))
+        y, h = _scan_step(h, A, xf[:, t], dt[:, t], Bm[:, t], Cm[:, t])
+        ys.append(y)
     return torch.stack(ys, dim=1), h
 
 
@@ -111,30 +127,54 @@ def _finish(p: Mamba, policy: Policy, x, y, xc, z) -> torch.Tensor:
     return (y * silu(z)) @ policy.cast(p.out_proj)
 
 
-def _full(p: Mamba, cfg: ArchConfig, policy: Policy, x: torch.Tensor):
-    """(out (B, S, d), final h, xb): the prefill and training forward."""
-    xb, z = _split_proj(p, policy, x)
-    xc = silu(_conv_full(p, cfg, policy, xb))
-    dt, Bm, Cm = _ssm_inputs(p, cfg, policy, xc)
-    ys, h = _scan(cfg, xc, dt, Bm, Cm, -torch.exp(p.A_log))
-    return _finish(p, policy, x, ys, xc, z), h, xb
+def mix_in(p: Mamba, cfg: ArchConfig, policy: Policy, x: torch.Tensor, state: dict | None = None):
+    """The block up to ``x_proj`` on x (B, S, d): (ctx, proj), proj (B, S,
+    r + 2N) the x_proj output. It is a sum over d_inner, so a ``p`` holding a
+    slice of d_inner (a model shard's, ``distributed.parallel``) gives a
+    part of it, and the parts are summed before ``mix_out``. With ``state``
+    one decode step: the conv over the carried window."""
+    xb, z = _split_proj(p, policy, x)  # (B, S, di)
+    if state is None:
+        xc = silu(_conv_full(p, cfg, policy, xb))
+        tail = xb
+    else:
+        tail = torch.cat([state["conv"].to(xb.dtype), xb], dim=1)  # (B, W, di)
+        xc = torch.einsum("bwd,wd->bd", tail, policy.cast(p.conv_w)) + policy.cast(p.conv_b)
+        xc = silu(xc)[:, None, :]  # (B, 1, di)
+    return (x, tail, z, xc), xc @ policy.cast(p.x_proj)
+
+
+def mix_out(p: Mamba, cfg: ArchConfig, policy: Policy, ctx: tuple, proj: torch.Tensor,
+            state: dict | None = None) -> tuple[torch.Tensor, dict]:
+    """The block from ``x_proj``'s output on: dt, the scan (one step with
+    ``state``), the gate and ``out_proj``. Returns (out (B, S, d), the decode
+    state after the last token): the final h and the last conv_w - 1
+    pre-conv inputs, zero-padded on the left when the sequence is shorter."""
+    x, tail, z, xc = ctx
+    dt, Bm, Cm = _dt_bc(p, cfg, policy, proj)
+    A = -torch.exp(p.A_log)
+    if state is None:
+        ys, h = _scan(cfg, xc, dt, Bm, Cm, A)
+        W1 = cfg.ssm_conv - 1
+        conv = F.pad(tail, (0, 0, max(0, W1 - tail.shape[1]), 0))[:, -W1:, :].to(CACHE_DTYPE)
+    else:
+        h = _step(state["h"], A, xc[:, 0].to(torch.float32), dt[:, 0], Bm[:, 0])
+        ys = torch.einsum("bdn,bn->bd", h, Cm[:, 0])[:, None, :]
+        conv = tail[:, 1:, :].to(state["conv"].dtype)
+    return _finish(p, policy, x, ys, xc, z), {"h": h, "conv": conv}
 
 
 def fwd_full(p: Mamba, cfg: ArchConfig, policy: Policy, x: torch.Tensor) -> torch.Tensor:
     """Training / prefill path: the scan over time. x (B, S, d)."""
-    return _full(p, cfg, policy, x)[0]
+    return mix_out(p, cfg, policy, *mix_in(p, cfg, policy, x))[0]
 
 
 def fwd_prefill(p: Mamba, cfg: ArchConfig, policy: Policy,
                 x: torch.Tensor) -> tuple[torch.Tensor, dict]:
     """``fwd_full`` and the decode state after the sequence: the final h of
     the same loop (the reference runs the scan a second time for it, the
-    same step on the same inputs) and the last conv_w - 1 pre-conv inputs,
-    zero-padded on the left when the sequence is shorter."""
-    out, h, xb = _full(p, cfg, policy, x)
-    W1 = cfg.ssm_conv - 1
-    conv = F.pad(xb, (0, 0, max(0, W1 - xb.shape[1]), 0))[:, -W1:, :]
-    return out, {"h": h, "conv": conv.to(CACHE_DTYPE)}
+    same step on the same inputs) and the last conv_w - 1 pre-conv inputs."""
+    return mix_out(p, cfg, policy, *mix_in(p, cfg, policy, x))
 
 
 def init_state(cfg: ArchConfig, batch: int, dtype=torch.float32, device=None) -> dict:
@@ -149,13 +189,4 @@ def init_state(cfg: ArchConfig, batch: int, dtype=torch.float32, device=None) ->
 def fwd_decode(p: Mamba, cfg: ArchConfig, policy: Policy, x: torch.Tensor,
                state: dict) -> tuple[torch.Tensor, dict]:
     """One decode step. x (B, 1, d); state = {h, conv}. Returns a new state."""
-    xb, z = _split_proj(p, policy, x)  # (B, 1, di)
-    window = torch.cat([state["conv"].to(xb.dtype), xb], dim=1)  # (B, W, di)
-    w = policy.cast(p.conv_w)  # (W, di)
-    xc = torch.einsum("bwd,wd->bd", window, w) + policy.cast(p.conv_b)
-    xc = silu(xc)[:, None, :]  # (B, 1, di)
-    dt, Bm, Cm = _ssm_inputs(p, cfg, policy, xc)
-    h = _step(state["h"], -torch.exp(p.A_log), xc[:, 0].to(torch.float32), dt[:, 0], Bm[:, 0])
-    y = torch.einsum("bdn,bn->bd", h, Cm[:, 0])[:, None, :]
-    out = _finish(p, policy, x, y, xc, z)
-    return out, {"h": h, "conv": window[:, 1:, :].to(state["conv"].dtype)}
+    return mix_out(p, cfg, policy, *mix_in(p, cfg, policy, x, state), state)

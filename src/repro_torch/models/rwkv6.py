@@ -25,7 +25,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models.common import Policy, group_norm, normal_init, silu
+from repro_torch.models.common import Policy, group_norm, normal_init, repeated, silu
 
 _LORA = 32  # low-rank dim of the ddlerp mixers
 _LORA_W = 64  # low-rank dim of the decay lora
@@ -139,8 +139,9 @@ def _ddlerp(p: TimeMix, policy: Policy, x: torch.Tensor, x_prev: torch.Tensor):
 
 def _wkv_inputs(p: TimeMix, cfg: ArchConfig, policy: Policy, x, x_prev):
     """r, k, v, w (B, S, Hp, hs) (w the per-token decay in (0, 1), f32) and
-    the gate g (B, S, a)."""
-    Hp, hs = cfg.phys_heads, cfg.rwkv_head_size
+    the gate g (B, S, a); Hp the heads ``p`` holds (all, or a model
+    shard's)."""
+    Hp, hs = p.u.shape[0], cfg.rwkv_head_size
     B, S, _ = x.shape
     x_r, x_k, x_v, x_w, x_g = _ddlerp(p, policy, x, x_prev)
     r = (x_r @ policy.cast(p.wr)).reshape(B, S, Hp, hs)
@@ -161,11 +162,15 @@ def _wkv_step(S_state, r_t, k_t, v_t, w_t, u):
     return S_new, y
 
 
-def _finish_tmix(p: TimeMix, cfg: ArchConfig, policy: Policy, y, g) -> torch.Tensor:
-    """group-norm + pad-mask + gate + out-projection. y (B, S, a)."""
-    y = group_norm(y, p.ln_scale, p.ln_bias, cfg.phys_heads, 64e-5)
+def _finish_tmix(p: TimeMix, cfg: ArchConfig, policy: Policy, y, g, h0: int = 0) -> torch.Tensor:
+    """group-norm + pad-mask + gate + out-projection. y (B, S, a), the heads
+    [h0, h0 + Hs) that ``p`` holds; with a model shard's heads the output is
+    its part of the out-projection's sum."""
+    Hs = p.u.shape[0]
+    y = group_norm(y, p.ln_scale, p.ln_bias, Hs, 64e-5)
     mask = _rwkv_head_mask(cfg, y.dtype, y.device)
     if mask is not None:
+        mask = mask[h0:h0 + Hs]
         y = y * torch.repeat_interleave(mask, cfg.rwkv_head_size)[None, None, :]
     return (y * g) @ policy.cast(p.wo)
 
@@ -182,10 +187,14 @@ def _chunked(S: int) -> bool:
 
 def _wkv_scan(r, k, v, w, u) -> tuple[torch.Tensor, torch.Tensor]:
     """The per-token recurrence from S = 0 over r, k, v, w (B, S, Hp, hs):
-    y (B, S, Hp, hs) f32 and the final state."""
+    y (B, S, Hp, hs) f32 and the final state. On ``meta`` (the dry-run) one
+    step stands for all S (``common.repeated``)."""
     B, S, Hp, hs = r.shape
     f32 = [a.to(torch.float32) for a in (r, k, v, w)]
     state = torch.zeros((B, Hp, hs, hs), dtype=torch.float32, device=r.device)
+    if r.device.type == "meta":
+        state, y = repeated(S, _wkv_step, state, *(a[:, 0] for a in f32), u)
+        return y[:, None].expand(B, S, Hp, hs).contiguous(), state  # the loop's stack
     ys = []
     for t in range(S):
         state, y_t = _wkv_step(state, *(a[:, t] for a in f32), u)
@@ -197,13 +206,20 @@ def _wkv_state(k, v, w) -> torch.Tensor:
     """The final state alone: S_t = diag(w_t) S_{t-1} + k_t v_t^T from 0."""
     B, S, Hp, hs = k.shape
     state = torch.zeros((B, Hp, hs, hs), dtype=torch.float32, device=k.device)
+    if k.device.type == "meta":
+        return repeated(S, _decay_step, state, *(a[:, 0] for a in (k, v, w)))[0]
     for t in range(S):
-        k_t, v_t, w_t = (a[:, t].to(torch.float32) for a in (k, v, w))
-        state = w_t[..., :, None] * state + k_t[..., :, None] * v_t[..., None, :]
+        state = _decay_step(state, k[:, t], v[:, t], w[:, t])[0]
     return state
 
 
-def _tmix_full(p: TimeMix, cfg: ArchConfig, policy: Policy, x: torch.Tensor, final: bool):
+def _decay_step(state, k_t, v_t, w_t) -> tuple[torch.Tensor]:
+    k_t, v_t, w_t = (a.to(torch.float32) for a in (k_t, v_t, w_t))
+    return (w_t[..., :, None] * state + k_t[..., :, None] * v_t[..., None, :],)
+
+
+def _tmix_full(p: TimeMix, cfg: ArchConfig, policy: Policy, x: torch.Tensor, final: bool,
+               h0: int = 0):
     """(out (B, S, d), the final state or None)."""
     B, S, _ = x.shape
     r, k, v, g, w = _wkv_inputs(p, cfg, policy, x, _shift(x))
@@ -212,22 +228,26 @@ def _tmix_full(p: TimeMix, cfg: ArchConfig, policy: Policy, x: torch.Tensor, fin
         state = _wkv_state(k, v, w) if final else None
     else:
         y, state = _wkv_scan(r, k, v, w, p.u)
-    y = y.reshape(B, S, _att_dim(cfg)).to(x.dtype)
-    return _finish_tmix(p, cfg, policy, y, g), state
+    y = y.reshape(B, S, -1).to(x.dtype)
+    return _finish_tmix(p, cfg, policy, y, g, h0), state
 
 
-def fwd_tmix_full(p: TimeMix, cfg: ArchConfig, policy: Policy, x: torch.Tensor) -> torch.Tensor:
-    """Full-sequence time-mix. x (B, S, d)."""
-    return _tmix_full(p, cfg, policy, x, final=False)[0]
+def fwd_tmix_full(p: TimeMix, cfg: ArchConfig, policy: Policy, x: torch.Tensor,
+                  h0: int = 0) -> torch.Tensor:
+    """Full-sequence time-mix. x (B, S, d). ``p`` may hold only the heads
+    [h0, h0 + Hs) (a model shard's columns of wr, wk, wv, wg, w0, wB, the
+    rows of u and wo, its slice of the group norm): the output is then that
+    shard's part of the out-projection's sum."""
+    return _tmix_full(p, cfg, policy, x, final=False, h0=h0)[0]
 
 
 def fwd_tmix_prefill(p: TimeMix, cfg: ArchConfig, policy: Policy,
-                     x: torch.Tensor) -> tuple[torch.Tensor, dict]:
+                     x: torch.Tensor, h0: int = 0) -> tuple[torch.Tensor, dict]:
     """``fwd_tmix_full`` and the decode state: the final wkv state of the same
     loop (the reference recovers it with a second, state-only recurrence of
     the same step; under ``WKV_CHUNK`` the port does too), the last token as
     ``x_tmix``, and a zero ``x_cmix`` that the caller sets."""
-    out, state = _tmix_full(p, cfg, policy, x, final=True)
+    out, state = _tmix_full(p, cfg, policy, x, final=True, h0=h0)
     return out, {"S": state, "x_tmix": x[:, -1:, :].to(CACHE_DTYPE),
                  "x_cmix": torch.zeros_like(x[:, -1:, :], dtype=CACHE_DTYPE)}
 
@@ -252,23 +272,32 @@ def _wkv_chunked(r, k, v, w, u, C: int) -> torch.Tensor:
     uf = u.to(torch.float32)
     tri = torch.tril(torch.ones((C, C), dtype=torch.float32, device=r.device), diagonal=-1)
     S0 = torch.zeros((B, H, hs, hs), dtype=torch.float32, device=r.device)
+    if r.device.type == "meta":  # one chunk stands for all n (``common.repeated``)
+        y, _ = repeated(n, _chunk_step, S0, rc[0], kc[0], vc[0], wc[0], uf, tri)
+        return y[:, None].expand(B, n, C, H, hs).reshape(B, S, H, hs)
     ys = []
     for rb, kb, vb, wb in zip(rc, kc, vc, wc):  # (B, C, H, hs) each
-        lw = torch.cumsum(torch.log(torch.clamp(wb, min=1e-38)), dim=1)
-        lw_prev = F.pad(lw, (0, 0, 0, 0, 1, 0))[:, :-1]  # lw_{t-1}
-        # carry-in term
-        y = torch.einsum("bchk,bhkv->bchv", rb * torch.exp(lw_prev), S0)
-        # intra-chunk: pairwise decay exponents are <= 0 for s < t (no overflow)
-        E = torch.exp(lw_prev[:, :, None] - lw[:, None, :])  # (B, C_t, C_s, H, hs)
-        A = torch.einsum("bchk,bshk,bcshk->bhcs", rb, kb, E) * tri[None, None]
-        diag = torch.einsum("bchk,bchk->bch", rb * uf[None, None], kb)  # bonus term
-        y = y + torch.einsum("bhcs,bshv->bchv", A, vb)
-        y = y + diag[..., None] * vb  # bonus (current-token) contribution
-        # chunk-end state
-        kt = kb * torch.exp(lw[:, -1:] - lw)  # (B, C, H, hs), exponents <= 0
-        S0 = torch.exp(lw[:, -1])[:, :, :, None] * S0 + torch.einsum("bshk,bshv->bhkv", kt, vb)
+        y, S0 = _chunk_step(S0, rb, kb, vb, wb, uf, tri)
         ys.append(y)
     return torch.stack(ys, dim=1).reshape(B, S, H, hs)
+
+
+def _chunk_step(S0, rb, kb, vb, wb, uf, tri):
+    """One chunk of ``_wkv_chunked``: (y (B, C, H, hs), the chunk-end state)."""
+    lw = torch.cumsum(torch.log(torch.clamp(wb, min=1e-38)), dim=1)
+    lw_prev = F.pad(lw, (0, 0, 0, 0, 1, 0))[:, :-1]  # lw_{t-1}
+    # carry-in term
+    y = torch.einsum("bchk,bhkv->bchv", rb * torch.exp(lw_prev), S0)
+    # intra-chunk: pairwise decay exponents are <= 0 for s < t (no overflow)
+    E = torch.exp(lw_prev[:, :, None] - lw[:, None, :])  # (B, C_t, C_s, H, hs)
+    A = torch.einsum("bchk,bshk,bcshk->bhcs", rb, kb, E) * tri[None, None]
+    diag = torch.einsum("bchk,bchk->bch", rb * uf[None, None], kb)  # bonus term
+    y = y + torch.einsum("bhcs,bshv->bchv", A, vb)
+    y = y + diag[..., None] * vb  # bonus (current-token) contribution
+    # chunk-end state
+    kt = kb * torch.exp(lw[:, -1:] - lw)  # (B, C, H, hs), exponents <= 0
+    S0 = torch.exp(lw[:, -1])[:, :, :, None] * S0 + torch.einsum("bshk,bshv->bhkv", kt, vb)
+    return y, S0
 
 
 def init_state(cfg: ArchConfig, batch: int, dtype=torch.float32, device=None) -> dict:
@@ -281,13 +310,13 @@ def init_state(cfg: ArchConfig, batch: int, dtype=torch.float32, device=None) ->
 
 
 def fwd_tmix_decode(p: TimeMix, cfg: ArchConfig, policy: Policy, x: torch.Tensor,
-                    state: dict) -> tuple[torch.Tensor, dict]:
+                    state: dict, h0: int = 0) -> tuple[torch.Tensor, dict]:
     """One decode step. x (B, 1, d); state carries S and the previous token x."""
     B = x.shape[0]
     r, k, v, g, w = _wkv_inputs(p, cfg, policy, x, state["x_tmix"].to(x.dtype))
     S_new, y = _wkv_step(state["S"], *(a[:, 0].to(torch.float32) for a in (r, k, v, w)), p.u)
-    y = y.reshape(B, 1, _att_dim(cfg)).to(x.dtype)
-    out = _finish_tmix(p, cfg, policy, y, g)
+    y = y.reshape(B, 1, -1).to(x.dtype)
+    out = _finish_tmix(p, cfg, policy, y, g, h0)
     return out, {**state, "S": S_new, "x_tmix": x.to(state["x_tmix"].dtype)}
 
 

@@ -132,16 +132,22 @@ def _layers(params: Group, cfg: ArchConfig):
         yield f"layer{i}", spec, getattr(params, f"layer{i}")
 
 
+def _h0(heads: attention.Heads | None) -> int:
+    return 0 if heads is None else heads.h0
+
+
 def mixer_full(lp: Layer, spec: LayerSpec, cfg: ArchConfig, policy: Policy, x: torch.Tensor,
                positions: torch.Tensor, heads: attention.Heads | None = None) -> torch.Tensor:
     """The layer's mixer on norm1(x): its delta to x, or with ``heads`` a
-    tensor-parallel shard's part of it (``attention.Heads``)."""
+    tensor-parallel shard's part of it (``attention.Heads``; an RWKV6
+    time-mix reads the same slice of its heads). A Mamba layer's shard
+    needs a sum in its middle: ``mamba_in`` / ``mamba_out``."""
     h = rms_norm(x, lp.norm1, cfg.norm_eps)
     if spec.mixer == "attn":
         return attention.fwd_full(lp.mixer, cfg, policy, h, positions, heads)
     if spec.mixer == "mamba":
         return mamba.fwd_full(lp.mixer, cfg, policy, h)
-    return rwkv6.fwd_tmix_full(lp.mixer, cfg, policy, h)
+    return rwkv6.fwd_tmix_full(lp.mixer, cfg, policy, h, _h0(heads))
 
 
 def mixer_prefill(lp: Layer, spec: LayerSpec, cfg: ArchConfig, policy: Policy, x: torch.Tensor,
@@ -155,7 +161,7 @@ def mixer_prefill(lp: Layer, spec: LayerSpec, cfg: ArchConfig, policy: Policy, x
         return attention.fwd_prefill(lp.mixer, cfg, policy, h, positions, heads)
     if spec.mixer == "mamba":
         return mamba.fwd_prefill(lp.mixer, cfg, policy, h)
-    return rwkv6.fwd_tmix_prefill(lp.mixer, cfg, policy, h)
+    return rwkv6.fwd_tmix_prefill(lp.mixer, cfg, policy, h, _h0(heads))
 
 
 def mixer_decode(lp: Layer, spec: LayerSpec, cfg: ArchConfig, policy: Policy, x: torch.Tensor,
@@ -168,7 +174,22 @@ def mixer_decode(lp: Layer, spec: LayerSpec, cfg: ArchConfig, policy: Policy, x:
         return attention.fwd_decode(lp.mixer, cfg, policy, h, cache, cache_len, heads)
     if spec.mixer == "mamba":
         return mamba.fwd_decode(lp.mixer, cfg, policy, h, cache)
-    return rwkv6.fwd_tmix_decode(lp.mixer, cfg, policy, h, cache)
+    return rwkv6.fwd_tmix_decode(lp.mixer, cfg, policy, h, cache, _h0(heads))
+
+
+def mamba_in(lp: Layer, cfg: ArchConfig, policy: Policy, x: torch.Tensor,
+             cache: dict | None = None) -> tuple[tuple, torch.Tensor]:
+    """A Mamba layer's mixer on norm1(x) up to its ``x_proj``: (ctx, proj),
+    proj a sum over d_inner (a model shard's part of it when ``lp.mixer``
+    holds its slice of d_inner). With ``cache`` one decode step."""
+    return mamba.mix_in(lp.mixer, cfg, policy, rms_norm(x, lp.norm1, cfg.norm_eps), cache)
+
+
+def mamba_out(lp: Layer, cfg: ArchConfig, policy: Policy, ctx: tuple, proj: torch.Tensor,
+              cache: dict | None = None) -> tuple[torch.Tensor, dict]:
+    """``mamba_in``'s continuation from the whole ``x_proj`` output: (delta,
+    the layer's new state), the delta a model shard's part of ``out_proj``'s sum."""
+    return mamba.mix_out(lp.mixer, cfg, policy, ctx, proj, cache)
 
 
 def ffn_full(lp: Layer, spec: LayerSpec, cfg: ArchConfig, policy: Policy,

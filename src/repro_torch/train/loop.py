@@ -90,7 +90,7 @@ def _restore(ckpt_dir: Path, params, opt_state):
         for mine, tree in ((params.params, trees["params"]), (opt_state.mu, trees["opt_state"].mu),
                            (opt_state.nu, trees["opt_state"].nu)):
             for name, arr in convert._by_name(tree, cfg).items():
-                mine[name].copy_(torch.as_tensor(arr))
+                mine[name].copy_(convert._host_tensor(arr))
         saved = torch.tensor(int(trees["opt_state"].step), dtype=torch.int32)
         return step, params, type(opt_state)(saved, opt_state.mu, opt_state.nu)
     leaves = [t for _, t in ckpt_lib._leaves({"p": params, "o": opt_state})

@@ -181,7 +181,8 @@ def test_chip_smoke_cpu_rehearsal():
     phases = [line.get("phase") for line in lines]
     assert phases == ["device", "data", "parity", "main", "agreement", "host_copy", "stream",
                       "rff", "sweep", "shard", "persist", "baselines", "obs", "serve",
-                      "lm_serve", "lm_train", "lm_ssm", "lm_mesh", "timing", "done"]
+                      "lm_serve", "lm_train", "lm_ssm", "lm_mesh", "lm_mesh_ssm", "dryrun",
+                      "timing", "done"]
     assert not any(line.get("ok") for line in lines)
     train = lines[phases.index("lm_train")]
     assert train["a_dense"]["loss_last"] < train["a_dense"]["loss_first"]
@@ -200,6 +201,19 @@ def test_chip_smoke_cpu_rehearsal():
     assert mesh["d_int8_ddp"]["final_loss"] < 1e-2 and mesh["e_pipeline"]["grad_err"] < 1e-4
     assert all(r["bitwise_equal"] for r in mesh["f_elastic"]["restores"].values())
     assert mesh["f_elastic"]["temp_dir_removed"] and mesh["flash_launches"] == 0
+    ssm = lines[phases.index("lm_mesh_ssm")]
+    assert set(ssm["g_rwkv6"]["meshes"]) == {"1x2", "2x2"} and set(ssm["h_jamba"]["meshes"]) == {
+        "1x2"}
+    assert all(max(r["prefill_max_abs_diff"], r["teacher_forced_max_abs_diff"]) <= ssm[p]["limit"]
+               for p in ("g_rwkv6", "h_jamba_f32") for r in ssm[p]["meshes"].values())
+    assert ssm["h_jamba"]["limit"] is None and "routing_replayed" in ssm["h_jamba"]["meshes"]["1x2"]
+    assert all(r["loss_rel_diff"] <= 1e-4 and r["grad_norm_rel_diff"] <= 1e-3
+               for a in ssm["i_training"].values() for k, r in a["runs"].items()
+               if k != "one_device")
+    dry = lines[phases.index("dryrun")]["a_card_vs_meta"]
+    assert dry["gemm_flops"]["meta"] == dry["gemm_flops"]["card"] > 0
+    assert all(b == dry["per_coordinate_bytes"]["spec"]
+               for b in dry["per_coordinate_bytes"]["card_blocks"].values())
     main = lines[phases.index("main")]
     assert main["nmi"] > 0.9 and main["launches"] == {"apnc_embed": 0, "apnc_assign": 0}
     stream = lines[phases.index("stream")]

@@ -448,3 +448,95 @@ def test_reshard_restore_names_its_item(tmp_path):
     for name, p in model.named_parameters():
         assert torch.equal(params.params[name].gather("cpu"), p), name
         assert torch.equal(opt.mu[name].gather("cpu"), state.mu[name]), name
+
+
+# ------------------------------------------------------------- bf16 leaves
+
+
+def test_a_bf16_leaf_crosses_between_the_packages_bit_for_bit(tmp_path):
+    """numpy has no bfloat16: the reference's ``np.savez`` writes a bf16 leaf
+    (an ml_dtypes array) as 2-byte ``V2`` records and names the dtype
+    ``bfloat16`` in the manifest. The port writes the same leaf to the same
+    bytes and manifest, and restores either file bit for bit (a NaN,
+    infinities, -0 and a subnormal too); the reference's format read back as
+    ml_dtypes bfloat16 records gives the port's bits. (The reference's own
+    ``restore`` casts with ``astype``, which ml_dtypes does not offer from
+    ``V2``: it raises on any bf16 leaf, its own files included.)"""
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn((5, 7), generator=g).to(torch.bfloat16)
+    x[0, :4] = torch.tensor([float("nan"), float("inf"), -float("inf"), -0.0])
+    x[1, 0] = torch.tensor(1e-40).to(torch.bfloat16)  # a bf16 subnormal
+    bits = x.view(torch.int16).numpy()
+    ck.save(tmp_path / "torch", 1, {"t": {"x": x}})
+    jck.save(tmp_path / "jax", 1, {"t": {"x": jnp.asarray(bits.view(jnp.bfloat16))}})
+    files = {}
+    for name in ("torch", "jax"):
+        d = tmp_path / name / "step_00000001"
+        manifest = json.loads((d / "manifest.json").read_text())
+        assert manifest["trees"]["t"]["x"] == {"shape": [5, 7], "dtype": "bfloat16"}, name
+        with np.load(d / "t.npz") as data:
+            files[name] = data["x"]
+        assert files[name].dtype == np.dtype("V2"), name
+        _, out = ck.restore(tmp_path / name, {"t": {"x": torch.empty(
+            (5, 7), dtype=torch.bfloat16, device="meta")}}, device=CPU)
+        assert out["t"]["x"].dtype == torch.bfloat16
+        assert torch.equal(out["t"]["x"].view(torch.int16), x.view(torch.int16)), name
+    assert files["torch"].tobytes() == files["jax"].tobytes()
+    np.testing.assert_array_equal(files["torch"].view(jnp.bfloat16).view(np.int16), bits)
+
+
+@pytest.fixture
+def one_thread():
+    """One intra-op thread: the LM's per-token scans are tiny ops, which a
+    team of threads a test worker only slows (beside five other workers the
+    test below took 728 s on the default threads)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def test_a_bf16_moment_train_state_resumes_bitwise(tmp_path, one_thread):
+    """Reduced jamba with bf16 moments (jamba and command-r-plus set
+    ``moments_dtype="bfloat16"``) through ``TrainLoop``: crashed at step 3
+    (checkpoint at 2) and resumed, every parameter, moment and loss equals
+    the uninterrupted run's, bit for bit."""
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.data import tokens
+    from repro_torch.models import model as lm
+    from repro_torch.models.common import TEST_POLICY
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as tstep
+    from repro_torch.train.loop import LoopConfig, TrainLoop
+
+    cfg = reduced(get_arch("jamba-1.5-large-398b"))
+    assert cfg.moments_dtype == "bfloat16"
+
+    class Boom(RuntimeError):
+        pass
+
+    def fault(step):
+        if step == 3 and not (tmp_path / "fired").exists():
+            (tmp_path / "fired").write_text("x")
+            raise Boom()
+
+    def run(d, hook=None):
+        model = lm.init(torch.Generator().manual_seed(0), cfg, TEST_POLICY, "cpu")
+        opt_cfg = adamw.AdamWConfig(lr=3e-3, moments_dtype=cfg.moments_dtype)
+        step = tstep.make_train_step(cfg, TEST_POLICY, opt_cfg, lambda s: 1.0)
+        loop = TrainLoop(step, lambda s: tokens.batch_iterator(cfg, 2, 16, s, "cpu"), d,
+                         LoopConfig(total_steps=4, checkpoint_every=2, log_every=1),
+                         fault_hook=hook)
+        return loop.run(model, adamw.init(model, opt_cfg))
+
+    p_ref, o_ref, h_ref = run(tmp_path / "a")
+    with pytest.raises(Boom):
+        run(tmp_path / "b", fault)
+    p, o, h = run(tmp_path / "b", fault)
+    ref = dict(p_ref.named_parameters())
+    for name, t in p.named_parameters():
+        assert o.mu[name].dtype == torch.bfloat16
+        assert torch.equal(t, ref[name]), name
+        assert torch.equal(o.mu[name].view(torch.int16), o_ref.mu[name].view(torch.int16))
+        assert torch.equal(o.nu[name].view(torch.int16), o_ref.nu[name].view(torch.int16))
+    assert int(o.step) == 4 and [r["loss"] for r in h] == [r["loss"] for r in h_ref[2:]]

@@ -2,7 +2,7 @@
 the port of tests/test_stream.py::test_cluster_serve_cli_matches_predict,
 the open-loop mode with a hot swap, the sweep-selected model, a checkpoint
 written by the JAX package served with the reference's labels, and the
-sharded backend raising with its ROADMAP item."""
+sharded backend (``--backend stream_shard``) fitting and serving."""
 from __future__ import annotations
 
 import json

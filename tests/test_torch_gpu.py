@@ -1397,3 +1397,79 @@ def test_mesh_generate_on_logical_shards_matches_the_cpu_mesh(cuda):
                              TEST_POLICY, {"tokens": toks.to(cuda)}, 4)
     assert t_flash.launches == before + 2 * cfg.num_layers
     torch.testing.assert_close(on_card.logits[0].cpu(), on_cpu.logits[0], rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(1, 2), (2, 2)])
+def test_jamba_mesh_prefill_on_logical_shards_matches_one_device(cuda, shape):
+    """Reduced jamba (Mamba layers split over d_inner with their mid-layer
+    x_proj sum, an attention layer, MoE FFNs) prefilled on a mesh of logical
+    shards of the card against one device on the card, f32: one kernel
+    launch an attention layer a coordinate; the logits within lm_mesh (b)'s
+    bar, 1e-4 * max|logits|. Each data shard holds (4 / D) x 128 tokens, a
+    whole number of the MoE's 256-token routing groups, so it routes as one
+    device does."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.distributed import parallel
+    from repro_torch.kernels import flash_attention as t_flash
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import model as lm
+    from repro_torch.models.common import TEST_POLICY
+
+    cfg = dataclasses.replace(reduced(get_arch("jamba-1.5-large-398b")), remat="none")
+    model = lm.init(torch.Generator(device=cuda).manual_seed(0), cfg, TEST_POLICY, cuda)
+    toks = torch.randint(1, cfg.vocab_size, (4, 128), generator=torch.Generator().manual_seed(1))
+    batch = {"tokens": toks.to(cuda)}
+    with torch.inference_mode():
+        want, _ = lm.forward_prefill(model, cfg, TEST_POLICY, batch)
+        p = parallel.shard_model(make_host_mesh(*shape, cuda), model)
+        before = t_flash.launches
+        got, _ = parallel.forward_prefill(p, TEST_POLICY, batch)
+    attn = sum(s.mixer == "attn" for s in cfg.layer_pattern()) * cfg.num_groups
+    assert t_flash.launches == before + attn * shape[0] * shape[1]
+    assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
+@pytest.mark.gpu
+def test_dryrun_meta_count_equals_the_card(cuda):
+    """The dry-run's count of a train step on a (1, 2) mesh of meta devices
+    against the same step on logical shards of the card: every coordinate's
+    parameter and optimizer bytes from the specs equal its blocks on the
+    card, and the GEMM flops equal FlopCounterMode's on the card (the
+    attention forward is the kernel's launch there, its counted op on meta;
+    its backward the same recompute on both)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.data.tokens import synthetic_batch
+    from repro_torch.distributed import parallel
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import model as lm
+    from repro_torch.models.common import TEST_POLICY
+    from repro_torch.optim.adamw import AdamWConfig
+
+    cfg = reduced(get_arch("qwen1.5-0.5b"))
+    opt_cfg = AdamWConfig()
+    batch = {k: torch.from_numpy(v) for k, v in synthetic_batch(cfg, 0, 4, 128).items()}
+    meta = make_mesh((1, 2), ("data", "model"), devices=["meta"] * 2)
+    p = parallel.shard_model(meta, lm.build(cfg, TEST_POLICY, device="meta"))
+    counted = dryrun.count(dryrun.prepare_step(cfg, TEST_POLICY, opt_cfg, p, "train",
+                                               {k: v.to("meta") for k, v in batch.items()}))
+    param, opt = dryrun.state_bytes(cfg, TEST_POLICY, opt_cfg, meta)
+    model = lm.init(torch.Generator(device=cuda).manual_seed(0), cfg, TEST_POLICY, cuda)
+    p = parallel.shard_model(make_mesh((1, 2), ("data", "model"), devices=[cuda] * 2), model)
+    state = dryrun.opt_state_like(p, opt_cfg)
+    for at in ((0, 0), (0, 1)):
+        assert dryrun.block_bytes(p.params, at) == param
+        assert 4 + dryrun.block_bytes(state.mu, at) + dryrun.block_bytes(state.nu, at) == opt
+    step = dryrun.prepare_step(cfg, TEST_POLICY, opt_cfg, p, "train",
+                               {k: v.to(cuda) for k, v in batch.items()})
+    with FlopCounterMode(display=False) as fc:
+        step()
+    card = {str(k): v for k, v in fc.get_flop_counts()["Global"].items()}
+    assert sum(card.get(k, 0) for k in ("aten.mm", "aten.bmm", "aten.addmm")) \
+        == counted["gemm_flops"] > 0
+    assert counted["flops_by_op"]["repro_torch.flash_attention"] > 0

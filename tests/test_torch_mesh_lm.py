@@ -224,13 +224,23 @@ def test_moe_routing_is_the_same_on_every_shard(monkeypatch):
     assert abs(float(gm["aux"]) - float(wm["aux"])) <= 1e-6 * float(wm["aux"])
 
 
-def test_ssm_archs_raise_at_model_2_and_run_data_parallel():
-    for arch in ("jamba-1.5-large-398b", "rwkv6-3b"):
-        model, cfg = _model(arch)
-        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 22"):
-            parallel.shard_model(make_host_mesh(1, 2), model)
-    model, cfg = _model("rwkv6-3b")
-    batch = _batch(cfg, 4, 16)
+def test_ssm_archs_raise_at_model_2_and_run_data_parallel(monkeypatch):
+    """The SSM archs at model axis 2, where they once raised, now run there:
+    reduced jamba (Mamba, attention and MoE layers) and rwkv6 (48 -> 6
+    heads, 4 real, so model shard 1 holds a real head and two padded ones)
+    shard at (1, 2), and their loss and every gradient match one device at
+    the attention archs' bars; the data-parallel (2, 1) mesh still matches,
+    and so does greedy ``generate``. The MoE routes groups of 16 tokens, a
+    whole number of them in each data shard."""
+    monkeypatch.setattr(moe, "GROUP_SIZE", 16)
+    for arch, over in (("jamba-1.5-large-398b", {}), ("rwkv6-3b", dict(padded_heads=6))):
+        model, cfg = _model(arch, **over)
+        batch = _batch(cfg, 4, 16)
+        want_loss, want = _grads(model, cfg, batch)
+        got_loss, got = _mesh_grads(parallel.shard_model(make_host_mesh(1, 2), model), batch)
+        assert abs(got_loss - want_loss) <= 1e-6 * abs(want_loss), arch
+        for n, g in want.items():
+            assert float((got[n] - g).abs().max()) <= 1e-5 * float(g.abs().max()) + 1e-9, n
     want, _ = lm.forward_train(model, cfg, TEST_POLICY, batch)
     p = parallel.shard_model(make_host_mesh(2, 1), model)
     got, _ = parallel.forward_train(p, TEST_POLICY, batch)
