@@ -30,7 +30,10 @@ online assignment service (``repro_torch.launch.cluster_serve`` closed loop,
 then open loop with a hot swap from one to the other, then both by name in
 one ``ModelRegistry``, closed loop and an overload), every served label
 replayed exactly against ``core.kkmeans.predict``, one embedding launch and
-one ``apnc_assign`` launch a flush. It then serves qwen1.5-0.5b at full width and
+one ``apnc_assign`` launch a flush. Phase ``examples`` runs the port's five
+documented scripts (``examples/torch_*.py``) in this process at their
+defaults, each with its launches counted and what it prints gated. It then
+serves qwen1.5-0.5b at full width and
 depth from a seeded random init (``repro_torch.launch.serve.generate``: a
 4 x 4,096-token prefill, every layer's attention in ``flash_attention_bhsd``,
 then 32 greedy decode steps over a bf16 KV cache), held against the plain
@@ -50,9 +53,15 @@ serves the SSM and frontend archs at their published widths through
 ``serve.generate``: (a) rwkv6-3b whole, (b) one jamba-1.5-large-398b group
 (bf16, 4 of its 16 experts), (c) musicgen-large whole, (d) llava-next-34b
 on 2 layers, each also reduced, card against CPU and decode against the
-full forward. Phase ``lm_mesh`` runs qwen1.5-0.5b at full width and depth
-on device meshes of logical shards of the card (``distributed.parallel``,
-placed by ``distributed.sharding``'s rules): (a) 5 AdamW steps on (1, 2),
+full forward. Phase ``lm_ssm_train`` trains them at full width: (a)
+rwkv6-3b on 16 of its 32 layers and (b) jamba at d_model 8,192 on a
+Mamba + dense and a Mamba + MoE layer (2 of 16 experts), a few AdamW steps
+each, split into forward, backward and optimizer, the peak beside the
+dry-run's placement; (c) one reduced step of each, card against CPU. Phase
+``lm_mesh`` runs
+qwen1.5-0.5b at full width and depth on device meshes of logical shards of
+the card (``distributed.parallel``, placed by ``distributed.sharding``'s
+rules): (a) 5 AdamW steps on (1, 2),
 (2, 1) and (2, 2) against one device, (b) prefill and greedy decode on
 (1, 2), (c) the sequence-sharded decode against a 32,768-position cache on
 (2, 1), (d) int8 error-feedback DDP on (8, 1), (e) the GPipe pipeline on a
@@ -156,6 +165,24 @@ IMAGENET = dict(n=_IMAGENET.n, d=_IMAGENET.d, k=_IMAGENET.k, separation=_IMAGENE
                             llava=dict(arch="llava-next-34b", layers=2, batch=1, prompt=3008,
                                        gen=16),
                             check=dict(batch=2, prompt=16, steps=4)),
+                # Phase lm_ssm_train: (a) rwkv6-3b at its published widths and
+                # `layers` depth (all 32 took 69.3 s for a step inside the whole
+                # run on an H100 80GB HBM3 at 700 W, past the 60 s that cuts
+                # it to 16), (b) jamba at full width on 2 layers with its
+                # experts cut to `experts`; batch x seq tokens, `steps` AdamW
+                # steps at `lr`; `peak_gb` and `step_s`: PERF.md's predictions;
+                # (c) one step of each reduced arch, card vs CPU, on check's
+                # batch x seq. The rates: Adam's first step moves every
+                # parameter by about lr, and at rwkv6-3b's init 3e-5 and above
+                # raise the next batch's loss (tools/first_step_probe.py;
+                # PERF.md §6).
+                lm_ssm_train=dict(reduced=False,
+                                  rwkv=dict(arch="rwkv6-3b", layers=16, batch=2, seq=1024,
+                                            steps=3, lr=3e-6, peak_gb=36, step_s=[25, 30]),
+                                  jamba=dict(arch="jamba-1.5-large-398b", layers=2, experts=2,
+                                             batch=1, seq=1024, steps=3, lr=1e-4,
+                                             peak_gb=[52, 62], step_s=[2, 4]),
+                                  check=dict(batch=2, seq=32, lr=1e-3)),
                 # Phase lm_mesh, on logical shards of the card: (a) `steps`
                 # AdamW steps of lm_train (a)'s model and batches on one device
                 # and on each (data, model) mesh; (b) serving on serve_mesh;
@@ -197,6 +224,11 @@ IMAGENET = dict(n=_IMAGENET.n, d=_IMAGENET.d, k=_IMAGENET.k, separation=_IMAGENE
                                    ("qwen1.5-0.5b", "decode_32k", True),
                                    ("jamba-1.5-large-398b", "decode_32k", False),
                                    ("rwkv6-3b", "decode_32k", False)), jobs=4),
+                # Phase examples: each examples/torch_*.py and the argv it runs
+                # with (its defaults on the card).
+                examples=dict(torch_quickstart=(), torch_stream_quickstart=(),
+                              torch_covtype_scale=(), torch_activation_clustering=(),
+                              torch_train_lm=()),
                 # Table 2 on the card: the imagenet-50k stand-in (50,000 rows,
                 # the ImageNet d, k and separation, warped), 10,000 more rows
                 # of its mixture held out; `small_n` rows for card vs CPU.
@@ -230,6 +262,13 @@ REHEARSAL = dict(n=4_000, d=32, k=8, separation=3.0, l=64, m=16, iters=20,
                              llava=dict(arch="llava-next-34b", layers=2, batch=1, prompt=16,
                                         gen=4),
                              check=dict(batch=2, prompt=16, steps=4)),
+                 lm_ssm_train=dict(reduced=True,
+                                   rwkv=dict(arch="rwkv6-3b", layers=2, batch=4, seq=32,
+                                             steps=3, lr=1e-2, peak_gb=None, step_s=None),
+                                   jamba=dict(arch="jamba-1.5-large-398b", layers=2,
+                                              experts=2, batch=4, seq=32, steps=3, lr=1e-2,
+                                              peak_gb=None, step_s=None),
+                                   check=dict(batch=2, seq=32, lr=1e-3)),
                  lm_mesh=dict(arch="qwen1.5-0.5b", reduced=True, batch=4, seq=64, steps=3,
                               lr=3e-3, meshes=((1, 2), (2, 1), (2, 2)), serve_mesh=(1, 2),
                               serve_batch=4, serve_prompt=32, serve_gen=4, seq_mesh=(2, 1),
@@ -248,6 +287,12 @@ REHEARSAL = dict(n=4_000, d=32, k=8, separation=3.0, l=64, m=16, iters=20,
                                              jamba_experts=4, padded_heads=6)),
                  dryrun=dict(arch="qwen1.5-0.5b", reduced=True, batch=4, seq=64, mesh=(1, 2),
                              cells=(), jobs=1),
+                 # the CI sizes of tests/test_torch_examples.py
+                 examples=dict(torch_quickstart=(), torch_stream_quickstart=(),
+                               torch_covtype_scale=("--smoke",),
+                               torch_activation_clustering=("--smoke",),
+                               torch_train_lm=("--steps", "8", "--d-model", "64", "--layers",
+                                               "2", "--batch", "2", "--seq", "32")),
                  baselines=dict(dataset=None, n=1_500, held_out=300, l=64, m=16, rff_m=16,
                                 iters=20, small_n=400),
                  serve=dict(requests=2_000, micro_batch=64, max_delay_ms=2.0, open_rate=0.5,
@@ -2380,6 +2425,104 @@ def phase_serve(Xq, est, rff_est, cfg, device, seed) -> dict:
                 process_fn_ms_per_flush=flush_ms, launches=total)
 
 
+# ------------------------------------------------------------ the examples
+
+#: Phase examples: the kernels each of the port's documented scripts must
+#: launch on the card. A script that launched none of one took the plain
+#: route where its path names the kernel.
+EXAMPLE_KERNELS = {
+    "torch_quickstart": ("apnc_embed", "apnc_assign"),
+    "torch_stream_quickstart": ("fused_apnc_step",),
+    "torch_covtype_scale": ("apnc_embed", "fused_dequant_step"),
+    "torch_activation_clustering": ("apnc_embed", "apnc_assign", "flash_attention_bhsd"),
+    "torch_train_lm": ("flash_attention_bhsd",),
+}
+#: The NMI bars of tests/test_torch_examples.py, on the card too: each
+#: reference script's own CPU NMI at its CI size, less 0.02 (ROADMAP.md's
+#: rule on the draws).
+EXAMPLE_NMI_BAR = {"torch_quickstart": 1.000 - 0.02, "torch_stream_quickstart": 1.000 - 0.02,
+                   "torch_covtype_scale": 0.975 - 0.02,
+                   "torch_activation_clustering": 0.124 - 0.02}
+
+
+def load_example(name):
+    """``examples/<name>.py`` of this checkout as a module (nothing runs)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(f"_example_{name}",
+                                                  ROOT / "examples" / f"{name}.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def check_example(name, out) -> None:
+    """The invariants a script prints: identical predictions after the
+    save/load round trip, served labels equal to the fit labels on the
+    fitted rows, a falling loss, an NMI at or above its bar."""
+    nmi_bar = EXAMPLE_NMI_BAR.get(name)
+    if "replay_identical" in out and not (out["replay_identical"] == out["served_match_fit"]
+                                          == out["served"]):
+        raise AssertionError(f"{name}: round trip or serving differs: {out}")
+    if "loss_first" in out and not (np.isfinite(out["loss_last"])
+                                    and out["loss_last"] < out["loss_first"]):
+        raise AssertionError(f"{name}: loss {out['loss_first']} -> {out['loss_last']}")
+    if "last_step" in out and out["last_step"] != out["steps"] - 1:
+        raise AssertionError(f"{name}: stopped at step {out['last_step']} of {out['steps']}")
+    if nmi_bar is not None and not out["nmi"] >= nmi_bar:
+        raise AssertionError(f"{name}: NMI {out['nmi']} under {nmi_bar}")
+
+
+def phase_examples(cfg, device) -> dict:
+    """Each ``examples/torch_*.py``'s ``main(argv)`` in this process, at its
+    defaults on the card (its CI size in the rehearsal), train_lm's
+    ``--ckpt`` in a temporary directory removed after. Every kernel's launch
+    counter is zeroed just before a script and read just after; on the card
+    each script must have launched the kernels ``EXAMPLE_KERNELS`` names.
+    What a script prints is kept in its record."""
+    import io
+    import shutil
+    import tempfile
+
+    flash = _flash()
+    info = dict(phase="examples", scripts={})
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_examples_")
+    try:
+        for name, argv in cfg["examples"].items():
+            argv = list(argv) + ([] if device.type == "cuda" else ["--device", "cpu"])
+            if name == "torch_train_lm":
+                argv += ["--ckpt", os.path.join(tmp, "train_lm")]
+            module = load_example(name)
+            sync(device)
+            zero_launches()
+            flash.launches = 0
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()) as printed:
+                out = module.main(argv)
+            sync(device)
+            seconds = time.perf_counter() - t0
+            launches = dict(read_launches(), flash_attention_bhsd=flash.launches)
+            info["scripts"][name] = dict(argv=argv, seconds=seconds, launches=launches,
+                                         printed=printed.getvalue().splitlines(), result=out,
+                                         nmi_bar=EXAMPLE_NMI_BAR.get(name))
+            check_example(name, out)
+            missing = [k for k in EXAMPLE_KERNELS[name] if not launches[k]]
+            if device.type == "cuda" and missing:
+                raise AssertionError(f"{name} launched no {missing}: {launches}")
+            if device.type != "cuda" and any(launches.values()):
+                raise AssertionError(f"{name} counted launches on the CPU: {launches}")
+    except BaseException:
+        print(json.dumps(info, default=str), file=sys.stderr, flush=True)  # the scripts that ran
+        raise
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    info["temp_dir_removed"] = not os.path.exists(tmp)
+    info["launches"] = {k: sum(s["launches"][k] for s in info["scripts"].values())
+                        for k in ("apnc_embed", "apnc_assign", "fused_apnc_step",
+                                  "fused_dequant_step", "flash_attention_bhsd")}
+    return info
+
+
 @contextlib.contextmanager
 def patched(module, name, value):
     """``module.name`` set to ``value`` inside the block, restored after."""
@@ -2588,9 +2731,9 @@ def _flash():
     return flash_attention
 
 
-def train_parts(mcfg, lr, total, seed, device):
+def train_parts(mcfg, lr, total, seed, device, warmup=2):
     """A seeded model at ``mcfg``, its AdamW state (f32 moments unless the
-    arch says otherwise) and ``make_train_step`` with warmup_cosine(warmup=2,
+    arch says otherwise) and ``make_train_step`` with warmup_cosine(warmup,
     total=total), f32 params and math."""
     from repro_torch.models import model as lm
     from repro_torch.models.common import TEST_POLICY
@@ -2601,7 +2744,7 @@ def train_parts(mcfg, lr, total, seed, device):
     model = lm.init(torch.Generator(device=device).manual_seed(seed), mcfg, TEST_POLICY, device)
     opt_cfg = adamw.AdamWConfig(lr=lr, moments_dtype=mcfg.moments_dtype)
     step = make_train_step(mcfg, TEST_POLICY, opt_cfg,
-                           lambda s: warmup_cosine(s, warmup=2, total=total))
+                           lambda s: warmup_cosine(s, warmup=warmup, total=total))
     return model, adamw.init(model, opt_cfg), step
 
 
@@ -3305,6 +3448,198 @@ def phase_lm_ssm(cfg, device, seed) -> dict:
         info[f"{key}_s"] = time.perf_counter() - t0
     info["flash_launches"] = sum(info[k]["flash_launches"]
                                  for k in ("a_rwkv6", "b_jamba", "c_musicgen", "d_llava"))
+    return info
+
+
+# ------------------------------------------------------------ SSM training at full width
+
+
+@contextlib.contextmanager
+def step_parts(device, record: list):
+    """Inside the block each ``make_train_step`` step's backward
+    (``train.step._grads``) and optimizer (``adamw.update``) run between two
+    device syncs, their seconds appended to ``record`` as (part, s); the
+    forward is the rest of the step."""
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as step_mod
+
+    def timed(part, fn):
+        def wrapped(*a, **kw):
+            sync(device)
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            sync(device)
+            record.append((part, time.perf_counter() - t0))
+            return out
+
+        return wrapped
+
+    with patched(step_mod, "_grads", timed("backward", step_mod._grads)), \
+            patched(adamw, "update", timed("optimizer", adamw.update)):
+        yield
+
+
+@contextlib.contextmanager
+def grad_spy(out: dict):
+    """Inside the block each train step's gradients copied into ``out`` on
+    the host, by parameter name."""
+    from repro_torch.train import step as step_mod
+
+    grads = step_mod._grads
+
+    def spy(params, loss):
+        g = grads(params, loss)
+        out.update({n: t.detach().to("cpu", torch.float32) for n, t in g.items()})
+        return g
+
+    with patched(step_mod, "_grads", spy):
+        yield
+
+
+def ssm_training(spec, mcfg, device, seed) -> dict:
+    """(a) / (b): ``steps`` AdamW steps of ``mcfg`` from a seeded init (f32
+    params and math, the arch's moments) on ``batch`` x ``seq`` tokens of
+    ``batch_iterator``, lr ``spec["lr"]`` under warmup_cosine(warmup=0),
+    each step split into forward, backward and optimizer (``step_parts``).
+    Gates: every loss and gradient norm finite, the last loss below the
+    first, every parameter finite after the steps. Reports the peak device
+    bytes beside the prediction and beside the dry-run's placement of the
+    same cell on ``meta`` (parameters, their gradients, the AdamW state)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data.tokens import batch_iterator
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import model as lm
+    from repro_torch.models.common import TEST_POLICY
+    from repro_torch.optim import adamw
+
+    arch = get_arch(spec["arch"])
+    B, S, steps = spec["batch"], spec["seq"], spec["steps"]
+    fresh_peak(device)
+    t0 = time.perf_counter()
+    model, opt, step_fn = train_parts(mcfg, spec["lr"], steps, seed, device, warmup=0)
+    sync(device)
+    init_s = time.perf_counter() - t0
+    n_params = lm.param_count(model)
+    data = batch_iterator(mcfg, B, S, 0, device)
+    parts: list = []
+    with step_parts(device, parts):
+        losses, times, metrics = train_steps(step_fn, model, opt, data, steps, device)
+    peak = peak_bytes(device)
+    grad_norms = [m["grad_norm"] for m in metrics]
+    params_finite = all(bool(torch.isfinite(p).all()) for p in model.parameters())
+    del model, opt, data
+    fresh_peak(device)
+    back = [s for part, s in parts if part == "backward"]
+    optim = [s for part, s in parts if part == "optimizer"]
+    split = [dict(step_s=t, forward_s=t - b - o, backward_s=b, optimizer_s=o)
+             for t, b, o in zip(times, back, optim)]
+    step_s = float(np.median(times[1:] if steps > 1 else times))
+    opt_cfg = adamw.AdamWConfig(lr=spec["lr"], moments_dtype=mcfg.moments_dtype)
+    param_b, opt_b = dryrun.state_bytes(mcfg, TEST_POLICY, opt_cfg,
+                                        make_mesh((1, 1), ("data", "model"), devices=["meta"]))
+    cuts = dict(layers=[arch.num_layers, mcfg.num_layers],
+                experts=None if arch.moe is None else [arch.moe.num_experts,
+                                                       mcfg.moe.num_experts])
+    out = dict(arch=mcfg.name, layers=mcfg.num_layers, d_model=mcfg.d_model,
+               pattern=[f"{s.mixer}+{s.ffn}" for s in mcfg.layer_pattern()],
+               d_inner=mcfg.ssm_d_inner if any(s.mixer == "mamba" for s in
+                                               mcfg.layer_pattern()) else None, d_ff=mcfg.d_ff,
+               vocab=mcfg.vocab_size, heads=[mcfg.num_heads, mcfg.phys_heads],
+               experts=None if mcfg.moe is None else [mcfg.moe.num_experts, mcfg.moe.top_k,
+                                                      mcfg.moe.d_ff_expert],
+               cuts=cuts, reduced=[k for k, v in cuts.items() if v and v[0] != v[1]],
+               params=n_params, param_dtype="float32", moments_dtype=mcfg.moments_dtype,
+               remat=mcfg.remat, batch=B, seq=S, steps=steps, lr=spec["lr"],
+               schedule=f"warmup_cosine(warmup=0, total={steps})", init_s=init_s,
+               step_s=times, step_s_median_after_first=step_s, split_s=split,
+               tokens_per_s=B * S / step_s, losses=losses, loss_first=losses[0],
+               loss_last=losses[-1], grad_norm=grad_norms, peak_device_bytes=peak,
+               predicted=dict(peak_gb=spec["peak_gb"], step_s=spec["step_s"]),
+               dryrun_placement=dict(param_bytes=param_b, grad_bytes=param_b,
+                                     opt_state_bytes=opt_b, total_bytes=2 * param_b + opt_b,
+                                     mesh="(1, 1) of meta", what="dryrun.state_bytes"))
+    if not (all(np.isfinite(losses)) and all(np.isfinite(grad_norms)) and params_finite):
+        raise AssertionError(f"{mcfg.name}: non-finite loss, gradient norm or parameter "
+                             f"(parameters finite: {params_finite}): {json.dumps(out)}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"{mcfg.name}: the loss did not fall: {json.dumps(out)}")
+    return out
+
+
+def reduced_step_card_vs_cpu(arch_name, check, device, seed) -> dict:
+    """(c): one ``make_train_step`` step of the arch's reduced config (its
+    moments dtype) from one seeded init, on the card and on a CPU copy, over
+    one batch: the loss within STEP_LOSS_RTOL and each gradient leaf within
+    STEP_GRAD_RTOL * its max |g| on the CPU."""
+    import copy
+
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.data.tokens import synthetic_batch
+    from repro_torch.optim import adamw
+
+    small = reduced(get_arch(arch_name))
+    model, _, step_fn = train_parts(small, check["lr"], 1, seed, device)
+    cpu_model = copy.deepcopy(model).to("cpu")
+    opt_cfg = adamw.AdamWConfig(lr=check["lr"], moments_dtype=small.moments_dtype)
+    host = {k: torch.from_numpy(v)
+            for k, v in synthetic_batch(small, 0, check["batch"], check["seq"]).items()}
+    runs = {}
+    for where, mdl in (("card", model), ("cpu", cpu_model)):
+        dev = next(mdl.parameters()).device
+        grads: dict = {}
+        with grad_spy(grads):
+            _, _, m = step_fn(mdl, adamw.init(mdl, opt_cfg), {k: v.to(dev)
+                                                              for k, v in host.items()})
+        runs[where] = (float(m["loss"]), grads)
+    (loss, grads), (want_loss, want) = runs["card"], runs["cpu"]
+    loss_rel = abs(loss - want_loss) / abs(want_loss)
+    worst = max((float((grads[n] - g).abs().max()) / max(float(g.abs().max()), 1e-30), n)
+                for n, g in want.items())
+    if not loss_rel <= STEP_LOSS_RTOL or not worst[0] <= STEP_GRAD_RTOL:
+        raise AssertionError(f"{small.name}: card vs CPU loss rel {loss_rel} (bar "
+                             f"{STEP_LOSS_RTOL}), worst gradient {worst} (bar {STEP_GRAD_RTOL})")
+    return dict(arch=small.name, tokens=[check["batch"], check["seq"]],
+                moments_dtype=small.moments_dtype, loss_card=loss, loss_cpu=want_loss,
+                loss_rel_diff=loss_rel, grad_leaves=len(want), worst_grad_rel=worst[0],
+                worst_grad_leaf=worst[1],
+                limits=dict(loss_rtol=STEP_LOSS_RTOL, grad_rtol_of_max=STEP_GRAD_RTOL))
+
+
+def phase_lm_ssm_train(cfg, device, seed) -> dict:
+    """Mamba and RWKV6 training at full width on the one card: (a) rwkv6-3b
+    at d 2,560 (40 wkv heads padded to 48) on the config's depth (16 of its
+    32 layers), f32 parameters and moments; (b) jamba-1.5-large-398b at full
+    width (d_model 8,192, d_inner 16,384) on 2 layers, a Mamba + dense and a
+    Mamba + MoE, its 16 experts cut to 2 (top-2 kept), its bf16 moments; both under
+    ``remat="full"`` (one layer group's per-token autograd graph at a time);
+    (c) one step of each arch's reduced config, card against CPU. TF32
+    stays off."""
+    from repro_torch.configs.base import LayerSpec
+
+    if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
+        raise AssertionError("TF32 is on: the projections must be f32 as in the reference")
+    c = cfg["lm_ssm_train"]
+    rwkv = cut_arch("rwkv6-3b", c["rwkv"], c["reduced"])
+    jamba = cut_arch("jamba-1.5-large-398b", c["jamba"], c["reduced"],
+                     pattern=(LayerSpec("mamba", "dense"), LayerSpec("mamba", "moe")))
+    flash = _flash()
+    flash.launches = 0
+    info = dict(phase="lm_ssm_train")
+    parts = (("a_rwkv6", lambda: ssm_training(c["rwkv"], rwkv, device, seed)),
+             ("b_jamba", lambda: ssm_training(c["jamba"], jamba, device, seed)),
+             ("c_card_vs_cpu", lambda: {
+                 arch: reduced_step_card_vs_cpu(arch, c["check"], device, seed)
+                 for arch in ("rwkv6-3b", "jamba-1.5-large-398b")}))
+    for key, part in parts:
+        t0 = time.perf_counter()
+        try:
+            info[key] = part()
+        except BaseException:
+            print(json.dumps(info), file=sys.stderr, flush=True)  # the parts that passed
+            raise
+        info[f"{key}_s"] = time.perf_counter() - t0
+    info["flash_launches"] = flash.launches  # (c)'s reduced jamba: its attention layers
     return info
 
 
@@ -4696,6 +5031,8 @@ def main(argv=None) -> int:
     emit(phase_obs(X, store, est, stream_info["per_pass_s"], stream_est, cfg, device, args.seed))
     serve_info = phase_serve(Xq, est, rff_est, cfg, device, args.seed)
     emit(serve_info)
+    examples_info = phase_examples(cfg, device)
+    emit(examples_info)
     lm_info = phase_lm_serve(cfg, device, args.seed)
     emit(lm_info)
     background = start_dryrun_cells(cfg)
@@ -4704,6 +5041,8 @@ def main(argv=None) -> int:
         emit(train_info)
         ssm_info = phase_lm_ssm(cfg, device, args.seed)
         emit(ssm_info)
+        ssm_train_info = phase_lm_ssm_train(cfg, device, args.seed)
+        emit(ssm_train_info)
         mesh_info = phase_lm_mesh(cfg, device, args.seed)
         emit(mesh_info)
         mesh_ssm_info = phase_lm_mesh_ssm(cfg, device, args.seed)
@@ -4721,13 +5060,18 @@ def main(argv=None) -> int:
                                   sweep_data, lm_info["flash_attention_launches"],
                                   serve_info["launches"], shard_info["launches"], cfg)
         emit(info)
-        for r in rows:  # phases lm_train's, lm_ssm's and lm_mesh's launches count too
+        for r in rows:  # the examples' and the LM phases' launches count too
+            if r["name"] in examples_info["launches"]:
+                r["examples_launches"] = examples_info["launches"][r["name"]]
+                r["launches"] += r["examples_launches"]
             if r["name"] == "flash_attention_bhsd":
                 r["train_launches"] = train_info["flash_launches"]
                 r["ssm_launches"] = ssm_info["flash_launches"]
+                r["ssm_train_launches"] = ssm_train_info["flash_launches"]
                 r["mesh_launches"] = mesh_info["flash_launches"]
                 r["mesh_ssm_launches"] = mesh_ssm_info["flash_launches"]
-                r["launches"] += (r["train_launches"] + r["ssm_launches"] + r["mesh_launches"]
+                r["launches"] += (r["train_launches"] + r["ssm_launches"]
+                                  + r["ssm_train_launches"] + r["mesh_launches"]
                                   + r["mesh_ssm_launches"])
                 r["backward"] = [dict(shape=g["shape"], **{k: g[k] for k in (
                     "backward_ms", "plain_backward_ms", "sdpa_backward_ms", "backward_bound_ms",

@@ -47,10 +47,15 @@ def test_port_imports_neither_jax_nor_repro():
     assert {"repro_torch.distributed.sharding", "repro_torch.distributed.parallel",
             "repro_torch.distributed.compression", "repro_torch.distributed.pipeline",
             "repro_torch.launch.elastic"} <= set(modules)
+    examples = sorted(str(p) for p in (REPO / "examples").glob("torch_*.py"))
+    assert len(examples) == 5, examples
     code = (
-        "import importlib, sys\n"
+        "import importlib, importlib.util, sys\n"
         f"for name in {modules!r}:\n"
         "    importlib.import_module(name)\n"
+        f"for i, path in enumerate({examples!r}):\n"
+        "    spec = importlib.util.spec_from_file_location(f'_example_{i}', path)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in"
         " ('jax', 'repro', 'ml_dtypes'))\n"
         "assert not bad, bad\n"
@@ -181,9 +186,30 @@ def test_chip_smoke_cpu_rehearsal():
     phases = [line.get("phase") for line in lines]
     assert phases == ["device", "data", "parity", "main", "agreement", "host_copy", "stream",
                       "rff", "sweep", "shard", "persist", "baselines", "obs", "serve",
-                      "lm_serve", "lm_train", "lm_ssm", "lm_mesh", "lm_mesh_ssm", "dryrun",
-                      "timing", "done"]
+                      "examples", "lm_serve", "lm_train", "lm_ssm", "lm_ssm_train", "lm_mesh",
+                      "lm_mesh_ssm", "dryrun", "timing", "done"]
     assert not any(line.get("ok") for line in lines)
+    examples = lines[phases.index("examples")]
+    assert set(examples["scripts"]) == {"torch_quickstart", "torch_stream_quickstart",
+                                        "torch_covtype_scale", "torch_activation_clustering",
+                                        "torch_train_lm"}
+    assert examples["temp_dir_removed"] and not any(examples["launches"].values())
+    for name in ("torch_quickstart", "torch_stream_quickstart"):
+        res = examples["scripts"][name]["result"]
+        assert res["replay_identical"] == res["served_match_fit"] == res["served"] == 200
+    assert examples["scripts"]["torch_covtype_scale"]["result"]["backend"] == "stream_shard"
+    for name in ("torch_activation_clustering", "torch_train_lm"):
+        res = examples["scripts"][name]["result"]
+        assert res["loss_last"] < res["loss_first"]
+    ssm_train = lines[phases.index("lm_ssm_train")]
+    for part in ("a_rwkv6", "b_jamba"):
+        run = ssm_train[part]
+        assert run["loss_last"] < run["loss_first"] and len(run["split_s"]) == run["steps"]
+        assert run["dryrun_placement"]["total_bytes"] > 0
+    assert ssm_train["b_jamba"]["cuts"]["experts"] == [16, 2]
+    assert ssm_train["b_jamba"]["moments_dtype"] == "bfloat16"
+    assert all(r["loss_rel_diff"] <= 2e-4 and r["worst_grad_rel"] <= 2e-3
+               for r in ssm_train["c_card_vs_cpu"].values())
     train = lines[phases.index("lm_train")]
     assert train["a_dense"]["loss_last"] < train["a_dense"]["loss_first"]
     assert all(g["grads"][n]["rel"] <= 1e-4 for g in train["b_attention_gradients"]

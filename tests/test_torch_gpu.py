@@ -1473,3 +1473,105 @@ def test_dryrun_meta_count_equals_the_card(cuda):
     assert sum(card.get(k, 0) for k in ("aten.mm", "aten.bmm", "aten.addmm")) \
         == counted["gemm_flops"] > 0
     assert counted["flops_by_op"]["repro_torch.flash_attention"] > 0
+
+
+def _step_loss_and_grads(model, cfg, batch, monkeypatch):
+    """One ``make_train_step`` step (the arch's moments): its loss and its
+    gradients on the host, by parameter name."""
+    from repro_torch.models.common import TEST_POLICY
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as step_mod
+
+    seen, grads = {}, step_mod._grads
+
+    def spy(params, loss):
+        g = grads(params, loss)
+        seen.update({n: t.detach().to("cpu", torch.float32) for n, t in g.items()})
+        return g
+
+    opt_cfg = adamw.AdamWConfig(lr=1e-3, moments_dtype=cfg.moments_dtype)
+    ts = step_mod.make_train_step(cfg, TEST_POLICY, opt_cfg, lambda s: 1.0)
+    monkeypatch.setattr(step_mod, "_grads", spy)
+    _, _, m = ts(model, adamw.init(model, opt_cfg), batch)
+    monkeypatch.undo()
+    return float(m["loss"]), seen
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["rwkv6-3b", "jamba-1.5-large-398b"])
+def test_full_width_ssm_layer_train_step_on_card_matches_cpu(cuda, arch, monkeypatch):
+    """One layer at its published widths (rwkv6-3b's: d 2,560, 48 padded wkv
+    heads; jamba's Mamba + dense: d 8,192, d_inner 16,384), one train step
+    on 1 x 256 tokens from one seeded init, card against a CPU copy: the
+    loss within rtol 2e-4 and each gradient within 2e-3 * its max |g| on the
+    CPU (chip_smoke.py's STEP_LOSS_RTOL / STEP_GRAD_RTOL)."""
+    import copy
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import LayerSpec
+    from repro_torch.data.tokens import synthetic_batch
+    from repro_torch.models import model as lm
+    from repro_torch.models.common import TEST_POLICY
+
+    over = dict(num_layers=1)
+    if arch.startswith("jamba"):
+        over["pattern"] = (LayerSpec("mamba", "dense"),)
+    cfg = dataclasses.replace(get_arch(arch), **over)
+    model = lm.init(torch.Generator(device=cuda).manual_seed(0), cfg, TEST_POLICY, cuda)
+    cpu_model = copy.deepcopy(model).to("cpu")
+    host = {k: torch.from_numpy(v) for k, v in synthetic_batch(cfg, 0, 1, 256).items()}
+    loss, grads = _step_loss_and_grads(model, cfg, {k: v.to(cuda) for k, v in host.items()},
+                                       monkeypatch)
+    del model
+    torch.cuda.empty_cache()
+    want_loss, want = _step_loss_and_grads(cpu_model, cfg, host, monkeypatch)
+    assert abs(loss - want_loss) <= 2e-4 * abs(want_loss)
+    assert set(grads) == set(want)
+    for n, g in want.items():
+        assert float((grads[n] - g).abs().max()) <= 2e-3 * float(g.abs().max()), n
+
+
+#: Each example at its CI size on the card, and the kernels its path must
+#: launch (chip_smoke.py's EXAMPLE_KERNELS).
+EXAMPLES_ON_THE_CARD = [
+    ("torch_quickstart", [], ("apnc_embed", "apnc_assign")),
+    ("torch_stream_quickstart", [], ("fused_apnc_step",)),
+    ("torch_covtype_scale", ["--smoke"], ("apnc_embed", "fused_dequant_step")),
+    ("torch_activation_clustering", ["--smoke"], ("apnc_embed", "apnc_assign", "flash")),
+    ("torch_train_lm", ["--steps", "20", "--d-model", "64", "--layers", "2", "--batch", "2",
+                        "--seq", "64"], ("flash",)),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,argv,kernels", EXAMPLES_ON_THE_CARD,
+                         ids=[e[0] for e in EXAMPLES_ON_THE_CARD])
+def test_example_on_the_card(cuda, tmp_path, name, argv, kernels):
+    """The script's ``main`` on the card: what it prints holds (round trip,
+    serving, a falling loss) and it launched the kernels its path names."""
+    import importlib.util
+    from pathlib import Path
+
+    from repro_torch.kernels import flash_attention as t_flash
+    from repro_torch.kernels import lloyd_step
+
+    path = Path(__file__).resolve().parents[1] / "examples" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(f"_example_{name}", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+
+    def counts():
+        return dict(apnc_embed=t_embed.launches, apnc_assign=t_assign.launches,
+                    flash=t_flash.launches, **lloyd_step.launches)
+
+    before = counts()
+    if name == "torch_train_lm":
+        argv = argv + ["--ckpt", str(tmp_path / "ckpt")]
+    out = module.main(argv)
+    launched = {k: v - before[k] for k, v in counts().items()}
+    assert all(launched[k] > 0 for k in kernels), launched
+    if "replay_identical" in out:
+        assert out["replay_identical"] == out["served_match_fit"] == out["served"] == 200
+    if "loss_first" in out:
+        assert out["loss_last"] < out["loss_first"]
