@@ -245,13 +245,17 @@ class KernelKMeans:
             if isinstance(X, BlockStore):
                 self._reject_sharded(X, "fit")
                 store = X
+                # nothing to copy; the span still opens, so its histogram reads ~0
+                with obs.span("host_view.copy", cat="phase", observe=True, bytes=0):
+                    pass
             else:
                 X = _as_tensor(X)
                 # The host copy is deliberate: sampling through the same
                 # blocking on every backend keeps phase 1 identical across them.
-                store = BlockStore.from_array(
-                    X.detach().to("cpu", torch.float32).numpy(), self.block_rows
-                )
+                with obs.span("host_view.copy", cat="phase", observe=True,
+                              bytes=4 * X.numel()):
+                    host = X.detach().to("cpu", torch.float32).numpy()
+                store = BlockStore.from_array(host, self.block_rows)
                 if backend_name in ("local", "shard_map"):
                     array = X.to(dev, torch.float32)
         s_sample, s_fit, s_seed = phase1_seeds(seed)
@@ -498,7 +502,14 @@ class KernelKMeans:
 
     def predict(self, X) -> np.ndarray:
         """Nearest-centroid labels of unseen rows, (n,) int32 on the host. A
-        BlockStore streams through the engine block by block."""
+        BlockStore streams through the engine block by block.
+
+        Traced, an array's call is one ``predict`` span (attr ``rows``)
+        holding ``predict.prepare`` (``core.kkmeans.predict``),
+        ``predict.wait`` (the labels' copy to the host, the call's one wait
+        for the card) and ``predict.finish``; ``predict`` and
+        ``predict.wait`` also add their seconds to the ``span.<name>``
+        histograms."""
         model = self._require_model()
         if isinstance(X, BlockStore):
             from repro_torch.stream.engine import map_reduce
@@ -519,8 +530,12 @@ class KernelKMeans:
                 device=dev, label="predict",
             )
             return labels
-        labels = model.predict(X, policy=self.policy, device=self._device())
-        return labels.cpu().numpy().astype(np.int32)
+        with obs.span("predict", cat="predict", observe=True, rows=len(X)):
+            labels = model.predict(X, policy=self.policy, device=self._device())
+            with obs.span("predict.wait", cat="predict", observe=True):
+                labels = labels.cpu()
+            with obs.span("predict.finish", cat="predict"):
+                return labels.numpy().astype(np.int32)
 
     def transform(self, X):
         """The fitted embedding Y = f(X): an (n, m) f32 tensor on the fit's

@@ -18,6 +18,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core.kernels_fn import Kernel
 from repro_torch.core.lloyd import LloydResult, lloyd
 from repro_torch.device import resolve_device
@@ -102,9 +103,12 @@ def predict(X, coeffs, centroids: torch.Tensor, *, policy: ComputePolicy | None 
     (default: the card); returns (n,) int64 labels there. The assignment is
     ``ops.assign_labels``: on the card the ``apnc_assign`` kernel's labels,
     which do not depend on how many rows one call takes, so the serving
-    tier's micro-batches replay exactly."""
+    tier's micro-batches replay exactly. Traced, moving the inputs to the
+    device, up to the embedding's launch, is one ``predict.prepare`` span."""
     from repro_torch.kernels import ops
 
-    dev = resolve_device(device)
-    Y = apnc_embed(_as_tensor(X, dev), coeffs.to(dev), policy)
-    return ops.assign_labels(Y, centroids.to(dev), coeffs.discrepancy, policy)
+    with obs.span("predict.prepare", cat="predict"):
+        dev = resolve_device(device)
+        X, coeffs, centroids = _as_tensor(X, dev), coeffs.to(dev), centroids.to(dev)
+    Y = apnc_embed(X, coeffs, policy)
+    return ops.assign_labels(Y, centroids, coeffs.discrepancy, policy)

@@ -12,6 +12,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch import obs
 from repro_torch.core.apnc import Discrepancy, pairwise_discrepancy
 from repro_torch.policy import ComputePolicy, as_policy
 
@@ -61,6 +62,9 @@ def kmeanspp_init(
 
     ``generator`` is a CPU ``torch.Generator``; the draws are made on the host
     from the (n,) weights, so the same seed picks the same rows on any device.
+    Traced, each centroid after the first is one ``seed.draw`` span (attr
+    ``i``; its seconds also go to the ``span.seed.draw`` histogram): the
+    weights' copy to the host, the draw, and the next distance pass enqueued.
     """
     n = Y.shape[0]
     first = int(torch.randint(0, n, (1,), generator=generator))
@@ -68,12 +72,13 @@ def kmeanspp_init(
     centroids[0] = Y[first]
     mind = pairwise_discrepancy(Y, centroids[:1], discrepancy)[:, 0]
     for i in range(1, k):
-        w = (mind * mind).to(torch.float64).cpu()
-        p = w / max(float(torch.sum(w)), 1e-30)
-        nxt = int(torch.multinomial(p, 1, generator=generator))
-        centroids[i] = Y[nxt]
-        d_new = pairwise_discrepancy(Y, Y[nxt][None, :], discrepancy)[:, 0]
-        mind = torch.minimum(mind, d_new)
+        with obs.span("seed.draw", cat="seed", observe=True, i=i):
+            w = (mind * mind).to(torch.float64).cpu()
+            p = w / max(float(torch.sum(w)), 1e-30)
+            nxt = int(torch.multinomial(p, 1, generator=generator))
+            centroids[i] = Y[nxt]
+            d_new = pairwise_discrepancy(Y, Y[nxt][None, :], discrepancy)[:, 0]
+            mind = torch.minimum(mind, d_new)
     return centroids
 
 

@@ -15,7 +15,8 @@ are summed in a fixed order, so every output is bitwise the same run to run.
 ``apnc_assign`` and ``apnc_assign_step`` launch the kernel for CUDA tensors
 and raise if they cannot; for CPU tensors they compute the same function with
 the plain PyTorch versions. ``launches`` counts kernel launches, and nothing
-else.
+else; traced, a call on a card is a ``launch.apnc_assign`` span
+(``build.launch_span``).
 """
 from __future__ import annotations
 
@@ -133,6 +134,7 @@ def _launch(Y: torch.Tensor, C: torch.Tensor, discrepancy: str):
     return out
 
 
+@build.launch_span("apnc_assign")
 def apnc_assign_step(
     Y: torch.Tensor, C: torch.Tensor, discrepancy: str
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -146,6 +148,7 @@ def apnc_assign_step(
     return _launch(Y, C, discrepancy)
 
 
+@build.launch_span("apnc_assign")
 def apnc_assign(
     Y: torch.Tensor, C: torch.Tensor, discrepancy: str
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:

@@ -10,7 +10,8 @@ cp.async, so the (n, l) gram never reaches device memory).
 
 ``apnc_embed_block`` launches the kernel for a CUDA tensor and raises if it
 cannot; for a CPU tensor it computes the same function with the plain PyTorch
-version. ``launches`` counts kernel launches, and nothing else.
+version. ``launches`` counts kernel launches, and nothing else; traced, a
+call on a card is a ``launch.apnc_embed`` span (``build.launch_span``).
 """
 from __future__ import annotations
 
@@ -94,6 +95,7 @@ def _check_inputs(X, landmarks, R, out) -> None:
             raise ValueError(f"out must be ({n}, {m}) with unit column stride")
 
 
+@build.launch_span("apnc_embed")
 def apnc_embed_block(
     X: torch.Tensor, landmarks: torch.Tensor, R: torch.Tensor, kernel: Kernel,
     *, out: torch.Tensor | None = None,

@@ -16,6 +16,7 @@ back to the plain PyTorch versions. Nothing here runs at import time.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import re
@@ -24,6 +25,8 @@ import subprocess
 import threading
 import time
 from pathlib import Path
+
+from repro_torch import obs
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -148,3 +151,23 @@ def check(err: int, what: str) -> None:
     """Raise if a C entry returned a CUDA error."""
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err}")
+
+
+def launch_span(kernel: str):
+    """Decorate a kernel's wrapper: traced and on a card, a call is one
+    ``launch.<kernel>`` span (attr ``rows``, the first tensor's rows) on the
+    caller's lane, from the wrapper's entry to its C call's return, beside
+    the launch it counts (``apnc_embed_block`` over more than 512 columns
+    makes a launch per column group inside the one span). Untraced, or on
+    the CPU's plain version, the wrapper runs as it is."""
+    name = f"launch.{kernel}"
+
+    def decorate(fn):
+        @functools.wraps(fn)
+        def wrapper(x, *args, **kwargs):
+            if not obs.tracing_enabled() or x.device.type != "cuda":
+                return fn(x, *args, **kwargs)
+            with obs.span(name, cat="launch", rows=x.shape[0] if x.ndim else 0):
+                return fn(x, *args, **kwargs)
+        return wrapper
+    return decorate

@@ -13,7 +13,8 @@ order, so they are bitwise deterministic).
 
 Each wrapper launches its kernel for CUDA tensors and raises if it cannot;
 for CPU tensors it computes the same function with the plain PyTorch version.
-``launches`` counts kernel launches per kernel, and nothing else.
+``launches`` counts kernel launches per kernel, and nothing else; traced, a
+call on a card is a ``launch.<kernel>`` span (``build.launch_span``).
 """
 from __future__ import annotations
 
@@ -225,6 +226,7 @@ def step_launch(n: int, k: int, m: int, dev: torch.device, tile_rows: int,
         yield out, ptrs, geo.num_ctas, geo.tiles_per_cta, stream
 
 
+@build.launch_span("fused_apnc_step")
 def fused_apnc_step(
     X: torch.Tensor, landmarks: torch.Tensor, R: torch.Tensor, C: torch.Tensor,
     kernel: Kernel, discrepancy: str,
@@ -261,6 +263,7 @@ def fused_apnc_step(
     return out
 
 
+@build.launch_span("fused_rff_step")
 def fused_rff_step(
     X: torch.Tensor, W: torch.Tensor, C: torch.Tensor, scale: float, discrepancy: str,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -317,6 +320,7 @@ def _scale_row(Yq: torch.Tensor, scale: torch.Tensor) -> torch.Tensor | None:
     return scale if scale.is_contiguous() else scale.contiguous()
 
 
+@build.launch_span("fused_dequant_step")
 def fused_dequant_step(
     Yq: torch.Tensor, scale: torch.Tensor, C: torch.Tensor, discrepancy: str,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -350,6 +354,7 @@ def fused_dequant_step(
     return out
 
 
+@build.launch_span("dequant_decode")
 def dequant_decode(Yq: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     """Decode a quantized cache block into device memory, Y = Yq * scale
     (n, m) f32, with the same arithmetic as ``fused_dequant_step``: the

@@ -8,7 +8,8 @@ sin are written straight into the two halves of Y).
 
 ``rff_embed_block`` launches the kernel for a CUDA tensor and raises if it
 cannot; for a CPU tensor it computes the same function with the plain
-PyTorch version. ``launches`` counts kernel launches, and nothing else.
+PyTorch version. ``launches`` counts kernel launches, and nothing else; traced,
+a call on a card is a ``launch.rff_embed`` span (``build.launch_span``).
 """
 from __future__ import annotations
 
@@ -57,6 +58,7 @@ def _check_inputs(X, W) -> None:
             raise ValueError(f"{name} must be contiguous")
 
 
+@build.launch_span("rff_embed")
 def rff_embed_block(X: torch.Tensor, W: torch.Tensor, scale: float) -> torch.Tensor:
     """X (n, d) f32, W (d, m_half) f32 -> Y (n, 2 m_half) f32 in the [cos | sin]
     layout, each half scaled by ``scale``."""

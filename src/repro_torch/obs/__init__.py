@@ -19,6 +19,25 @@ card without a sync (a launch, a `non_blocking` copy) it times the enqueue,
 not the device. No span synchronises; the estimator's phase spans close
 after the sync the phase already makes.
 
+Spans inside a fit and a predict call, besides DESIGN.md §13's taxonomy:
+
+  * `phase.<name>` — each estimator phase; inside `phase.host_view`,
+    `host_view.copy` (attr `bytes`; 0 for a BlockStore, which copies
+    nothing), and inside `phase.seed`, one `seed.draw` a k-means++ centroid
+    after the first (attr `i`: weights to the host, the draw, the next
+    distance pass enqueued);
+  * `predict` (attr `rows`) — `KernelKMeans.predict` on an array, holding
+    `predict.prepare` (`core.kkmeans.predict` moving the inputs to the
+    device, up to the embed's launch), `predict.wait` (the
+    labels' copy to the host: the call's one wait for the card) and
+    `predict.finish` (to int32 numpy);
+  * `launch.<kernel>` (attr `rows`) — a hand-written clustering kernel's
+    wrapper on a card, from its entry to the C call's return.
+
+`predict`, `predict.wait`, `host_view.copy` and `seed.draw` are opened with
+``observe=True``: traced, each also adds its seconds to the histogram
+`span.<name>` in `METRICS`, which outlives `clear_trace()`.
+
 See DESIGN.md §13 for the span taxonomy and metric-name table.
 """
 from repro_torch.obs.export import (

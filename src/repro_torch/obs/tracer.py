@@ -12,6 +12,9 @@ Disabled (the default) the tracer is near-free and allocation-free:
 empty — no object is created, no clock is read, no lock is taken. Enabling
 costs two `perf_counter` reads and one locked list append per span; span
 bodies (block fetch, H2D, a full engine pass) are orders of magnitude larger.
+A span opened with ``observe=True`` also adds its duration (seconds, the
+same two clock reads) to the registry histogram ``span.<name>``, so a reader
+that never sees the spans themselves can still read their mean.
 
 Usage:
 
@@ -26,6 +29,8 @@ from __future__ import annotations
 import threading
 import time
 from typing import Any
+
+from repro_torch.obs.metrics import METRICS, Histogram
 
 
 class _NullSpan:
@@ -49,10 +54,10 @@ NULL_SPAN = _NullSpan()
 class Span:
     """One timed region on one lane. Finalized (recorded) on __exit__."""
 
-    __slots__ = ("name", "cat", "lane", "t0", "dur", "attrs", "_tracer")
+    __slots__ = ("name", "cat", "lane", "t0", "dur", "attrs", "_tracer", "_hist")
 
     def __init__(self, tracer: "Tracer", name: str, cat: str, lane: str,
-                 attrs: dict):
+                 attrs: dict, hist: Histogram | None = None):
         self._tracer = tracer
         self.name = name
         self.cat = cat
@@ -60,6 +65,7 @@ class Span:
         self.attrs = attrs
         self.t0 = 0.0
         self.dur = 0.0
+        self._hist = hist
 
     def set(self, **attrs):
         """Attach/overwrite attributes mid-span (e.g. an iteration's inertia,
@@ -73,6 +79,8 @@ class Span:
 
     def __exit__(self, *exc):
         self.dur = time.perf_counter() - self.t0
+        if self._hist is not None:
+            self._hist.observe(self.dur)
         self._tracer._record(self)
         return False
 
@@ -85,6 +93,7 @@ class Tracer:
         self.enabled = False
         self._lock = threading.Lock()
         self._spans: list[Span] = []
+        self._hists: dict[str, Histogram] = {}  # span name -> its span.<name>
         self._local = threading.local()
         # Anchor: wall-clock epoch corresponding to perf_counter() == 0, so
         # exported timestamps are absolute (and comparable across processes).
@@ -119,12 +128,20 @@ class Tracer:
     # --------------------------------------------------------------- spans
 
     def span(self, name: str, *, cat: str = "span", lane: str | None = None,
-             **attrs: Any):
+             observe: bool = False, **attrs: Any):
         """Context manager timing one region. Near-free when disabled: the
-        shared NULL_SPAN is returned without touching a clock or a lock."""
+        shared NULL_SPAN is returned without touching a clock or a lock.
+        ``observe``: also add the duration to the histogram ``span.<name>``."""
         if not self.enabled:
             return NULL_SPAN
-        return Span(self, name, cat, lane or self.current_lane(), attrs)
+        hist = None
+        if observe:
+            # resolved once a name: the registry keeps an instrument for the
+            # life of the process, so the cached one stays the registered one
+            hist = self._hists.get(name)
+            if hist is None:
+                hist = self._hists[name] = METRICS.histogram(f"span.{name}")
+        return Span(self, name, cat, lane or self.current_lane(), attrs, hist)
 
     def instant(self, name: str, *, cat: str = "mark", lane: str | None = None,
                 **attrs: Any) -> None:
@@ -143,13 +160,6 @@ class Tracer:
         """Snapshot of the recorded spans (record order)."""
         with self._lock:
             return list(self._spans)
-
-    def lanes(self) -> list[str]:
-        """Distinct lanes touched by recorded spans, first-seen order."""
-        seen: dict[str, None] = {}
-        for s in self.spans():
-            seen.setdefault(s.lane, None)
-        return list(seen)
 
 
 TRACER = Tracer()
@@ -178,8 +188,8 @@ def set_lane(lane: str) -> None:
 
 
 def span(name: str, *, cat: str = "span", lane: str | None = None,
-         **attrs: Any):
-    return TRACER.span(name, cat=cat, lane=lane, **attrs)
+         observe: bool = False, **attrs: Any):
+    return TRACER.span(name, cat=cat, lane=lane, observe=observe, **attrs)
 
 
 def instant(name: str, *, cat: str = "mark", lane: str | None = None,

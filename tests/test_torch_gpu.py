@@ -1070,6 +1070,40 @@ def test_traced_stream_fit_on_the_card(cuda, tmp_path):
     np.testing.assert_array_equal(est.labels_, plain.labels_)
 
 
+@pytest.mark.gpu
+def test_traced_predict_spans_each_launch_on_the_card(cuda):
+    """A traced predict on the card: one launch.apnc_embed and one
+    launch.apnc_assign span for each launch the wrappers count, each inside
+    a predict span and with the batch's rows; the labels those of an
+    untraced call."""
+    from repro_torch import obs
+    from repro_torch.api import KernelKMeans
+    from repro_torch.data.synthetic import gaussian_blobs_blocks
+
+    X = gaussian_blobs_blocks(0, 8000, 64, 8, block_rows=4096, separation=3.0)[0].materialize()
+    est = KernelKMeans(8, l=128, m=64, iters=3, kernel_params=dict(gamma=0.01)).fit(X)
+    batch = torch.from_numpy(X[:3000]).to(cuda)
+    want = est.predict(batch)
+    before = {t_embed: t_embed.launches, t_assign: t_assign.launches}
+    obs.clear_trace()
+    obs.enable_tracing()
+    try:
+        got = [est.predict(batch) for _ in range(3)]
+    finally:
+        obs.disable_tracing()
+    spans = obs.TRACER.spans()
+    obs.clear_trace()
+    calls = [(s.t0, s.t0 + s.dur) for s in spans if s.name == "predict"]
+    assert len(calls) == 3
+    for module, name in ((t_embed, "launch.apnc_embed"), (t_assign, "launch.apnc_assign")):
+        launches = [s for s in spans if s.name == name]
+        assert len(launches) == module.launches - before[module] == 3
+        assert all(s.attrs == {"rows": 3000} for s in launches)
+        assert all(any(a <= s.t0 and s.t0 + s.dur <= b for a, b in calls) for s in launches)
+    for labels in got:
+        np.testing.assert_array_equal(labels, want)
+
+
 # ------------------------------------------------------------------ serving
 
 

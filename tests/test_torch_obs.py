@@ -139,6 +139,33 @@ def test_write_trace_jsonl_suffix(tmp_path):
     assert lines[0]["x"] == 1
 
 
+def test_an_observed_span_adds_its_duration_to_its_histogram():
+    before = obs.snapshot("span.probe")
+    with obs.span("probe", observe=True):  # disabled: no clock, no observation
+        pass
+    obs.enable_tracing()
+    with obs.span("probe", observe=True, rows=3):
+        pass
+    with obs.span("probe"):  # not observed
+        pass
+    seen = obs.delta(before, obs.snapshot("span.probe"))["span.probe"]
+    first = obs.TRACER.spans()[0]
+    assert seen["count"] == 1 and seen["sum"] == pytest.approx(first.dur)
+    assert first.attrs == {"rows": 3}
+
+
+def test_an_observed_span_still_reaches_its_histogram_after_a_reset():
+    obs.enable_tracing()
+    with obs.span("probe2", observe=True):
+        pass
+    obs.reset_metrics("span.")
+    with obs.span("probe2", observe=True):
+        pass
+    stats = obs.snapshot("span.probe2")["span.probe2"]
+    assert stats["count"] == 1
+    assert stats["sum"] == pytest.approx(obs.TRACER.spans()[-1].dur)
+
+
 # ------------------------------------------------------------------ metrics
 
 
@@ -448,6 +475,68 @@ def test_fit_report_fields_equal_the_references(monkeypatch):
     np.testing.assert_allclose(got.inertia_trajectory, want.inertia_trajectory, rtol=1e-5)
     np.testing.assert_allclose(got.centroid_shifts, want.centroid_shifts, rtol=1e-3, atol=1e-6)
     assert sum(got.per_device_blocks.values()) == sum(want.per_device_blocks.values())
+
+
+# ------------------------------------------------- spans of a fit and a predict
+
+
+def _inside(span, outer) -> bool:
+    return outer.t0 <= span.t0 and span.t0 + span.dur <= outer.t0 + outer.dur
+
+
+def _named(name):
+    return [s for s in obs.TRACER.spans() if s.name == name]
+
+
+def _observed(before) -> dict:
+    """Observations a ``span.*`` histogram gained since ``before``."""
+    return {name: h["count"] for name, h in obs.delta(before, obs.snapshot("span.")).items()}
+
+
+def test_traced_predict_is_one_span_a_call_with_its_three_parts():
+    est = _fit("local", method="nystrom", l=64)
+    X = _data()[:300]
+    before = obs.snapshot("span.")
+    obs.enable_tracing()
+    for _ in range(2):
+        est.predict(X)
+    calls = _named("predict")
+    assert [c.attrs for c in calls] == [{"rows": 300}] * 2
+    parts = [_named(f"predict.{p}") for p in ("prepare", "wait", "finish")]
+    for call, (prepare, wait, finish) in zip(calls, zip(*parts)):
+        assert all(_inside(s, call) for s in (prepare, wait, finish))
+        assert prepare.t0 + prepare.dur <= wait.t0 and wait.t0 + wait.dur <= finish.t0
+    seen = _observed(before)
+    assert seen["span.predict"] == seen["span.predict.wait"] == 2
+
+
+def test_untraced_predict_records_no_span_and_no_observation():
+    est = _fit("local", method="nystrom", l=64)
+    before = obs.snapshot("span.")
+    est.predict(_data()[:300])
+    assert obs.TRACER.spans() == []
+    assert not any(_observed(before).values())
+
+
+@pytest.mark.parametrize("held", ["array", "blockstore"])
+def test_traced_local_fit_spans_its_host_copy_and_each_draw(held):
+    X, k, restarts = _data(), 4, 2
+    before = obs.snapshot("span.")
+    obs.enable_tracing()
+    est = KernelKMeans(k, kernel=Kernel("rbf", gamma=0.1), method="nystrom", l=64, m=32,
+                       backend="local", iters=3, n_init=restarts, random_state=7,
+                       device="cpu")
+    est.fit(X if held == "array" else BlockStore.from_array(X, 256), seed=7)
+    (host_view,), (copy,), (seed,) = (_named(n) for n in (
+        "phase.host_view", "host_view.copy", "phase.seed"))
+    assert _inside(copy, host_view)
+    assert copy.attrs == {"bytes": X.nbytes if held == "array" else 0}
+    draws = _named("seed.draw")
+    assert [d.attrs["i"] for d in draws] == list(range(1, k)) * restarts
+    assert all(_inside(d, seed) for d in draws)
+    seen = _observed(before)
+    assert seen["span.host_view.copy"] == 1
+    assert seen["span.seed.draw"] == restarts * (k - 1)
 
 
 # ------------------------------------------------------------ roofline join
