@@ -40,8 +40,8 @@ from repro_torch.stream.lloyd import minibatch_lloyd, ooc_lloyd, stream_embed
 class FitContext:
     """Everything a clustering backend needs, prepared once by the estimator."""
 
-    store: BlockStore  # blocked host view of the data (always present)
-    array: torch.Tensor | None  # the resident array on the fit's device, local backend only
+    store: BlockStore | None  # blocked host view of the data; None when `array` is set
+    array: torch.Tensor | None  # the resident array on the fit's device (local, shard_map)
     params: EmbeddingParams  # fitted params of the registered embedding member
     k: int
     inits: list[torch.Tensor]  # k-means++ init centroids, one per restart

@@ -3,10 +3,13 @@
 embed-once ``sweep``, the online ``partial_fit``, and ``save`` / ``load`` of
 the `ClusterModel` artifact in the JAX package's checkpoint format.
 
-Phase 1 runs here, identically for every backend: a reservoir sample over the
-blocked host view of the data selects landmarks, the embedding member fits
-its params on the sample, the seeding pool is embedded, and k-means++ seeds
-one init per restart. Phase 2 (Lloyd) runs in the backend, so ``local`` and
+Phase 1 runs here, identically for every backend: a reservoir sample of the
+data's rows, drawn over its ``block_rows`` blocking from the seed alone,
+selects landmarks, the embedding member fits its params on the sample, the
+seeding pool is embedded, and k-means++ seeds one init per restart. A fit
+that holds the whole array on its device (``local``, ``shard_map``) gathers
+the sampled rows there; the streaming backends gather them from a blocked
+host view. Phase 2 (Lloyd) runs in the backend, so ``local`` and
 ``stream`` reach the same fixed point from the same init. Everything runs on
 the card unless the caller passes ``device="cpu"``; the streaming backends
 keep O(block) of the data on it. With a ``mesh=`` the mesh's devices decide:
@@ -31,7 +34,7 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.policy import ComputePolicy
 from repro_torch.stream.blockstore import BlockStore
-from repro_torch.stream.reservoir import reservoir_sample
+from repro_torch.stream.reservoir import block_row_counts, reservoir_rows, reservoir_sample
 
 #: backend="auto": in-memory arrays of at least this many rows are clustered
 #: out-of-core (through a BlockStore) instead of being embedded whole on the
@@ -234,35 +237,42 @@ class KernelKMeans:
         return params, pool
 
     def _phase1(self, X, seed: int, dev: torch.device, backend_name: str = "local"):
-        """The backend-independent front of every fit and sweep: blocked host
-        view, reservoir sample, embedding fit, seeding pool. Returns
-        (store, array, params, pool, s_seed); k-means++ draws come off
-        ``s_seed`` per restart, identically for fit() and sweep(). Only the
-        local backend gets the whole array on the device; the streaming ones
-        stay O(block) there."""
-        array = None
+        """The backend-independent front of every fit and sweep: reservoir
+        sample, embedding fit, seeding pool. Returns (store, array, params,
+        pool, s_seed); k-means++ draws come off ``s_seed`` per restart,
+        identically for fit() and sweep(). The ``local`` and ``shard_map``
+        backends get the whole array on the device, gather the sample there
+        and build no host view (``store`` is None); the streaming ones take a
+        blocked host view and stay O(block) on the device. Both draw the same
+        rows from the same seed."""
+        store = array = None
         with self._phase("host_view", dev):
             if isinstance(X, BlockStore):
                 self._reject_sharded(X, "fit")
                 store = X
+            elif backend_name in ("local", "shard_map"):
+                array = _as_tensor(X).to(dev, torch.float32)
+            if store is not None or array is not None:
                 # nothing to copy; the span still opens, so its histogram reads ~0
                 with obs.span("host_view.copy", cat="phase", observe=True, bytes=0):
                     pass
             else:
                 X = _as_tensor(X)
-                # The host copy is deliberate: sampling through the same
-                # blocking on every backend keeps phase 1 identical across them.
                 with obs.span("host_view.copy", cat="phase", observe=True,
                               bytes=4 * X.numel()):
                     host = X.detach().to("cpu", torch.float32).numpy()
                 store = BlockStore.from_array(host, self.block_rows)
-                if backend_name in ("local", "shard_map"):
-                    array = X.to(dev, torch.float32)
         s_sample, s_fit, s_seed = phase1_seeds(seed)
         with self._phase("reservoir", dev):
-            sample = torch.from_numpy(
-                reservoir_sample(store, self.landmark_sample, seed=s_sample)
-            ).to(dev)
+            if store is None:
+                obs.counter("phase1.device_reservoir").inc()
+                rows = reservoir_rows(block_row_counts(array.shape[0], self.block_rows),
+                                      self.landmark_sample, seed=s_sample)
+                sample = array.index_select(0, torch.from_numpy(rows).to(dev))
+            else:
+                sample = torch.from_numpy(
+                    reservoir_sample(store, self.landmark_sample, seed=s_sample)
+                ).to(dev)
         with self._phase("embed_fit", dev):
             params, pool = self._fit_params_and_pool(sample, s_fit)
         return store, array, params, pool, s_seed

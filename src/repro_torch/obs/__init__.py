@@ -22,10 +22,11 @@ after the sync the phase already makes.
 Spans inside a fit and a predict call, besides DESIGN.md §13's taxonomy:
 
   * `phase.<name>` — each estimator phase; inside `phase.host_view`,
-    `host_view.copy` (attr `bytes`; 0 for a BlockStore, which copies
-    nothing), and inside `phase.seed`, one `seed.draw` a k-means++ centroid
-    after the first (attr `i`: weights to the host, the draw, the next
-    distance pass enqueued);
+    `host_view.copy` (attr `bytes`; 0 for a BlockStore, or for an array
+    on the ``local`` or ``shard_map`` backend, which copy nothing), and
+    inside `phase.seed`, one `seed.draw` a k-means++ centroid after the
+    first (attr `i`: weights to the host, the draw, the next distance pass
+    enqueued);
   * `predict` (attr `rows`) — `KernelKMeans.predict` on an array, holding
     `predict.prepare` (`core.kkmeans.predict` moving the inputs to the
     device, up to the embed's launch), `predict.wait` (the

@@ -103,6 +103,44 @@ def test_local_fit_on_card_matches_cpu(cuda):
 
 
 @pytest.mark.gpu
+def test_resident_fit_samples_on_the_card_without_a_host_view(cuda, tmp_path):
+    """A local fit of X on the card gathers its reservoir there: the landmarks
+    are those of `reservoir_sample` over a host copy of X, and no copy from
+    the card in the fit moves more than the labels' bytes."""
+    import json
+
+    from repro_torch import obs
+    from repro_torch.api import KernelKMeans
+    from repro_torch.api.estimator import phase1_seeds
+    from repro_torch.data.synthetic import gaussian_blobs_blocks
+    from repro_torch.embed.apnc import sample_landmarks
+    from repro_torch.stream.blockstore import BlockStore
+    from repro_torch.stream.reservoir import reservoir_sample
+
+    X = torch.from_numpy(gaussian_blobs_blocks(
+        0, 3000, 16, 6, block_rows=1024, separation=4.0)[0].materialize()).to(cuda)
+    est = KernelKMeans(6, l=128, m=64, kernel_params=dict(gamma=0.01), block_rows=700,
+                       landmark_sample=1000, random_state=3)
+    est.fit(X)  # builds the kernels outside the profiled fit
+    before = obs.snapshot("phase1.")
+    prof = torch.profiler
+    with prof.profile(activities=[prof.ProfilerActivity.CUDA]) as p:
+        est.fit(X)
+        torch.cuda.synchronize()
+    assert obs.delta(before, obs.snapshot("phase1."))["phase1.device_reservoir"] == 1
+    s_sample, s_fit, _ = phase1_seeds(3)
+    host = reservoir_sample(BlockStore.from_array(X.cpu().numpy(), 700), 1000, seed=s_sample)
+    want = sample_landmarks(torch.Generator().manual_seed(s_fit), torch.from_numpy(host), 128)
+    assert torch.equal(est.model_.params.landmarks.reshape(128, 16).cpu(), want)
+    p.export_chrome_trace(str(tmp_path / "fit.json"))
+    events = json.loads((tmp_path / "fit.json").read_text())["traceEvents"]
+    dtoh = [e["args"]["bytes"] for e in events
+            if e.get("cat") == "gpu_memcpy" and "DtoH" in e.get("name", "")]
+    assert dtoh, "the profiler saw no copy from the card (the labels come back)"
+    assert max(dtoh) <= est.labels_.nbytes
+
+
+@pytest.mark.gpu
 def test_sd_fit_embeds_through_l1_kernels(cuda):
     X = torch.randn((400, 12), generator=torch.Generator().manual_seed(5))
     params = fit_sd(2, X.to(cuda), Kernel("rbf", gamma=0.1), l=64, m=16)

@@ -518,25 +518,59 @@ def test_untraced_predict_records_no_span_and_no_observation():
     assert not any(_observed(before).values())
 
 
-@pytest.mark.parametrize("held", ["array", "blockstore"])
-def test_traced_local_fit_spans_its_host_copy_and_each_draw(held):
+@pytest.mark.parametrize("held,backend", [
+    pytest.param("array", "local", id="array"),
+    pytest.param("blockstore", "local", id="blockstore"),
+    pytest.param("array", "stream", id="array-stream"),
+])
+def test_traced_local_fit_spans_its_host_copy_and_each_draw(held, backend):
+    """The host view's span opens on every fit; only a streaming fit of an
+    array copies anything (a resident fit samples on its device, a BlockStore
+    is already the host view)."""
     X, k, restarts = _data(), 4, 2
     before = obs.snapshot("span.")
     obs.enable_tracing()
     est = KernelKMeans(k, kernel=Kernel("rbf", gamma=0.1), method="nystrom", l=64, m=32,
-                       backend="local", iters=3, n_init=restarts, random_state=7,
+                       backend=backend, iters=3, n_init=restarts, random_state=7,
                        device="cpu")
     est.fit(X if held == "array" else BlockStore.from_array(X, 256), seed=7)
     (host_view,), (copy,), (seed,) = (_named(n) for n in (
         "phase.host_view", "host_view.copy", "phase.seed"))
     assert _inside(copy, host_view)
-    assert copy.attrs == {"bytes": X.nbytes if held == "array" else 0}
+    copied = held == "array" and backend == "stream"
+    assert copy.attrs == {"bytes": X.nbytes if copied else 0}
     draws = _named("seed.draw")
     assert [d.attrs["i"] for d in draws] == list(range(1, k)) * restarts
     assert all(_inside(d, seed) for d in draws)
     seen = _observed(before)
     assert seen["span.host_view.copy"] == 1
     assert seen["span.seed.draw"] == restarts * (k - 1)
+
+
+@pytest.mark.parametrize("backend,held,sweep,count", [
+    ("local", "array", False, 1),
+    ("shard_map", "array", False, 1),
+    ("local", "array", True, 1),
+    ("local", "blockstore", False, 0),
+    ("stream", "array", False, 0),
+    ("stream", "array", True, 0),
+    ("minibatch", "array", False, 0),
+    ("stream", "blockstore", False, 0),
+])
+def test_the_device_reservoir_counts_each_resident_phase1(backend, held, sweep, count):
+    """``phase1.device_reservoir`` counts a fit or sweep that holds the whole
+    array on its device; a BlockStore or a streaming backend takes the host
+    view and counts nothing."""
+    X = _data()
+    est = KernelKMeans(3, kernel=Kernel("rbf", gamma=0.1), method="nystrom", l=64, m=32,
+                       backend=backend, iters=2, n_init=1, device="cpu")
+    data = X if held == "array" else BlockStore.from_array(X, 256)
+    before = obs.snapshot("phase1.")
+    if sweep:
+        est.sweep(data, k_grid=[2, 3], restarts=1, seed=7)
+    else:
+        est.fit(data, seed=7)
+    assert obs.delta(before, obs.snapshot("phase1.")).get("phase1.device_reservoir", 0) == count
 
 
 # ------------------------------------------------------------ roofline join

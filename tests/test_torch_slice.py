@@ -21,7 +21,7 @@ from repro_torch.api import backends as tbackends
 from repro_torch.convert import apnc_params_from_numpy, cluster_model_from_numpy
 from repro_torch.policy import ComputePolicy
 from repro_torch.stream.blockstore import BlockStore
-from repro_torch.stream.reservoir import reservoir_sample
+from repro_torch.stream.reservoir import block_row_counts, reservoir_rows, reservoir_sample
 
 
 @pytest.fixture(scope="module")
@@ -186,6 +186,24 @@ def test_reservoir_same_rows_as_jax(blobs, size, block_rows):
     got = reservoir_sample(BlockStore.from_array(X, block_rows), size, seed=11)
     want = j_reservoir(JBlockStore.from_array(X, block_rows), size, seed=11)
     np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("n,block_rows,size", [
+    (2000, 333, 64),    # a ragged last block
+    (1500, 512, 2000),  # size > n: every row, no draw
+    (1500, 400, 1500),  # size == n
+    (2000, 7, 5),       # a small size over many rows: slots are drawn again and again
+])
+def test_reservoir_rows_are_the_sampled_rows(blobs, n, block_rows, size):
+    """The draws alone, replayed over the blocking's row counts, index the rows
+    that `reservoir_sample` keeps, slot for slot and bit for bit."""
+    X = blobs[0][:n]
+    store = BlockStore.from_array(X, block_rows)
+    counts = block_row_counts(n, block_rows)
+    assert counts == [store.rows_of(b) for b in range(store.num_blocks)]
+    rows = reservoir_rows(counts, size, seed=11)
+    assert rows.dtype == np.int64 and rows.shape == (min(size, n),)
+    np.testing.assert_array_equal(X[rows], reservoir_sample(store, size, seed=11))
 
 
 def test_blocks_match_jax_generator():

@@ -317,13 +317,31 @@ def test_auto_picks_the_backends_jax_picks(rings_600):
 
 
 def test_stream_fit_keeps_the_array_off_the_device(rings_600):
-    """Only the local backend gets the whole array as a device tensor; the
-    stream backends see the blocked host view."""
+    """Only the local backend gets the whole array as a device tensor, and
+    no host view beside it; the stream backends see the blocked host view."""
     est = KernelKMeans(2, kernel=Kernel("rbf", gamma=1.0), l=32, m=16, device="cpu")
     for name, resident in (("local", True), ("stream", False), ("minibatch", False)):
         ctx = est._prepare(rings_600, 0, CPU, name)
-        assert (ctx.array is not None) == resident and ctx.store.n == 600
+        assert (ctx.array is not None) == resident and (ctx.store is None) == resident
+        assert resident or ctx.store.n == 600
     ctx = est._prepare(BlockStore.from_array(rings_600, 100), 0, CPU, "stream")
     assert ctx.array is None
     with pytest.raises(ValueError, match="sharded"):
         est.fit(BlockStore.from_array(rings_600, 100).shard(0, 2))
+
+
+@pytest.mark.parametrize("method", ["nystrom", "sd"])
+def test_resident_phase1_is_the_host_views(rings_600, method):
+    """A local fit of an array gathers its reservoir from the array and a
+    stream fit of the same rows as a BlockStore from the host blocks: the
+    same seed gives the same landmarks, gamma (self-tuned on the sample), R
+    and seeding pool, bit for bit."""
+    est = KernelKMeans(2, kernel="rbf", method=method, l=32, m=16, block_rows=70,
+                       landmark_sample=150, seed_sample=100, device="cpu")
+    store, array, params, pool, s_seed = est._phase1(rings_600, 3, CPU, "local")
+    assert store is None and array is not None
+    _, _, want_params, want_pool, want_seed = est._phase1(
+        BlockStore.from_array(rings_600, 70), 3, CPU, "stream")
+    assert s_seed == want_seed and params.kernel.gamma == want_params.kernel.gamma
+    assert torch.equal(params.landmarks, want_params.landmarks)
+    assert torch.equal(params.R, want_params.R) and torch.equal(pool, want_pool)
