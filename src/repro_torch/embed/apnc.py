@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import obs
 from repro_torch.core.apnc import APNCCoefficients, embed
 from repro_torch.core.kernels_fn import Kernel
 from repro_torch.embed.base import Embedding, EmbeddingProps, register_embedding
@@ -71,22 +72,39 @@ def fit_nystrom(
 # ------------------------------------------------------------------------ sd
 
 
-def _sd_block(
-    generator: torch.Generator, landmarks: torch.Tensor, kernel: Kernel, m: int, t: int,
-) -> torch.Tensor:
-    """Algorithm 4 for one block: whiten the centered gram, sum random
-    t-subsets of whitening rows, re-center, scale by 1/sqrt(t)."""
+def _centered_gram(landmarks: torch.Tensor, kernel: Kernel) -> tuple[torch.Tensor, torch.Tensor]:
+    """(H K H, H): the landmarks' gram centered by H = I - 11^T / l, made
+    exactly symmetric, and H."""
     l = landmarks.shape[0]
     dev = landmarks.device
     H = torch.eye(l, device=dev) - torch.full((l, l), 1.0 / l, device=dev)
     G = H @ kernel.gram(landmarks, landmarks) @ H
-    G = 0.5 * (G + G.T)
+    return 0.5 * (G + G.T), H
+
+
+def _sd_directions(generator: torch.Generator, m: int, l: int, t: int) -> torch.Tensor:
+    """S (m, l) on the host: row r has ones at the first t entries of the
+    r-th ``randperm(l)`` that ``generator`` draws, zeros elsewhere."""
+    S = torch.zeros((m, l))
+    for r in range(m):
+        S[r, torch.randperm(l, generator=generator)[:t]] = 1.0
+    return S
+
+
+def _sd_block(
+    generator: torch.Generator, landmarks: torch.Tensor, kernel: Kernel, m: int, t: int,
+) -> torch.Tensor:
+    """Algorithm 4 for one block: whiten the centered gram, sum random
+    t-subsets of whitening rows, re-center, scale by 1/sqrt(t). Traced, the
+    draws of S, its one copy to the landmarks' device and the product are
+    one ``sd.directions`` span (its seconds also go to the
+    ``span.sd.directions`` histogram)."""
+    G, H = _centered_gram(landmarks, kernel)
     lam, V = torch.linalg.eigh(G)
     E = _inv_sqrt_clamped(lam)[:, None] * V.T  # (l, l)
-    S = torch.zeros((m, l), device=dev)
-    for r in range(m):
-        S[r, torch.randperm(l, generator=generator)[:t].to(dev)] = 1.0
-    return ((S @ E) @ H) / (float(t) ** 0.5)
+    with obs.span("sd.directions", cat="phase", observe=True, m=m, t=t):
+        S = _sd_directions(generator, m, landmarks.shape[0], t).to(landmarks.device)
+        return ((S @ E) @ H) / (float(t) ** 0.5)
 
 
 def fit_sd(

@@ -15,8 +15,9 @@ are summed in a fixed order, so every output is bitwise the same run to run.
 ``apnc_assign`` and ``apnc_assign_step`` launch the kernel for CUDA tensors
 and raise if they cannot; for CPU tensors they compute the same function with
 the plain PyTorch versions. ``launches`` counts kernel launches, and nothing
-else; traced, a call on a card is a ``launch.apnc_assign`` span
-(``build.launch_span``).
+else, and the registry counter ``launch.apnc_assign.l1`` counts those under
+l1; traced, a call on a card is a ``launch.apnc_assign`` span
+(``build.launch_scope``, attrs ``rows`` and ``discrepancy``).
 """
 from __future__ import annotations
 
@@ -24,6 +25,7 @@ import ctypes
 
 import torch
 
+from repro_torch import obs
 from repro_torch.kernels import build, lloyd_step
 from repro_torch.kernels.ref import apnc_assign_ref, apnc_assign_step_ref
 
@@ -131,10 +133,11 @@ def _launch(Y: torch.Tensor, C: torch.Tensor, discrepancy: str):
         )
     build.check(err, "apnc_assign launch")
     _count()
+    if discrepancy == "l1":
+        obs.counter("launch.apnc_assign.l1").inc()
     return out
 
 
-@build.launch_span("apnc_assign")
 def apnc_assign_step(
     Y: torch.Tensor, C: torch.Tensor, discrepancy: str
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -142,20 +145,21 @@ def apnc_assign_step(
     int32, cost () f32 (the sum over rows of min e, sqrt'd for l2: the
     block's ``block_cost``), under the declared discrepancy ("l2" | "l1"),
     in one launch."""
-    _check_inputs(Y, C, discrepancy)
-    if Y.device.type == "cpu":
-        return apnc_assign_step_ref(Y, C, discrepancy)
-    return _launch(Y, C, discrepancy)
+    with build.launch_scope("apnc_assign", Y, discrepancy=discrepancy):
+        _check_inputs(Y, C, discrepancy)
+        if Y.device.type == "cpu":
+            return apnc_assign_step_ref(Y, C, discrepancy)
+        return _launch(Y, C, discrepancy)
 
 
-@build.launch_span("apnc_assign")
 def apnc_assign(
     Y: torch.Tensor, C: torch.Tensor, discrepancy: str
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Y (n, m) f32, C (k, m) f32 -> Z (k, m) f32, g (k,) f32, labels (n,) int32,
     under the declared discrepancy ("l2" | "l1"): ``apnc_assign_step`` without
     its cost."""
-    _check_inputs(Y, C, discrepancy)
-    if Y.device.type == "cpu":
-        return apnc_assign_ref(Y, C, discrepancy)
-    return _launch(Y, C, discrepancy)[:3]
+    with build.launch_scope("apnc_assign", Y, discrepancy=discrepancy):
+        _check_inputs(Y, C, discrepancy)
+        if Y.device.type == "cpu":
+            return apnc_assign_ref(Y, C, discrepancy)
+        return _launch(Y, C, discrepancy)[:3]

@@ -15,6 +15,7 @@ back to the plain PyTorch versions. Nothing here runs at import time.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -153,21 +154,26 @@ def check(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {err}")
 
 
+def launch_scope(kernel: str, x, **attrs):
+    """Traced and on a card, the ``launch.<kernel>`` span of a call on ``x``
+    (attr ``rows``, x's rows, and ``attrs``) on the caller's lane; otherwise
+    nothing."""
+    if not obs.tracing_enabled() or x.device.type != "cuda":
+        return contextlib.nullcontext()
+    return obs.span(f"launch.{kernel}", cat="launch", rows=x.shape[0] if x.ndim else 0, **attrs)
+
+
 def launch_span(kernel: str):
     """Decorate a kernel's wrapper: traced and on a card, a call is one
-    ``launch.<kernel>`` span (attr ``rows``, the first tensor's rows) on the
-    caller's lane, from the wrapper's entry to its C call's return, beside
-    the launch it counts (``apnc_embed_block`` over more than 512 columns
-    makes a launch per column group inside the one span). Untraced, or on
-    the CPU's plain version, the wrapper runs as it is."""
-    name = f"launch.{kernel}"
+    ``launch.<kernel>`` span (``launch_scope``, on the first tensor) from the
+    wrapper's entry to its C call's return, beside the launch it counts
+    (``apnc_embed_block`` over more than 512 columns makes a launch per
+    column group inside the one span)."""
 
     def decorate(fn):
         @functools.wraps(fn)
         def wrapper(x, *args, **kwargs):
-            if not obs.tracing_enabled() or x.device.type != "cuda":
-                return fn(x, *args, **kwargs)
-            with obs.span(name, cat="launch", rows=x.shape[0] if x.ndim else 0):
+            with launch_scope(kernel, x):
                 return fn(x, *args, **kwargs)
         return wrapper
     return decorate

@@ -32,10 +32,16 @@ Spans inside a fit and a predict call, besides DESIGN.md §13's taxonomy:
     device, up to the embed's launch), `predict.wait` (the
     labels' copy to the host: the call's one wait for the card) and
     `predict.finish` (to int32 numpy);
-  * `launch.<kernel>` (attr `rows`) — a hand-written clustering kernel's
-    wrapper on a card, from its entry to the C call's return.
+  * inside `phase.embed_fit` of an SD fit, one `sd.directions` a block
+    (attrs `m`, `t`): the draws of S on the host, its one copy to the
+    device and the product S E H / sqrt(t) enqueued;
+  * `launch.<kernel>` (attr `rows`; `apnc_assign` also `discrepancy`) — a
+    hand-written clustering kernel's wrapper on a card, from its entry to
+    the C call's return. The counter `launch.apnc_assign.l1` counts the
+    assign launches under l1.
 
-`predict`, `predict.wait`, `host_view.copy` and `seed.draw` are opened with
+`predict`, `predict.wait`, `host_view.copy`, `seed.draw` and
+`sd.directions` are opened with
 ``observe=True``: traced, each also adds its seconds to the histogram
 `span.<name>` in `METRICS`, which outlives `clear_trace()`.
 

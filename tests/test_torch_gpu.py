@@ -154,6 +154,41 @@ def test_sd_fit_embeds_through_l1_kernels(cuda):
     assert torch.equal(labels, lr) and torch.equal(g, gr)
 
 
+@pytest.mark.gpu
+def test_traced_sd_fit_tags_its_l1_launches_on_the_card(cuda):
+    """A traced local SD fit on the card: one sd.directions span inside
+    phase.embed_fit, one launch.apnc_assign span tagged l1 a Lloyd pass
+    (iterations + the final assignment), and the l1 counter counting each."""
+    from repro_torch import obs
+    from repro_torch.api import KernelKMeans
+    from repro_torch.data.synthetic import gaussian_blobs_blocks
+
+    X = torch.from_numpy(gaussian_blobs_blocks(
+        0, 6000, 32, 6, block_rows=1024, separation=3.0)[0].materialize()).to(cuda)
+    est = KernelKMeans(6, method="sd", backend="local", l=128, m=64, iters=5,
+                       kernel_params=dict(gamma=0.01), random_state=3)
+    est.fit(X)  # builds the kernels outside the traced fit
+    before = obs.snapshot("launch.")
+    obs.clear_trace()
+    obs.enable_tracing()
+    try:
+        est.fit(X)
+        torch.cuda.synchronize()
+    finally:
+        obs.disable_tracing()
+    spans = obs.TRACER.spans()
+    obs.clear_trace()
+    (embed_fit,) = [s for s in spans if s.name == "phase.embed_fit"]
+    (directions,) = [s for s in spans if s.name == "sd.directions"]
+    assert embed_fit.t0 <= directions.t0
+    assert directions.t0 + directions.dur <= embed_fit.t0 + embed_fit.dur
+    launches = [s for s in spans if s.name == "launch.apnc_assign"]
+    assert len(launches) == est.n_iter_ + 1
+    assert all(s.attrs == {"rows": 6000, "discrepancy": "l1"} for s in launches)
+    counted = obs.delta(before, obs.snapshot("launch."))["launch.apnc_assign.l1"]
+    assert counted == est.n_iter_ + 1
+
+
 def _blob_block(n, d, k, seed, scale=1.0):
     """Well-separated blobs and their per-class means: with C the embedded
     means, every row's nearest centroid wins by a wide margin, so the kernel
@@ -1112,8 +1147,8 @@ def test_traced_stream_fit_on_the_card(cuda, tmp_path):
 def test_traced_predict_spans_each_launch_on_the_card(cuda):
     """A traced predict on the card: one launch.apnc_embed and one
     launch.apnc_assign span for each launch the wrappers count, each inside
-    a predict span and with the batch's rows; the labels those of an
-    untraced call."""
+    a predict span and with the batch's rows (the assign's also with its
+    discrepancy); the labels those of an untraced call."""
     from repro_torch import obs
     from repro_torch.api import KernelKMeans
     from repro_torch.data.synthetic import gaussian_blobs_blocks
@@ -1133,10 +1168,12 @@ def test_traced_predict_spans_each_launch_on_the_card(cuda):
     obs.clear_trace()
     calls = [(s.t0, s.t0 + s.dur) for s in spans if s.name == "predict"]
     assert len(calls) == 3
-    for module, name in ((t_embed, "launch.apnc_embed"), (t_assign, "launch.apnc_assign")):
+    for module, name, attrs in (
+            (t_embed, "launch.apnc_embed", {"rows": 3000}),
+            (t_assign, "launch.apnc_assign", {"rows": 3000, "discrepancy": "l2"})):
         launches = [s for s in spans if s.name == name]
         assert len(launches) == module.launches - before[module] == 3
-        assert all(s.attrs == {"rows": 3000} for s in launches)
+        assert all(s.attrs == attrs for s in launches)
         assert all(any(a <= s.t0 and s.t0 + s.dur <= b for a, b in calls) for s in launches)
     for labels in got:
         np.testing.assert_array_equal(labels, want)

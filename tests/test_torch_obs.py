@@ -547,6 +547,23 @@ def test_traced_local_fit_spans_its_host_copy_and_each_draw(held, backend):
     assert seen["span.seed.draw"] == restarts * (k - 1)
 
 
+def test_traced_sd_fit_spans_its_directions_once_a_block():
+    """A traced SD fit: one ``sd.directions`` span a block of landmarks,
+    inside ``phase.embed_fit``, observed in ``span.sd.directions``; its
+    launches of the assign kernel (a card's, tagged ``discrepancy="l1"``
+    and counted by ``launch.apnc_assign.l1``) are held in
+    tests/test_torch_gpu.py."""
+    before = obs.snapshot("span.")
+    obs.enable_tracing()
+    est = _fit("local", method="sd", l=64, q=2)
+    (embed_fit,) = _named("phase.embed_fit")
+    directions = _named("sd.directions")
+    assert [d.attrs for d in directions] == [{"m": 32, "t": 13}] * 2
+    assert all(_inside(d, embed_fit) for d in directions)
+    assert _observed(before)["span.sd.directions"] == 2
+    assert est.model_.params.discrepancy == "l1"
+
+
 @pytest.mark.parametrize("backend,held,sweep,count", [
     ("local", "array", False, 1),
     ("shard_map", "array", False, 1),
