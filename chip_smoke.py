@@ -75,7 +75,9 @@ the card (each coordinate's bytes, the GEMM flops), and reads seven
 dry-run cells that ran on ``meta`` in low-priority worker processes beside
 the LM phases. It holds ``apnc_assign_step`` (labels, Z, g and the block's cost in
 one launch) bit for bit against the three fused steps on the Y each one's
-un-fused chain makes. It times each kernel beside its bound, its plain
+un-fused chain makes. It holds ``kmeanspp_seed`` (a restart's k - 1 k-means++
+picks in one launch) bit for bit against its plain version on the main
+shape's embedded rows, on a 1,024-row pool and on a 16 k-row sample. It times each kernel beside its bound, its plain
 version and a PyTorch library call (chain). Every phase prints
 one JSON line. The last lines are the kernel table, the card's name and power
 limit, and ``{"ok": true, ...}``; any failure exits non-zero before them.
@@ -115,6 +117,7 @@ from repro_torch.configs.paper_datasets import PAPER_DATASETS  # noqa: E402
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_TF32_FLOPS = 495e12  # dense, on the tensor cores
+PEAK_F64_FLOPS = 34e12  # off the tensor cores
 
 # The paper's ImageNet configuration: n, d, k and the blobs' separation from
 # the port's configs/paper_datasets.py (the JAX package's table), the rest
@@ -723,6 +726,7 @@ def phase_parity(X, truth, device, cfg) -> dict:
     out["embed"].append(dict(kernel="rbf", q=1, n=rows.shape[0], d=rows.shape[1],
                              l=cfg["l"], m=cfg["m"], max_abs_err=err, rtol=2e-5))
     out["embed_rows_bitwise"] = embed_rows_bitwise(rows, params, cfg)
+    out["kmeanspp_seed"] = parity_kmeanspp(got, cfg["k"], device)
     out["plain_route"] = plain_route(Xr, device)
     for n, k, m in cfg["parity_assign"]:
         Y = torch.randn((n, m), generator=g).to(device)
@@ -745,6 +749,36 @@ def phase_parity(X, truth, device, cfg) -> dict:
     out["flash_attention"] = parity_flash(device, cfg)
     out["flash_attention_gqa"] = parity_flash_gqa(device, cfg)
     sync(device)
+    return out
+
+
+def parity_kmeanspp(Y, k, device) -> list:
+    """``kmeanspp_seed`` against its plain version on the same card from the
+    same exponentials, on pools of embedded main-shape rows: the estimator's
+    1,024-row pool and a distributed fit's 16 k-row sample (a cluster of 16
+    CTAs on a card). Gated: picks and centroids bit for bit, for l2 and l1."""
+    from repro_torch.kernels import kmeanspp, ref
+
+    out = []
+    g = torch.Generator().manual_seed(23)
+    for n in (1024, 16 * k):
+        pool = Y[:n].contiguous()
+        n, m = pool.shape
+        E = torch.empty((k - 1, n), dtype=torch.float64).exponential_(
+            1, generator=g).to(device)
+        cluster = kmeanspp.cluster_size(n, m) if device.type == "cuda" else None
+        for disc in ("l2", "l1"):
+            picks, C, bad = kmeanspp.kmeanspp_seed(pool, E, 3, disc)
+            want_picks, want_C, want_bad = ref.kmeanspp_seed_ref(pool, (E,), 3, k, disc)
+            if not (torch.equal(picks, want_picks) and torch.equal(C, want_C)):
+                raise AssertionError(f"kmeanspp_seed {disc} {n} x {m} k={k}: "
+                                     f"{int((picks != want_picks).sum())} picks differ")
+            if bool(bad) or bool(want_bad):
+                raise AssertionError(f"kmeanspp_seed {disc} {n} x {m}: a sum of weights was 0")
+            out.append(dict(disc=disc, n=n, m=m, k=k, cluster=cluster, picks_equal=True,
+                            centroids_bitwise=True))
+    if device.type == "cuda" and [r["cluster"] for r in out[::2]] != [8, 16]:
+        raise AssertionError(f"kmeanspp_seed clusters {out}: want 8 CTAs, then 16")
     return out
 
 
@@ -877,15 +911,17 @@ def parity_flash_gqa(device, cfg) -> list:
 
 def phase_main(X, truth, Xq, cfg, device, seed) -> tuple[dict, object]:
     """The port's main path through the public estimator, with the launch
-    counters set to 0 just before and read just after."""
+    counters set to 0 just before and read just after: on a card every
+    kernel ran, ``kmeanspp_seed`` once a restart."""
     from repro_torch.api import KernelKMeans
     from repro_torch.core.metrics import nmi
-    from repro_torch.kernels import apnc_assign, apnc_embed
+    from repro_torch.kernels import apnc_assign, apnc_embed, kmeanspp
 
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     apnc_embed.launches = 0
     apnc_assign.launches = 0
+    kmeanspp.launches = 0
     t0 = time.perf_counter()
     est = KernelKMeans(cfg["k"], kernel="rbf", method="nystrom", l=cfg["l"], m=cfg["m"],
                        iters=cfg["iters"], backend="local", block_rows=cfg["block_rows"],
@@ -896,9 +932,13 @@ def phase_main(X, truth, Xq, cfg, device, seed) -> tuple[dict, object]:
     pred = est.predict(Xq)
     sync(device)
     t_predict = time.perf_counter() - t1
-    launches = dict(apnc_embed=apnc_embed.launches, apnc_assign=apnc_assign.launches)
+    launches = dict(apnc_embed=apnc_embed.launches, apnc_assign=apnc_assign.launches,
+                    kmeanspp_seed=kmeanspp.launches)
     if device.type == "cuda" and not all(launches.values()):
         raise AssertionError(f"the main path skipped a kernel: {launches}")
+    if device.type == "cuda" and launches["kmeanspp_seed"] != est.n_init:
+        raise AssertionError(f"k-means++ took {launches['kmeanspp_seed']} launches over "
+                             f"{est.n_init} restarts, want one a restart")
     check_labels(est, cfg["k"], X.shape[0])
     if pred.shape != (Xq.shape[0],) or pred.min() < 0 or pred.max() >= cfg["k"]:
         raise AssertionError("predict labels out of range")
@@ -991,19 +1031,20 @@ def pinned_store(X, block_rows):
 
 def zero_launches() -> None:
     """Every clustering kernel's launch counter set to 0."""
-    from repro_torch.kernels import apnc_assign, apnc_embed, lloyd_step, rff_embed
+    from repro_torch.kernels import apnc_assign, apnc_embed, kmeanspp, lloyd_step, rff_embed
 
-    apnc_embed.launches = apnc_assign.launches = rff_embed.launches = 0
+    apnc_embed.launches = apnc_assign.launches = rff_embed.launches = kmeanspp.launches = 0
     for name in lloyd_step.launches:
         lloyd_step.launches[name] = 0
 
 
 def read_launches() -> dict:
     """Every clustering kernel's launch counter, by kernel name."""
-    from repro_torch.kernels import apnc_assign, apnc_embed, lloyd_step, rff_embed
+    from repro_torch.kernels import apnc_assign, apnc_embed, kmeanspp, lloyd_step, rff_embed
 
     return dict(apnc_embed=apnc_embed.launches, apnc_assign=apnc_assign.launches,
-                rff_embed_block=rff_embed.launches, **lloyd_step.launches)
+                rff_embed_block=rff_embed.launches, kmeanspp_seed=kmeanspp.launches,
+                **lloyd_step.launches)
 
 
 #: Every fit and sweep run through fit_measured / sweep_measured, for phase
@@ -4615,6 +4656,51 @@ def per_block(fn, X, bn):
     return lambda: [fn(X[i:i + bn]) for i in range(0, X.shape[0], bn)]
 
 
+def multinomial_seed(generator, Y, k, disc):
+    """The per-draw k-means++ loop ``kmeanspp_seed`` replaced: each draw
+    copies the weights to the host and draws there with ``torch.multinomial``
+    (one wait for the card a draw), the distances by the f32 GEMM expansion."""
+    from repro_torch.core.apnc import pairwise_discrepancy
+
+    first = int(torch.randint(0, Y.shape[0], (1,), generator=generator))
+    C = torch.zeros((k, Y.shape[1]), dtype=Y.dtype, device=Y.device)
+    C[0] = Y[first]
+    mind = pairwise_discrepancy(Y, C[:1], disc)[:, 0]
+    for i in range(1, k):
+        w = (mind * mind).to(torch.float64).cpu()
+        nxt = int(torch.multinomial(w / max(float(w.sum()), 1e-30), 1, generator=generator))
+        C[i] = Y[nxt]
+        mind = torch.minimum(mind, pairwise_discrepancy(Y, Y[nxt][None, :], disc)[:, 0])
+    return C
+
+
+def time_kmeanspp(pool, k) -> dict:
+    """``kmeanspp_seed`` on the main path's pool shape, l2: one launch (the
+    k - 1 picks), its plain version on the card from the same exponentials,
+    the per-draw multinomial loop it replaced (library), a whole restart's
+    seeding as the estimator runs it (exponentials drawn on the host, their
+    copy, the launch and the flag's read), and the bound: k - 1 f64 distance
+    passes over the pool, read once with the exponentials."""
+    from repro_torch.core.lloyd import kmeanspp_init
+    from repro_torch.kernels import kmeanspp, ref
+
+    n, m = pool.shape
+    E = torch.empty((k - 1, n), dtype=torch.float64).exponential_(
+        1, generator=torch.Generator().manual_seed(29)).to(pool.device)
+    t_ops = (k - 1) * (3.0 * n * m + 4.0 * n) / PEAK_F64_FLOPS
+    t_bytes = (4.0 * n * m + 8.0 * (k - 1) * n + 4.0 * k * m + 8.0 * k) / PEAK_BYTES_PER_S
+    return dict(
+        n=n, m=m, k=k,
+        ms=cuda_ms(lambda: kmeanspp.kmeanspp_seed(pool, E, 3, "l2"), 20),
+        plain_ms=cuda_ms(lambda: ref.kmeanspp_seed_ref(pool, (E,), 3, k, "l2"), 5),
+        library_ms=cuda_ms(lambda: multinomial_seed(torch.Generator().manual_seed(0), pool, k,
+                                                    "l2"), 3, warmup=1),
+        restart_ms=cuda_ms(lambda: kmeanspp_init(torch.Generator().manual_seed(0), pool, k,
+                                                 "l2"), 5),
+        bound_ms=max(t_ops, t_bytes) * 1e3,
+        bound_by="operations" if t_ops >= t_bytes else "bytes")
+
+
 def library_step(Yb, C):
     """The assign half of a Lloyd step in PyTorch calls: cdist -> argmin ->
     index_add_ + bincount + min-sum."""
@@ -4790,6 +4876,7 @@ def phase_timing(X, est, launches, stream_est, stream_launches, rff_est, rff_lau
         kernel_vs_reduce=reduce_share(per_block(assign_step, Y, bn), t_assign_blocks),
         host_us_per_launch=host_us(lambda: assign_step(Y[:bn])))
     lloyd_profile = profile_lloyd(Y, k)
+    seed_timing = time_kmeanspp(Y[:1024].contiguous(), k)
     y_abs_max = float(Y.abs().max())
     del Y
 
@@ -4917,6 +5004,9 @@ def phase_timing(X, est, launches, stream_est, stream_launches, rff_est, rff_lau
         row("flash_attention_bhsd", "flash_attention.cu", "src/repro/kernels/flash_attention.py:85",
             lm_launches, flash["max_abs_err"], flash["ms"], flash["plain_ms"], flash["bound_ms"],
             flash["bound_by"], flash["library_ms"]),
+        row("kmeanspp_seed", "kmeanspp_seed.cu", "src/repro/core/lloyd.py:74",
+            launches["kmeanspp_seed"], 0.0, seed_timing["ms"], seed_timing["plain_ms"],
+            seed_timing["bound_ms"], seed_timing["bound_by"], seed_timing["library_ms"]),
     ]
     for r in rows:  # phase shard's launches count with the main path's
         r["shard_launches"] = shard_launches.get(r["name"], 0)
@@ -4931,13 +5021,15 @@ def phase_timing(X, est, launches, stream_est, stream_launches, rff_est, rff_lau
                           "cost); pass over "
                           f"the resident X in {bn}-row blocks (the fused and RFF kernels); "
                           "pass over the int8 cache resident on the card at k = 164, one "
-                          "candidate (fused_dequant_step)",
+                          "candidate (fused_dequant_step); launch making a restart's k - 1 "
+                          "picks on a 1,024-row pool of Y (kmeanspp_seed)",
                 fused_dequant_bound_ms={str(kk): dequant_bound(kk)[0]
                                         for kk in cfg["sweep_k_grid"]},
                 fused_dequant_sweep_s_per_candidate_pass=sweep_data["lloyd_s"]
                 / max(sweep_data["candidate_passes"], 1),
                 flash_attention=flash_rows,
                 lloyd_profile=lloyd_profile,
+                kmeanspp_seed=seed_timing,
                 assign_main_shape=assign_check, fused_apnc_block=fused_check,
                 apnc_assign_blocks_pass=assign_blocks,
                 fused_rff_block=rff_check, fused_dequant_block=dq_check,

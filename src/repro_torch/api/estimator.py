@@ -279,10 +279,10 @@ class KernelKMeans:
 
     @staticmethod
     def _seed_inits(pool: torch.Tensor, s_seed: int, k: int, discrepancy: str,
-                    restarts: int) -> list[torch.Tensor]:
+                    restarts: int, policy: ComputePolicy | None = None) -> list[torch.Tensor]:
         """k-means++ inits of restarts 0..restarts-1, restart r drawn from
         ``restart_generator(s_seed, r)``."""
-        return [kmeanspp_init(restart_generator(s_seed, r), pool, k, discrepancy)
+        return [kmeanspp_init(restart_generator(s_seed, r), pool, k, discrepancy, policy)
                 for r in range(restarts)]
 
     def _prepare(self, X, seed: int, dev: torch.device, backend_name: str = "local",
@@ -292,7 +292,7 @@ class KernelKMeans:
         store, array, params, pool, s_seed = self._phase1(X, seed, dev, backend_name)
         with self._phase("seed", dev):
             inits = self._seed_inits(pool, s_seed, self.k, params.discrepancy,
-                                     max(1, self.n_init))
+                                     max(1, self.n_init), self.policy)
         return FitContext(
             store=store, array=array, params=params, k=self.k, inits=inits,
             iters=self.iters, policy=self.policy, device=dev, decay=self.decay,
@@ -435,7 +435,7 @@ class KernelKMeans:
             _, s_fit, s_seed = phase1_seeds(self.random_state if seed is None else seed)
             params, pool = self._fit_params_and_pool(Xb[: self.landmark_sample], s_fit)
             centroids = kmeanspp_init(restart_generator(s_seed, 0), pool, self.k,
-                                      params.discrepancy)
+                                      params.discrepancy, self.policy)
             self._pf_state = (torch.zeros((self.k, params.m), device=dev),
                               torch.zeros((self.k,), device=dev), 0)
         else:

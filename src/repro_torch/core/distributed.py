@@ -188,7 +188,7 @@ def distributed_fit_predict(mesh, seed: int, X, kernel, k: int, cfg=None):
     Y = distributed_embed(mesh, shards, coeffs, policy=cfg.compute)
     gen = restart_generator(s_seed, 0)
     sample = sample_rows_global(gen, Y, min(sum(int(y.shape[0]) for y in Y), 16 * k))
-    c0 = kmeanspp_init(gen, sample, k, coeffs.discrepancy)
+    c0 = kmeanspp_init(gen, sample, k, coeffs.discrepancy, cfg.compute)
     labels, centroids = distributed_lloyd(mesh, Y, c0, k=k, discrepancy=coeffs.discrepancy,
                                           iters=cfg.iters, policy=cfg.compute)
     return labels, centroids, coeffs

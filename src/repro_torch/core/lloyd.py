@@ -55,30 +55,63 @@ def assign_stats(
     return ops.apnc_assign(Y, centroids, discrepancy)
 
 
+#: Bytes of exponentials a seeding draws and copies at once: a whole-Y
+#: seeding (n up to millions) takes its draws in chunks of this size.
+E_CHUNK_BYTES = 64 << 20
+
+
+def _exponentials(generator: torch.Generator, draws: int, n: int,
+                  device: torch.device) -> torch.Tensor:
+    """(draws, n) float64 Exp(1) values on ``device``, row by row from
+    ``generator`` as ``torch.multinomial(p, 1)`` draws them (one (n,)
+    ``exponential_`` a call), so the generator is consumed as by that many
+    calls; staged in pinned memory and copied once without a wait."""
+    on_card = device.type == "cuda"
+    E = torch.empty((draws, n), dtype=torch.float64, pin_memory=on_card)
+    for row in E:
+        row.exponential_(1, generator=generator)
+    return E.to(device, non_blocking=True) if on_card else E
+
+
 def kmeanspp_init(
-    generator: torch.Generator, Y: torch.Tensor, k: int, discrepancy: Discrepancy
+    generator: torch.Generator, Y: torch.Tensor, k: int, discrepancy: Discrepancy,
+    policy: ComputePolicy | None = None,
 ) -> torch.Tensor:
     """k-means++ seeding in embedding space with D(x)^2 weighting under e.
 
-    ``generator`` is a CPU ``torch.Generator``; the draws are made on the host
-    from the (n,) weights, so the same seed picks the same rows on any device.
-    Traced, each centroid after the first is one ``seed.draw`` span (attr
-    ``i``; its seconds also go to the ``span.seed.draw`` histogram): the
-    weights' copy to the host, the draw, and the next distance pass enqueued.
+    ``generator`` is a CPU ``torch.Generator``: the first row comes from
+    ``randint``, then the exponentials of all k - 1 draws, so the same seed
+    picks the same rows on any device, the rows ``torch.multinomial`` picks
+    draw by draw (``ref.kmeanspp_seed_ref`` holds the rule; D(x) in float64
+    from the rows' differences). The picks are made on Y's device without a
+    wait: by the ``kmeanspp_seed`` kernel where ``policy.resolve_kernels``
+    and the pool fits a cluster's shared memory, else by the plain version
+    (exponentials in chunks of ``E_CHUNK_BYTES``). One wait at the end reads
+    whether a draw found every weight 0 (fewer than k distinct rows), and
+    raises RuntimeError as ``multinomial`` does. Traced, the draws, their
+    copy and the picks' launch are one ``seed.draws`` span (attrs ``draws``,
+    ``route``: ``kernel`` or ``plain``; its seconds also go to the
+    ``span.seed.draws`` histogram).
     """
-    n = Y.shape[0]
+    from repro_torch.kernels import kmeanspp, ref
+
+    n, m = Y.shape
     first = int(torch.randint(0, n, (1,), generator=generator))
-    centroids = torch.zeros((k, Y.shape[-1]), dtype=Y.dtype, device=Y.device)
-    centroids[0] = Y[first]
-    mind = pairwise_discrepancy(Y, centroids[:1], discrepancy)[:, 0]
-    for i in range(1, k):
-        with obs.span("seed.draw", cat="seed", observe=True, i=i):
-            w = (mind * mind).to(torch.float64).cpu()
-            p = w / max(float(torch.sum(w)), 1e-30)
-            nxt = int(torch.multinomial(p, 1, generator=generator))
-            centroids[i] = Y[nxt]
-            d_new = pairwise_discrepancy(Y, Y[nxt][None, :], discrepancy)[:, 0]
-            mind = torch.minimum(mind, d_new)
+    card = (as_policy(policy).resolve_kernels(Y.device) and Y.dtype == torch.float32
+            and kmeanspp.cluster_size(n, m) > 0)
+    with obs.span("seed.draws", cat="seed", observe=True, draws=k - 1,
+                  route="kernel" if card else "plain"):
+        if card:
+            E = _exponentials(generator, k - 1, n, Y.device)
+            _, centroids, bad = kmeanspp.kmeanspp_seed(Y.contiguous(), E, first, discrepancy)
+        else:
+            step = max(1, E_CHUNK_BYTES // (8 * n))
+            chunks = (_exponentials(generator, min(step, k - i), n, Y.device)
+                      for i in range(1, k, step))
+            _, centroids, bad = ref.kmeanspp_seed_ref(Y, chunks, first, k, discrepancy)
+    if bool(bad):
+        raise RuntimeError("invalid multinomial distribution (sum of probabilities <= 0): "
+                           f"k-means++ found fewer than k={k} distinct rows")
     return centroids
 
 
@@ -100,7 +133,7 @@ def lloyd(
     if init is None:
         if generator is None:
             raise ValueError("provide generator= for k-means++ init or init= centroids")
-        init = kmeanspp_init(generator, Y, k, discrepancy)
+        init = kmeanspp_init(generator, Y, k, discrepancy, policy)
 
     from repro_torch.kernels import ops
 

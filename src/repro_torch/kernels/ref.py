@@ -3,7 +3,7 @@
 They compute the same functions as ``apnc_embed``, ``apnc_assign`` (and
 ``apnc_assign_step``), ``rff_embed_block``, ``fused_apnc_step``, ``fused_rff_step`` and
 ``fused_dequant_step`` (and its decode) and ``flash_attention_bhsd``, with the same
-contracts as the JAX package's oracles. The wrappers use them for CPU
+contracts as the JAX package's oracles, and ``kmeanspp_seed``. The wrappers use them for CPU
 tensors; on the card they are only the yardstick the kernels are held against.
 """
 from __future__ import annotations
@@ -115,3 +115,60 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     w = torch.softmax(s, dim=-1)
     out = torch.einsum("bhqt,bthd->bqhd", w, v.to(torch.float32))
     return out.to(q.dtype)
+
+
+#: Bytes of the float64 copy of Y that a plain k-means++ seeding makes once;
+#: a larger Y is widened block by block at each draw, ``SEED_BLOCK_ROWS`` rows
+#: at a time, so it holds no (n, m) float64 copy.
+SEED_F64_BYTES = 4 << 30
+SEED_BLOCK_ROWS = 1 << 16
+
+
+def seed_distances(Y: torch.Tensor, c: torch.Tensor, discrepancy: Discrepancy) -> torch.Tensor:
+    """k-means++'s D(x) of every row of Y (n, m) to one row c (m,), float64
+    from direct differences of the rows' values: ||y - c||_2 for l2, sum
+    |y - c| for l1 (the benchmark judges' arithmetic; ``cdist`` without the
+    matrix-product expansion, which makes no (n, m) temporary) -> (n,) f64."""
+    c = c.to(torch.float64)[None]
+    p = 2.0 if discrepancy == "l2" else 1.0
+    out = [torch.cdist(Y[lo:lo + SEED_BLOCK_ROWS].to(torch.float64), c, p=p,
+                       compute_mode="donot_use_mm_for_euclid_dist")[:, 0]
+           for lo in range(0, Y.shape[0], SEED_BLOCK_ROWS)]
+    return torch.cat(out) if len(out) > 1 else out[0]
+
+
+def kmeanspp_seed_ref(
+    Y: torch.Tensor, chunks, first: int, k: int, discrepancy: Discrepancy
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """k-means++ picks from exponentials drawn up front: ``chunks`` yields
+    (draws, n) f64 tensors, k - 1 rows in all, row j of them for pick j + 1.
+    Each pick takes w = mind^2, p = w / max(sum w, 1e-30) and argmax p / E[j]
+    (what ``torch.multinomial(p, 1)`` draws from the same exponentials: the
+    first index on ties, NaN the maximum), then mind = min(mind, D(x) to the
+    pick) (``seed_distances``). Nothing waits for the device.
+
+    -> picks (k,) int64, centroids (k, m) in Y's dtype (the picked rows), and
+    a bool tensor set where a sum of weights was 0 or not finite, the draws
+    at which ``multinomial`` raises."""
+    picks = torch.empty((k,), dtype=torch.int64, device=Y.device)
+    centroids = torch.empty((k, Y.shape[1]), dtype=Y.dtype, device=Y.device)
+    picks[0] = first
+    centroids[0] = Y[first]
+    Yd = Y.to(torch.float64) if 8 * Y.numel() <= SEED_F64_BYTES else Y
+    mind = seed_distances(Yd, Y[first], discrepancy)
+    bad = torch.zeros((), dtype=torch.bool, device=Y.device)
+    i = 1
+    for E in chunks:
+        for e in E:
+            w = mind * mind
+            s = w.sum()
+            bad = bad | ~((s > 0) & (s < torch.inf))
+            nxt = torch.argmax(w / torch.clamp(s, min=1e-30) / e).view(1)
+            row = Y.index_select(0, nxt)[0]
+            picks[i] = nxt[0]
+            centroids[i] = row
+            mind = torch.minimum(mind, seed_distances(Yd, row, discrepancy))
+            i += 1
+    if i != k:
+        raise ValueError(f"{i - 1} exponential rows for k={k}: want k - 1")
+    return picks, centroids, bad

@@ -24,9 +24,9 @@ Spans inside a fit and a predict call, besides DESIGN.md §13's taxonomy:
   * `phase.<name>` — each estimator phase; inside `phase.host_view`,
     `host_view.copy` (attr `bytes`; 0 for a BlockStore, or for an array
     on the ``local`` or ``shard_map`` backend, which copy nothing), and
-    inside `phase.seed`, one `seed.draw` a k-means++ centroid after the
-    first (attr `i`: weights to the host, the draw, the next distance pass
-    enqueued);
+    inside `phase.seed`, one `seed.draws` a restart's k-means++ (attrs
+    `draws`, k - 1, and `route`, `kernel` or `plain`: the exponentials'
+    draw on the host, their copy and the picks enqueued);
   * `predict` (attr `rows`) — `KernelKMeans.predict` on an array, holding
     `predict.prepare` (`core.kkmeans.predict` moving the inputs to the
     device, up to the embed's launch), `predict.wait` (the
@@ -40,7 +40,7 @@ Spans inside a fit and a predict call, besides DESIGN.md §13's taxonomy:
     the C call's return. The counter `launch.apnc_assign.l1` counts the
     assign launches under l1.
 
-`predict`, `predict.wait`, `host_view.copy`, `seed.draw` and
+`predict`, `predict.wait`, `host_view.copy`, `seed.draws` and
 `sd.directions` are opened with
 ``observe=True``: traced, each also adds its seconds to the histogram
 `span.<name>` in `METRICS`, which outlives `clear_trace()`.

@@ -153,7 +153,7 @@ def _resolve_init(store, coeffs, discrepancy, k, init, generator, seed_sample, d
         dev, torch.float32)
     if coeffs is not None:  # raw X rows: embed the reservoir before seeding
         sample = ops.embed_block_map(sample, coeffs, policy=policy)
-    return kmeanspp_init(generator, sample, k, discrepancy)
+    return kmeanspp_init(generator, sample, k, discrepancy, policy)
 
 
 def ooc_lloyd(

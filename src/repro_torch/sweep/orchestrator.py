@@ -139,7 +139,8 @@ def sweep_estimator(est, X, k_grid, *, restarts: int | None = None, seed: int | 
     # Restart r of every k seeds from restart_generator(s_seed, r): the draw
     # fit() uses for its restart r.
     with est._phase("seed", dev):
-        inits = [torch.stack(est._seed_inits(pool, s_seed, k, params.discrepancy, R))
+        inits = [torch.stack(est._seed_inits(pool, s_seed, k, params.discrepancy, R,
+                                             est.policy))
                  for k in k_grid]
     with est._phase("lloyd", dev), obs.span("sweep.lloyd", cat="sweep", backend=backend,
                                             candidates=len(k_grid) * R):

@@ -241,7 +241,8 @@ def test_chip_smoke_cpu_rehearsal():
     assert all(b == dry["per_coordinate_bytes"]["spec"]
                for b in dry["per_coordinate_bytes"]["card_blocks"].values())
     main = lines[phases.index("main")]
-    assert main["nmi"] > 0.9 and main["launches"] == {"apnc_embed": 0, "apnc_assign": 0}
+    assert main["nmi"] > 0.9 and main["launches"] == {"apnc_embed": 0, "apnc_assign": 0,
+                                                      "kmeanspp_seed": 0}
     stream = lines[phases.index("stream")]
     assert stream["nmi"] > 0.9 and stream["vs_local"]["label_agreement"] == 1.0
     assert stream["same_params_as_local"] and not any(stream["launches"].values())
@@ -253,6 +254,9 @@ def test_chip_smoke_cpu_rehearsal():
     assert sweep["equal_centroids"]["chain_label_mismatches"] == 0
     assert sweep["a_int8"]["compression_ratio"] > 3.9 and sweep["c_bf16"]["compression_ratio"] == 2
     assert {d["route"] for d in lines[phases.index("parity")]["fused_dequant"]} == {"fused"}
+    seeds = lines[phases.index("parity")]["kmeanspp_seed"]
+    assert [(r["disc"], r["n"]) for r in seeds] == [("l2", 1024), ("l1", 1024), ("l2", 128),
+                                                    ("l1", 128)]
     flash = lines[phases.index("parity")]["flash_attention"]
     assert {(c["window"], c["dtype"]) for c in flash} == {
         (w, dt) for w in (0, 50, 4096) for dt in ("float32", "bfloat16")}
@@ -365,7 +369,7 @@ def test_library_hash_covers_included_headers(tmp_path, monkeypatch):
     shared = csrc / "tile_math.cuh"
     shared.write_text(shared.read_text() + "\n")
     assert [n for n in build.SOURCES if build._target(n) == after[n]] == [
-        "dequant_step", "flash_attention"]
+        "dequant_step", "flash_attention", "kmeanspp_seed"]
     again = {name: build._target(name) for name in build.SOURCES}
     copies = csrc / "cp_async.cuh"  # through apnc_mainloop.cuh for apnc_embed
     copies.write_text(copies.read_text() + "\n")

@@ -117,3 +117,74 @@ def test_kmeanspp_seeds_distinct_rows():
     rows = {tuple(np.round(c, 6)) for c in C.numpy()}
     assert len(rows) == 5
     assert all(np.any(np.all(np.isclose(Y, c), axis=1)) for c in C.numpy())
+
+
+def _multinomial_kmeanspp(generator, Y, k, disc):
+    """k-means++ as the benchmark's judge replays it: float64 distances from
+    the rows' differences, one ``torch.multinomial`` a draw -> the picks."""
+    Y64 = Y.to(torch.float64)
+    dist = ((lambda c: (Y64 - c).norm(dim=1)) if disc == "l2"
+            else (lambda c: (Y64 - c).abs().sum(1)))
+    picks = [int(torch.randint(0, Y.shape[0], (1,), generator=generator))]
+    mind = dist(Y64[picks[0]])
+    for _ in range(1, k):
+        w = mind * mind
+        picks.append(int(torch.multinomial(w / max(float(w.sum()), 1e-30), 1,
+                                           generator=generator)))
+        mind = torch.minimum(mind, dist(Y64[picks[-1]]))
+    return picks
+
+
+@pytest.mark.parametrize("n", [7, 1024, 4096])
+@pytest.mark.parametrize("disc", ["l2", "l1"])
+def test_kmeanspp_picks_multinomials_rows_from_exponentials_up_front(disc, n):
+    """The exponentials of all draws taken up front, each pick argmax p / E[i]:
+    the rows a per-draw ``torch.multinomial`` loop picks, and the generator
+    left in the same state, over 20 seeds. Rows of 6 keep every op under
+    torch's parallel grain, so the test stays cheap beside other workers."""
+    k = min(n, 12)
+    for seed in range(20):
+        Y = torch.from_numpy(_rand((n, 6), seed))
+        g_ref, g = (torch.Generator().manual_seed(1000 + seed) for _ in range(2))
+        want = _multinomial_kmeanspp(g_ref, Y, k, disc)
+        C = tlloyd.kmeanspp_init(g, Y, k, disc)
+        assert torch.equal(C, Y[want]), seed
+        assert torch.equal(g.get_state(), g_ref.get_state()), seed
+
+
+@pytest.mark.parametrize("draws_a_chunk", [1, 3, 5])
+@pytest.mark.parametrize("disc", ["l2", "l1"])
+def test_kmeanspp_whole_y_draws_in_chunks_as_in_one(monkeypatch, disc, draws_a_chunk):
+    """A whole-Y seeding (``lloyd(init=None)``) too large for one float64
+    copy draws its exponentials in chunks of draws and its distances in row
+    blocks: the same picks and generator state as the per-draw
+    ``multinomial`` loop."""
+    from repro_torch.kernels import ref
+
+    n, k = 1500, 10
+    monkeypatch.setattr(tlloyd, "E_CHUNK_BYTES", 8 * n * draws_a_chunk)
+    monkeypatch.setattr(ref, "SEED_BLOCK_ROWS", 400)
+    monkeypatch.setattr(ref, "SEED_F64_BYTES", 0)  # widened block by block at each draw
+    for seed in range(10):
+        Y = torch.from_numpy(_rand((n, 6), 50 + seed))
+        g_ref, g = (torch.Generator().manual_seed(seed) for _ in range(2))
+        want = _multinomial_kmeanspp(g_ref, Y, k, disc)
+        res = tlloyd.lloyd(Y, k, discrepancy=disc, iters=0, generator=g)
+        assert torch.equal(res.centroids, Y[want]), seed
+        assert torch.equal(g.get_state(), g_ref.get_state()), seed
+
+
+@pytest.mark.parametrize("disc", ["l2", "l1"])
+def test_kmeanspp_raises_once_the_weights_are_all_zero(disc):
+    """Fewer distinct rows than k: a draw finds every weight 0 and the seeding
+    raises as ``torch.multinomial`` does; the wrapper's CPU route flags it."""
+    from repro_torch.kernels import kmeanspp
+
+    Y = torch.from_numpy(np.repeat(_rand((3, 8), 4), 5, axis=0))
+    with pytest.raises(RuntimeError, match="multinomial"):
+        tlloyd.kmeanspp_init(torch.Generator().manual_seed(0), Y, 5, disc)
+    E = torch.empty((4, 15), dtype=torch.float64).exponential_(
+        1, generator=torch.Generator().manual_seed(1))
+    picks, C, bad = kmeanspp.kmeanspp_seed(Y, E, 0, disc)
+    assert bool(bad) and torch.equal(C, Y[picks])
+    assert not bool(kmeanspp.kmeanspp_seed(Y, E[:2], 0, disc)[2])

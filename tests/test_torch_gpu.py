@@ -1684,3 +1684,87 @@ def test_example_on_the_card(cuda, tmp_path, name, argv, kernels):
         assert out["replay_identical"] == out["served_match_fit"] == out["served"] == 200
     if "loss_first" in out:
         assert out["loss_last"] < out["loss_first"]
+
+
+KMEANSPP_POOLS = [(1024, 256, 164), (1024, 256, 7), (2624, 256, 164), (7, 24, 7)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("disc", ["l2", "l1"])
+@pytest.mark.parametrize("nmk", KMEANSPP_POOLS, ids=lambda s: "x".join(map(str, s)))
+def test_kmeanspp_seed_kernel_matches_plain(cuda, nmk, disc):
+    """All k - 1 picks in one launch: the plain version's picks on the card and
+    on the CPU from the same exponentials, centroids bit for bit the pool's
+    rows; a pool of 2,624 rows (a distributed fit's 16 k sample) takes a
+    cluster of 16."""
+    from repro_torch.kernels import kmeanspp
+
+    n, m, k = nmk
+    g = torch.Generator().manual_seed(n + k)
+    Y = torch.randn((n, m), generator=g)
+    E = torch.empty((k - 1, n), dtype=torch.float64).exponential_(1, generator=g)
+    assert kmeanspp.cluster_size(n, m) == (16 if n == 2624 else 8)
+    picks, C, bad = kmeanspp.kmeanspp_seed(Y.to(cuda), E.to(cuda), 5 % n, disc)
+    plain = ref.kmeanspp_seed_ref(Y.to(cuda), (E.to(cuda),), 5 % n, k, disc)
+    host = ref.kmeanspp_seed_ref(Y, (E,), 5 % n, k, disc)
+    assert torch.equal(picks, plain[0]) and torch.equal(picks.cpu(), host[0])
+    assert torch.equal(C, plain[1]) and torch.equal(C.cpu(), Y[host[0]])
+    assert not bool(bad) and not bool(plain[2])
+
+
+@pytest.mark.gpu
+def test_kmeanspp_pool_too_large_for_a_cluster_takes_the_plain_route(cuda):
+    """8,192 x 256 floats hold no cluster's shared memory: the plain version
+    on the card, no launch, the CPU's picks."""
+    from repro_torch.core.lloyd import kmeanspp_init
+    from repro_torch.kernels import kmeanspp
+
+    Y = torch.randn((8192, 256), generator=torch.Generator().manual_seed(2))
+    assert kmeanspp.cluster_size(8192, 256) == 0
+    launched = kmeanspp.launches
+    C = kmeanspp_init(torch.Generator().manual_seed(4), Y.to(cuda), 30, "l2")
+    assert kmeanspp.launches == launched
+    assert torch.equal(C.cpu(), kmeanspp_init(torch.Generator().manual_seed(4), Y, 30, "l2"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("method", ["nystrom", "sd"])
+def test_traced_fit_seeds_each_restart_in_one_launch(cuda, method):
+    """A traced local fit on the card: one ``seed.draws`` span a restart
+    (route ``kernel``, ``draws`` k - 1) holding one ``launch.kmeanspp_seed``,
+    and the picks the CPU's plain route makes from the same pool."""
+    from repro_torch import obs
+    from repro_torch.api import KernelKMeans
+    from repro_torch.core.lloyd import kmeanspp_init
+    from repro_torch.data.synthetic import gaussian_blobs_blocks
+    from repro_torch.kernels import kmeanspp
+
+    k, restarts = 9, 3
+    X = torch.from_numpy(gaussian_blobs_blocks(
+        0, 6000, 32, k, block_rows=1024, separation=3.0)[0].materialize()).to(cuda)
+    est = KernelKMeans(k, method=method, backend="local", l=128, m=64, iters=3,
+                       n_init=restarts, kernel_params=dict(gamma=0.01), random_state=3)
+    est.fit(X)  # builds the kernels outside the traced fit
+    launched = kmeanspp.launches
+    obs.clear_trace()
+    obs.enable_tracing()
+    try:
+        est.fit(X)
+        torch.cuda.synchronize()
+    finally:
+        obs.disable_tracing()
+    spans = obs.TRACER.spans()
+    obs.clear_trace()
+    draws = [s for s in spans if s.name == "seed.draws"]
+    launches = [s for s in spans if s.name == "launch.kmeanspp_seed"]
+    assert [s.attrs for s in draws] == [{"draws": k - 1, "route": "kernel"}] * restarts
+    assert len(launches) == restarts and kmeanspp.launches - launched == restarts
+    for d, s in zip(draws, launches):
+        assert d.t0 <= s.t0 and s.t0 + s.dur <= d.t0 + d.dur
+    pool = torch.randn((1024, 64), generator=torch.Generator().manual_seed(1))
+    disc = est.model_.params.discrepancy
+    for r in range(restarts):
+        card = kmeanspp_init(torch.Generator().manual_seed(r), pool.to(cuda), k, disc)
+        assert torch.equal(card.cpu(), kmeanspp_init(torch.Generator().manual_seed(r), pool, k,
+                                                     disc))
+

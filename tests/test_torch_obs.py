@@ -526,7 +526,8 @@ def test_untraced_predict_records_no_span_and_no_observation():
 def test_traced_local_fit_spans_its_host_copy_and_each_draw(held, backend):
     """The host view's span opens on every fit; only a streaming fit of an
     array copies anything (a resident fit samples on its device, a BlockStore
-    is already the host view)."""
+    is already the host view). Each restart's k-means++ is one ``seed.draws``
+    span inside ``phase.seed`` (the plain route on the CPU)."""
     X, k, restarts = _data(), 4, 2
     before = obs.snapshot("span.")
     obs.enable_tracing()
@@ -539,12 +540,12 @@ def test_traced_local_fit_spans_its_host_copy_and_each_draw(held, backend):
     assert _inside(copy, host_view)
     copied = held == "array" and backend == "stream"
     assert copy.attrs == {"bytes": X.nbytes if copied else 0}
-    draws = _named("seed.draw")
-    assert [d.attrs["i"] for d in draws] == list(range(1, k)) * restarts
+    draws = _named("seed.draws")
+    assert [d.attrs for d in draws] == [{"draws": k - 1, "route": "plain"}] * restarts
     assert all(_inside(d, seed) for d in draws)
     seen = _observed(before)
     assert seen["span.host_view.copy"] == 1
-    assert seen["span.seed.draw"] == restarts * (k - 1)
+    assert seen["span.seed.draws"] == restarts
 
 
 def test_traced_sd_fit_spans_its_directions_once_a_block():
